@@ -36,6 +36,9 @@ class ZooConfig:
     pipeline_parallel: int = 1
     # seed for weights a model draws when it is built
     seed: int = 42
+    # microbatches per optimizer step; the port's trainer takes 1 only and
+    # refuses more (gradient accumulation is not ported yet)
+    grad_accum_steps: int = 1
 
     @classmethod
     def from_env(cls, **overrides):

@@ -1,10 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) at first
-use by one ``nvcc ... -shared`` command into one shared library with a
-plain C interface, which is loaded with :mod:`ctypes`. The library lands in ``build/torch_kernels/``
-at the root of the checkout, named by a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one loads what is there.
+use, one ``nvcc -c`` process per source, all started together, and the
+objects are linked by one ``nvcc -shared`` into one shared library with a
+plain C interface, which is loaded with :mod:`ctypes`. The library lands
+in ``build/torch_kernels/`` at the root of the checkout, named by a hash
+of the sources and flags, so an edited source rebuilds and an unchanged
+one loads what is there.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine-independent part must import without a CUDA toolkit.
@@ -29,7 +31,7 @@ from typing import Dict, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 
 class LaunchCounter:
@@ -94,32 +96,75 @@ def _digest() -> str:
 
 
 def _build(target: Path, sources: List[Path]) -> None:
+    """Compile every source at once (one nvcc process each), then link."""
     nvcc = _nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
-    partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [nvcc] + NVCC_FLAGS + [str(s) for s in sources] + \
-        ["-o", str(partial)]
+    tag = f"{os.getpid()}.tmp"
+    objects = [target.with_name(f"{target.stem}.{s.stem}.{tag}.o")
+               for s in sources]
     t0 = time.perf_counter()
+    procs = [(src, subprocess.Popen(
+        [nvcc] + NVCC_FLAGS + ["-c", str(src), "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, obj in zip(sources, objects)]
+    logs, failed = [], []
+    for src, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    compile_s = time.perf_counter() - t0
+    partial = target.with_name(f"{target.name}.{tag}")
+    cmd = [nvcc, "-shared", "-Xcompiler", "-fPIC"] + \
+        [str(o) for o in objects] + ["-o", str(partial)]
     res = subprocess.run(cmd, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{res.stdout}")
+        raise RuntimeError(f"nvcc link failed:\n{' '.join(cmd)}\n"
+                           f"{res.stdout}")
     os.replace(partial, target)   # atomic: a reader sees all or nothing
     BUILD_INFO.update(
         sources=[s.name for s in sources],
         seconds=time.perf_counter() - t0,
-        command=" ".join([Path(nvcc).name] + NVCC_FLAGS),
-        ptxas=[ln.strip() for ln in res.stdout.splitlines()
+        compile_seconds=compile_s,
+        command=" ".join([Path(nvcc).name] + NVCC_FLAGS + ["-c"]),
+        ptxas=[ln.strip() for out in logs for ln in out.splitlines()
                if "ptxas" in ln or "Used" in ln or "spill" in ln],
         library=str(target))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_longlong)
+    p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                      ctypes.c_float, ctypes.c_longlong)
     lib.zoo_flash_fwd.argtypes = (
         [p] * 6 + [i] * 7 + [f] + [ll] * 13 + [p])
-    lib.zoo_flash_fwd.restype = i
+    # q, k, v, dO, kbias, lse, delta, dq | B, H, Lq, Lk, D, dtype, causal |
+    # scale | strides (22 long longs), stream
+    lib.zoo_flash_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [f] + [p, p]
+    lib.zoo_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 7 + [f] + [p, p]
+    lib.zoo_dln_fwd.argtypes = [p] * 9 + [i] * 3 + [u, f, f, p]
+    lib.zoo_dln_bwd.argtypes = [p] * 10 + [i] * 3 + [u, f, p]
+    lib.zoo_dln_bwd_blocks.argtypes = [i]
+    for fn in (lib.zoo_flash_fwd, lib.zoo_flash_bwd_dq, lib.zoo_flash_bwd_dkv,
+               lib.zoo_dln_fwd, lib.zoo_dln_bwd, lib.zoo_dln_bwd_blocks):
+        fn.restype = i
+
+
+def strides_arg(*tensors_and_ints) -> "ctypes.Array":
+    """A C ``long long`` array of element strides for a kernel's
+    ``strides`` argument: the first three strides of each 4-D tensor given,
+    and each int as it is."""
+    vals: List[int] = []
+    for t in tensors_and_ints:
+        if isinstance(t, int):
+            vals.append(t)
+        else:
+            vals.extend(t.stride()[:3])
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def library() -> ctypes.CDLL:

@@ -1,20 +1,28 @@
-"""Attention ops: the flash-attention forward kernel (CUDA, Hopper) and
-its plain PyTorch counterparts.
+"""Attention ops: the flash-attention kernels (CUDA, Hopper) and their
+plain PyTorch counterparts.
 
-Counterpart of ``analytics_zoo_tpu/ops/attention.py``, forward only.
+Counterpart of ``analytics_zoo_tpu/ops/attention.py``.
 :func:`flash_attention_blhd` is the entry the transformer blocks call. It
-routes every shape the CUDA kernel takes (a key bias or none, head dim 64
+routes every shape the CUDA kernels take (a key bias or none, head dim 64
 or 128, float32 or bfloat16, causal only with Lq <= Lk at the default
-offset) to :func:`flash_forward_blhd`, the kernel's wrapper, and every
-other shape (a full (B, H, Lq, Lk) bias, a chunked-prefill ``q_offset``,
-causal with Lq > Lk) to :func:`attention_blockwise`. The TPU router's
-``KERNEL_MIN_SEQ`` and ``% 128`` gates were Mosaic tuning and are not
-carried over: the CUDA kernel masks its own ragged edges. The TPU
-package's ``ZOO_TPU_*`` routing switches are not ported either — nothing
-can hide the kernel.
+offset) to the kernels, and every other shape (a full (B, H, Lq, Lk)
+bias, a chunked-prefill ``q_offset``, causal with Lq > Lk) to
+:func:`attention_blockwise`. The TPU router's ``KERNEL_MIN_SEQ`` and
+``% 128`` gates were Mosaic tuning and are not carried over: the CUDA
+kernels mask their own ragged edges. The TPU package's ``ZOO_TPU_*``
+routing switches are not ported either — nothing can hide the kernels.
 
-:func:`flash_forward_blhd` launches the kernel on CUDA tensors and runs
-:func:`flash_forward_reference`, its plain version, only on CPU tensors.
+On the kernel route, when an input needs a gradient, the call goes
+through :class:`_FlashAttentionBLHD`, the counterpart of the TPU
+package's custom VJP ``_flash_attention_blhd``: the forward kernel
+(``csrc/flash_fwd.cu``) saves lse, and the backward runs the dq and dkv
+kernels (``csrc/flash_bwd.cu``) through :func:`flash_backward_blhd`.
+Without a gradient (serving) the forward kernel runs alone.
+
+Each wrapper (:func:`flash_forward_blhd`, :func:`flash_backward_blhd`)
+launches its kernels on CUDA tensors and runs its plain version
+(:func:`flash_forward_reference`, :func:`flash_backward_reference`) only
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from . import _kernels
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 KERNEL_NAME = "flash_fwd"
+DQ_KERNEL_NAME = "flash_bwd_dq"
+DKV_KERNEL_NAME = "flash_bwd_dkv"
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -124,8 +134,9 @@ def _blockwise_fwd_impl(q, k, v, bias, causal, sm_scale, block_k,
 
 def attention_blockwise(q, k, v, bias=None, causal=False, sm_scale=None,
                         q_offset=None):
-    """O(L)-memory attention: q,k,v (B, H, L, D) -> (B, H, L, D), forward
-    only (the backward arrives with the training slice)."""
+    """O(L)-memory attention: q,k,v (B, H, L, D) -> (B, H, L, D). Its
+    gradient is PyTorch's autograd through these ops; the TPU package's
+    hand-written blockwise backward is not ported yet."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if bias is not None and bias.dim() != 4:
@@ -165,7 +176,7 @@ def flash_forward_reference(q, k, v, kbias, causal, sm_scale
 
 def _check_kernel_args(q, k, v, kbias, causal):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash forward takes (B, L, H, d) q, k, v")
+        raise ValueError("flash attention takes (B, L, H, d) q, k, v")
     b, lq, h, d = q.shape
     lk = k.shape[1]
     if k.shape != (b, lk, h, d) or v.shape != (b, lk, h, d):
@@ -173,14 +184,14 @@ def _check_kernel_args(q, k, v, kbias, causal):
                          f"not match q {tuple(q.shape)}")
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
-        raise ValueError(f"flash forward takes float32 or bfloat16 q/k/v "
+        raise ValueError(f"flash attention takes float32 or bfloat16 q/k/v "
                          f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash forward takes head dim 64 or 128, got {d}")
+        raise ValueError(f"flash attention takes head dim 64 or 128, got {d}")
     if causal and lq > lk:
-        raise ValueError("causal flash forward needs Lq <= Lk")
+        raise ValueError("causal flash attention needs Lq <= Lk")
     if min(b, lq, lk, h) < 1:
-        raise ValueError("flash forward needs non-empty operands")
+        raise ValueError("flash attention needs non-empty operands")
     if kbias.shape != (b, lk) or kbias.dtype != torch.float32:
         raise ValueError(f"key bias must be ({b}, {lk}) float32, got "
                          f"{tuple(kbias.shape)} {kbias.dtype}")
@@ -236,6 +247,131 @@ def flash_forward_blhd(q, k, v, kbias, causal=False, sm_scale=None
 
 
 # ---------------------------------------------------------------------------
+# The flash backward kernels (dq; dk, dv, dbias): plain version and wrapper
+# ---------------------------------------------------------------------------
+
+def _delta(o, do) -> torch.Tensor:
+    """rowsum(dO * O) in f32, (B, Lq, H): the softmax-jacobian diagonal
+    term, computed outside the kernels as the JAX wrapper computes it."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_backward_reference(q, k, v, kbias, o, lse, do, causal, sm_scale
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the two backward kernels: the same
+    function, masking rules, rounding and outputs. Rebuilds s from q, k
+    and the key bias under the forward's mask, then p = exp(s - lse),
+    dp = dO . v^T, ds = p * (dp - delta) with delta = rowsum(dO * O),
+    dq = ds . k * scale, dv = p^T . dO, dk = ds^T . q * scale, and the key
+    bias gradient as ds's column sums over queries and heads. ds rounds
+    to k's (q's) dtype before dq (dk) and p to dO's dtype before dv, where
+    the TPU kernels round. Returns dq (B, Lq, H, d), dk, dv (B, Lk, H, d)
+    in the operands' dtypes and dkb (B, Lk) f32."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    s = torch.einsum("blhd,bkhd->bhlk", q.float(), k.float()) * sm_scale
+    s = s + kbias.float()[:, None, None, :]
+    if causal:
+        mask = _causal_mask(lq, lk, None, s.device)
+        s = torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    p = torch.exp(s - lse.reshape(b, h, lq, 1))
+    dof = do.float()
+    dp = torch.einsum("blhd,bkhd->bhlk", dof, v.float())
+    ds = p * (dp - _delta(o, do).permute(0, 2, 1)[..., None])
+    dq = torch.einsum("bhlk,bkhd->blhd", ds.to(k.dtype).float(),
+                      k.float()) * sm_scale
+    dk = torch.einsum("bhlk,blhd->bkhd", ds.to(q.dtype).float(),
+                      q.float()) * sm_scale
+    dv = torch.einsum("bhlk,blhd->bkhd", p.to(do.dtype).float(), dof)
+    dkb = ds.sum(dim=2).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dkb
+
+
+def flash_backward_blhd(q, k, v, kbias, o, lse, do, causal=False,
+                        sm_scale=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor, torch.Tensor]:
+    """The flash-attention backward kernels over (B, L, H, d) operands.
+
+    Counterpart of ``_flash_backward_blhd`` (the TPU launcher of
+    ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``). q, k, v, o
+    and dO may be strided views; only the head dim must be unit-stride.
+    lse is the forward's (B*H, Lq) f32. Returns dq, dk, dv contiguous in
+    the operands' dtype and dkb (B, Lk) f32; delta and the head sum of
+    the bias gradient are plain torch, as in JAX.
+
+    On CUDA tensors this launches ``csrc/flash_bwd.cu`` (dq, then dkv) or
+    raises; on CPU tensors it runs :func:`flash_backward_reference`."""
+    _check_kernel_args(q, k, v, kbias, causal)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    for name, t in (("o", o), ("dO", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {tuple(q.shape)} {q.dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a unit head-dim stride")
+    if lse.shape != (b * h, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b * h}, {lq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, kbias, o, lse, do, causal,
+                                        sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash backward runs on cuda or cpu, not "
+                         f"{q.device}")
+    lib = _kernels.library()
+    delta = _delta(o, do).contiguous()
+    lse = lse.contiguous()
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=q.device)
+    db = torch.empty((b * h, lk), dtype=torch.float32, device=q.device)
+    strides = _kernels.strides_arg(q, k, v, do, dq, dk, dv, kbias.stride(0))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            kbias.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    dims = (b, h, lq, lk, d, KERNEL_DTYPES.index(q.dtype),
+            int(bool(causal)), float(sm_scale), strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.zoo_flash_bwd_dq(*args, dq.data_ptr(), *dims, stream)
+        _kernels.check(err, DQ_KERNEL_NAME)
+        _kernels.LAUNCHES.add(DQ_KERNEL_NAME)
+        err = lib.zoo_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(),
+                                    db.data_ptr(), *dims, stream)
+        _kernels.check(err, DKV_KERNEL_NAME)
+        _kernels.LAUNCHES.add(DKV_KERNEL_NAME)
+    return dq, dk, dv, db.reshape(b, h, lk).sum(dim=1)
+
+
+class _FlashAttentionBLHD(torch.autograd.Function):
+    """The kernel route with a gradient: the counterpart of the TPU
+    package's custom VJP ``_flash_attention_blhd`` under its default
+    save-lse-recompute-probs policy. Saves (q, k, v, kbias, o, lse); the
+    backward runs :func:`flash_backward_blhd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kbias, causal, sm_scale):
+        o, lse = flash_forward_blhd(q, k, v, kbias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, kbias, o, lse)
+        ctx.causal = causal
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kbias, o, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv, dkb = flash_backward_blhd(q, k, v, kbias, o, lse, do,
+                                              ctx.causal, ctx.sm_scale)
+        return (dq, dk, dv, dkb if ctx.needs_input_grad[3] else None,
+                None, None)
+
+
+# ---------------------------------------------------------------------------
 # Routing
 # ---------------------------------------------------------------------------
 
@@ -283,13 +419,18 @@ def flash_attention_blhd(q, k, v, bias=None, causal=False, sm_scale=None,
                          q_offset=None):
     """q,k,v: (B, L, H, D) -> (B, L, H, D), the layout a fused QKV
     projection's reshape produces with no copy. Kernel-eligible shapes run
-    the kernel on these strided operands directly; everything else takes
-    :func:`attention_blockwise` on transposed views."""
+    the kernels on these strided operands directly (through
+    :class:`_FlashAttentionBLHD` when an input needs a gradient);
+    everything else takes :func:`attention_blockwise` on transposed
+    views."""
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     kb = _kernel_route(q, k, v, bias, causal, q_offset)
     if kb is not None:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, kb)):
+            return _FlashAttentionBLHD.apply(q, k, v, kb, causal, sm_scale)
         return flash_forward_blhd(q, k, v, kb, causal, sm_scale)[0]
 
     def tr(t):

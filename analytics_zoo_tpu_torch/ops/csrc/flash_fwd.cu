@@ -32,21 +32,26 @@
 //
 // Built by ``analytics_zoo_tpu_torch/ops/_kernels.py`` with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
-//        -shared -Xcompiler -fPIC
-// and called through ctypes (plain C interface below).
+//        -Xcompiler -fPIC -c
+// (one process per source, then one ``nvcc -shared`` link) and called
+// through ctypes (plain C interface below).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
+
+using zoo::load_f;
+using zoo::MASK_VALUE;
+using zoo::round_to;
+using zoo::row_max16;
+using zoo::row_sum16;
+using zoo::store_f;
 
 constexpr int BLOCK_M = 64;     // query rows per block
 constexpr int BLOCK_N = 64;     // keys per tile
 constexpr int THREADS = 256;    // 16 x 16 thread grid
 constexpr int RPT = 4;          // rows per thread    (BLOCK_M / 16)
 constexpr int CPT = 4;          // score cols per thread (BLOCK_N / 16)
-// ops/attention.py DEFAULT_MASK_VALUE: -0.7 * float32 max
-constexpr float MASK_VALUE = -0.7f * 3.40282346638528859812e+38f;
 
 struct Params {
   const void* q;
@@ -64,49 +69,6 @@ struct Params {
   long long o_sb, o_sl, o_sh;
   long long kb_sb;
 };
-
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p);
-template <>
-__device__ __forceinline__ float load_f<float>(const float* p) { return *p; }
-template <>
-__device__ __forceinline__ float load_f<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_f(T* p, float x);
-template <>
-__device__ __forceinline__ void store_f<float>(float* p, float x) { *p = x; }
-template <>
-__device__ __forceinline__ void store_f<__nv_bfloat16>(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// p rounded to the value dtype before p . v (identity for f32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// reductions across the 16 lanes that share a row (lanes differ in bits 0-3)
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <int D>
 constexpr size_t smem_bytes() {

@@ -1,15 +1,18 @@
 """Keras-style model topology: KerasNet / Model.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/engine/
-topology.py`` (parity surface ``Topology.scala``: ``KerasNet``,
-``Model``:602). Both containers are ``nn.Module``s: a ``Model`` registers
-each distinct layer of its graph as a submodule under the layer's name,
-so ``model.state_dict()`` keys are the JAX param paths joined by "."
+topology.py`` (parity surface ``Topology.scala``: ``KerasNet`` compile
+:135, fit :343, evaluate, predict, gradient clipping :261-294; ``Model``
+:602). Both containers are ``nn.Module``s: a ``Model`` registers each
+distinct layer of its graph as a submodule under the layer's name, so
+``model.state_dict()`` keys are the JAX param paths joined by "."
 (``bert_1.block0.qkv_w``, ``dense_1.kernel``).
 
-This slice ports the inference surface: weights in and out, and
-``predict``. ``compile``/``fit``/``evaluate`` arrive with the training
-slice, ``Sequential`` and save/load with the persistence slice.
+``compile`` picks the loss, optimizer and metrics; ``fit`` builds an
+:class:`SPMDTrainer` (``pipeline/engine.py``) on the context's device and
+trains the model's own parameters in place, so ``predict`` and
+``InferenceModel.load_keras_net`` serve the trained weights. Not ported
+yet: ``Sequential``, save/load, checkpoints and TensorBoard summaries.
 """
 
 from __future__ import annotations
@@ -20,17 +23,22 @@ import numpy as np
 import torch
 
 from .....common.nncontext import get_nncontext
+from .....common.zoo_trigger import MaxEpoch
+from .....feature.feature_set import ArrayFeatureSet, FeatureSet
+from ....engine import GradientClipping, SPMDTrainer, as_device_tensor
+from ..metrics import get_metric
+from ..objectives import get_loss
+from ..optimizers import get_optimizer
 from .base import KerasLayer
 from .graph import GraphFunction, Variable
 
 
-def as_device_tensor(a, device) -> torch.Tensor:
-    """A host array as a tensor on ``device``; float64 arrives as float32,
-    as ``jnp.asarray`` gives it without x64."""
-    t = torch.as_tensor(np.asarray(a))
-    if t.dtype == torch.float64:
-        t = t.float()
-    return t.to(device)
+def to_feature_set(x, y=None) -> FeatureSet:
+    if isinstance(x, FeatureSet):
+        return x
+    if hasattr(x, "to_feature_set"):
+        return x.to_feature_set()
+    return ArrayFeatureSet(x, y)
 
 
 def _flatten_sorted(tree: Dict[str, Any], out: List[Any]) -> List[Any]:
@@ -50,9 +58,105 @@ class KerasNet(KerasLayer):
 
     stochastic = True
 
+    def __init__(self, name=None):
+        super().__init__(name=name)
+        self.optimizer = None
+        self.loss = None
+        self.metrics: List = []
+        self.trainer: Optional[SPMDTrainer] = None
+        self._clipping = GradientClipping()
+        self._frozen: set = set()
+
     # -- abstract ------------------------------------------------------
     def graph_function(self) -> GraphFunction:
         raise NotImplementedError
+
+    # -- config --------------------------------------------------------
+    def compile(self, optimizer, loss, metrics=None):
+        """Parity: Topology.scala:135."""
+        self.optimizer = get_optimizer(optimizer)
+        self.loss = get_loss(loss)
+        self.metrics = [get_metric(m, self.loss) for m in (metrics or [])]
+        self.trainer = None  # rebuilt on the next fit
+        return self
+
+    def set_constant_gradient_clipping(self, min_value, max_value):
+        self._clipping = GradientClipping(min_value=min_value,
+                                          max_value=max_value)
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm):
+        self._clipping = GradientClipping(l2_norm=clip_norm)
+
+    def clear_gradient_clipping(self):
+        self._clipping = GradientClipping()
+
+    # -- trainer plumbing ---------------------------------------------
+    def _ensure_trainer(self) -> SPMDTrainer:
+        if self.trainer is not None:
+            return self.trainer
+        optimizer = self.optimizer or get_optimizer("sgd")
+        loss = self.loss if self.loss is not None else get_loss("mse")
+        self.trainer = SPMDTrainer(self, loss, optimizer,
+                                   metrics=self.metrics,
+                                   clipping=self._clipping)
+        if self._frozen:
+            self.trainer.set_frozen(self._frozen)
+        return self.trainer
+
+    # -- freeze (GraphNet freeze/unFreeze parity) ----------------------
+    def freeze(self, names: Optional[Sequence[str]] = None):
+        """Exclude layers from training (all layers when ``names`` is
+        None)."""
+        layer_names = {l.name for l in self.graph_function().layers}
+        if names is None:
+            self._frozen = set(layer_names)
+        else:
+            unknown = set(names) - layer_names
+            if unknown:
+                raise ValueError(f"unknown layers: {sorted(unknown)}")
+            self._frozen |= set(names)
+        if self.trainer is not None:
+            self.trainer.set_frozen(self._frozen)
+        return self
+
+    def unfreeze(self, names: Optional[Sequence[str]] = None):
+        if names is None:
+            self._frozen = set()
+        else:
+            self._frozen -= set(names)
+        if self.trainer is not None:
+            self.trainer.set_frozen(self._frozen)
+        return self
+
+    def frozen_layers(self) -> List[str]:
+        return sorted(self._frozen)
+
+    # -- training surface ---------------------------------------------
+    def fit(self, x, y=None, batch_size=32, nb_epoch=10,
+            validation_data=None, distributed=True,
+            checkpoint_trigger=None):
+        """Train ``nb_epoch`` more epochs on the context's device
+        (Topology.scala:343)."""
+        if checkpoint_trigger is not None:
+            raise NotImplementedError(
+                "checkpoints are not ported yet; they arrive with the "
+                "persistence slice of the port")
+        trainer = self._ensure_trainer()
+        train_set = to_feature_set(x, y)
+        val_set = None
+        if validation_data is not None:
+            val_set = to_feature_set(*validation_data) \
+                if isinstance(validation_data, tuple) else \
+                to_feature_set(validation_data)
+        trainer.train(train_set, batch_size,
+                      end_trigger=MaxEpoch(trainer.epoch + nb_epoch),
+                      validation_set=val_set)
+        return self
+
+    def evaluate(self, x, y=None, batch_size=32):
+        """{metric name: value, "loss": value} over ``(x, y)``."""
+        return self._ensure_trainer().evaluate(to_feature_set(x, y),
+                                               batch_size)
 
     # -- inference -----------------------------------------------------
     def predict(self, x, batch_size=128, distributed=True):

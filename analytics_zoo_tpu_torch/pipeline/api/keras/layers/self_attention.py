@@ -1,4 +1,4 @@
-"""TransformerLayer and BERT, forward.
+"""TransformerLayer and BERT.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/
 self_attention.py`` (parity surface ``TransformerLayer.scala``: GPT-style
@@ -9,8 +9,16 @@ One layer owns every block's parameters, in the JAX layout
 (``block{i}.qkv_w`` (h, 3h), ...). Attention goes through
 ``ops.attention.flash_attention_blhd`` on the (B, L, H, d) reshape of the
 fused QKV projection — strided views, no copy — which launches the CUDA
-flash-attention kernel on the GPU. Both residual sites run
-``dropout_add_layer_norm``.
+flash-attention forward kernel on the GPU, and in training its backward
+kernels. Both residual sites run ``dropout_add_layer_norm``, the fused
+dropout + add + layer-norm kernels in training.
+
+Training draws all of a forward's dropout from one ``torch.Generator`` on
+the activations' device, in order: the embedding dropout, then in each
+block the attention-output dropout and the two residual sites' 32-bit
+words. JAX splits its key the same way (embedding first, then per block
+attention / ln1 / ln2, ``call`` :650-666 and ``_block`` :386-393); the
+streams differ by design.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 sequence-parallel, data-parallel and pipeline-parallel (GPipe) branches
@@ -36,6 +44,8 @@ def _normal(generator, shape, std):
 
 
 def _dropout(x, p, generator, training):
+    """Inverted dropout with a Bernoulli keep-mask drawn from
+    ``generator`` (the embedding and attention-output sites)."""
     if not training or generator is None or p <= 0.0:
         return x
     keep = 1.0 - p

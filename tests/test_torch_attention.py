@@ -212,9 +212,12 @@ def test_launch_counter_does_not_move_on_cpu():
 
 def test_kernel_library_is_keyed_on_sources_and_built_lazily():
     """Importing the ops builds nothing; the library name hashes the
-    sources and flags, and lands under build/torch_kernels/."""
+    sources (the shared header too) and flags, and lands under
+    build/torch_kernels/."""
     sources = _kernels._sources()
-    assert [s.name for s in sources] == ["flash_fwd.cu"]
+    assert [s.name for s in sources] == ["dropout_ln.cu", "flash_bwd.cu",
+                                         "flash_fwd.cu"]
+    assert (_kernels.CSRC / "common.cuh").exists()
     assert len(_kernels._digest()) == 16
     assert _kernels._lib is None
     assert _kernels.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")

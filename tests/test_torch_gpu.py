@@ -13,6 +13,15 @@ another order than the plain version); in bfloat16 two bf16 steps at
 ``|ro|`` plus a quarter step at unit scale, since both round o to bf16
 and the kernel rounds p against its running max. lse is float32
 arithmetic in both dtypes and is held at 1e-4 in both.
+
+The backward and dropout+add+layer-norm kernels are held element by
+element at ``|g - rg| <= a * max|rg| + r * |rg|`` (``_close``): float32
+(1e-5, 1e-5) for values the kernel sums in another order (1e-4 of the max
+for the 16384-row dgamma/dbeta sums); bfloat16 (2^-8, 2^-6), two bf16
+steps at |rg| plus a half step at the tensor's scale, since both sides
+round the same f32 intermediates and an ulp apart in f32 can flip a bf16
+rounding. The key-bias gradient and the row statistics are float32 in
+both dtypes.
 """
 
 import math
@@ -22,11 +31,24 @@ import torch
 
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import attention as ta
+from analytics_zoo_tpu_torch.ops import fused_dropout_ln as tdln
 
 pytestmark = pytest.mark.gpu
 
 O_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2 ** -9, 2 ** -6)}
 LSE_TOL = 1e-4
+GRAD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -8, 2 ** -6)}
+F32_TOL = GRAD_TOL[torch.float32]
+ROW_SUM_TOL = (1e-4, 1e-5)
+
+
+def _close(got, want, tol):
+    a, r = tol
+    got, want = got.float(), want.float()
+    limit = a * want.abs().max() + r * want.abs()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= limit).all(), \
+        f"max err {(got - want).abs().max().item()}"
 
 
 @pytest.fixture
@@ -109,3 +131,193 @@ def test_bert_block_on_the_card_matches_the_cpu(cuda):
         got = model([x.to(cuda) for x in xs]).cpu()
     assert _kernels.LAUNCHES.get(ta.KERNEL_NAME) == before + 2
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def _padding_bias(b, lk, device, gen):
+    kb = 0.5 * torch.randn(b, lk, device=device, generator=gen)
+    kb[:, lk // 3:] = -10000.0
+    return kb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,d,causal,bias", [
+    (2, 512, 512, 12, 64, False, True),
+    (2, 256, 256, 4, 64, True, False),
+    (2, 128, 512, 4, 64, True, True),
+    (2, 300, 300, 4, 64, False, True),
+    (2, 200, 200, 2, 128, True, True),
+])
+def test_flash_backward_kernels_match_plain_version(cuda, dtype, b, lq, lk,
+                                                    h, d, causal, bias):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = _qkv_views(b, lq, lk, h, d, dtype, cuda, gen)
+    kb = _padding_bias(b, lk, cuda, gen) if bias else \
+        torch.zeros(b, lk, device=cuda)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = ta.flash_forward_reference(q, k, v, kb, causal, scale)
+    do = torch.randn(b, lq, h, d, device=cuda, generator=gen).to(dtype)
+    before = _kernels.LAUNCHES.snapshot()
+    got = ta.flash_backward_blhd(q, k, v, kb, o, lse, do, causal)
+    torch.cuda.synchronize()
+    after = _kernels.LAUNCHES.snapshot()
+    for name in (ta.DQ_KERNEL_NAME, ta.DKV_KERNEL_NAME):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+    want = ta.flash_backward_reference(q, k, v, kb, o, lse, do, causal,
+                                       scale)
+    for g, w, tol in zip(got, want, [GRAD_TOL[dtype]] * 3 + [F32_TOL]):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_runs_the_backward_kernels(cuda, dtype):
+    """torch.autograd.grad through flash_attention_blhd on the card equals
+    the plain backward on the same saved o and lse: the fault where the
+    kernel route returned a tensor without autograd history is gone."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, l, h, d = 2, 256, 4, 64
+    q, k, v = (t.detach().requires_grad_() for t in
+               _qkv_views(b, l, l, h, d, dtype, cuda, gen))
+    bias = _padding_bias(b, l, cuda, gen)[:, None, None, :]
+    do = torch.randn(b, l, h, d, device=cuda, generator=gen).to(dtype)
+    before = _kernels.LAUNCHES.snapshot()
+    out = ta.flash_attention_blhd(q, k, v, bias=bias)
+    assert out.grad_fn is not None
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    after = _kernels.LAUNCHES.snapshot()
+    for name in (ta.KERNEL_NAME, ta.DQ_KERNEL_NAME, ta.DKV_KERNEL_NAME):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+    kb = bias.reshape(b, l)
+    o, lse = ta.flash_forward_blhd(q.detach(), k.detach(), v.detach(), kb)
+    want = ta.flash_backward_reference(q.detach(), k.detach(), v.detach(),
+                                       kb, o, lse, do, False,
+                                       1.0 / math.sqrt(d))
+    for g, w in zip((dq, dk, dv), want):
+        _close(g, w, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,keep", [(16384, 768, 0.9), (300, 128, 0.75),
+                                      (37, 1000, 0.5), (64, 64, 0.9)])
+def test_dropout_layer_norm_kernels_match_plain_version(cuda, dtype, n, d,
+                                                        keep):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    r = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(d, device=cuda, generator=gen)
+    beta = 0.1 * torch.randn(d, device=cuda, generator=gen)
+    bits = tdln.draw_bits((n, d), gen, cuda)
+    before = _kernels.LAUNCHES.snapshot()
+    y, z, mean, inv = tdln.dln_forward(x, r, bits, gamma, beta, keep)
+    torch.cuda.synchronize()
+    ry, rz, rmean, rinv = tdln.dln_forward_reference(x, r, bits, gamma,
+                                                     beta, keep, 1e-5)
+    _close(y, ry, GRAD_TOL[dtype])
+    _close(z, rz, GRAD_TOL[dtype])
+    _close(mean, rmean, F32_TOL)
+    _close(inv, rinv, F32_TOL)
+    dy = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    got = tdln.dln_backward(dy, rz, bits, gamma, rmean, rinv, keep)
+    torch.cuda.synchronize()
+    after = _kernels.LAUNCHES.snapshot()
+    for name in (tdln.FWD_KERNEL_NAME, tdln.BWD_KERNEL_NAME):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+    want = tdln.dln_backward_reference(dy, rz, bits, gamma, rmean, rinv,
+                                       keep)
+    for g, w, tol in zip(got, want, [GRAD_TOL[dtype]] * 2 +
+                         [ROW_SUM_TOL] * 2):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w, tol)
+
+
+def _small_classifier(l, hid, p_drop, seed):
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+
+    ins = [tl.Input(shape=(l,)), tl.Input(shape=(l,)), tl.Input(shape=(l,)),
+           tl.Input(shape=(1, 1, l))]
+    _, pooled = tl.BERT(vocab=100, hidden_size=hid, n_block=2, n_head=2,
+                        seq_len=l, hidden_p_drop=p_drop, attn_p_drop=p_drop,
+                        output_all_block=False)(ins)
+    return Model(ins, tl.Dense(2, activation="softmax")(pooled), seed=seed)
+
+
+def _small_batch(l, device):
+    lengths = torch.tensor([l, 100, 7])
+    xs = [torch.randint(0, 100, (3, l),
+                        generator=torch.Generator().manual_seed(0)).float(),
+          torch.arange(l).float().expand(3, l).contiguous(),
+          torch.zeros(3, l),
+          (torch.arange(l)[None] < lengths[:, None]).float()[:, None, None]]
+    y = torch.tensor([0, 1, 1])
+    return [x.to(device) for x in xs], y.to(device), \
+        torch.ones(3, device=device)
+
+
+def test_bert_training_step_on_the_card_matches_the_cpu(cuda):
+    """One training step of a small BERT classifier, dropout off: the
+    card (flash forward and backward kernels) against the same weights on
+    the CPU (plain versions). Loss within 1e-5; each parameter's gradient
+    within 1e-4 of its norm (float32 both sides, sums in another order)."""
+    import copy
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import \
+        get_loss
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
+        get_optimizer
+    from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
+
+    l = 256
+    model = _small_classifier(l, 128, 0.0, seed=0)
+    cpu_model = copy.deepcopy(model)
+    loss = get_loss("sparse_categorical_crossentropy")
+    gpu = SPMDTrainer(model, loss, get_optimizer("adam"), device=cuda)
+    cpu = SPMDTrainer(cpu_model, loss, get_optimizer("adam"), device="cpu")
+    gpu.ensure_initialized()
+    cpu.ensure_initialized()
+    _kernels.LAUNCHES.reset()
+    got = gpu.loss_and_grads(_small_batch(l, cuda))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES.snapshot() == {
+        ta.KERNEL_NAME: 2, ta.DQ_KERNEL_NAME: 2, ta.DKV_KERNEL_NAME: 2}
+    want = cpu.loss_and_grads(_small_batch(l, "cpu"))
+    assert abs(got.item() - want.item()) <= 1e-5
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in model.named_parameters():
+        g, w = p.grad.cpu(), cpu_params[name].grad
+        assert torch.isfinite(g).all(), name
+        assert (g - w).norm() <= 1e-4 * w.norm() + 1e-12, name
+
+
+def test_bert_fit_with_dropout_runs_every_training_kernel(cuda):
+    """Model.fit with dropout on, one step: every training kernel runs
+    (per block one flash forward, dq and dkv launch, two dropout+add+LN
+    forward and backward launches), the loss is finite and every block's
+    qkv_w gets a nonzero gradient."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(device=cuda)
+    try:
+        l = 128
+        model = _small_classifier(l, 128, 0.1, seed=1)
+        model.compile(optimizer="adam",
+                      loss="sparse_categorical_crossentropy")
+        xs, y, _ = _small_batch(l, "cpu")
+        _kernels.LAUNCHES.reset()
+        model.fit([x.numpy() for x in xs], y.numpy(), batch_size=3,
+                  nb_epoch=1)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES.snapshot() == {
+            ta.KERNEL_NAME: 2, ta.DQ_KERNEL_NAME: 2, ta.DKV_KERNEL_NAME: 2,
+            tdln.FWD_KERNEL_NAME: 4, tdln.BWD_KERNEL_NAME: 4}
+        assert np.isfinite(model.trainer.step_losses).all()
+        for name, p in model.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+            if name.endswith("qkv_w"):
+                assert p.grad.abs().max() > 0, name
+    finally:
+        tnn.set_nncontext(None)

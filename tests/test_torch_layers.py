@@ -14,6 +14,7 @@ from analytics_zoo_tpu.ops.fused_dropout_ln import \
 from analytics_zoo_tpu.ops.layernorm import layer_norm as jax_ln
 from analytics_zoo_tpu.pipeline.api.keras.layers import Dense as JDense
 from analytics_zoo_tpu_torch.ops import dropout_add_layer_norm, layer_norm
+from analytics_zoo_tpu_torch.ops.fused_dropout_ln import draw_bits
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine.base import (
     get_activation_fn, init_tensor)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
@@ -62,9 +63,10 @@ def test_dropout_add_layer_norm_inference_matches_jax():
 
 
 def test_dropout_add_layer_norm_training_draws_from_generator():
-    """Training draws a Bernoulli keep-mask from the explicit generator:
-    the same seed gives the same output, and the result is the composed
-    layer_norm(mask * x / keep + resid)."""
+    """Training draws 32-bit words from the explicit generator and keeps
+    those below keep * 2**32, as the TPU kernel thresholds its bits: the
+    same seed gives the same output, and the result is
+    layer_norm(mask * x / keep + resid) with the mask of those words."""
     x = torch.randn(64, 128)
     r = torch.zeros(64, 128)
     g, b = torch.ones(128), torch.zeros(128)
@@ -73,10 +75,10 @@ def test_dropout_add_layer_norm_training_draws_from_generator():
     y2 = dropout_add_layer_norm(x, r, g, b,
                                 torch.Generator().manual_seed(7), 0.25)
     torch.testing.assert_close(y1, y2, rtol=0, atol=0)
-    keep = torch.rand(x.shape, generator=torch.Generator().manual_seed(7)) \
-        < 0.75
-    manual = layer_norm(torch.where(keep, x / 0.75, torch.zeros_like(x)),
-                        g, b)
+    bits = draw_bits(x.shape, torch.Generator().manual_seed(7), "cpu")
+    keep = (bits.long() & 0xFFFFFFFF) < int(0.75 * 2 ** 32)
+    manual = layer_norm(torch.where(keep, x * (1 / 0.75),
+                                    torch.zeros_like(x)) + r, g, b)
     torch.testing.assert_close(y1, manual, rtol=0, atol=0)
     assert 0.7 < keep.float().mean().item() < 0.8
 
