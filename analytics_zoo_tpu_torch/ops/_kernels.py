@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -185,6 +186,31 @@ def library() -> ctypes.CDLL:
             _bind(lib)
             _lib = lib
         return _lib
+
+
+def sass_opcode_counts(library_path: str,
+                       opcodes=("HGMMA", "HMMA")) -> Dict[str, Dict[str, int]]:
+    """For each kernel symbol (as mangled) in ``cuobjdump -sass`` of the
+    built library, how many instructions of each opcode it holds: HGMMA
+    is Hopper's warpgroup product (``wgmma``), HMMA the warp-level one
+    (``mma.sync``)."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", library_path],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, check=True).stdout
+    pats = {op: re.compile(rf"\b{op}\b") for op in opcodes}
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            current = counts.setdefault(line[len("Function : "):],
+                                        dict.fromkeys(opcodes, 0))
+        elif current is not None:
+            for op, pat in pats.items():
+                if pat.search(line):
+                    current[op] += 1
+    return counts
 
 
 def check(err: int, name: str) -> None:

@@ -288,6 +288,18 @@ def flash_backward_reference(q, k, v, kbias, o, lse, do, causal, sm_scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dkb
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its start and its batch, length and head strides
+    fall on 16-byte boundaries (the backward kernels copy tiles 16 bytes
+    at a time), else a contiguous copy. The fused QKV projection's views
+    at d in {64, 128} always qualify."""
+    esize = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            (s * esize) % 16 == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_backward_blhd(q, k, v, kbias, o, lse, do, causal=False,
                         sm_scale=None) -> Tuple[torch.Tensor, torch.Tensor,
                                                 torch.Tensor, torch.Tensor]:
@@ -301,7 +313,9 @@ def flash_backward_blhd(q, k, v, kbias, o, lse, do, causal=False,
     the bias gradient are plain torch, as in JAX.
 
     On CUDA tensors this launches ``csrc/flash_bwd.cu`` (dq, then dkv) or
-    raises; on CPU tensors it runs :func:`flash_backward_reference`."""
+    raises; on CPU tensors it runs :func:`flash_backward_reference`. The
+    kernels are deterministic: no atomics, each output summed by one block
+    in a fixed order."""
     _check_kernel_args(q, k, v, kbias, causal)
     b, lq, h, d = q.shape
     lk = k.shape[1]
@@ -323,6 +337,7 @@ def flash_backward_blhd(q, k, v, kbias, o, lse, do, causal=False,
         raise ValueError(f"flash backward runs on cuda or cpu, not "
                          f"{q.device}")
     lib = _kernels.library()
+    q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
     delta = _delta(o, do).contiguous()
     lse = lse.contiguous()
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)

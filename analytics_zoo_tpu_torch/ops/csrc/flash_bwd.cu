@@ -21,43 +21,66 @@
 //
 // What bounds them on this card: dq does three L x L products
 // (6*B*H*Lq*Lk*d operations), dkv four (8*B*H*Lq*Lk*d), against q, k, v,
-// dO reads and one or two L x d writes. At BERT-base (L=512, d=64) that is
-// well over 100 operations a byte in float32, so the CUDA cores' 67 TFLOP/s
-// bound them, as it bounds the forward.
+// dO reads and one or two L x d writes: operations, by far. On the tensor
+// cores bf16 runs at 989 TFLOP/s. float32 has to stay float32-accurate, so
+// each product runs as three TF32 products ("3xTF32": x = hi + lo with hi
+// and lo both TF32, a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi; the dropped
+// lo.lo term and lo's own rounding are ~2^-22 relative), an effective
+// 495/3 = 165 TFLOP/s, 2.5x the CUDA cores' float32 peak.
 //
-// What the design does about it: no L x L tensor reaches device memory.
-// Blocks run in no order, so each owns its accumulator outright and loops
-// over the other operand's tiles inside the block (the TPU kernels'
-// sequential grid axis): flash_bwd_dq owns a 64-row q tile with Q and dO
-// resident in shared memory and walks the key tiles; flash_bwd_dkv owns a
-// 64-key tile with K and V resident and walks the query tiles, so dk, dv
-// and db are summed in registers with no atomics and the result is
-// deterministic, as on the TPU. Each thread of the 16 x 16 grid keeps a
-// 4 x 4 patch of the score tiles and a 4 x d/16 patch of its accumulators
-// in f32 registers; p and ds go through shared memory once per tile for
-// the second products. Tiles wholly masked by the causal diagonal are
-// skipped; ragged Lq/Lk edges are masked explicitly. Products run on the
-// CUDA cores in f32 for both dtypes, a simple, exact first design;
-// tensor cores (wgmma) and TMA are later work.
+// What the design does about it.
+// - Every product is a warpgroup ``wgmma`` (csrc/wgmma.cuh) with f32
+//   accumulators in registers: bf16 m64nNk16, tf32 m64nNk8. A block is one
+//   warpgroup that owns 64 rows: flash_bwd_dq a q tile (dq summed over the
+//   key tiles it walks), flash_bwd_dkv a key tile (dk, dv and db summed
+//   over the q tiles it walks). Each output is owned by one block and
+//   summed in one fixed order: no atomics, deterministic, as on the TPU.
+// - wgmma reads B from shared memory with its reduction axis contiguous
+//   (TF32 takes no other layout). The first products (s, dp; dkv: s^T,
+//   dp^T) reduce over d, contiguous in every operand: A is a resident tile
+//   read from shared memory ("SS"; in float32 the second one's fragments
+//   sit in registers at d=64), B the streamed tile. The second products
+//   reduce over the streamed axis, so they are taken transposed: dq^T +=
+//   k^T . ds^T (dkv: dv^T += dO^T . p, dk^T += q^T . ds), with A = k^T
+//   (dO^T, q^T) read column-wise into registers out of the tile already in
+//   shared memory, and B = round(ds) (round(p)) written from the score
+//   accumulators into a shared tile whose contiguous axis is the streamed
+//   one. No operand is stored twice.
+// - float32: every operand is split once into TF32 hi and lo halves: the
+//   resident tiles when they land, the streamed tile in place with its lo
+//   half beside it, round(ds) / round(p) as they are written.
+// - Streamed tiles (K, V and the key bias for dq; Q, dO, lse and delta for
+//   dkv) arrive by cp.async, 16 bytes a copy straight from the strided
+//   (B, L, H, d) views, zero-filled past a ragged edge, in a two-stage
+//   ring: tile t+1 loads while tile t is multiplied. 64 rows a tile in
+//   bf16; 32 in float32, so that two blocks share an SM at d=64.
+// - Shared memory: float32 d=64 96 KB (dq) / 113 KB (dkv), d=128 208 /
+//   225 KB; bf16 d=64 57 / 65 KB, d=128 105 / 113 KB.
+// - p = exp2(s * scale * log2 e + (bias - lse) * log2 e) on the SFU. Only
+//   tiles on a ragged edge or across the causal diagonal (skipped when
+//   wholly above it) test each entry.
 //
 // Built by ``analytics_zoo_tpu_torch/ops/_kernels.py`` and called through
 // ctypes (plain C interface below).
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using zoo::load_f;
-using zoo::MASK_VALUE;
-using zoo::round_to;
-using zoo::row_sum16;
-using zoo::store_f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int BLOCK_M = 64;     // query rows per tile
-constexpr int BLOCK_N = 64;     // keys per tile
-constexpr int THREADS = 256;    // 16 x 16 thread grid
-constexpr int RPT = 4;          // tile rows per thread (64 / 16)
-constexpr int CPT = 4;          // tile cols per thread (64 / 16)
+// 2^x on the SFU (relative error ~2^-22; 0 below 2^-126)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int BM = 64;        // owned rows per block: one warpgroup's m64
+constexpr int THREADS = 128;  // one warpgroup
 
 struct Params {
   const void* q;
@@ -84,55 +107,301 @@ struct Params {
   long long kb_sb;
 };
 
-// rows [r0, r0 + 64) of a (B, L, H, d) operand into a padded f32 tile
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long sl,
-                                          int r0, int L, int tid) {
-  constexpr int DP = D + 1;
-  for (int idx = tid; idx < 64 * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    const int row = r0 + r;
-    dst[r * DP + c] = row < L ? load_f<T>(src + row * sl + c) : 0.f;
+struct Cfg {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int E = sizeof(T);
+  // streamed rows: 32 in float32, so that two blocks fit an SM at d=64
+  static constexpr int BN = F32 ? 32 : 64;
+  static constexpr int KSTEP = F32 ? 8 : 16;  // reduction depth of a wgmma
+  static constexpr int ROW = D * E;           // bytes in a row of d values
+  static constexpr int PROW = BN * E;         // bytes in a row of a P tile
+  static constexpr int TILE_R = BM * ROW;     // an owned (resident) tile
+  static constexpr int TILE_S = BN * ROW;     // a streamed tile
+  static constexpr int TILE_P = BM * PROW;    // round(p) or round(ds)
+  static constexpr int HALVES = F32 ? 2 : 1;  // hi/lo copies of B tiles
+  static constexpr int LO_S = F32 ? 2 * TILE_S : 0;
+  static constexpr int MC = D / 64;           // m64 chunks of d
+  // float32: A2's fragments held in registers (see ResidentA2)
+  static constexpr bool A2_REGS = F32 && D == 64;
+  // float32 at d=128: room for A1's lo half
+  static constexpr int A1_LO = (F32 && !A2_REGS) ? TILE_R : 0;
+  // blocks an SM: registers (<= 168 a thread) let three bf16 d=64 blocks
+  // share one; float32 is held to two by shared memory
+  static constexpr int MIN_BLOCKS = (!F32 && D == 64) ? 3 : 1;
+  // a ring stage: K, V and the key bias (dq); Q, dO, lse and delta (dkv)
+  static constexpr int DQ_STAGE = 2 * TILE_S + BN * 4;
+  static constexpr int DKV_STAGE = 2 * TILE_S + 2 * BN * 4;
+  // Q, dO | 2 stages | lo halves of K, V | dS | Q's lo half (d=128)
+  static constexpr size_t DQ_SMEM =
+      2 * TILE_R + 2 * DQ_STAGE + LO_S + HALVES * TILE_P + A1_LO;
+  // K, V | 2 stages | lo halves of Q, dO | P, dS | K's lo half (d=128)
+  static constexpr size_t DKV_SMEM =
+      2 * TILE_R + 2 * DKV_STAGE + LO_S + 2 * HALVES * TILE_P + A1_LO;
+};
+
+// rows [r0, r0 + R) of a (B, L, H, d) operand into a core-matrix tile, by
+// cp.async; rows past L are zero-filled
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const T* src,
+                                          long long sl, int r0, int L,
+                                          int tid) {
+  constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  constexpr int ROW = D * (int)sizeof(T);
+  constexpr int RPI = THREADS / CPR;             // rows a pass covers
+  static_assert(THREADS % CPR == 0 && R % RPI == 0, "whole passes");
+  const int c = tid % CPR, rt = tid / CPR;
+  const long long step = RPI * sl;
+  const T* s = src + (long long)(r0 + rt) * sl + c * (16 / (int)sizeof(T));
+#pragma unroll
+  for (int n = 0; n < R / RPI; ++n, s += step) {
+    const bool ok = r0 + rt + n * RPI < L;
+    zoo::cp_async16(dst + zoo::tile_offset(rt + n * RPI, 16 * c, ROW),
+                    ok ? s : src, ok);
   }
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V tiles (row stride D + 1) and the dS tile (stride 65)
-  return sizeof(float) *
-         (size_t)((2 * BLOCK_M + 2 * BLOCK_N) * (D + 1) + BLOCK_M * (BLOCK_N + 1));
+// float32 B tile: x -> tf32 hi in place, tf32 lo into ``lo``
+template <int BYTES>
+__device__ __forceinline__ void split_tile(unsigned char* tile,
+                                           unsigned char* lo, int tid) {
+  float4* x = reinterpret_cast<float4*>(tile);
+  uint4* l = reinterpret_cast<uint4*>(lo);
+  static_assert(BYTES % (16 * THREADS) == 0, "whole passes");
+#pragma unroll
+  for (int i = tid; i < BYTES / 16; i += THREADS) {
+    const float4 v = x[i];
+    uint4 h, w;
+    zoo::split_tf32(v.x, h.x, w.x);
+    zoo::split_tf32(v.y, h.y, w.y);
+    zoo::split_tf32(v.z, h.z, w.z);
+    zoo::split_tf32(v.w, h.w, w.w);
+    reinterpret_cast<uint4*>(tile)[i] = h;
+    l[i] = w;
+  }
 }
 
+__device__ __forceinline__ uint32_t lds32(const unsigned char* tile,
+                                          uint32_t off) {
+  return *reinterpret_cast<const uint32_t*>(tile + off);
+}
+__device__ __forceinline__ uint32_t lds16(const unsigned char* tile,
+                                          uint32_t off) {
+  return *reinterpret_cast<const uint16_t*>(tile + off);
+}
+
+// float32 A fragment, split into hi/lo, of step ``ks`` of a product over
+// the contiguous axis (d) of a resident tile (rows = the block's rows)
 template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // K, V, Q, dO tiles, the P and dS tiles (keys x queries, stride 65) and
-  // the q tile's lse and delta
-  return sizeof(float) *
-         (size_t)((2 * BLOCK_M + 2 * BLOCK_N) * (D + 1) +
-                  2 * BLOCK_N * (BLOCK_M + 1) + 2 * BLOCK_M);
+__device__ __forceinline__ void frag_rows(const unsigned char* tile, int ks,
+                                          int r0, int t, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  constexpr int ROW = 4 * D;
+  const int c = ks * 8 + t;
+  const uint32_t o[4] = {zoo::tile_offset(r0, 4 * c, ROW),
+                         zoo::tile_offset(r0 + 8, 4 * c, ROW),
+                         zoo::tile_offset(r0, 4 * c + 16, ROW),
+                         zoo::tile_offset(r0 + 8, 4 * c + 16, ROW)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    zoo::split_tf32(__uint_as_float(lds32(tile, o[i])), hi[i], lo[i]);
+}
+
+// A fragment of step ``ks`` of a product over the rows of a streamed tile
+// X (rows x d): A = X^T, rows of A = d columns ``c0`` and ``c0 + 8``. In
+// float32 hi comes from the (split) tile and lo from its lo half.
+template <typename T, int D>
+__device__ __forceinline__ void frag_cols(const unsigned char* tile,
+                                          const unsigned char* tile_lo,
+                                          int ks, int c0, int t,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  constexpr int ROW = Cfg<T, D>::ROW;
+  if constexpr (Cfg<T, D>::F32) {
+    const int r = ks * 8 + t;
+    const uint32_t o[4] = {zoo::tile_offset(r, 4 * c0, ROW),
+                           zoo::tile_offset(r, 4 * (c0 + 8), ROW),
+                           zoo::tile_offset(r + 4, 4 * c0, ROW),
+                           zoo::tile_offset(r + 4, 4 * (c0 + 8), ROW)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[i] = lds32(tile, o[i]);
+      lo[i] = lds32(tile_lo, o[i]);
+    }
+  } else {
+    const int r = ks * 16 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = r + (i >> 1) * 8;
+      const int cc = 2 * (c0 + (i & 1) * 8);
+      hi[i] = lds16(tile, zoo::tile_offset(rr, cc, ROW)) |
+              (lds16(tile, zoo::tile_offset(rr + 1, cc, ROW)) << 16);
+    }
+  }
+}
+
+// d += A . B over one reduction step: one wgmma in bf16, three in float32
+// (lo.hi, hi.lo, hi.hi: the small terms first)
+template <typename T, int N>
+__device__ __forceinline__ void mma(float (&d)[N / 2],
+                                    const uint32_t (&ahi)[4],
+                                    const uint32_t (&alo)[4], uint64_t bhi,
+                                    uint64_t blo) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (N == 64) {
+      zoo::wgmma_tf32_n64(d, alo, bhi);
+      zoo::wgmma_tf32_n64(d, ahi, blo);
+      zoo::wgmma_tf32_n64(d, ahi, bhi);
+    } else {
+      zoo::wgmma_tf32_n32(d, alo, bhi);
+      zoo::wgmma_tf32_n32(d, ahi, blo);
+      zoo::wgmma_tf32_n32(d, ahi, bhi);
+    }
+  } else {
+    static_assert(N == 64, "bf16 products are m64n64k16");
+    zoo::wgmma_bf16_n64(d, ahi, bhi);
+  }
+}
+
+// The first products' A operands are the block's two resident tiles (q
+// and dO for dq, k and v for dkv). wgmma reads A1 from shared memory; in
+// float32 it is split once, a TF32 hi half in place and its lo half
+// beside it. A2 is read from shared memory too in bf16; in float32 its
+// fragments are split once into registers at d=64, and at each tile at
+// d=128, where they would take too many registers.
+template <typename T, int D>
+struct ResidentA2 {
+  static constexpr int N = Cfg<T, D>::A2_REGS ? D / Cfg<T, D>::KSTEP : 1;
+  uint32_t hi[N][4], lo[N][4];
+};
+
+// s += A1 . B1^T and dp += A2 . B2^T over d, the first products: B1, B2
+// the streamed tiles (shared addresses; ``lo``: their lo halves)
+template <typename T, int D, int BN>
+__device__ __forceinline__ void first_products(
+    float (&s)[BN / 2], float (&dp)[BN / 2], const unsigned char* a1,
+    const unsigned char* a1lo, const unsigned char* a2,
+    const ResidentA2<T, D>& a2r, uint32_t b1, uint32_t b1lo, uint32_t b2,
+    uint32_t b2lo, int r0, int t) {
+  using C = Cfg<T, D>;
+  const uint32_t a1s = zoo::smem_u32(a1);
+  if constexpr (C::F32) {
+    static_assert(BN == 32, "float32 streams 32-row tiles");
+    const uint32_t a1l = zoo::smem_u32(a1lo);
+    // s: lo.hi, hi.lo, hi.hi into one accumulator
+    auto s_step = [&](int ks) {
+      const uint64_t bh = zoo::tile_desc(b1, ks, C::ROW);
+      const uint64_t ah = zoo::tile_desc(a1s, ks, C::ROW);
+      zoo::wgmma_tf32_n32_ss(s, zoo::tile_desc(a1l, ks, C::ROW), bh);
+      zoo::wgmma_tf32_n32_ss(s, ah, zoo::tile_desc(b1lo, ks, C::ROW));
+      zoo::wgmma_tf32_n32_ss(s, ah, bh);
+    };
+    if constexpr (C::A2_REGS) {
+      zoo::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / C::KSTEP; ++ks) {
+        s_step(ks);
+        mma<T, BN>(dp, a2r.hi[ks], a2r.lo[ks], zoo::tile_desc(b2, ks, C::ROW),
+                   zoo::tile_desc(b2lo, ks, C::ROW));
+      }
+      zoo::wgmma_commit();
+    } else {
+      // at most two reduction steps in flight, so that the fragments of
+      // older ones free their registers
+#pragma unroll
+      for (int ks = 0; ks < D / C::KSTEP; ++ks) {
+        uint32_t h2[4], l2[4];
+        frag_rows<D>(a2, ks, r0, t, h2, l2);
+        zoo::wgmma_fence();
+        s_step(ks);
+        mma<T, BN>(dp, h2, l2, zoo::tile_desc(b2, ks, C::ROW),
+                   zoo::tile_desc(b2lo, ks, C::ROW));
+        zoo::wgmma_commit();
+        zoo::wgmma_wait<1>();
+      }
+    }
+  } else {
+    const uint32_t a2s = zoo::smem_u32(a2);
+    zoo::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / C::KSTEP; ++ks) {
+      zoo::wgmma_bf16_n64_ss(s, zoo::tile_desc(a1s, ks, C::ROW),
+                             zoo::tile_desc(b1, ks, C::ROW));
+      zoo::wgmma_bf16_n64_ss(dp, zoo::tile_desc(a2s, ks, C::ROW),
+                             zoo::tile_desc(b2, ks, C::ROW));
+    }
+    zoo::wgmma_commit();
+  }
+  zoo::wgmma_wait<0>();
+  zoo::fence_regs(s);
+  zoo::fence_regs(dp);
+}
+
+// Once the resident tiles have landed (float32 only): A2's fragments into
+// registers (d=64), then A1 split into hi in place and lo at ``a1lo``,
+// which at d=64 is A2's shared tile, no longer read.
+template <typename T, int D>
+__device__ __forceinline__ void prepare_resident(unsigned char* a1,
+                                                 unsigned char* a1lo,
+                                                 const unsigned char* a2,
+                                                 ResidentA2<T, D>& a2r,
+                                                 int r0, int t, int tid) {
+  using C = Cfg<T, D>;
+  if constexpr (C::F32) {
+    zoo::cp_async_wait<1>();   // the resident group; tile 0 may still load
+    __syncthreads();
+    if constexpr (C::A2_REGS) {
+#pragma unroll
+      for (int ks = 0; ks < D / C::KSTEP; ++ks)
+        frag_rows<D>(a2, ks, r0, t, a2r.hi[ks], a2r.lo[ks]);
+      __syncthreads();
+    }
+    split_tile<C::TILE_R>(a1, a1lo, tid);
+  }
+}
+
+// round(x0), round(x1) at columns (c, c + 1) of row r of a P tile (hi and,
+// in float32, lo halves)
+template <typename T, int PROW>
+__device__ __forceinline__ void store_pair(unsigned char* hi,
+                                           unsigned char* lo, int r, int c,
+                                           float x0, float x1) {
+  if constexpr (std::is_same<T, float>::value) {
+    const uint32_t off = zoo::tile_offset(r, 4 * c, PROW);
+    uint2 h, l;
+    zoo::split_tf32(x0, h.x, l.x);
+    zoo::split_tf32(x1, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + off) = h;
+    *reinterpret_cast<uint2*>(lo + off) = l;
+  } else {
+    *reinterpret_cast<uint32_t*>(hi + zoo::tile_offset(r, 2 * c, PROW)) =
+        zoo::pack_bf16(x0, x1);
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Cfg<T, D>::MIN_BLOCKS)
 flash_bwd_dq_kernel(const Params p) {
-  constexpr int DP = D + 1;
-  constexpr int NP = BLOCK_N + 1;
-  constexpr int DC = D / 16;        // dq columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BLOCK_M][DP]
-  float* dOs = Qs + BLOCK_M * DP;   // [BLOCK_M][DP]
-  float* Ks = dOs + BLOCK_M * DP;   // [BLOCK_N][DP]
-  float* Vs = Ks + BLOCK_N * DP;    // [BLOCK_N][DP]
-  float* dSs = Vs + BLOCK_N * DP;   // [BLOCK_M][NP]
+  using C = Cfg<T, D>;
+  constexpr int BN = C::BN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* Qs = smem;
+  unsigned char* dOs = Qs + C::TILE_R;
+  unsigned char* ring = dOs + C::TILE_R;      // stage s: K, V, key bias
+  unsigned char* Klo = ring + 2 * C::DQ_STAGE;  // float32 only
+  unsigned char* Vlo = Klo + C::TILE_S;
+  unsigned char* dSh = Klo + C::LO_S;
+  unsigned char* dSl = dSh + C::TILE_P;       // float32 only
+  unsigned char* Qlo = C::A2_REGS ? dOs : dSl + C::TILE_P;
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = blockIdx.y * BLOCK_M;
+  const int q0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;          // key group: keys tx + 16 j; dq cols tx + 16 c
-  const int ty = tid >> 4;          // row group: rows ty * RPT + i
-  const int q_offset = p.Lk - p.Lq; // bottom-right causal alignment
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w + g;          // this thread's rows r0, r0 + 8
+  const int q_offset = p.Lk - p.Lq;   // bottom-right causal alignment
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -140,278 +409,387 @@ flash_bwd_dq_kernel(const Params p) {
   const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* kb = p.kbias + b * p.kb_sb;
 
-  load_tile<T, D>(Qs, qg, p.q_sl, q0, p.Lq, tid);
-  load_tile<T, D>(dOs, dog, p.do_sl, q0, p.Lq, tid);
-
-  float lse_r[RPT], delta_r[RPT], acc[RPT][DC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty * RPT + i;
-    const bool ok = row < p.Lq;
-    lse_r[i] = ok ? p.lse[(long long)bh * p.Lq + row] : 0.f;
-    delta_r[i] = ok ? p.delta[((long long)b * p.Lq + row) * p.H + h] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_tiles = (p.Lk + BLOCK_N - 1) / BLOCK_N;
+  int n_tiles = (p.Lk + BN - 1) / BN;
   if (p.causal) {
     // the last key any row of this tile may see; later tiles are all masked
-    const int last_key = q_offset + q0 + BLOCK_M - 1;
-    n_tiles = min(n_tiles, last_key / BLOCK_N + 1);
+    const int last_key = q_offset + q0 + BM - 1;
+    n_tiles = min(n_tiles, last_key / BN + 1);
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BLOCK_N;
-    __syncthreads();  // the previous tile's K and dS reads are done
-    load_tile<T, D>(Ks, kg, p.k_sl, k0, p.Lk, tid);
-    load_tile<T, D>(Vs, vg, p.v_sl, k0, p.Lk, tid);
+  // a key tile's K, V and key bias into ring stage ``st``
+  auto load_stage = [&](int st, int k0) {
+    unsigned char* S = ring + st * C::DQ_STAGE;
+    load_tile<T, D, BN>(S, kg, p.k_sl, k0, p.Lk, tid);
+    load_tile<T, D, BN>(S + C::TILE_S, vg, p.v_sl, k0, p.Lk, tid);
+    float* bs = reinterpret_cast<float*>(S + 2 * C::TILE_S);
+    for (int c = tid; c < BN; c += THREADS) {
+      const bool ok = k0 + c < p.Lk;
+      zoo::cp_async4(bs + c, kb + (ok ? k0 + c : 0), ok);
+    }
+  };
+
+  load_tile<T, D, BM>(Qs, qg, p.q_sl, q0, p.Lq, tid);
+  load_tile<T, D, BM>(dOs, dog, p.do_sl, q0, p.Lq, tid);
+  zoo::cp_async_commit();
+  load_stage(0, 0);
+  zoo::cp_async_commit();
+  ResidentA2<T, D> doa;
+  prepare_resident<T, D>(Qs, Qlo, dOs, doa, r0, t, tid);
+
+  // p = exp2(s * scale * log2(e) + (bias - lse) * log2(e)), 0 where masked
+  const float c_s = p.sm_scale * LOG2E;
+  float nlse_r[2], delta_r[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    row_ok[i] = row < p.Lq;
+    nlse_r[i] = row_ok[i] ? -LOG2E * p.lse[(long long)bh * p.Lq + row] : 0.f;
+    delta_r[i] = row_ok[i] ? p.delta[((long long)b * p.Lq + row) * p.H + h]
+                           : 0.f;
+  }
+  float acc[C::MC][32];   // dq^T: rows = d, cols = the block's q rows
+#pragma unroll
+  for (int m = 0; m < C::MC; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BN;
+    unsigned char* Kt = ring + (it & 1) * C::DQ_STAGE;
+    unsigned char* Vt = Kt + C::TILE_S;
+    const float* bias_s = reinterpret_cast<const float*>(Kt + 2 * C::TILE_S);
+    zoo::cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; tile it-1 is no longer read
+    if constexpr (C::F32) {
+      split_tile<C::TILE_S>(Kt, Klo, tid);
+      split_tile<C::TILE_S>(Vt, Vlo, tid);
+    }
+    zoo::fence_proxy_async();
     __syncthreads();
+    // the next tile loads while this one is multiplied (issued after the
+    // proxy fence, which would otherwise wait for it)
+    if (it + 1 < n_tiles) load_stage((it + 1) & 1, k0 + BN);
+    zoo::cp_async_commit();
 
-    float s[RPT][CPT], dp[RPT][CPT];
+    // s = q . k^T, dp = dO . v^T (64 x BN), reducing over d
+    const uint32_t kt_s = zoo::smem_u32(Kt), vt_s = zoo::smem_u32(Vt);
+    const uint32_t klo_s = zoo::smem_u32(Klo), vlo_s = zoo::smem_u32(Vlo);
+    float s[BN / 2], dp[BN / 2];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+    first_products<T, D, BN>(s, dp, Qs, Qlo, dOs, doa, kt_s, klo_s, vt_s,
+                             vlo_s, r0, t);
 
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+    // ds = p * (dp - delta), rounded into the dS tile (q rows x keys); only
+    // a tile on a ragged edge or across the causal diagonal tests entries
+    auto scores = [&](auto masked) {
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = Qs[(ty * RPT + i) * DP + c];
-        ov[i] = dOs[(ty * RPT + i) * DP + c];
-      }
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 bias =
+            *reinterpret_cast<const float2*>(bias_s + 8 * j + 2 * t);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DP + c];
-        vv[j] = Vs[(tx + 16 * j) * DP + c];
-      }
+        for (int i = 0; i < 2; ++i) {
+          const int row = q0 + r0 + 8 * i;
+          float ds[2];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            const int idx = 4 * j + 2 * i + e;
+            float pv = exp2_approx(fmaf(
+                s[idx], c_s, fmaf(e ? bias.y : bias.x, LOG2E, nlse_r[i])));
+            if constexpr (decltype(masked)::value) {
+              if (!row_ok[i] || key >= p.Lk ||
+                  (p.causal && key > row + q_offset))
+                pv = 0.f;
+            }
+            ds[e] = pv * (dp[idx] - delta_r[i]);
+          }
+          store_pair<T, C::PROW>(dSh, dSl, r0 + 8 * i, 8 * j + 2 * t,
+                                 ds[0], ds[1]);
         }
-    }
-
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int key = k0 + tx + 16 * j;
-      const bool kvalid = key < p.Lk;
-      const float bias = kvalid ? kb[key] : 0.f;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + ty * RPT + i;
-        float x = s[i][j] * p.sm_scale + bias;
-        if (p.causal && key > row + q_offset) x = MASK_VALUE;
-        const float pv = (kvalid && row < p.Lq) ? expf(x - lse_r[i]) : 0.f;
-        const float ds = pv * (dp[i][j] - delta_r[i]);
-        dSs[(ty * RPT + i) * NP + tx + 16 * j] = round_to<T>(ds);
       }
-    }
+    };
+    if (k0 + BN > p.Lk || q0 + BM > p.Lq ||
+        (p.causal && k0 + BN - 1 > q0 + q_offset))
+      scores(std::true_type{});
+    else
+      scores(std::false_type{});
+    zoo::fence_proxy_async();
     __syncthreads();
 
-#pragma unroll 4
-    for (int n = 0; n < BLOCK_N; ++n) {
-      float dsv[RPT], kv[DC];
+    // dq^T += k^T . round(ds)^T, reducing over the tile's keys
+    const uint32_t dsh_s = zoo::smem_u32(dSh), dsl_s = zoo::smem_u32(dSl);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) dsv[i] = dSs[(ty * RPT + i) * NP + n];
+    for (int ks = 0; ks < BN / C::KSTEP; ++ks) {
+      uint32_t ah[C::MC][4], al[C::MC][4];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = Ks[n * DP + tx + 16 * c];
+      for (int m = 0; m < C::MC; ++m)
+        frag_cols<T, D>(Kt, Klo, ks, 64 * m + r0, t, ah[m], al[m]);
+      zoo::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
+      for (int m = 0; m < C::MC; ++m)
+        mma<T, 64>(acc[m], ah[m], al[m], zoo::tile_desc(dsh_s, ks, C::PROW),
+                   zoo::tile_desc(dsl_s, ks, C::PROW));
+      zoo::wgmma_commit();
+      zoo::wgmma_wait<1>();
     }
+    zoo::wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < C::MC; ++m) zoo::fence_regs(acc[m]);
   }
 
+  // acc[m][4j + 2i + e] = dq^T(d column 64m + r0 + 8i, q row 8j + 2t + e)
+  T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty * RPT + i;
-    if (row < p.Lq) {
-      T* dqg = static_cast<T*>(p.dq) + b * p.dq_sb + row * p.dq_sl + h * p.dq_sh;
+  for (int m = 0; m < C::MC; ++m)
 #pragma unroll
-      for (int c = 0; c < DC; ++c)
-        store_f<T>(dqg + tx + 16 * c, acc[i][c] * p.sm_scale);
-    }
-  }
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = q0 + 8 * j + 2 * t + e;
+        if (row < p.Lq) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            zoo::store_f<T>(dqg + (long long)row * p.dq_sl + 64 * m + r0 +
+                                8 * i,
+                            acc[m][4 * j + 2 * i + e] * p.sm_scale);
+        }
+      }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Cfg<T, D>::MIN_BLOCKS)
 flash_bwd_dkv_kernel(const Params p) {
-  constexpr int DP = D + 1;
-  constexpr int MP = BLOCK_M + 1;
-  constexpr int DC = D / 16;        // dk/dv columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [BLOCK_N][DP]
-  float* Vs = Ks + BLOCK_N * DP;    // [BLOCK_N][DP]
-  float* Qs = Vs + BLOCK_N * DP;    // [BLOCK_M][DP]
-  float* dOs = Qs + BLOCK_M * DP;   // [BLOCK_M][DP]
-  float* Ps = dOs + BLOCK_M * DP;   // [BLOCK_N][MP]  round(p), keys x queries
-  float* dSs = Ps + BLOCK_N * MP;   // [BLOCK_N][MP]  round(ds)
-  float* lse_s = dSs + BLOCK_N * MP;  // [BLOCK_M]
-  float* delta_s = lse_s + BLOCK_M;   // [BLOCK_M]
+  using C = Cfg<T, D>;
+  constexpr int BN = C::BN;
+  constexpr int STAGE = C::DKV_STAGE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* Ks = smem;
+  unsigned char* Vs = Ks + C::TILE_R;
+  unsigned char* ring = Vs + C::TILE_R;
+  unsigned char* Qlo = ring + 2 * STAGE;      // float32 only
+  unsigned char* dOlo = Qlo + C::TILE_S;
+  unsigned char* Ph = Qlo + C::LO_S;
+  unsigned char* dSh = Ph + C::TILE_P;
+  unsigned char* Pl = dSh + C::TILE_P;        // float32 only
+  unsigned char* dSl = Pl + C::TILE_P;
+  unsigned char* Klo = C::A2_REGS ? Vs : dSl + C::TILE_P;
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int k0 = blockIdx.y * BLOCK_N;
+  const int k0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;          // query group: queries tx + 16 j; cols tx + 16 c
-  const int ty = tid >> 4;          // key group: keys ty * RPT + i
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w + g;          // this thread's keys r0, r0 + 8
   const int q_offset = p.Lk - p.Lq;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* kb = p.kbias + b * p.kb_sb;
+  const float* lse_g = p.lse + (long long)bh * p.Lq;
+  const float* delta_g = p.delta + (long long)b * p.Lq * p.H + h;
 
-  load_tile<T, D>(Ks, kg, p.k_sl, k0, p.Lk, tid);
-  load_tile<T, D>(Vs, vg, p.v_sl, k0, p.Lk, tid);
-
-  float bias_r[RPT], db[RPT], dk[RPT][DC], dv[RPT][DC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int key = k0 + ty * RPT + i;
-    bias_r[i] = key < p.Lk ? kb[key] : 0.f;
-    db[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-  }
-
-  const int n_q_tiles = (p.Lq + BLOCK_M - 1) / BLOCK_M;
+  const int n_tiles = (p.Lq + BN - 1) / BN;
   int t0 = 0;
   if (p.causal) {
     // query tiles whose last row sees no key of this tile are all masked
     const int first_row = k0 - q_offset;
-    t0 = first_row > 0 ? first_row / BLOCK_M : 0;
+    t0 = first_row > 0 ? first_row / BN : 0;
   }
 
-  for (int t = t0; t < n_q_tiles; ++t) {
-    const int q0 = t * BLOCK_M;
-    __syncthreads();  // the previous tile's Q, dO, P and dS reads are done
-    load_tile<T, D>(Qs, qg, p.q_sl, q0, p.Lq, tid);
-    load_tile<T, D>(dOs, dog, p.do_sl, q0, p.Lq, tid);
-    for (int r = tid; r < BLOCK_M; r += THREADS) {
-      const int row = q0 + r;
-      const bool ok = row < p.Lq;
-      lse_s[r] = ok ? p.lse[(long long)bh * p.Lq + row] : 0.f;
-      delta_s[r] = ok ? p.delta[((long long)b * p.Lq + row) * p.H + h] : 0.f;
+  // a q tile, its lse and its delta into ring stage ``st``
+  auto load_stage = [&](int st, int q0) {
+    unsigned char* S = ring + st * STAGE;
+    load_tile<T, D, BN>(S, qg, p.q_sl, q0, p.Lq, tid);
+    load_tile<T, D, BN>(S + C::TILE_S, dog, p.do_sl, q0, p.Lq, tid);
+    float* ls = reinterpret_cast<float*>(S + 2 * C::TILE_S);
+    for (int c = tid; c < BN; c += THREADS) {
+      const bool ok = q0 + c < p.Lq;
+      const int row = ok ? q0 + c : 0;
+      zoo::cp_async4(ls + c, lse_g + row, ok);
+      zoo::cp_async4(ls + BN + c, delta_g + (long long)row * p.H, ok);
     }
+  };
+
+  load_tile<T, D, BM>(Ks, kg, p.k_sl, k0, p.Lk, tid);
+  load_tile<T, D, BM>(Vs, vg, p.v_sl, k0, p.Lk, tid);
+  zoo::cp_async_commit();
+  load_stage(0, t0 * BN);
+  zoo::cp_async_commit();
+  ResidentA2<T, D> va;
+  prepare_resident<T, D>(Ks, Klo, Vs, va, r0, t, tid);
+
+  // p = exp2(s * scale * log2(e) + (bias - lse) * log2(e)), 0 where masked
+  const float c_s = p.sm_scale * LOG2E;
+  float bias_r[2], db[2] = {0.f, 0.f};
+  bool key_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + r0 + 8 * i;
+    key_ok[i] = key < p.Lk;
+    bias_r[i] = key_ok[i] ? LOG2E * p.kbias[b * p.kb_sb + key] : 0.f;
+  }
+  float dk[C::MC][32], dv[C::MC][32];   // dk^T, dv^T: rows = d, cols = keys
+#pragma unroll
+  for (int m = 0; m < C::MC; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[m][i] = dv[m][i] = 0.f;
+
+  for (int it = t0; it < n_tiles; ++it) {
+    const int q0 = it * BN;
+    unsigned char* Qt = ring + ((it - t0) & 1) * STAGE;
+    unsigned char* dOt = Qt + C::TILE_S;
+    const float* lse_s = reinterpret_cast<const float*>(Qt + 2 * C::TILE_S);
+    const float* delta_s = lse_s + BN;
+    zoo::cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; tile it-1 is no longer read
+    if constexpr (C::F32) {
+      split_tile<C::TILE_S>(Qt, Qlo, tid);
+      split_tile<C::TILE_S>(dOt, dOlo, tid);
+    }
+    zoo::fence_proxy_async();
+    __syncthreads();
+    // the next tile loads while this one is multiplied (issued after the
+    // proxy fence, which would otherwise wait for it)
+    if (it + 1 < n_tiles) load_stage((it + 1 - t0) & 1, q0 + BN);
+    zoo::cp_async_commit();
+
+    // s^T = k . q^T, dp^T = v . dO^T (64 keys x BN queries), over d
+    const uint32_t qt_s = zoo::smem_u32(Qt), dot_s = zoo::smem_u32(dOt);
+    const uint32_t qlo_s = zoo::smem_u32(Qlo), dolo_s = zoo::smem_u32(dOlo);
+    float s[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+    first_products<T, D, BN>(s, dp, Ks, Klo, Vs, va, qt_s, qlo_s, dot_s,
+                             dolo_s, r0, t);
+
+    // p, ds; round(p) and round(ds) into the P and dS tiles (keys x q);
+    // only a tile on a ragged edge or across the diagonal tests entries
+    auto scores = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 lse_c =
+            *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+        const float2 delta_c =
+            *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int key = k0 + r0 + 8 * i;
+          float pv[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = q0 + 8 * j + 2 * t + e;
+            const int idx = 4 * j + 2 * i + e;
+            pv[e] = exp2_approx(fmaf(
+                s[idx], c_s, fmaf(e ? lse_c.y : lse_c.x, -LOG2E, bias_r[i])));
+            if constexpr (decltype(masked)::value) {
+              if (!key_ok[i] || row >= p.Lq ||
+                  (p.causal && key > row + q_offset))
+                pv[e] = 0.f;
+            }
+            ds[e] = pv[e] * (dp[idx] - (e ? delta_c.y : delta_c.x));
+            db[i] += ds[e];
+          }
+          store_pair<T, C::PROW>(Ph, Pl, r0 + 8 * i, 8 * j + 2 * t, pv[0],
+                                 pv[1]);
+          store_pair<T, C::PROW>(dSh, dSl, r0 + 8 * i, 8 * j + 2 * t,
+                                 ds[0], ds[1]);
+        }
+      }
+    };
+    if (k0 + BM > p.Lk || q0 + BN > p.Lq ||
+        (p.causal && k0 + BM - 1 > q0 + q_offset))
+      scores(std::true_type{});
+    else
+      scores(std::false_type{});
+    zoo::fence_proxy_async();
     __syncthreads();
 
-    // score and dp tiles, transposed: s[i][j] is (key ty*4+i, query tx+16j)
-    float s[RPT][CPT], dp[RPT][CPT];
+    // dv^T += dO^T . round(p), dk^T += q^T . round(ds), over the q tile
+    const uint32_t ph_s = zoo::smem_u32(Ph), pl_s = zoo::smem_u32(Pl);
+    const uint32_t dsh_s = zoo::smem_u32(dSh), dsl_s = zoo::smem_u32(dSl);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int ks = 0; ks < BN / C::KSTEP; ++ks) {
+      uint32_t oh[C::MC][4], ol[C::MC][4], qh[C::MC][4], ql[C::MC][4];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float kv[RPT], vv[RPT], qv[CPT], ov[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        kv[i] = Ks[(ty * RPT + i) * DP + c];
-        vv[i] = Vs[(ty * RPT + i) * DP + c];
+      for (int m = 0; m < C::MC; ++m) {
+        frag_cols<T, D>(dOt, dOlo, ks, 64 * m + r0, t, oh[m], ol[m]);
+        frag_cols<T, D>(Qt, Qlo, ks, 64 * m + r0, t, qh[m], ql[m]);
       }
+      zoo::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * DP + c];
-        ov[j] = dOs[(tx + 16 * j) * DP + c];
+      for (int m = 0; m < C::MC; ++m) {
+        mma<T, 64>(dv[m], oh[m], ol[m], zoo::tile_desc(ph_s, ks, C::PROW),
+                   zoo::tile_desc(pl_s, ks, C::PROW));
+        mma<T, 64>(dk[m], qh[m], ql[m], zoo::tile_desc(dsh_s, ks, C::PROW),
+                   zoo::tile_desc(dsl_s, ks, C::PROW));
       }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
+      zoo::wgmma_commit();
+      zoo::wgmma_wait<1>();
     }
-
+    zoo::wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int key = k0 + ty * RPT + i;
-      const bool kvalid = key < p.Lk;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int r = tx + 16 * j;
-        const int row = q0 + r;
-        float x = s[i][j] * p.sm_scale + bias_r[i];
-        if (p.causal && key > row + q_offset) x = MASK_VALUE;
-        const float pv = (kvalid && row < p.Lq) ? expf(x - lse_s[r]) : 0.f;
-        const float ds = pv * (dp[i][j] - delta_s[r]);
-        db[i] += ds;
-        Ps[(ty * RPT + i) * MP + r] = round_to<T>(pv);
-        dSs[(ty * RPT + i) * MP + r] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int n = 0; n < BLOCK_M; ++n) {
-      float pv[RPT], dsv[RPT], ov[DC], qv[DC];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        pv[i] = Ps[(ty * RPT + i) * MP + n];
-        dsv[i] = dSs[(ty * RPT + i) * MP + n];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        ov[c] = dOs[n * DP + tx + 16 * c];
-        qv[c] = Qs[n * DP + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv[i][c] = fmaf(pv[i], ov[c], dv[i][c]);
-          dk[i][c] = fmaf(dsv[i], qv[c], dk[i][c]);
-        }
+    for (int m = 0; m < C::MC; ++m) {
+      zoo::fence_regs(dv[m]);
+      zoo::fence_regs(dk[m]);
     }
   }
 
+  // dk[m][4j + 2i + e] = dk^T(d column 64m + r0 + 8i, key 8j + 2t + e)
+  T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const float col_sum = row_sum16(db[i]);   // over the 16 query groups
-    const int key = k0 + ty * RPT + i;
-    if (key < p.Lk) {
-      T* dkg = static_cast<T*>(p.dk) + b * p.dk_sb + key * p.dk_sl + h * p.dk_sh;
-      T* dvg = static_cast<T*>(p.dv) + b * p.dv_sb + key * p.dv_sl + h * p.dv_sh;
+  for (int m = 0; m < C::MC; ++m)
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        store_f<T>(dkg + tx + 16 * c, dk[i][c] * p.sm_scale);
-        store_f<T>(dvg + tx + 16 * c, dv[i][c]);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        if (key < p.Lk) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int col = 64 * m + r0 + 8 * i;
+            const int idx = 4 * j + 2 * i + e;
+            zoo::store_f<T>(dkg + (long long)key * p.dk_sl + col,
+                            dk[m][idx] * p.sm_scale);
+            zoo::store_f<T>(dvg + (long long)key * p.dv_sl + col, dv[m][idx]);
+          }
+        }
       }
-      if (tx == 0) p.dbias[(long long)bh * p.Lk + key] = col_sum;
-    }
+  // db: each key row's sum over its q columns, spread over the 4 lanes t
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float x = db[i];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (t == 0 && key_ok[i])
+      p.dbias[(long long)bh * p.Lk + k0 + r0 + 8 * i] = x;
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  constexpr size_t smem = Cfg<T, D>::DQ_SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Lq + BLOCK_M - 1) / BLOCK_M);
+  const dim3 grid((p.Lq + BM - 1) / BM, p.B * p.H);
   flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
+  constexpr size_t smem = Cfg<T, D>::DKV_SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Lk + BLOCK_N - 1) / BLOCK_N);
+  const dim3 grid((p.Lk + BM - 1) / BM, p.B * p.H);
   flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -441,15 +819,18 @@ Params make_params(
 
 // dtype: 0 = float32, 1 = bfloat16. ``strides`` holds 22 element strides:
 // (batch, length, head) of q, k, v, dO, dq, dk, dv in that order, then the
-// key bias's batch stride; every head-dim stride must be 1. Each returns
-// the cudaError_t of its launch (0 on success). zoo_flash_bwd_dq writes dq
-// only; zoo_flash_bwd_dkv writes dk, dv and dbias.
+// key bias's batch stride; every head-dim stride must be 1, and q, k, v
+// and dO must start, and step from row to row, on 16-byte boundaries (the
+// tiles arrive by 16-byte cp.async). Each returns the cudaError_t of its
+// launch (0 on success). zoo_flash_bwd_dq writes dq only;
+// zoo_flash_bwd_dkv writes dk, dv and dbias.
 extern "C" int zoo_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* kbias, const float* lse, const float* delta, void* dq,
     int B, int H, int Lq, int Lk, int D, int dtype, int causal,
     float sm_scale, const long long* strides, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535)
+    return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, dout, kbias, lse, delta, dq, nullptr,
                                nullptr, nullptr, B, H, Lq, Lk, causal,
                                sm_scale, strides);
@@ -466,7 +847,8 @@ extern "C" int zoo_flash_bwd_dkv(
     const float* kbias, const float* lse, const float* delta, void* dk,
     void* dv, float* dbias, int B, int H, int Lq, int Lk, int D, int dtype,
     int causal, float sm_scale, const long long* strides, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535)
+    return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, dout, kbias, lse, delta, nullptr, dk,
                                dv, dbias, B, H, Lq, Lk, causal, sm_scale,
                                strides);

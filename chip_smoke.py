@@ -11,11 +11,15 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
 1. device  -- the card, the device count, ``nvidia-smi``'s name and power
               limit, the software versions.
 2. build   -- every kernel built from ``ops/csrc`` with nvcc for sm_90a
-              (one nvcc per source, all started together): seconds, and
-              the ``-Xptxas -v`` register, shared memory and spill lines.
+              (one nvcc per source, all started together): seconds, the
+              ``-Xptxas -v`` register, shared memory and spill lines, and
+              per kernel symbol the count of tensor-core instructions
+              (HGMMA, HMMA) in ``cuobjdump -sass``; every instantiation of
+              the backward kernels must hold some.
 3. kernels -- each kernel against its plain PyTorch version on the card,
               one line per case and dtype: the flash-attention forward
-              (K1), its backward dq and dkv kernels (K2, K3), the fused
+              (K1), its backward dq and dkv kernels (K2, K3; each case
+              also called twice and held bit for bit equal), the fused
               dropout+add+layer-norm forward and backward (K4, K5), and
               ``torch.autograd.grad`` through ``flash_attention_blhd``
               against the plain backward.
@@ -118,9 +122,18 @@ ROW_SUM_TOL = 1e-5
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). The
+# flash kernels' products run on the tensor cores: bf16 at 989 TFLOP/s,
+# float32 as three TF32 products (3xTF32, to stay float32-accurate) at
+# 495/3 TFLOP/s. The dropout+add+LN kernels compute in float32 on the CUDA
+# cores (67 TFLOP/s).
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+CUDA_CORE_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the backward kernels' symbols, each of which must hold tensor-core
+# instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS, in all four
+# instantiations (float32 and bf16, d = 64 and 128)
+TENSOR_CORE_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     attn.KERNEL_NAME: ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -134,6 +147,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     dln.BWD_KERNEL_NAME: ("analytics_zoo_tpu_torch/ops/csrc/dropout_ln.cu",
                           "analytics_zoo_tpu/ops/fused_dropout_ln.py:80"),
 }
+
+
+def check_tensor_cores(sass):
+    """Every instantiation of the backward kernels holds tensor-core
+    instructions in its SASS."""
+    for name in TENSOR_CORE_KERNELS:
+        found = {sym: n for sym, n in sass.items() if name in sym}
+        if len(found) != 4 or any(sum(n.values()) == 0
+                                  for n in found.values()):
+            raise AssertionError(f"{name}: tensor-core instructions by "
+                                 f"instantiation {found}")
 
 
 def emit(phase: str, **fields) -> None:
@@ -167,20 +191,26 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_events(fn, iters):
+def _device_events(fn, iters, attempts: int = 3):
     """torch.profiler's CUDA kernel records over ``iters`` calls of ``fn``
-    after 3 warm-up calls."""
+    after 3 warm-up calls. The profiler now and then records no kernel at
+    all in a window (seen once on the H100 in a run of this script); such
+    a window is profiled again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    for _ in range(attempts):
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    return [evt for evt in prof.key_averages()
-            if evt.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [evt for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    return []
 
 
 def kernel_ms(fn, symbols, iters: int = 20):
@@ -212,11 +242,12 @@ def device_ms(fn, iters: int = 10):
     return busy / 1e3 / iters
 
 
-def bound_ms(nbytes, ops, dtype):
+def bound_ms(nbytes, ops, peak_flops):
     """The least time for ``nbytes`` moved and ``ops`` done at the card's
-    published peaks: (ms, what bounds it)."""
+    published peaks (``peak_flops`` operations a second): (ms, what bounds
+    it)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_FLOPS[dtype]
+    t_ops = ops / peak_flops
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -268,8 +299,16 @@ KERNEL_CASES = [
     ("head_dim_128", 2, 512, 512, 6, 128, True, True),
     ("decode_row", 2, 1, 77, 12, 64, True, True),
 ]
+# the backward's cases: the forward's, less the serving shapes, plus a
+# partial last tile at every streamed tile size (64 rows in bf16, 32 in
+# float32) at d=64 and d=128, and causal Lq < Lk with a wide offset
 BWD_CASES = [c for c in KERNEL_CASES
-             if c[0] not in ("bert_base", "decode_row")]
+             if c[0] not in ("bert_base", "decode_row")] + [
+    ("ragged_77", 2, 77, 77, 12, 64, False, True),
+    ("ragged_77_d128", 2, 77, 77, 6, 128, False, True),
+    ("causal_ragged_200_d128", 2, 200, 200, 6, 128, True, True),
+    ("causal_64_lt_320", 2, 64, 320, 12, 64, True, True),
+]
 # (name, rows, features, keep)
 DLN_CASES = [("train_shape",) + DLN_SHAPE + (1.0 - TRAIN_P_DROP,),
              ("ragged", 300, 1000, 0.75)]
@@ -315,7 +354,8 @@ def check_forward(device, seed):
 
 def check_backward(device, seed):
     """K2 and K3, every case in f32 and bf16, on the plain forward's o
-    and lse: the kernels against the plain backward. Returns {dtype:
+    and lse: the kernels against the plain backward, and a second call on
+    the same inputs bit for bit equal to the first. Returns {dtype:
     {"dq": max err, "dkv": max err over dk, dv, dbias}} at the training
     shape."""
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -329,7 +369,9 @@ def check_backward(device, seed):
             do = torch.randn(b, lq, h, d, device=device, generator=gen) \
                 .to(dtype)
             got = attn.flash_backward_blhd(q, k, v, kb, o, lse, do, causal)
+            again = attn.flash_backward_blhd(q, k, v, kb, o, lse, do, causal)
             torch.cuda.synchronize()
+            deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
             want = attn.flash_backward_reference(q, k, v, kb, o, lse, do,
                                                  causal, scale)
             tols = [GRAD_TOL[dtype]] * 3 + [F32_TOL]
@@ -344,7 +386,11 @@ def check_backward(device, seed):
                  max_err_over_limit={n: r for n, (_, r) in res.items()},
                  max_abs_ref={n: w.abs().max().item() for n, w in
                               zip(res, want)},
-                 tol=dict(grads=GRAD_TOL[dtype], dbias=F32_TOL))
+                 tol=dict(grads=GRAD_TOL[dtype], dbias=F32_TOL),
+                 repeat_bitwise_equal=deterministic)
+            if not deterministic:
+                raise AssertionError(f"{name} {dtype}: two calls of the "
+                                     f"backward on the same inputs differ")
             for n, g in zip(res, got):
                 if not torch.isfinite(g.float()).all() or res[n][1] > 1.0:
                     raise AssertionError(
@@ -597,7 +643,7 @@ def flash_bound_ms(b, lq, lk, h, d, dtype):
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * lq * h * d + 2 * b * lk * h * d) * esize + \
         4 * b * lk + 4 * b * h * lq
-    return bound_ms(nbytes, 4 * b * h * lq * lk * d, dtype)
+    return bound_ms(nbytes, 4 * b * h * lq * lk * d, PEAK_FLOPS[dtype])
 
 
 def time_kernel(device, seed, dtype):
@@ -766,9 +812,9 @@ def flash_bwd_bounds(b, lq, lk, h, d, dtype):
     stats = 4 * 2 * b * h * lq + 4 * b * lk
     product = 2 * b * h * lq * lk * d
     return (bound_ms(2 * rows_q + 2 * rows_k + rows_q + stats, 3 * product,
-                     dtype),
+                     PEAK_FLOPS[dtype]),
             bound_ms(2 * rows_q + 4 * rows_k + stats + 4 * b * h * lk,
-                     4 * product, dtype))
+                     4 * product, PEAK_FLOPS[dtype]))
 
 
 def dln_bounds(n, d, dtype):
@@ -781,9 +827,9 @@ def dln_bounds(n, d, dtype):
     esize = torch.tensor([], dtype=dtype).element_size()
     nblk = -(-n // 32)
     rows = n * d * (4 * esize + 4) + 2 * n * 4
-    fwd = bound_ms(rows + 2 * d * 4, 9 * n * d, torch.float32)
+    fwd = bound_ms(rows + 2 * d * 4, 9 * n * d, CUDA_CORE_F32_FLOPS)
     bwd = bound_ms(rows + d * 4 + 2 * nblk * d * 4, 14 * n * d,
-                   torch.float32)
+                   CUDA_CORE_F32_FLOPS)
     return fwd, bwd
 
 
@@ -942,7 +988,11 @@ def main(argv=None):
     # 2. build
     t0 = time.perf_counter()
     _kernels.library()
-    emit("build", wall_s=time.perf_counter() - t0, **_kernels.BUILD_INFO)
+    wall = time.perf_counter() - t0
+    sass = _kernels.sass_opcode_counts(_kernels.BUILD_INFO["library"])
+    emit("build", wall_s=wall, tensor_core_instructions=sass,
+         **_kernels.BUILD_INFO)
+    check_tensor_cores(sass)
 
     # 3. kernels against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False

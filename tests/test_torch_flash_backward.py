@@ -12,6 +12,11 @@ chip_smoke.py).
 Tolerance: float32 on both sides, sums taken in another order: 1e-5 on
 dq, dk and dv (their entries are O(1)), and 1e-5 of the largest entry on
 the key-bias gradient, a sum over every query and head.
+
+On the card the float32 kernels run every product on the tensor cores as
+three TF32 products ("3xTF32"). The last tests emulate that arithmetic
+here and hold it to the card's float32 limits against ``jax.grad``, and
+show that a single TF32 product would not meet them.
 """
 
 import math
@@ -165,3 +170,113 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="unit head-dim stride"):
         dot = torch.randn(1, 16, 64, 2).transpose(2, 3)
         ta.flash_backward_blhd(q, q, q, kb, o, lse, dot)
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32: the float32 kernels' product arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's float32 limit for K2/K3: |g - w| <= a * max|w| + r * |w|
+F32_LIMIT = (1e-5, 1e-5)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """a . b as the kernels take it in float32: a = a_hi + a_lo and
+    b = b_hi + b_lo, each half TF32, and lo . lo dropped. Products of TF32
+    values are exact in float32; sums are float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)) + \
+        torch.einsum(eq, a_hi, b_hi)
+
+
+def _einsum_1xtf32(eq, a, b):
+    """a . b as one TF32 product (``allow_tf32``'s arithmetic)."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _emulated_backward(einsum, q, k, v, kb, o, lse, do, causal, scale):
+    """The backward kernels' function (flash_backward_reference) with
+    every product taken by ``einsum``."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    s = einsum("blhd,bkhd->bhlk", q, k) * scale + kb[:, None, None, :]
+    if causal:
+        keep = torch.arange(lk)[None, :] <= torch.arange(lq)[:, None] + \
+            (lk - lq)
+        s = torch.where(keep, s, torch.full_like(s, ta.DEFAULT_MASK_VALUE))
+    p = torch.exp(s - lse.reshape(b, h, lq, 1))
+    dp = einsum("blhd,bkhd->bhlk", do, v)
+    ds = p * (dp - (do * o).sum(-1).permute(0, 2, 1)[..., None])
+    dq = einsum("bhlk,bkhd->blhd", ds, k) * scale
+    dk = einsum("bhlk,blhd->bkhd", ds, q) * scale
+    dv = einsum("bhlk,blhd->bkhd", p, do)
+    return dq, dk, dv, ds.sum(dim=2).sum(dim=1)
+
+
+def _over_f32_limit(got, want):
+    """max over the entries of |got - want| / (a * max|want| + r * |want|)
+    for dq, dk, dv and dbias."""
+    a, r = F32_LIMIT
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        g = np.asarray(g, np.float64).reshape(np.shape(w))
+        w = np.asarray(w, np.float64)
+        out[name] = float((np.abs(g - w) /
+                           (a * np.abs(w).max() + r * np.abs(w))).max())
+    return out
+
+
+TF32_CASES = [(l, d, causal) for l in (128, 300) for d in (64, 128)
+              for causal in (False, True)]
+
+
+def _tf32_case(l, d, causal, einsum):
+    q, k, v, do, kb = _inputs(3, 2, l, l, 2, d)
+    tq, tk, tv, tdo, tkb = map(torch.from_numpy, (q, k, v, do, kb))
+    sm = 1.0 / math.sqrt(d)
+    o, lse = ta.flash_forward_reference(tq, tk, tv, tkb, causal, sm)
+    got = _emulated_backward(einsum, tq, tk, tv, tkb, o, lse, tdo, causal,
+                             sm)
+    return _over_f32_limit([g.numpy() for g in got],
+                           _jax_grads(q, k, v, do, kb, causal))
+
+
+@pytest.mark.parametrize("l,d,causal", TF32_CASES)
+def test_3xtf32_products_meet_the_float32_limits(l, d, causal):
+    over = _tf32_case(l, d, causal, _einsum_3xtf32)
+    assert max(over.values()) <= 1.0, over
+
+
+@pytest.mark.parametrize("l,d,causal", TF32_CASES)
+def test_one_tf32_product_misses_the_float32_limits(l, d, causal):
+    over = _tf32_case(l, d, causal, _einsum_1xtf32)
+    assert max(over[n] for n in ("dq", "dk", "dv")) > 1.0, over
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_to_nearest():
+    x = torch.tensor([1.0 + 2 ** -10, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -12], dtype=torch.float32)
+    want = [1.0 + 2 ** -10, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+            -(1.0 + 2 ** -10), 1.0]
+    assert _tf32(x).tolist() == want
+
+
+def test_backward_operands_off_16_byte_boundaries_are_copied():
+    """The backward kernels copy 16-byte chunks: the fused projection's
+    views reach them as they are, a view whose start is off a 16-byte
+    boundary as a contiguous copy."""
+    qkv = torch.randn(2, 8, 3 * 2 * 64)
+    q = qkv[..., :128].reshape(2, 8, 2, 64)
+    assert ta._aligned16(q) is q
+    odd = torch.randn(2 * 8 * 2 * 64 + 1)[1:].reshape(2, 8, 2, 64)
+    got = ta._aligned16(odd)
+    assert got is not odd and got.data_ptr() % 16 == 0
+    assert torch.equal(got, odd)

@@ -146,6 +146,12 @@ def _padding_bias(b, lk, device, gen):
     (2, 128, 512, 4, 64, True, True),
     (2, 300, 300, 4, 64, False, True),
     (2, 200, 200, 2, 128, True, True),
+    # a partial last tile at each streamed tile size (64 rows in bf16, 32
+    # in float32) at d=64 and d=128, and causal Lq < Lk with a wide offset
+    (2, 77, 77, 4, 64, False, True),
+    (2, 77, 77, 2, 128, False, True),
+    (2, 200, 200, 2, 128, False, True),
+    (2, 64, 320, 4, 64, True, True),
 ])
 def test_flash_backward_kernels_match_plain_version(cuda, dtype, b, lq, lk,
                                                     h, d, causal, bias):
@@ -167,6 +173,37 @@ def test_flash_backward_kernels_match_plain_version(cuda, dtype, b, lq, lk,
     for g, w, tol in zip(got, want, [GRAD_TOL[dtype]] * 3 + [F32_TOL]):
         assert g.shape == w.shape and g.dtype == w.dtype
         _close(g, w, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype, causal):
+    """Each output is summed by one block in a fixed order (no atomics):
+    two calls on the same inputs agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, l, h, d = 2, 300, 4, 64
+    q, k, v = _qkv_views(b, l, l, h, d, dtype, cuda, gen)
+    kb = _padding_bias(b, l, cuda, gen)
+    o, lse = ta.flash_forward_blhd(q, k, v, kb, causal)
+    do = torch.randn(b, l, h, d, device=cuda, generator=gen).to(dtype)
+    first = ta.flash_backward_blhd(q, k, v, kb, o, lse, do, causal)
+    second = ta.flash_backward_blhd(q, k, v, kb, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq_kernel",
+                                    "flash_bwd_dkv_kernel"])
+def test_flash_backward_kernels_run_on_the_tensor_cores(cuda, kernel):
+    """Every instantiation (float32 and bf16, d = 64 and 128) of the
+    backward kernels holds tensor-core instructions in its SASS."""
+    _kernels.library()
+    sass = _kernels.sass_opcode_counts(_kernels.BUILD_INFO["library"])
+    found = {sym: n for sym, n in sass.items() if kernel in sym}
+    assert len(found) == 4, found
+    for sym, n in found.items():
+        assert n["HGMMA"] + n["HMMA"] > 0, (sym, n)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
