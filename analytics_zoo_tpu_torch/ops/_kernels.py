@@ -148,7 +148,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.zoo_flash_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [f] + [p, p]
     lib.zoo_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 7 + [f] + [p, p]
     lib.zoo_dln_fwd.argtypes = [p] * 9 + [i] * 3 + [u, f, f, p]
-    lib.zoo_dln_bwd.argtypes = [p] * 10 + [i] * 3 + [u, f, p]
+    # dy, z, bits, gamma, mean, inv, dx, dres, 2 partials, dgamma, dbeta |
+    # partial rows, N, D, dtype | thresh, 1/keep, stream
+    lib.zoo_dln_bwd.argtypes = [p] * 12 + [i] * 4 + [u, f, p]
     lib.zoo_dln_bwd_blocks.argtypes = [i]
     for fn in (lib.zoo_flash_fwd, lib.zoo_flash_bwd_dq, lib.zoo_flash_bwd_dkv,
                lib.zoo_dln_fwd, lib.zoo_dln_bwd, lib.zoo_dln_bwd_blocks):

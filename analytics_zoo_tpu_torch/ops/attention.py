@@ -217,16 +217,23 @@ def flash_forward_blhd(q, k, v, kbias, causal=False, sm_scale=None
     On CUDA tensors this launches ``csrc/flash_fwd.cu`` or raises; on CPU
     tensors it runs :func:`flash_forward_reference`."""
     _check_kernel_args(q, k, v, kbias, causal)
-    b, lq, h, d = q.shape
-    lk = k.shape[1]
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
+        sm_scale = 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, kbias, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash forward runs on cuda or cpu, not "
                          f"{q.device}")
+    return _launch_forward(q, k, v, kbias, causal, sm_scale)
+
+
+def _launch_forward(q, k, v, kbias, causal, sm_scale):
+    """The forward kernel's launch: operands off 16-byte boundaries
+    copied (:func:`_aligned16`), o and lse allocated, one launch."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
     lib = _kernels.library()
+    q, k, v = (_aligned16(t) for t in (q, k, v))
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -290,8 +297,8 @@ def flash_backward_reference(q, k, v, kbias, o, lse, do, causal, sm_scale
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its start and its batch, length and head strides
-    fall on 16-byte boundaries (the backward kernels copy tiles 16 bytes
-    at a time), else a contiguous copy. The fused QKV projection's views
+    fall on 16-byte boundaries (the kernels copy tiles 16 bytes at a
+    time), else a contiguous copy. The fused QKV projection's views
     at d in {64, 128} always qualify."""
     esize = t.element_size()
     if t.data_ptr() % 16 == 0 and all(

@@ -162,11 +162,12 @@ def dln_backward(dy2, z2, bits2, gamma, mean, inv, keep):
     """The fused backward over (N, D) rows: returns dx, dres (in dy's
     dtype) and dgamma, dbeta ((D,) f32). Counterpart of
     ``_dln_backward`` plus the partial sums of ``_dln_bwd_rule``: the
-    kernel writes one dgamma/dbeta partial per block, summed here in
-    torch.
+    kernel writes one dgamma/dbeta partial per block, and a second small
+    kernel of the same call sums them in block order.
 
-    On CUDA tensors this launches ``csrc/dropout_ln.cu`` ``dln_bwd`` or
-    raises; on CPU tensors it runs :func:`dln_backward_reference`."""
+    On CUDA tensors this launches ``csrc/dropout_ln.cu`` ``dln_bwd`` (and
+    its partial sum) or raises; on CPU tensors it runs
+    :func:`dln_backward_reference`."""
     _check_common(dy2, bits2, gamma, keep)
     n, d = dy2.shape
     _check_rows("z", z2, n, d, dy2.dtype, dy2.device)
@@ -174,26 +175,39 @@ def dln_backward(dy2, z2, bits2, gamma, mean, inv, keep):
         _check_rows(name, t, n, 1, torch.float32, dy2.device)
     if dy2.device.type == "cpu":
         return dln_backward_reference(dy2, z2, bits2, gamma, mean, inv, keep)
+    return _launch_backward(dy2, z2, bits2, gamma, mean, inv, keep)
+
+
+def _launch_backward(dy2, z2, bits2, gamma, mean, inv, keep):
+    """The backward kernel's launch: outputs and the (2, rows, D) partials
+    allocated, the rows sized by ``zoo_dln_bwd_blocks`` on the device,
+    one call (the kernel and its partial sum)."""
+    n, d = dy2.shape
     lib = _kernels.library()
     dy2, z2, bits2 = dy2.contiguous(), z2.contiguous(), bits2.contiguous()
     mean, inv = mean.contiguous(), inv.contiguous()
     g = gamma.float().contiguous()
     dx = torch.empty_like(dy2)
     dres = torch.empty_like(dy2)
-    nblk = lib.zoo_dln_bwd_blocks(n)
-    dg_part = torch.empty((nblk, d), dtype=torch.float32, device=dy2.device)
-    db_part = torch.empty((nblk, d), dtype=torch.float32, device=dy2.device)
+    dgamma = torch.empty(d, dtype=torch.float32, device=dy2.device)
+    dbeta = torch.empty(d, dtype=torch.float32, device=dy2.device)
     with torch.cuda.device(dy2.device):
+        nblk = lib.zoo_dln_bwd_blocks(n)
+        if nblk < 1:
+            raise RuntimeError(f"{BWD_KERNEL_NAME}: cannot size the grid on "
+                               f"{dy2.device}")
+        parts = torch.empty((2, nblk, d), dtype=torch.float32,
+                            device=dy2.device)
         stream = torch.cuda.current_stream(dy2.device).cuda_stream
         err = lib.zoo_dln_bwd(
             dy2.data_ptr(), z2.data_ptr(), bits2.data_ptr(), g.data_ptr(),
             mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), dres.data_ptr(),
-            dg_part.data_ptr(), db_part.data_ptr(), n, d,
-            KERNEL_DTYPES.index(dy2.dtype), _thresh(keep), float(1.0 / keep),
-            stream)
+            parts[0].data_ptr(), parts[1].data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), nblk, n, d, KERNEL_DTYPES.index(dy2.dtype),
+            _thresh(keep), float(1.0 / keep), stream)
     _kernels.check(err, BWD_KERNEL_NAME)
     _kernels.LAUNCHES.add(BWD_KERNEL_NAME)
-    return dx, dres, dg_part.sum(dim=0), db_part.sum(dim=0)
+    return dx, dres, dgamma, dbeta
 
 
 class _DropoutAddLayerNorm(torch.autograd.Function):

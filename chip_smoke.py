@@ -15,12 +15,12 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``-Xptxas -v`` register, shared memory and spill lines, and
               per kernel symbol the count of tensor-core instructions
               (HGMMA, HMMA) in ``cuobjdump -sass``; every instantiation of
-              the backward kernels must hold some.
+              the three flash kernels must hold some.
 3. kernels -- each kernel against its plain PyTorch version on the card,
-              one line per case and dtype: the flash-attention forward
-              (K1), its backward dq and dkv kernels (K2, K3; each case
-              also called twice and held bit for bit equal), the fused
-              dropout+add+layer-norm forward and backward (K4, K5), and
+              one line per case and dtype, each case also called twice
+              and held bit for bit equal: the flash-attention forward
+              (K1), its backward dq and dkv kernels (K2, K3), the fused
+              dropout+add+layer-norm forward and backward (K4, K5); then
               ``torch.autograd.grad`` through ``flash_attention_blhd``
               against the plain backward.
 4. serve   -- the BERT-base classifier of ``bench.py`` (full width and
@@ -37,7 +37,8 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               five kernels' launch counts per step, ``evaluate``; then a
               dropout-off step on 2 rows against the port's CPU run.
 6. timing  -- request latency, tokens/s and peak memory of the served
-              model and the forward kernel at the serving shape; the
+              model and the forward kernel at the serving shape (profiler
+              device time, CUDA events beside it); the
               training step's time, tokens/s, peak memory and
               ``torch.profiler`` device time by kernel group; and each
               kernel at the training shape beside its plain version, its
@@ -130,10 +131,11 @@ TRAIN_GRAD_TOL = 1e-3
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 CUDA_CORE_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# the backward kernels' symbols, each of which must hold tensor-core
+# the flash kernels' symbols, each of which must hold tensor-core
 # instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS, in all four
 # instantiations (float32 and bf16, d = 64 and 128)
-TENSOR_CORE_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel")
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     attn.KERNEL_NAME: ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -150,7 +152,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 
 
 def check_tensor_cores(sass):
-    """Every instantiation of the backward kernels holds tensor-core
+    """Every instantiation of the flash kernels holds tensor-core
     instructions in its SASS."""
     for name in TENSOR_CORE_KERNELS:
         found = {sym: n for sym, n in sass.items() if name in sym}
@@ -298,25 +300,30 @@ KERNEL_CASES = [
     ("ragged_300", 2, 300, 300, 12, 64, False, True),
     ("head_dim_128", 2, 512, 512, 6, 128, True, True),
     ("decode_row", 2, 1, 77, 12, 64, True, True),
-]
-# the backward's cases: the forward's, less the serving shapes, plus a
-# partial last tile at every streamed tile size (64 rows in bf16, 32 in
-# float32) at d=64 and d=128, and causal Lq < Lk with a wide offset
-BWD_CASES = [c for c in KERNEL_CASES
-             if c[0] not in ("bert_base", "decode_row")] + [
+    # a partial last key tile at every streamed tile size (64 keys in
+    # bf16, 32 in float32) and a partial q tile, at d=64 and d=128
     ("ragged_77", 2, 77, 77, 12, 64, False, True),
     ("ragged_77_d128", 2, 77, 77, 6, 128, False, True),
+]
+# the backward's cases: the forward's, less the serving shapes, plus
+# causal tile edges at d=128 and causal Lq < Lk with a wide offset
+BWD_CASES = [c for c in KERNEL_CASES
+             if c[0] not in ("bert_base", "decode_row")] + [
     ("causal_ragged_200_d128", 2, 200, 200, 6, 128, True, True),
     ("causal_64_lt_320", 2, 64, 320, 12, 64, True, True),
 ]
-# (name, rows, features, keep)
+# (name, rows, features, keep); D = 770 is off the backward's 16-byte
+# chunk (4 float32 or 8 bf16 values), so its rows start off 16-byte
+# boundaries and the backward takes one value a chunk
 DLN_CASES = [("train_shape",) + DLN_SHAPE + (1.0 - TRAIN_P_DROP,),
-             ("ragged", 300, 1000, 0.75)]
+             ("ragged", 300, 1000, 0.75),
+             ("off_vector_width", 301, 770, 0.8)]
 
 
 def check_forward(device, seed):
     """K1, every case in f32 and bf16: the kernel against its plain
-    version. Returns {dtype: max |do| at the training shape}."""
+    version, and a second call on the same inputs bit for bit equal to
+    the first. Returns {dtype: max |do| at the training shape}."""
     gen = torch.Generator(device=device).manual_seed(seed)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -324,7 +331,10 @@ def check_forward(device, seed):
             q, k, v = qkv_views(b, lq, lk, h, d, dtype, device, gen)
             kb = key_bias(b, lk, padded, device, gen)
             o, lse = attn.flash_forward_blhd(q, k, v, kb, causal)
+            again = attn.flash_forward_blhd(q, k, v, kb, causal)
             torch.cuda.synchronize()
+            deterministic = torch.equal(o, again[0]) and \
+                torch.equal(lse, again[1])
             ro, rl = attn.flash_forward_reference(q, k, v, kb, causal,
                                                   1.0 / math.sqrt(d))
             atol, rtol = O_TOL[dtype]
@@ -339,7 +349,11 @@ def check_forward(device, seed):
                  key_bias=padded, max_abs_err_o=err_o,
                  o_tol=dict(atol=atol, rtol=rtol),
                  max_o_err_over_limit=o_over_limit,
-                 max_abs_err_lse=err_lse, lse_tol=LSE_TOL)
+                 max_abs_err_lse=err_lse, lse_tol=LSE_TOL,
+                 repeat_bitwise_equal=deterministic)
+            if not deterministic:
+                raise AssertionError(f"{name} {dtype}: two calls of the "
+                                     f"forward on the same inputs differ")
             if not torch.isfinite(o.float()).all():
                 raise AssertionError(f"{name} {dtype}: non-finite output")
             if o_over_limit > 1.0 or err_lse > LSE_TOL:
@@ -451,7 +465,8 @@ def dln_inputs(n, d, dtype, device, gen):
 
 def check_dln(device, seed):
     """K4 and K5, every case in f32 and bf16, on the same bits: the
-    kernels against their plain versions. Returns {dtype: {"fwd": max
+    kernels against their plain versions, and second calls on the same
+    inputs bit for bit equal to the first. Returns {dtype: {"fwd": max
     err, "bwd": max err}} at the training shape."""
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     errs = {}
@@ -460,12 +475,16 @@ def check_dln(device, seed):
             x, r, gamma, beta, bits, dy = dln_inputs(n, d, dtype, device,
                                                      gen)
             got_f = dln.dln_forward(x, r, bits, gamma, beta, keep)
+            again_f = dln.dln_forward(x, r, bits, gamma, beta, keep)
             torch.cuda.synchronize()
             want_f = dln.dln_forward_reference(x, r, bits, gamma, beta, keep,
                                                1e-5)
             _, z, mean, inv = want_f
             got_b = dln.dln_backward(dy, z, bits, gamma, mean, inv, keep)
+            again_b = dln.dln_backward(dy, z, bits, gamma, mean, inv, keep)
             torch.cuda.synchronize()
+            deterministic = all(torch.equal(a, b_) for a, b_ in
+                                zip(got_f + got_b, again_f + again_b))
             want_b = dln.dln_backward_reference(dy, z, bits, gamma, mean,
                                                 inv, keep)
             tols = [GRAD_TOL[dtype]] * 2 + [F32_TOL] * 2 + \
@@ -480,7 +499,11 @@ def check_dln(device, seed):
                  max_abs_err={nm: e for nm, (e, _) in res.items()},
                  max_err_over_limit={nm: q for nm, (_, q) in res.items()},
                  tol=dict(values=GRAD_TOL[dtype], stats=F32_TOL,
-                          dgamma_dbeta=DLN_PARAM_TOL))
+                          dgamma_dbeta=DLN_PARAM_TOL),
+                 repeat_bitwise_equal=deterministic)
+            if not deterministic:
+                raise AssertionError(f"{name} {dtype}: two calls on the "
+                                     f"same inputs differ")
             for nm, g in zip(names, got_f + got_b):
                 if not torch.isfinite(g.float()).all() or res[nm][1] > 1.0:
                     raise AssertionError(
@@ -587,6 +610,7 @@ PORT_KERNEL_SYMBOLS = {   # symbol substring -> profile group
     "flash_bwd_dkv_kernel": "flash_bwd_dkv (port kernel)",
     "dln_fwd_kernel": "dln_fwd (port kernel)",
     "dln_bwd_kernel": "dln_bwd (port kernel)",
+    "dln_bwd_sum_kernel": "dln_bwd (port kernel)",
 }
 
 
@@ -648,7 +672,9 @@ def flash_bound_ms(b, lq, lk, h, d, dtype):
 
 def time_kernel(device, seed, dtype):
     """The forward kernel, its plain version and SDPA at the serving
-    shape."""
+    shape: the kernel's device time per launch (``kernel_ms``), the plain
+    version's and SDPA's device time per call (``device_ms``), and the
+    same calls timed with CUDA events (``*_events_ms``) beside them."""
     gen = torch.Generator(device=device).manual_seed(seed)
     b, l, h, d = BATCH, BERT_CONFIG["seq_len"], BERT_CONFIG["n_head"], \
         BERT_CONFIG["hidden_size"] // BERT_CONFIG["n_head"]
@@ -658,14 +684,17 @@ def time_kernel(device, seed, dtype):
     mask = kb[:, None, None, :].to(dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     bound, bound_by = flash_bound_ms(b, l, l, h, d, dtype)
+    fwd = lambda: attn.flash_forward_blhd(q, k, v, kb, False)
+    plain = lambda: attn.flash_forward_reference(q, k, v, kb, False, scale)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask,
+                                                  scale=scale)
     return dict(
         dtype=dtype_name(dtype), shape=dict(B=b, L=l, H=h, d=d),
-        ms=cuda_ms(lambda: attn.flash_forward_blhd(q, k, v, kb, False)),
-        plain_ms=cuda_ms(lambda: attn.flash_forward_reference(
-            q, k, v, kb, False, scale), iters=10),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale)),
-        bound_ms=bound, bound_by=bound_by)
+        ms=kernel_ms(fwd, ["flash_fwd_kernel"])["flash_fwd_kernel"],
+        plain_ms=device_ms(plain), library_ms=device_ms(sdpa),
+        events_ms=cuda_ms(fwd), plain_events_ms=cuda_ms(plain, iters=10),
+        library_events_ms=cuda_ms(sdpa), bound_ms=bound, bound_by=bound_by)
 
 
 # ---------------------------------------------------------------------------
@@ -820,15 +849,16 @@ def flash_bwd_bounds(b, lq, lk, h, d, dtype):
 def dln_bounds(n, d, dtype):
     """The least time for the dropout+add+LN forward and backward: x,
     resid and the 32-bit words (or dy, z and the words) read once, y and
-    z (or dx and dresid) written once, plus the row statistics, gamma,
-    beta and the backward's per-block partials; operations counted from
-    the kernels' arithmetic, 9 per element forward and 14 backward, at
-    the float32 peak of the CUDA cores (they compute in f32)."""
+    z (or dx and dresid) written once, plus the row statistics, gamma and
+    beta read once and the backward's dgamma and dbeta written once (the
+    function's own work: no partials of any design); operations counted
+    from the function's arithmetic, 9 per element forward and 14
+    backward, at the float32 peak of the CUDA cores (they compute in
+    f32)."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    nblk = -(-n // 32)
     rows = n * d * (4 * esize + 4) + 2 * n * 4
     fwd = bound_ms(rows + 2 * d * 4, 9 * n * d, CUDA_CORE_F32_FLOPS)
-    bwd = bound_ms(rows + d * 4 + 2 * nblk * d * 4, 14 * n * d,
+    bwd = bound_ms(rows + d * 4 + 2 * d * 4, 14 * n * d,
                    CUDA_CORE_F32_FLOPS)
     return fwd, bwd
 
@@ -905,7 +935,8 @@ def time_training_kernels(device, seed, dtype):
     dfwd = lambda: dln.dln_forward(x, r, bits, gamma, beta, keep)
     dbwd = lambda: dln.dln_backward(dy, z, bits, gamma, mean, inv, keep)
     dev = kernel_ms(dfwd, ["dln_fwd_kernel"])
-    dev.update(kernel_ms(dbwd, ["dln_bwd_kernel"]))
+    # K5 is two launches a call: the rows, then the partials' sum
+    dev.update(kernel_ms(dbwd, ["dln_bwd_kernel", "dln_bwd_sum_kernel"]))
     xg, rg, gg, bg = (t.detach().clone().requires_grad_()
                       for t in (x, r, gamma.to(dtype), beta.to(dtype)))
     composed = lambda: F.layer_norm(
@@ -926,7 +957,10 @@ def time_training_kernels(device, seed, dtype):
         composed="F.dropout + add + F.layer_norm forward",
         bound_ms=fwdb[0], bound_by=fwdb[1])
     out[dln.BWD_KERNEL_NAME] = dict(
-        ms=dev["dln_bwd_kernel"], wrapper_events_ms=cuda_ms(dbwd, iters=20),
+        ms=dev["dln_bwd_kernel"] + dev["dln_bwd_sum_kernel"],
+        rows_kernel_ms=dev["dln_bwd_kernel"],
+        partial_sum_ms=dev["dln_bwd_sum_kernel"],
+        wrapper_events_ms=cuda_ms(dbwd, iters=20),
         plain_ms=device_ms(lambda: dln.dln_backward_reference(
             dy, z, bits, gamma, mean, inv, keep)),
         library_ms=None, composed_ms=device_ms(composed_bwd),
@@ -1093,7 +1127,11 @@ def main(argv=None):
                      bound_by=row["bound_by"],
                      library_ms=row["library_ms"])
         if name == attn.KERNEL_NAME:
-            entry["launches_serve"] = serve_launches[name]
+            serve_row = kern[torch.float32]
+            entry.update(launches_serve=serve_launches[name],
+                         ms_serve=serve_row["ms"],
+                         bound_ms_serve=serve_row["bound_ms"],
+                         library_ms_serve=serve_row["library_ms"])
         summary.append(entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -80,6 +80,10 @@ def _qkv_views(b, lq, lk, h, d, dtype, device, gen):
     (2, 300, 300, 4, 64, False, True),
     (2, 200, 200, 2, 128, True, True),
     (1, 1, 77, 2, 64, True, False),
+    # a partial last key tile at each streamed tile size (32 keys in
+    # float32, 64 in bf16) and a partial q tile, at d=64 and d=128
+    (2, 77, 77, 4, 64, False, True),
+    (2, 77, 77, 2, 128, False, True),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, b, lq, lk, h, d,
                                             causal, bias):
@@ -193,11 +197,29 @@ def test_flash_backward_kernels_are_deterministic(cuda, dtype, causal):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_kernel_is_deterministic(cuda, dtype, causal):
+    """Each o row is summed by one block in a fixed order: two calls on
+    the same inputs agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, l, h, d = 2, 300, 4, 64
+    q, k, v = _qkv_views(b, l, l, h, d, dtype, cuda, gen)
+    kb = _padding_bias(b, l, cuda, gen)
+    first = ta.flash_forward_blhd(q, k, v, kb, causal)
+    second = ta.flash_forward_blhd(q, k, v, kb, causal)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq_kernel",
-                                    "flash_bwd_dkv_kernel"])
+                                    "flash_bwd_dkv_kernel",
+                                    "flash_fwd_kernel"])
 def test_flash_backward_kernels_run_on_the_tensor_cores(cuda, kernel):
     """Every instantiation (float32 and bf16, d = 64 and 128) of the
-    backward kernels holds tensor-core instructions in its SASS."""
+    flash kernels, the backward's and the forward's, holds tensor-core
+    instructions in its SASS."""
     _kernels.library()
     sass = _kernels.sass_opcode_counts(_kernels.BUILD_INFO["library"])
     found = {sym: n for sym, n in sass.items() if kernel in sym}
@@ -236,7 +258,8 @@ def test_flash_attention_autograd_runs_the_backward_kernels(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,keep", [(16384, 768, 0.9), (300, 128, 0.75),
-                                      (37, 1000, 0.5), (64, 64, 0.9)])
+                                      (37, 1000, 0.5), (64, 64, 0.9),
+                                      (301, 770, 0.8)])
 def test_dropout_layer_norm_kernels_match_plain_version(cuda, dtype, n, d,
                                                         keep):
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -266,6 +289,28 @@ def test_dropout_layer_norm_kernels_match_plain_version(cuda, dtype, n, d,
                          [ROW_SUM_TOL] * 2):
         assert g.shape == w.shape and g.dtype == w.dtype
         _close(g, w, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(16384, 768), (301, 770)])
+def test_dropout_layer_norm_backward_is_deterministic(cuda, dtype, n, d):
+    """dgamma/dbeta are summed in fixed orders (a warp's rows, the block's
+    warps, then the blocks), with no atomics: two calls on the same inputs
+    agree bit for bit, at the training shape (16-byte chunks) and at D off
+    the chunk (one value a chunk)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    r = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(d, device=cuda, generator=gen)
+    beta = 0.1 * torch.randn(d, device=cuda, generator=gen)
+    bits = tdln.draw_bits((n, d), gen, cuda)
+    _, z, mean, inv = tdln.dln_forward(x, r, bits, gamma, beta, 0.9)
+    dy = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    first = tdln.dln_backward(dy, z, bits, gamma, mean, inv, 0.9)
+    second = tdln.dln_backward(dy, z, bits, gamma, mean, inv, 0.9)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _small_classifier(l, hid, p_drop, seed):
