@@ -20,10 +20,20 @@ words. JAX splits its key the same way (embedding first, then per block
 attention / ln1 / ln2, ``call`` :650-666 and ``_block`` :386-393); the
 streams differ by design.
 
+KV-cache decoding (``init_decode_state``, ``prefill``, ``decode_step``,
+``decode_chunk``, ``lm_logits`` over ``ops/kv_cache.py``) keeps the JAX
+signatures less their ``params`` argument, since the layer owns its
+weights. ``prefill`` runs every block's attention through the causal
+flash route with a (B, 1, 1, Lp) -1e9 padding key bias, which on the GPU
+is the CUDA flash-attention forward kernel; the decode steps attend
+against the slabs in plain torch, as the JAX package does in ``jnp``.
+The decode methods run without autograd and write the state's slabs in
+place.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 sequence-parallel, data-parallel and pipeline-parallel (GPipe) branches
-(the multi-GPU slice), the MoE feed-forward (the layer-library slice), a
-custom ``embedding_layer``, and KV-cache decoding (the generation slice).
+(the multi-GPU slice), the MoE feed-forward (the layer-library slice) and
+a custom ``embedding_layer``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .....ops import kv_cache
 from .....ops.attention import flash_attention_blhd
 from .....ops.fused_dropout_ln import dropout_add_layer_norm
 from .....ops.layernorm import layer_norm
@@ -219,6 +230,138 @@ class TransformerLayer(KerasLayer):
         if self.output_all_block:
             return tuple(states) + (pooled,)
         return (x, pooled)
+
+    # -- KV-cache incremental decode (ops/kv_cache.py) -----------------
+    #
+    # The generative-serving path: prefill runs the prompt once through
+    # the causal flash route and stashes every block's projected K/V into
+    # preallocated slabs; decode_step then advances one token per call
+    # with O(S) cached attention. Decode is inference-only: no dropout,
+    # no autograd. The pipeline-parallel stacked-block layout the JAX
+    # method refuses cannot be built here (``build`` raises).
+
+    def _require_decode_layout(self):
+        if self.bidirectional:
+            raise ValueError(
+                "KV-cache decode needs a causal trunk; this layer was "
+                "built bidirectional (BERT-style)")
+
+    def init_decode_state(self, batch, capacity, dtype=torch.float32,
+                          rng=None):
+        """Preallocate (B, S, H, D) K/V slabs for every block on the
+        layer's device. ``dtype="int8"`` allocates quantized
+        ``Int8KVSlab`` slabs; the cache ops dequantize inside the
+        attention einsums, so prefill / decode_step / decode_chunk run
+        unchanged."""
+        return kv_cache.init_decode_state(
+            self.n_block, batch, capacity, self.n_head,
+            self.hidden_size // self.n_head, dtype=dtype, rng=rng,
+            device=self.tok_emb.device)
+
+    def lm_logits(self, x):
+        """Token logits via embedding weight tying: x @ tok_emb^T."""
+        return torch.matmul(x, self.tok_emb.T.to(x.dtype))
+
+    def _decode_block(self, p, x, attend):
+        """One block of a decode call: the fused QKV projection, the
+        given attention over (B, C, H, d) views, then the output
+        projection, the composed add + LN sites and the FFN."""
+        b, c, h = x.shape
+        nh = self.n_head
+        qkv = torch.matmul(x, p["qkv_w"].to(x.dtype)) + \
+            p["qkv_b"].to(x.dtype)
+        q, k, v = (t.reshape(b, c, nh, h // nh)
+                   for t in qkv.split(h, dim=-1))
+        o = attend(q, k, v)
+        a = torch.matmul(o.reshape(b, c, h), p["proj_w"].to(x.dtype)) + \
+            p["proj_b"].to(x.dtype)
+        n = dropout_add_layer_norm(a, x, p["ln1_g"], p["ln1_b"], None, 0.0,
+                                   False)
+        m = self._ffn(p, n, False)
+        return dropout_add_layer_norm(m, n, p["ln2_g"], p["ln2_b"], None,
+                                      0.0, False)
+
+    def _ids(self, t):
+        return torch.as_tensor(t, device=self.tok_emb.device).long()
+
+    @torch.no_grad()
+    def prefill(self, tokens, lengths, state):
+        """Fill the cache from padded prompts; return last-token logits.
+
+        tokens: (B, Lp) left-aligned prompt ids padded to a shared Lp;
+        lengths: (B,) true prompt lengths (the ragged tail is masked with
+        a key bias). Returns (logits (B, vocab), state)."""
+        self._require_decode_layout()
+        tokens = self._ids(tokens)
+        lengths = self._ids(lengths).to(torch.int32)
+        b, lp = tokens.shape
+        dev = tokens.device
+        x = self.tok_emb[tokens] + self.pos_emb[None, :lp]
+        # additive key bias over the padded tail, (B, 1, 1, Lp): the
+        # flash route takes it as a (B, Lp) key bias, exactly like BERT's
+        # attention_mask bias
+        kb = torch.where(torch.arange(lp, device=dev)[None, :] <
+                         lengths[:, None], 0.0, -1e9).to(torch.float32)
+        kb = kb[:, None, None, :]
+        for i in range(self.n_block):
+            def attend(q, k, v, i=i):
+                o = flash_attention_blhd(q, k, v, bias=kb, causal=True)
+                kv_cache.write_prompt(state.k_cache[i], k)
+                kv_cache.write_prompt(state.v_cache[i], v)
+                return o
+            x = self._decode_block(getattr(self, f"block{i}"), x, attend)
+        last = x[torch.arange(b, device=dev),
+                 (lengths.long() - 1).clamp_min(0)]
+        return self.lm_logits(last), state._replace(lengths=lengths)
+
+    @torch.no_grad()
+    def decode_step(self, state, tokens):
+        """Advance every slot one token: (B,) ids -> ((B, vocab), state).
+
+        Appends each slot's K/V row at its own write offset and attends
+        the single query row against the slab: O(S) per token, no
+        full-sequence recompute."""
+        self._require_decode_layout()
+        pos = state.lengths.clamp(max=self.seq_len - 1).long()
+        x = (self.tok_emb[self._ids(tokens)] + self.pos_emb[pos])[:, None]
+        for i in range(self.n_block):
+            def attend(q, k, v, i=i):
+                return kv_cache.cached_attention_step(
+                    q, k, v, state.k_cache[i], state.v_cache[i],
+                    state.lengths)[0]
+            x = self._decode_block(getattr(self, f"block{i}"), x, attend)
+        return self.lm_logits(x[:, 0]), \
+            state._replace(lengths=state.lengths + 1)
+
+    @torch.no_grad()
+    def decode_chunk(self, state, tokens, n_valid=None):
+        """Advance every slot C tokens in ONE rectangular attention step:
+        (B, C) ids -> ((B, C, vocab), state).
+
+        Chunked prefill feeds prompt slices (``n_valid`` (B,) masks a
+        ragged final chunk: lengths advance by n_valid and the tail rows
+        land above the watermark, never attended, overwritten by the next
+        write). Speculative verification feeds [last, draft_1..draft_k]
+        (C = k + 1): row i's logits score draft i+1, and rejected
+        suffixes roll back by plain ``lengths`` surgery. Row c embeds at
+        position ``lengths + c`` and attends slab keys ``<= lengths + c``
+        (``cached_attention_chunk``)."""
+        self._require_decode_layout()
+        tokens = self._ids(tokens)
+        c = tokens.shape[1]
+        if n_valid is not None:
+            n_valid = self._ids(n_valid).to(torch.int32)
+        pos = (state.lengths[:, None] + torch.arange(
+            c, device=tokens.device)[None, :]).clamp(max=self.seq_len - 1)
+        x = self.tok_emb[tokens] + self.pos_emb[pos]
+        for i in range(self.n_block):
+            def attend(q, k, v, i=i):
+                return kv_cache.cached_attention_chunk(
+                    q, k, v, state.k_cache[i], state.v_cache[i],
+                    state.lengths, n_valid=n_valid)[0]
+            x = self._decode_block(getattr(self, f"block{i}"), x, attend)
+        step = c if n_valid is None else n_valid
+        return self.lm_logits(x), state._replace(lengths=state.lengths + step)
 
     def compute_output_shape(self, input_shape):
         first = input_shape[0] if isinstance(input_shape, list) \

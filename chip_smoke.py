@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and generation paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -43,6 +43,23 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``torch.profiler`` device time by kernel group; and each
               kernel at the training shape beside its plain version, its
               bound and the PyTorch library call where there is one.
+7. generate -- a GPT-width ``TransformerLayer`` (GPT-1's 12 blocks, 768
+              wide, 12 heads, 512 positions, vocab 40990; weights from
+              ``--seed``) generates through ``ContinuousBatchScheduler``
+              over ``TransformerDecodeEngine``: 16 greedy requests of 48
+              tokens on 8 slots (every request committed once with 48
+              tokens; the flash forward launched 12 times a prefill and
+              nothing else; one request's prefill logits and first 16
+              tokens against the port's CPU run; tokens/s, TTFT, the
+              decode step at a full gang, peak memory); then 8 requests
+              of 24 tokens through chunked joins, prefix-cache hits, int8
+              slabs and speculative decoding with a 2-block draft, each
+              stream equal to the plain one (int8: agreement reported);
+              ``decode_chunk`` against repeated ``decode_step`` and the
+              cached-decode probe on the card; and the timing of prefill
+              (B=1 x 512, B=4 x 384; the flash forward there beside its
+              bound and SDPA) and of one decode step at a gang of 8 and
+              capacity 512 (wall, host enqueue, device busy and idle).
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -55,10 +72,12 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import copy
+import gc
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -69,6 +88,7 @@ from analytics_zoo_tpu_torch.common import init_nncontext
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import attention as attn
 from analytics_zoo_tpu_torch.ops import fused_dropout_ln as dln
+from analytics_zoo_tpu_torch.ops import kv_cache
 from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
 from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
 from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
@@ -76,6 +96,9 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     Adam, get_optimizer)
 from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+from analytics_zoo_tpu_torch.serving.generation import (
+    ContinuousBatchScheduler, GenRequest, PrefixCache,
+    SpeculativeDecodeEngine, TransformerDecodeEngine)
 
 # bench.py's BERT-base classifier (bench.py:353-438)
 BERT_CONFIG = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
@@ -279,14 +302,26 @@ def qkv_views(b, lq, lk, h, d, dtype, device, gen):
             v[:, :lk].reshape(b, lk, h, d))
 
 
-def key_bias(b, lk, padded: bool, device, gen):
+#: the key bias of a generation prefill (``TransformerLayer.prefill``)
+PREFILL_BIAS = "prefill -1e9"
+
+
+def key_bias(b, lk, padded, device, gen):
     """BERT's padding bias: noise on the kept keys and -10000 on a ragged
-    tail of padding keys per row; zeros when ``padded`` is false."""
+    tail of padding keys per row; zeros when ``padded`` is false. With
+    ``padded == PREFILL_BIAS``, a generation prefill's: 0 on each
+    prompt's keys and -1e9 past its seeded length, the longest row
+    unpadded."""
     if not padded:
         return torch.zeros(b, lk, device=device)
     kb = 0.5 * torch.randn(b, lk, device=device, generator=gen)
     lengths = torch.randint(1, lk + 1, (b,), device=device, generator=gen)
     keys = torch.arange(lk, device=device)[None, :]
+    if padded == PREFILL_BIAS:
+        lengths[0] = lk
+        kb = torch.zeros_like(kb)
+        return torch.where(keys < lengths[:, None], kb,
+                           torch.full_like(kb, -1e9))
     return torch.where(keys < lengths[:, None], kb,
                        torch.full_like(kb, -10000.0))
 
@@ -304,11 +339,16 @@ KERNEL_CASES = [
     # bf16, 32 in float32) and a partial q tile, at d=64 and d=128
     ("ragged_77", 2, 77, 77, 12, 64, False, True),
     ("ragged_77_d128", 2, 77, 77, 6, 128, False, True),
+    # a batched join's prefill: causal at a ragged length with the
+    # generation path's -1e9 padding bias
+    ("join_prefill_300", 4, 300, 300, 12, 64, True, PREFILL_BIAS),
 ]
-# the backward's cases: the forward's, less the serving shapes, plus
-# causal tile edges at d=128 and causal Lq < Lk with a wide offset
+# the backward's cases: the forward's, less the serving and generation
+# shapes, plus causal tile edges at d=128 and causal Lq < Lk with a wide
+# offset
 BWD_CASES = [c for c in KERNEL_CASES
-             if c[0] not in ("bert_base", "decode_row")] + [
+             if c[0] not in ("bert_base", "decode_row",
+                             "join_prefill_300")] + [
     ("causal_ragged_200_d128", 2, 200, 200, 6, 128, True, True),
     ("causal_64_lt_320", 2, 64, 320, 12, 64, True, True),
 ]
@@ -999,6 +1039,419 @@ def time_training(model, seed):
 
 
 # ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+# TransformerLayer's own defaults at the depth and context of GPT-1
+# ("openai-gpt"): 12 blocks, 768 wide, 12 heads of 64, 512 positions;
+# about 117 M parameters (469 MB in float32)
+GPT_CONFIG = dict(n_block=12, hidden_size=768, n_head=12, vocab=40990,
+                  seq_len=512, intermediate_size=3072)
+GEN_REQUESTS, GEN_SLOTS, GEN_NEW_TOKENS = 16, 8, 48
+GEN_MIN_PROMPT, GEN_MAX_PROMPT = 32, 384
+FAST_REQUESTS, FAST_NEW_TOKENS, FAST_CHUNK, SPEC_K = 8, 24, 64, 3
+DRAFT_BLOCKS = 2
+CPU_TOKENS = 16
+GEN_TIMEOUT_S = 300.0
+# the card's prefill logits against the port's CPU run: 12 blocks of f32
+# matmuls summed in another order (logits of scale ~1)
+GEN_CPU_TOL = 1e-3
+# decode_chunk against repeated decode_step on the card: the same f32
+# products at other row counts
+CHUNK_STEP_TOL = 1e-4
+TIMED_DECODE_STEPS = 20
+# (B, Lp) of the timed prefills: one long prompt alone, a batched join
+PREFILL_SHAPES = ((1, 512), (4, 384))
+
+
+class TimedSteps:
+    """An engine whose ``step`` calls are timed on the host clock (each
+    ends in the host transfer of its picks) with their gang width; every
+    other attribute is the engine's."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.steps = []
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def step(self, state, feeds, temps):
+        t0 = time.perf_counter()
+        out = self.engine.step(state, feeds, temps)
+        self.steps.append((len(feeds), time.perf_counter() - t0))
+        return out
+
+
+def gen_prompts(seed, n):
+    rs = np.random.default_rng(seed)
+    return [rs.integers(1, GPT_CONFIG["vocab"], size=int(m))
+            for m in rs.integers(GEN_MIN_PROMPT, GEN_MAX_PROMPT + 1, size=n)]
+
+
+def run_scheduler(engine, prompts, max_new_tokens, **kw):
+    """Start a ContinuousBatchScheduler over ``engine``, submit one greedy
+    request per prompt (made as it is submitted, so its TTFT starts
+    there), wait for every commit and stop. Checks that each request was
+    committed exactly once with ``max_new_tokens`` tokens. Returns
+    (payloads by uri, the scheduler, wall seconds)."""
+    out, commits, lock = {}, {}, threading.Lock()
+    done = threading.Event()
+
+    def commit(uri, payload):
+        with lock:
+            commits[uri] = commits.get(uri, 0) + 1
+            out[uri] = payload
+            if len(out) == len(prompts):
+                done.set()
+
+    sched = ContinuousBatchScheduler(engine, commit, **kw).start()
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        sched.submit(GenRequest(uri=f"g{i}", prompt=prompt,
+                                max_new_tokens=max_new_tokens))
+    # wait without polling: a waking thread would take the interpreter
+    # lock from the scheduler thread's eager enqueue
+    while not done.wait(1.0):
+        if not sched._thread.is_alive():
+            raise AssertionError("the scheduler thread stopped early")
+        if time.perf_counter() - t0 > GEN_TIMEOUT_S:
+            raise AssertionError(f"{len(out)} of {len(prompts)} requests "
+                                 f"committed in {GEN_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    sched.stop(drain=True, timeout=60)
+    bad = {u: (p.get("finish"), len(p.get("tokens", ())))
+           for u, p in out.items()
+           if p.get("finish") != "max_new_tokens" or
+           len(p["tokens"]) != max_new_tokens}
+    if bad or any(n != 1 for n in commits.values()) or \
+            sched.counts["duplicate_commits"] or \
+            sched.counts["committed"] != len(prompts):
+        raise AssertionError(f"commits {commits}, bad payloads {bad}, "
+                             f"counts {sched.counts}")
+    return out, sched, wall
+
+
+def greedy_reference(layer, prompt, n_tokens):
+    """The greedy stream of one prompt through batch-1 prefill and
+    decode_step, with each step's logits: (tokens, [logits rows])."""
+    dev = layer.tok_emb.device
+    state = layer.init_decode_state(1, GPT_CONFIG["seq_len"])
+    logits, state = layer.prefill(torch.as_tensor(prompt[None], device=dev),
+                                  torch.tensor([prompt.size], device=dev),
+                                  state)
+    tokens, rows = [], []
+    for _ in range(n_tokens):
+        rows.append(logits[0].float().cpu())
+        tokens.append(int(torch.argmax(logits[0])))
+        logits, state = layer.decode_step(
+            state, torch.tensor([tokens[-1]], device=dev))
+    return tokens, rows
+
+
+def check_streams(name, layer, prompts, got, want):
+    """Greedy streams ``got`` equal ``want`` (dicts by uri). At the first
+    difference it emits the position and the plain step's top-2 logit gap
+    there (from ``layer`` on the card), then fails."""
+    for i, prompt in enumerate(prompts):
+        uri = f"g{i}"
+        a, b = got[uri], want[uri]
+        if a == b:
+            continue
+        pos = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+        _, rows = greedy_reference(layer, prompt, pos + 1)
+        top2 = torch.topk(rows[pos], 2).values
+        emit("generate", check=name, request=uri, ok=False,
+             first_difference=pos, got=a[pos:pos + 1], want=b[pos:pos + 1],
+             plain_top2_logit_gap=(top2[0] - top2[1]).item())
+        raise AssertionError(f"{name}: {uri} differs at token {pos}")
+
+
+def build_decoder(seed, config=None):
+    config = config or GPT_CONFIG
+    layer = L.TransformerLayer(**config)
+    layer.build_params(torch.Generator().manual_seed(seed),
+                       (None, config["seq_len"]))
+    return layer.eval()
+
+
+def draft_of(target):
+    """A DRAFT_BLOCKS-block TransformerLayer of the target's width that
+    carries its embeddings and first blocks."""
+    draft = build_decoder(0, dict(GPT_CONFIG, n_block=DRAFT_BLOCKS))
+    weights = target.state_dict()
+    draft.load_state_dict({k: weights[k] for k in draft.state_dict()})
+    return draft
+
+
+def flash_causal_bound_ms(b, l, h, d, dtype):
+    """The least time for one causal flash forward at Lq = Lk = l: the
+    operands read and o and lse written once over the memory rate; the
+    two products over the l(l+1)/2 visible (query, key) pairs over the
+    dtype's peak."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * b * l * h * d * esize + 4 * b * l + 4 * b * h * l
+    return bound_ms(nbytes, 4 * b * h * d * l * (l + 1) // 2,
+                    PEAK_FLOPS[dtype])
+
+
+def time_prefill_kernel(device, seed, b, l):
+    """K1 at a prefill shape, causal with the -1e9 padding bias, float32:
+    its device time per launch, the plain version's and SDPA's (the bias
+    and the causal mask folded into one float mask) device time per call,
+    and its bound."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = GPT_CONFIG["n_head"]
+    d = GPT_CONFIG["hidden_size"] // h
+    q, k, v = qkv_views(b, l, l, h, d, torch.float32, device, gen)
+    kb = key_bias(b, l, PREFILL_BIAS, device, gen)
+    scale = 1.0 / math.sqrt(d)
+    causal = torch.ones(l, l, dtype=torch.bool, device=device).tril()
+    mask = torch.where(causal, kb[:, None, None, :],
+                       torch.full((), -math.inf, device=device))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fwd = lambda: attn.flash_forward_blhd(q, k, v, kb, True)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask,
+                                                  scale=scale)
+    bound, bound_by = flash_causal_bound_ms(b, l, h, d, torch.float32)
+    return dict(shape=dict(B=b, L=l, H=h, d=d), causal=True,
+                key_bias=PREFILL_BIAS,
+                ms=kernel_ms(fwd, ["flash_fwd_kernel"])["flash_fwd_kernel"],
+                plain_ms=device_ms(lambda: attn.flash_forward_reference(
+                    q, k, v, kb, True, scale)),
+                library_ms=device_ms(sdpa), library="SDPA, float mask",
+                bound_ms=bound, bound_by=bound_by)
+
+
+def generate_main_run(layer, seed, device, smi):
+    """The main run: GEN_REQUESTS greedy requests through the scheduler
+    on GEN_SLOTS slots, with the launches read around it; then the first
+    request against the port's CPU run. Returns K1's launches."""
+    t0 = time.perf_counter()
+    cpu_layer = copy.deepcopy(layer)
+    engine = TimedSteps(TransformerDecodeEngine(layer))
+    if engine.device != device:
+        raise AssertionError(f"the engine chose {engine.device}")
+    setup_s = time.perf_counter() - t0
+    # warm-up: one short request, so the main run's first join does not
+    # pay for first-call set-up
+    run_scheduler(engine, gen_prompts(seed + 6, 1), 4, max_slots=GEN_SLOTS)
+    engine.steps.clear()
+
+    prompts = gen_prompts(seed + 7, GEN_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls0 = engine.prefill_calls
+    _kernels.LAUNCHES.reset()
+    out, sched, wall = run_scheduler(engine, prompts, GEN_NEW_TOKENS,
+                                     max_slots=GEN_SLOTS, prefill_chunk=0)
+    launches = _kernels.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    prefill_calls = engine.prefill_calls - calls0
+    expected = {attn.KERNEL_NAME: GPT_CONFIG["n_block"] * prefill_calls}
+    if launches != expected:
+        raise AssertionError(f"generate launches {launches}, expected "
+                             f"{expected} ({prefill_calls} prefills)")
+    ttft = [p["timing"]["ttft_ms"] for p in out.values()]
+    full_gang = [dt for n, dt in engine.steps if n == GEN_SLOTS]
+    first = out["g0"]["tokens"][:CPU_TOKENS]
+
+    # the first request against the port's CPU run: prefill logits and
+    # the first CPU_TOKENS greedy tokens
+    _, card_rows = greedy_reference(layer, prompts[0], 1)
+    launches_cpu = _kernels.LAUNCHES.snapshot()
+    cpu_tokens, cpu_rows = greedy_reference(cpu_layer, prompts[0],
+                                            CPU_TOKENS)
+    if _kernels.LAUNCHES.snapshot() != launches_cpu:
+        raise AssertionError("the CPU run launched a kernel")
+    cpu_err = (card_rows[0] - cpu_rows[0]).abs().max().item()
+    emit("generate", check="main run",
+         model="TransformerLayer, GPT-1 (openai-gpt) depth and context",
+         config=GPT_CONFIG, seed=seed + 5, setup_s=setup_s,
+         requests=GEN_REQUESTS, max_slots=GEN_SLOTS,
+         max_new_tokens=GEN_NEW_TOKENS,
+         prompt_lengths=[int(p.size) for p in prompts],
+         prefill_calls=prefill_calls, launches=launches,
+         launches_expected=expected, joins=sched.counts["joins"],
+         capacity=sched.stats()["capacity"], wall_s=wall,
+         tokens_per_s=GEN_REQUESTS * GEN_NEW_TOKENS / wall,
+         ttft_p50_ms=percentile(ttft, 50), ttft_p95_ms=percentile(ttft, 95),
+         decode_steps=len(engine.steps), full_gang_steps=len(full_gang),
+         decode_step_full_gang_p50_ms=1e3 * percentile(full_gang, 50),
+         peak_memory_bytes=peak, cpu_prefill_logits_max_abs_err=cpu_err,
+         cpu_tol=GEN_CPU_TOL, cpu_tokens=cpu_tokens, card_tokens=first,
+         card=smi)
+    if cpu_err > GEN_CPU_TOL:
+        raise AssertionError(f"prefill logits differ from the CPU run by "
+                             f"{cpu_err} (tol {GEN_CPU_TOL})")
+    check_streams("card against CPU", layer, prompts[:1], {"g0": first},
+                  {"g0": cpu_tokens})
+    return launches[attn.KERNEL_NAME]
+
+
+def generate_fast_path(layer, seed):
+    """FAST_REQUESTS requests on the same weights through the plain
+    engine, then chunked joins with a prefix cache (and two repeated
+    prompts that must hit), int8 slabs and speculative decoding."""
+    prompts = gen_prompts(seed + 8, FAST_REQUESTS)
+    kw = dict(max_slots=GEN_SLOTS)
+    ref, _, _ = run_scheduler(TransformerDecodeEngine(layer), prompts,
+                              FAST_NEW_TOKENS, prefill_chunk=0, **kw)
+    ref = {u: p["tokens"] for u, p in ref.items()}
+    # chunked joins and the prefix cache
+    cache = PrefixCache(max_bytes=1 << 31)
+    eng = TransformerDecodeEngine(layer, prefix_cache=cache)
+    chunked, _, _ = run_scheduler(eng, prompts, FAST_NEW_TOKENS,
+                                  prefill_chunk=FAST_CHUNK, **kw)
+    chunked = {u: p["tokens"] for u, p in chunked.items()}
+    check_streams("chunked joins", layer, prompts, chunked, ref)
+    chunk_calls = eng.prefill_calls
+    repeat = [prompts[0], prompts[-1]]
+    hits, _, _ = run_scheduler(eng, repeat, FAST_NEW_TOKENS,
+                               prefill_chunk=FAST_CHUNK, **kw)
+    if eng.prefill_calls != chunk_calls or cache.hits != 2:
+        raise AssertionError(f"prefix-cache hits ran prefills: "
+                             f"{eng.prefill_calls} != {chunk_calls}, "
+                             f"{cache.stats()}")
+    check_streams("prefix-cache hits", layer, repeat,
+                  {u: p["tokens"] for u, p in hits.items()},
+                  {"g0": chunked["g0"], "g1": chunked[f"g{len(prompts)-1}"]})
+    # int8 slabs: (1 + 4/d)/4 of the f32 bytes
+    eng8 = TransformerDecodeEngine(layer, kv_dtype="int8")
+    int8, _, _ = run_scheduler(eng8, prompts, FAST_NEW_TOKENS, **kw)
+    cap = GPT_CONFIG["seq_len"]
+    bytes8 = kv_cache.kv_slab_bytes(eng8.alloc(GEN_SLOTS, cap))
+    bytes32 = kv_cache.kv_slab_bytes(eng.alloc(GEN_SLOTS, cap))
+    d = GPT_CONFIG["hidden_size"] // GPT_CONFIG["n_head"]
+    if bytes8 * 4 * d != bytes32 * (d + 4):
+        raise AssertionError(f"int8 slabs {bytes8} B vs f32 {bytes32} B")
+    agree = np.mean([a == b for u in ref
+                     for a, b in zip(int8[u]["tokens"], ref[u])])
+    # speculative decoding with a draft of the target's first blocks
+    spec = SpeculativeDecodeEngine(TransformerDecodeEngine(layer),
+                                   TransformerDecodeEngine(draft_of(layer)),
+                                   k=SPEC_K)
+    spec_out, _, spec_wall = run_scheduler(spec, prompts, FAST_NEW_TOKENS,
+                                           prefill_chunk=FAST_CHUNK, **kw)
+    check_streams("speculative", layer, prompts,
+                  {u: p["tokens"] for u, p in spec_out.items()}, ref)
+    emit("generate", check="fast path", requests=FAST_REQUESTS,
+         max_new_tokens=FAST_NEW_TOKENS, prefill_chunk=FAST_CHUNK,
+         prompt_lengths=[int(p.size) for p in prompts],
+         chunked_equal_plain=True, chunked_prefill_calls=chunk_calls,
+         prefix_cache=cache.stats(), prefix_hits_equal_misses=True,
+         int8_slab_bytes=bytes8, f32_slab_bytes=bytes32,
+         int8_bytes_ratio=bytes8 / bytes32, int8_token_agreement=agree,
+         speculative_equal_plain=True, speculative=spec.stats(),
+         speculative_wall_s=spec_wall)
+
+
+def check_chunk_on_card(layer, seed, device):
+    """On a gang of GEN_SLOTS prompts prefilled at capacity 512:
+    ``decode_chunk`` over 4 tokens against 4 ``decode_step`` calls, and
+    the cached-decode probe of both. Returns the state and the fed
+    tokens."""
+    prompts = gen_prompts(seed + 9, GEN_SLOTS)
+    cap = GPT_CONFIG["seq_len"]
+    toks = np.zeros((GEN_SLOTS, max(p.size for p in prompts)), np.int64)
+    for j, p in enumerate(prompts):
+        toks[j, :p.size] = p
+    lens = torch.tensor([p.size for p in prompts], dtype=torch.int32,
+                        device=device)
+    _, state = layer.prefill(torch.from_numpy(toks).to(device), lens,
+                             layer.init_decode_state(GEN_SLOTS, cap))
+    feed = torch.randint(1, GPT_CONFIG["vocab"], (GEN_SLOTS, 4),
+                         generator=torch.Generator().manual_seed(seed))
+    feed = feed.to(device)
+    cached = {
+        "decode_step": kv_cache.decode_step_is_cached(
+            layer.decode_step, state.clone(), feed[:, 0], capacity=cap),
+        "decode_chunk": kv_cache.decode_step_is_cached(
+            layer.decode_chunk, state.clone(), feed, capacity=cap)}
+    chunk_logits, _ = layer.decode_chunk(state.clone(), feed)
+    st = state.clone()
+    errs, same = [], True
+    for c in range(feed.shape[1]):
+        step_logits, st = layer.decode_step(st, feed[:, c])
+        errs.append((step_logits - chunk_logits[:, c]).abs().max().item())
+        same &= torch.equal(step_logits.argmax(-1),
+                            chunk_logits[:, c].argmax(-1))
+    emit("generate", check="on the card", gang=GEN_SLOTS, capacity=cap,
+         chunk=feed.shape[1], chunk_vs_step_max_abs_err=max(errs),
+         tol=CHUNK_STEP_TOL, greedy_equal=same, decode_step_is_cached=cached)
+    if max(errs) > CHUNK_STEP_TOL or not same or not all(cached.values()):
+        raise AssertionError(f"chunk vs step {errs}, greedy {same}, "
+                             f"cached {cached}")
+    return state, feed
+
+
+def time_generation(layer, state, tok, seed, device, smi):
+    """Prefill at PREFILL_SHAPES (host wall, device time by kernel group,
+    K1 there) and one decode step on ``state`` (wall, host enqueue,
+    device busy and idle share, its byte bound). Returns K1's timing at
+    the last prefill shape."""
+    cap = GPT_CONFIG["seq_len"]
+    prefill = {}
+    for b, l in PREFILL_SHAPES:
+        ptoks = torch.randint(1, GPT_CONFIG["vocab"], (b, l),
+                              generator=torch.Generator().manual_seed(l))
+        ptoks = ptoks.to(device)
+        plens = torch.full((b,), l, dtype=torch.int32, device=device)
+        pstate = layer.init_decode_state(b, cap)
+        fn = lambda: layer.prefill(ptoks, plens, pstate)
+        walls = []
+        for _ in range(6):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        prefill[f"B={b},L={l}"] = dict(
+            wall_p50_ms=1e3 * percentile(walls[1:], 50),
+            profile=profile_device(fn),
+            k1=time_prefill_kernel(device, seed + l, b, l))
+    enqueue, walls = [], []
+    for _ in range(TIMED_DECODE_STEPS):
+        t1 = time.perf_counter()
+        _, state = layer.decode_step(state, tok)
+        enqueue.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    weight_bytes = sum(int(p.nbytes) for p in layer.parameters())
+    slab_bytes = kv_cache.kv_slab_bytes(state)
+    step_bound, step_bound_by = bound_ms(
+        weight_bytes + slab_bytes,
+        2 * GEN_SLOTS * sum(p.numel() for p in layer.parameters()),
+        CUDA_CORE_F32_FLOPS)
+    emit("timing", path="generate", card=smi, prefill=prefill,
+         decode_step=dict(
+             gang=GEN_SLOTS, capacity=cap,
+             lengths=state.lengths.tolist(),
+             wall_p50_ms=1e3 * percentile(walls, 50),
+             enqueue_p50_ms=1e3 * percentile(enqueue, 50),
+             weight_bytes=weight_bytes, slab_bytes=slab_bytes,
+             bound_ms=step_bound, bound_by=step_bound_by,
+             profile=profile_device(lambda: layer.decode_step(state, tok))),
+         clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                           "temperature.gpu"))
+    b, l = PREFILL_SHAPES[-1]
+    return prefill[f"B={b},L={l}"]["k1"]
+
+
+def generate(seed, device, smi):
+    """The generate phase on a GPT-width decoder from ``seed``: the main
+    run, the fast path, the on-card checks and the timing. Returns K1's
+    launches in the main run and its timing at the join prefill shape."""
+    layer = build_decoder(seed + 5)
+    launches = generate_main_run(layer, seed, device, smi)
+    generate_fast_path(layer, seed)
+    state, feed = check_chunk_on_card(layer, seed, device)
+    return launches, time_generation(layer, state, feed[:, 0], seed,
+                                     device, smi)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1111,6 +1564,13 @@ def main(argv=None):
                                               D=DLN_SHAPE[1]),
              kernels=rows)
 
+    # 7. generate, after the served and trained models' memory is freed
+    # (their graphs hold reference cycles, so collect them first)
+    del trained, im, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen_launches, prefill_k1 = generate(args.seed, dev, smi)
+
     f32 = train_kern[torch.float32]
     errs = {attn.KERNEL_NAME: fwd_err[torch.float32],
             attn.DQ_KERNEL_NAME: bwd_err[torch.float32]["dq"],
@@ -1131,7 +1591,11 @@ def main(argv=None):
             entry.update(launches_serve=serve_launches[name],
                          ms_serve=serve_row["ms"],
                          bound_ms_serve=serve_row["bound_ms"],
-                         library_ms_serve=serve_row["library_ms"])
+                         library_ms_serve=serve_row["library_ms"],
+                         launches_generate=gen_launches,
+                         ms_prefill=prefill_k1["ms"],
+                         bound_ms_prefill=prefill_k1["bound_ms"],
+                         library_ms_prefill=prefill_k1["library_ms"])
         summary.append(entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

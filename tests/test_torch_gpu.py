@@ -403,3 +403,134 @@ def test_bert_fit_with_dropout_runs_every_training_kernel(cuda):
                 assert p.grad.abs().max() > 0, name
     finally:
         tnn.set_nncontext(None)
+
+
+def _small_decoder(seed):
+    """A causal TransformerLayer (head dim 64) with seeded weights."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import \
+        TransformerLayer
+
+    layer = TransformerLayer(n_block=2, hidden_size=128, n_head=2, vocab=97,
+                             seq_len=128)
+    layer.build_params(torch.Generator().manual_seed(seed), (None, 128))
+    return layer.eval()
+
+
+def test_prefill_on_the_card_matches_the_cpu(cuda):
+    """``prefill`` of a ragged batch on the card (the flash forward kernel,
+    causal with the -1e9 padding bias, one launch a block) against the
+    same weights on the CPU: logits within 1e-4, slabs within 1e-5."""
+    import copy
+
+    layer = _small_decoder(0)
+    cpu_layer = copy.deepcopy(layer)
+    layer.to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(1, 97, (3, 77), generator=gen)
+    lengths = torch.tensor([77, 30, 5], dtype=torch.int32)
+    want, want_state = cpu_layer.prefill(tokens, lengths,
+                                         cpu_layer.init_decode_state(3, 128))
+    _kernels.LAUNCHES.reset()
+    got, state = layer.prefill(tokens.to(cuda), lengths.to(cuda),
+                               layer.init_decode_state(3, 128))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES.snapshot() == {ta.KERNEL_NAME: 2}
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+    for a, b in zip(state.k_cache + state.v_cache,
+                    want_state.k_cache + want_state.v_cache):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, "int8"])
+def test_decode_chunk_matches_decode_step_on_the_card(cuda, kv_dtype):
+    """C tokens through one ``decode_chunk`` against C ``decode_step``
+    calls from the same cached state, on the card: logits within 1e-4 and
+    the same greedy tokens; and neither runs an (S, S) contraction."""
+    from analytics_zoo_tpu_torch.ops import kv_cache
+
+    layer = _small_decoder(2).to(cuda)
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(1, 97, (4, 40), generator=gen).to(cuda)
+    lengths = torch.tensor([40, 12, 33, 1], dtype=torch.int32).to(cuda)
+    _, state = layer.prefill(tokens, lengths,
+                             layer.init_decode_state(4, 128, dtype=kv_dtype))
+    feed = torch.randint(1, 97, (4, 6), generator=gen).to(cuda)
+    assert kv_cache.decode_step_is_cached(layer.decode_step, state.clone(),
+                                          feed[:, 0], capacity=128)
+    assert kv_cache.decode_step_is_cached(layer.decode_chunk, state.clone(),
+                                          feed, capacity=128)
+    chunk, _ = layer.decode_chunk(state.clone(), feed)
+    for c in range(feed.shape[1]):
+        step, state = layer.decode_step(state, feed[:, c])
+        assert (step - chunk[:, c]).abs().max().item() <= 1e-4
+        assert torch.equal(step.argmax(-1), chunk[:, c].argmax(-1))
+
+
+def _moving_decoder(n_block, seed):
+    """A small causal TransformerLayer whose greedy streams move (the
+    layer's own 0.02 init makes a tied-embedding model repeat its input
+    token): embeddings N(0, 0.3), matrices N(0, 2/sqrt(fan_in)), LN gains
+    1 + N(0, 0.1), biases N(0, 0.1)."""
+    layer = _small_decoder(seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            noise = torch.randn(p.shape, generator=gen)
+            if p.dim() == 2:
+                p.copy_(noise * (0.3 if "emb" in name
+                                 else 2.0 / math.sqrt(p.shape[0])))
+            elif name.endswith("_g"):
+                p.copy_(1.0 + 0.1 * noise)
+            else:
+                p.copy_(0.1 * noise)
+    if n_block == layer.n_block:
+        return layer
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import \
+        TransformerLayer
+
+    draft = TransformerLayer(n_block=n_block, hidden_size=128, n_head=2,
+                             vocab=97, seq_len=128)
+    draft.build_params(torch.Generator().manual_seed(seed), (None, 128))
+    weights = layer.state_dict()
+    draft.load_state_dict({k: weights[k] for k in draft.state_dict()})
+    return draft.eval()
+
+
+def test_fast_path_streams_equal_plain_on_the_card(cuda):
+    """On the card, with weights whose greedy streams move: chunked joins
+    and a speculative engine with a 1-block draft (so some drafts are
+    rejected and rolled back) give the plain engine's greedy streams."""
+    import time
+
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.serving import generation as tgen
+
+    def drive(engine, **kw):
+        out = {}
+        sched = tgen.ContinuousBatchScheduler(
+            engine, lambda uri, p: out.__setitem__(uri, p), max_slots=3,
+            **kw)
+        rs = np.random.RandomState(7)
+        for i, n in enumerate((5, 40, 90, 17)):
+            sched.submit(tgen.GenRequest(uri=f"r{i}",
+                                         prompt=rs.randint(1, 97, size=n),
+                                         max_new_tokens=12))
+        sched.start()
+        t0 = time.perf_counter()
+        while len(out) < 4 and time.perf_counter() - t0 < 120:
+            time.sleep(0.01)
+        sched.stop(drain=True, timeout=120)
+        return {u: p["tokens"] for u, p in out.items()}
+
+    target = _moving_decoder(2, 4)
+    plain = drive(tgen.TransformerDecodeEngine(target, device=cuda))
+    assert len(plain) == 4 and len(set(plain["r2"])) > 1
+    assert drive(tgen.TransformerDecodeEngine(target, device=cuda),
+                 prefill_chunk=16) == plain
+    spec = tgen.SpeculativeDecodeEngine(
+        tgen.TransformerDecodeEngine(target, device=cuda),
+        tgen.TransformerDecodeEngine(_moving_decoder(1, 4), device=cuda),
+        k=3)
+    assert drive(spec) == plain
+    assert 0.0 < spec.acceptance_rate < 1.0
