@@ -5,16 +5,24 @@ The JAX package stays beside it as the reference; each module here keeps
 its counterpart's subpackage and module name. This package imports
 ``torch`` and never ``jax`` or ``analytics_zoo_tpu``.
 
-Package map (the part ported so far: serving and training a Keras model):
-  common/     context: config and the device the entry points run on; the
-              trigger algebra
-  feature/    ``FeatureSet``: in-memory arrays batched in the JAX order
+Package map (the part ported so far: serving, training in float32 or
+bf16, and generating with Keras-style models):
+  common/     context: config (``compute_dtype`` among it) and the device
+              the entry points run on; the trigger algebra
+  feature/    ``Sample``, ``FeatureSet``: in-memory arrays batched in the
+              JAX order
+  models/     ``ZooModel``; the recommenders ``NeuralCF`` and
+              ``WideAndDeep``
   ops/        attention (hand-written CUDA flash-attention forward and
               backward under ``ops/csrc``), layer norm, dropout + residual
-              + layer norm (hand-written CUDA forward and backward)
-  pipeline/   keras-style graph, layers, ``Model`` with ``compile``/
-              ``fit``/``evaluate``/``predict``, losses, metrics,
-              optimizers, the training engine, and ``InferenceModel``
+              + layer norm (hand-written CUDA forward and backward), the
+              KV cache
+  pipeline/   keras-style graph, layers, ``Model`` and ``Sequential`` with
+              ``compile``/``fit``/``evaluate``/``predict``, losses,
+              metrics, optimizers, the training engine, and
+              ``InferenceModel``
+  serving/    generation: decode engines and the continuous-batching
+              scheduler
   utils/      ``load_jax_params``: copy a JAX model's weights into the port
 """
 

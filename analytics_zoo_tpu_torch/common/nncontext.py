@@ -39,20 +39,45 @@ class ZooConfig:
     # microbatches per optimizer step; the port's trainer takes 1 only and
     # refuses more (gradient accumulation is not ported yet)
     grad_accum_steps: int = 1
+    # the dtype of a model's forward and backward when the model sets none
+    # (``KerasNet.set_compute_dtype``): "bfloat16" (or "bf16") casts the
+    # floating parameters and inputs inside the step; the parameters and
+    # the optimizer state stay float32
+    compute_dtype: str = "float32"
 
     @classmethod
     def from_env(cls, **overrides):
+        """The config with each ``ZOO_TPU_<FIELD>`` variable parsed by the
+        field's type: int, float, bool (1/true/yes/on, 0/false/no/off) or
+        str."""
         cfg = cls(**overrides)
         for f in dataclasses.fields(cls):
             env = os.environ.get("ZOO_TPU_" + f.name.upper())
             if env is None:
                 continue
             try:
-                setattr(cfg, f.name, int(env))
+                setattr(cfg, f.name, _parse(f.type, env))
             except ValueError as e:
                 raise ValueError(f"bad value for ZOO_TPU_{f.name.upper()}: "
                                  f"{env!r}") from e
         return cfg
+
+
+def _parse(field_type, env: str):
+    """``env`` as a value of the dataclass field type ``field_type`` (a
+    type or, under postponed annotations, its name)."""
+    if field_type in ("int", int):
+        return int(env)
+    if field_type in ("float", float):
+        return float(env)
+    if field_type in ("bool", bool):
+        low = env.strip().lower()
+        if low in ("1", "true", "yes", "on"):
+            return True
+        if low in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"not a boolean: {env!r}")
+    return env
 
 
 def _resolve_device(device) -> torch.device:

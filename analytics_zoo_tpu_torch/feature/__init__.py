@@ -1,3 +1,5 @@
-from .feature_set import ArrayFeatureSet, FeatureSet, MiniBatch
+from .feature_set import (ArrayFeatureSet, FeatureSet, MiniBatch, Sample,
+                          stack_samples)
 
-__all__ = ["ArrayFeatureSet", "FeatureSet", "MiniBatch"]
+__all__ = ["ArrayFeatureSet", "FeatureSet", "MiniBatch", "Sample",
+           "stack_samples"]

@@ -1,8 +1,10 @@
 """FeatureSet: the train-time dataset abstraction.
 
-Counterpart of ``analytics_zoo_tpu/feature/feature_set.py``; so far only
-what ``Model.fit``/``evaluate`` read: :class:`MiniBatch`, the
-:class:`FeatureSet` base and the in-memory :class:`ArrayFeatureSet`.
+Counterpart of ``analytics_zoo_tpu/feature/feature_set.py``; so far
+what ``Model.fit``/``evaluate``/``predict`` and the recommenders read:
+:class:`Sample` and :func:`stack_samples`, :class:`MiniBatch`, the
+:class:`FeatureSet` base (with ``FeatureSet.samples``) and the in-memory
+:class:`ArrayFeatureSet`.
 Batches are host numpy; the trainer copies each to the device. The epoch
 order is the JAX package's exactly (``np.random.default_rng(seed)``
 shuffles the row indices), so the same seed feeds both packages the same
@@ -11,9 +13,45 @@ rows in the same batches.
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Sequence
 
 import numpy as np
+
+
+class Sample:
+    """One (features, labels) record; mirrors BigDL ``Sample`` marshalled
+    via JTensor (pyzoo/zoo/common/utils.py:75)."""
+
+    def __init__(self, features, labels=None):
+        self.features = _as_list(features)
+        self.labels = _as_list(labels) if labels is not None else None
+
+    @staticmethod
+    def from_ndarray(features, labels=None):
+        return Sample(features, labels)
+
+
+def _as_list(x):
+    if isinstance(x, (list, tuple)):
+        return [np.asarray(v) for v in x]
+    return [np.asarray(x)]
+
+
+def stack_samples(samples: Sequence[Sample]):
+    """Stack Samples into (features tuple, labels): labels None, one
+    array, or a list of arrays."""
+    samples = list(samples)
+    if not samples:
+        raise ValueError("empty sample collection")
+    n_feat = len(samples[0].features)
+    feats = tuple(np.stack([s.features[i] for s in samples])
+                  for i in range(n_feat))
+    labels = None
+    if samples[0].labels is not None:
+        labs = [np.stack([s.labels[i] for s in samples])
+                for i in range(len(samples[0].labels))]
+        labels = labs[0] if len(labs) == 1 else labs
+    return feats, labels
 
 
 class MiniBatch(tuple):
@@ -49,6 +87,12 @@ class FeatureSet:
                 drop_remainder: bool = True, pad_remainder: bool = False,
                 seed: int = 0) -> Iterator[MiniBatch]:
         raise NotImplementedError
+
+    @staticmethod
+    def samples(samples: Sequence[Sample]) -> "ArrayFeatureSet":
+        feats, labels = stack_samples(samples)
+        return ArrayFeatureSet(
+            list(feats) if len(feats) > 1 else feats[0], labels)
 
 
 class ArrayFeatureSet(FeatureSet):

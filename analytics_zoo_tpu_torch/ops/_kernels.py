@@ -37,15 +37,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 class LaunchCounter:
     """Thread-safe launch counts by kernel name (serving threads launch
-    concurrently, and a lost increment would break the launch check)."""
+    concurrently, and a lost increment would break the launch check), and
+    by kernel name and the dtype of the tensors each launch was given
+    (:meth:`by_dtype`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = {}
+        self._by_dtype: Dict[str, Dict[str, int]] = {}
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, dtype: "torch.dtype") -> None:
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + 1
+            key = str(dtype).replace("torch.", "")
+            per = self._by_dtype.setdefault(name, {})
+            per[key] = per.get(key, 0) + 1
+
+    def by_dtype(self) -> Dict[str, Dict[str, int]]:
+        """{kernel name: {dtype name: launches}} since the last reset."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._by_dtype.items()}
 
     def get(self, name: str) -> int:
         with self._lock:
@@ -54,6 +65,7 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._counts.clear()
+            self._by_dtype.clear()
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:

@@ -249,7 +249,7 @@ def _launch_forward(q, k, v, kbias, causal, sm_scale):
             o.stride(0), o.stride(1), o.stride(2),
             kbias.stride(0), stream)
     _kernels.check(err, KERNEL_NAME)
-    _kernels.LAUNCHES.add(KERNEL_NAME)
+    _kernels.LAUNCHES.add(KERNEL_NAME, q.dtype)
     return o, lse
 
 
@@ -360,11 +360,11 @@ def flash_backward_blhd(q, k, v, kbias, o, lse, do, causal=False,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.zoo_flash_bwd_dq(*args, dq.data_ptr(), *dims, stream)
         _kernels.check(err, DQ_KERNEL_NAME)
-        _kernels.LAUNCHES.add(DQ_KERNEL_NAME)
+        _kernels.LAUNCHES.add(DQ_KERNEL_NAME, q.dtype)
         err = lib.zoo_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(),
                                     db.data_ptr(), *dims, stream)
         _kernels.check(err, DKV_KERNEL_NAME)
-        _kernels.LAUNCHES.add(DKV_KERNEL_NAME)
+        _kernels.LAUNCHES.add(DKV_KERNEL_NAME, q.dtype)
     return dq, dk, dv, db.reshape(b, h, lk).sum(dim=1)
 
 

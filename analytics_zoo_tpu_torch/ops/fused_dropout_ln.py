@@ -154,7 +154,7 @@ def dln_forward(x2, r2, bits2, gamma, beta, keep, eps=1e-5):
             inv.data_ptr(), n, d, KERNEL_DTYPES.index(x2.dtype),
             _thresh(keep), float(1.0 / keep), float(eps), stream)
     _kernels.check(err, FWD_KERNEL_NAME)
-    _kernels.LAUNCHES.add(FWD_KERNEL_NAME)
+    _kernels.LAUNCHES.add(FWD_KERNEL_NAME, x2.dtype)
     return y, z, mean, inv
 
 
@@ -206,7 +206,7 @@ def _launch_backward(dy2, z2, bits2, gamma, mean, inv, keep):
             dbeta.data_ptr(), nblk, n, d, KERNEL_DTYPES.index(dy2.dtype),
             _thresh(keep), float(1.0 / keep), stream)
     _kernels.check(err, BWD_KERNEL_NAME)
-    _kernels.LAUNCHES.add(BWD_KERNEL_NAME)
+    _kernels.LAUNCHES.add(BWD_KERNEL_NAME, dy2.dtype)
     return dx, dres, dgamma, dbeta
 
 

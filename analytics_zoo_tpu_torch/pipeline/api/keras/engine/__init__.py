@@ -1,6 +1,6 @@
 from .base import Input, InputLayer, KerasLayer
 from .graph import GraphFunction, Node, Variable
-from .topology import KerasNet, Model
+from .topology import KerasNet, Model, Sequential
 
 __all__ = ["Input", "InputLayer", "KerasLayer", "GraphFunction", "Node",
-           "Variable", "KerasNet", "Model"]
+           "Variable", "KerasNet", "Model", "Sequential"]

@@ -54,6 +54,10 @@ class KerasLayer(nn.Module):
                  **kwargs):
         super().__init__()
         self.name = name or _auto_name(type(self).__name__)
+        #: set once :meth:`build_params` has registered the parameters; a
+        #: graph built over this layer later (another ``Model``, a
+        #: ``new_graph``) shares them instead of drawing new ones
+        self.built = False
         # Reference layers accept input_shape WITHOUT the batch dim.
         self.input_shape = (None,) + tuple(input_shape) if input_shape \
             else None
@@ -71,6 +75,7 @@ class KerasLayer(nn.Module):
     # -- parameters --------------------------------------------------------
     def build_params(self, generator, input_shape) -> None:
         """Run ``build`` and register its tensors on this module."""
+        self.built = True
         for key, val in self.build(generator, input_shape).items():
             if isinstance(val, dict):
                 if any(isinstance(v, dict) for v in val.values()):
@@ -186,20 +191,53 @@ def _fans(shape):
 
 
 # ---------------------------------------------------------------------------
-# Activations — string names follow KerasUtils.getKerasActivation. Only
-# those the ported path uses so far; the rest arrive with the layers that
-# need them.
+# Activations — string names follow KerasUtils.getKerasActivation, with the
+# JAX package's definitions (hard_sigmoid is the Keras-1 clip(0.2x + 0.5,
+# 0, 1); gelu the tanh form, jax.nn.gelu's default).
 # ---------------------------------------------------------------------------
 
 def _softmax(x):
     return torch.softmax(x, dim=-1)
 
 
+def _log_softmax(x):
+    return torch.log_softmax(x, dim=-1)
+
+
 def _linear(x):
     return x
 
 
-ACTIVATIONS = {"tanh": torch.tanh, "softmax": _softmax, "linear": _linear}
+def _hard_sigmoid(x):
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+def _gelu(x):
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "relu6": torch.nn.functional.relu6,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "hard_sigmoid": _hard_sigmoid,
+    "softmax": _softmax,
+    "softplus": torch.nn.functional.softplus,
+    "softsign": torch.nn.functional.softsign,
+    "linear": _linear,
+    "elu": torch.nn.functional.elu,
+    "selu": torch.selu,
+    "gelu": _gelu,
+    "exp": torch.exp,
+    "log": torch.log,
+    "swish": torch.nn.functional.silu,
+    "log_softmax": _log_softmax,
+    "mish": torch.nn.functional.mish,
+    "square": torch.square,
+    "sqrt": torch.sqrt,
+    "abs": torch.abs,
+}
 
 
 def get_activation_fn(name):
@@ -209,5 +247,5 @@ def get_activation_fn(name):
         return name
     key = name.lower()
     if key not in ACTIVATIONS:
-        raise ValueError(f"Unknown or not yet ported activation: {name}")
+        raise ValueError(f"Unknown activation: {name}")
     return ACTIVATIONS[key]

@@ -111,7 +111,8 @@ class GraphFunction:
     # ------------------------------------------------------------------
     def init(self, generator) -> None:
         """Build each distinct layer once, keyed by ``layer.name``; the
-        layer keeps its parameters (``KerasLayer.build_params``)."""
+        layer keeps its parameters (``KerasLayer.build_params``). A layer
+        built before (in another graph over it) keeps its parameters."""
         built = set()
         names: Dict[str, Any] = {}
         for node in self.nodes:
@@ -122,6 +123,8 @@ class GraphFunction:
             if layer.name in names:
                 raise ValueError(f"two layers named {layer.name!r}")
             names[layer.name] = layer
+            if layer.built:
+                continue
             in_shapes = [p.shape for p in node.inputs]
             in_shape = in_shapes[0] if len(in_shapes) == 1 else in_shapes
             layer.build_params(generator, in_shape)

@@ -11,8 +11,15 @@ distinct layer of its graph as a submodule under the layer's name, so
 ``compile`` picks the loss, optimizer and metrics; ``fit`` builds an
 :class:`SPMDTrainer` (``pipeline/engine.py``) on the context's device and
 trains the model's own parameters in place, so ``predict`` and
-``InferenceModel.load_keras_net`` serve the trained weights. Not ported
-yet: ``Sequential``, save/load, checkpoints and TensorBoard summaries.
+``InferenceModel.load_keras_net`` serve the trained weights.
+``set_compute_dtype("bfloat16")`` trains, evaluates and predicts in bf16
+over float32 parameters (the trainer's ``compute_dtype``).
+
+Layers own their parameters, so containers over the same layer objects
+share them: ``Sequential.to_model``, ``new_graph`` and a ``Model`` built
+over layers of another model train the same weights (the layers of the
+reference's ``toModel``/``newGraph`` are shared modules too). Not ported
+yet: save/load, checkpoints and TensorBoard summaries.
 """
 
 from __future__ import annotations
@@ -22,15 +29,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .....common.nncontext import get_nncontext
 from .....common.zoo_trigger import MaxEpoch
 from .....feature.feature_set import ArrayFeatureSet, FeatureSet
-from ....engine import GradientClipping, SPMDTrainer, as_device_tensor
+from ....engine import GradientClipping, SPMDTrainer
 from ..metrics import get_metric
 from ..objectives import get_loss
 from ..optimizers import get_optimizer
-from .base import KerasLayer
-from .graph import GraphFunction, Variable
+from .base import InputLayer, KerasLayer
+from .graph import GraphFunction, Node, Variable
 
 
 def to_feature_set(x, y=None) -> FeatureSet:
@@ -66,6 +72,7 @@ class KerasNet(KerasLayer):
         self.trainer: Optional[SPMDTrainer] = None
         self._clipping = GradientClipping()
         self._frozen: set = set()
+        self._compute_dtype = None
 
     # -- abstract ------------------------------------------------------
     def graph_function(self) -> GraphFunction:
@@ -90,15 +97,26 @@ class KerasNet(KerasLayer):
     def clear_gradient_clipping(self):
         self._clipping = GradientClipping()
 
+    def set_compute_dtype(self, dtype):
+        """Run forward and backward in ``dtype`` ("bfloat16" or "bf16"; any
+        other value is float32) over float32 parameters, whatever
+        ``ZooConfig.compute_dtype`` says. Drops the trainer, as the JAX
+        model does: the next ``fit`` starts a new optimizer state."""
+        self._compute_dtype = dtype
+        self.trainer = None
+        return self
+
     # -- trainer plumbing ---------------------------------------------
     def _ensure_trainer(self) -> SPMDTrainer:
         if self.trainer is not None:
             return self.trainer
+        self.graph_function()   # a Sequential builds its layers here
         optimizer = self.optimizer or get_optimizer("sgd")
         loss = self.loss if self.loss is not None else get_loss("mse")
         self.trainer = SPMDTrainer(self, loss, optimizer,
                                    metrics=self.metrics,
-                                   clipping=self._clipping)
+                                   clipping=self._clipping,
+                                   compute_dtype=self._compute_dtype)
         if self._frozen:
             self.trainer.set_frozen(self._frozen)
         return self.trainer
@@ -127,6 +145,28 @@ class KerasNet(KerasLayer):
         if self.trainer is not None:
             self.trainer.set_frozen(self._frozen)
         return self
+
+    def freeze_up_to(self, *names: str):
+        """Freeze every layer from the inputs up to (and including) the
+        named layers (``GraphNet.freezeUpTo``)."""
+        graph = self.graph_function()
+        nodes_by_layer: Dict[str, List[Node]] = {}
+        for node in graph.nodes:
+            nodes_by_layer.setdefault(node.layer.name, []).append(node)
+        unknown = set(names) - set(nodes_by_layer)
+        if unknown:
+            raise ValueError(f"unknown layers: {sorted(unknown)}")
+        target = set()
+        visited = set()
+        stack = [n for name in names for n in nodes_by_layer[name]]
+        while stack:
+            node = stack.pop()
+            if node.id in visited:
+                continue
+            visited.add(node.id)
+            target.add(node.layer.name)
+            stack.extend(v.node for v in node.inputs if v.node is not None)
+        return self.freeze(sorted(target))
 
     def frozen_layers(self) -> List[str]:
         return sorted(self._frozen)
@@ -160,31 +200,20 @@ class KerasNet(KerasLayer):
 
     # -- inference -----------------------------------------------------
     def predict(self, x, batch_size=128, distributed=True):
-        """Outputs for ``x`` (an array, or a list of arrays for a
-        multi-input model) as numpy, in batches of ``batch_size`` on the
-        context's device — one device, as ``SPMDTrainer.predict`` batches.
-        That is ``cuda:0`` unless the context was made for another device,
-        and with no context and no card it raises; the model moves there
-        in place, as ``InferenceModel.load_keras_net`` moves it. Runs
-        under ``torch.inference_mode()``; the last batch may be short (no
-        padding is needed without a compiled program)."""
-        device = get_nncontext().device
-        self.to(device)
-        graph = self.graph_function()
-        xs = list(x) if isinstance(x, (list, tuple)) else [x]
-        n = len(xs[0])
-        chunks: List[Any] = []
-        with torch.inference_mode():
-            for start in range(0, n, batch_size):
-                batch = [as_device_tensor(a[start:start + batch_size],
-                                          device) for a in xs]
-                chunks.append(graph.apply(batch, training=False))
-        if not chunks:
-            return None
-        if isinstance(chunks[0], (list, tuple)):
-            return [torch.cat([c[i] for c in chunks]).cpu().numpy()
-                    for i in range(len(chunks[0]))]
-        return torch.cat(chunks).cpu().numpy()
+        """Outputs for ``x`` as float32 numpy: an array, a list of arrays
+        for a multi-input model, a ``FeatureSet``, or anything with
+        ``to_feature_set()``. Batches of ``batch_size`` run on the
+        context's device through the trainer (``SPMDTrainer.predict``: the
+        last batch padded and the padding cut off), in the compute dtype;
+        the model moves there in place. With no context and no card it
+        raises."""
+        return self._ensure_trainer().predict(to_feature_set(x), batch_size)
+
+    def predict_classes(self, x, batch_size=128, zero_based_label=True):
+        """The arg-max class of each output row; 1-based with
+        ``zero_based_label=False``."""
+        classes = np.argmax(self.predict(x, batch_size), axis=-1)
+        return classes if zero_based_label else classes + 1
 
     # -- weights -------------------------------------------------------
     def param_tree(self) -> Dict[str, Any]:
@@ -216,9 +245,9 @@ class KerasNet(KerasLayer):
 
 
 class Model(KerasNet):
-    """Functional graph container (Topology.scala:602). Builds every
-    layer's weights at construction from ``seed`` (the context config's
-    seed when None) on the CPU; ``predict`` and
+    """Functional graph container (Topology.scala:602). Builds the weights
+    of every layer not built before at construction from ``seed`` (the
+    context config's seed when None) on the CPU; ``predict`` and
     ``InferenceModel.load_keras_net`` move it to the context's device."""
 
     def __init__(self, input, output, name=None, seed: Optional[int] = None):
@@ -228,13 +257,7 @@ class Model(KerasNet):
             else list(output)
         self._graph = GraphFunction(self.inputs, self.outputs)
         self.num_outputs = len(self.outputs)
-        if seed is None:
-            from .....common import nncontext as _nn
-            ctx = _nn._global_context
-            seed = ctx.config.seed if ctx is not None else 42
-        self._graph.init(torch.Generator().manual_seed(int(seed)))
-        for layer in self._graph.layers:
-            self.add_module(layer.name, layer)
+        _build_graph(self, self._graph, seed)
 
     def graph_function(self):
         return self._graph
@@ -246,3 +269,157 @@ class Model(KerasNet):
     def compute_output_shape(self, input_shape):
         shapes = [v.shape for v in self.outputs]
         return shapes[0] if len(shapes) == 1 else shapes
+
+    def new_graph(self, outputs: Sequence[str]) -> "Model":
+        """Graph surgery: a ``Model`` from the same inputs to the named
+        layers' outputs (``GraphNet.newGraph``), over the same layers and
+        weights. ``"layer"`` selects output 0 of that layer,
+        ``"layer:k"`` output ``k`` of a multi-output layer."""
+        graph = self._graph
+        nodes_by_layer: Dict[str, Node] = {}
+        vars_by_layer: Dict[str, Dict[int, Variable]] = {}
+        for node in graph.nodes:
+            nodes_by_layer.setdefault(node.layer.name, node)
+            for v in _node_out_vars(node, graph):
+                vars_by_layer.setdefault(node.layer.name, {})[v.index] = v
+        outs = []
+        for name in outputs:
+            index = 0
+            if ":" in name:
+                name, idx_s = name.rsplit(":", 1)
+                index = int(idx_s)
+            node = nodes_by_layer.get(name)
+            if node is None:
+                raise ValueError(
+                    f"no layer named {name!r} in the graph "
+                    f"(have: {sorted(nodes_by_layer)})")
+            v = vars_by_layer.get(name, {}).get(index)
+            if v is None:
+                v = _make_out_var(node, index)
+            outs.append(v)
+        return Model(self.inputs, outs if len(outs) > 1 else outs[0],
+                     name=self.name + "_sub")
+
+
+def _build_graph(container, graph: GraphFunction, seed) -> None:
+    """Build the layers of ``graph`` not built yet from ``seed`` (the
+    context config's seed when None, 42 without a context) on the CPU,
+    and register every layer on ``container`` under its name."""
+    if seed is None:
+        from .....common import nncontext as _nn
+        ctx = _nn._global_context
+        seed = ctx.config.seed if ctx is not None else 42
+    graph.init(torch.Generator().manual_seed(int(seed)))
+    for layer in graph.layers:
+        container.add_module(layer.name, layer)
+
+
+def _layer_out_shapes(node):
+    shape = node.layer.compute_output_shape(
+        node.inputs[0].shape if len(node.inputs) == 1
+        else [v.shape for v in node.inputs])
+    if node.layer.num_outputs > 1:
+        return list(shape)
+    return [shape]
+
+
+def _make_out_var(node, index: int) -> Variable:
+    shapes = _layer_out_shapes(node)
+    if index >= len(shapes):
+        raise ValueError(
+            f"layer {node.layer.name!r} has {len(shapes)} outputs; "
+            f"index {index} out of range")
+    return Variable(node, shapes[index], index=index)
+
+
+def _node_out_vars(node, graph):
+    """Variables produced by ``node`` that the graph uses (as other
+    nodes' inputs or as graph outputs)."""
+    seen = [v for v in graph.outputs if v.node is node]
+    for n in graph.nodes:
+        for v in n.inputs:
+            if v.node is node and v not in seen:
+                seen.append(v)
+    if not seen:
+        seen.append(_make_out_var(node, 0))
+    return seen
+
+
+class Sequential(KerasNet):
+    """Linear stack (Topology.scala:825). The first layer needs an
+    ``input_shape``. The graph is built, and the layers not built yet
+    draw their weights from ``seed`` (as ``Model``'s), at the first
+    ``graph_function()`` after an ``add``: the first ``fit``,
+    ``predict`` or weight access."""
+
+    def __init__(self, name=None, seed: Optional[int] = None):
+        super().__init__(name=name)
+        self.layers: List[KerasLayer] = []
+        self._seed = seed
+        self._graph: Optional[GraphFunction] = None
+
+    def add(self, layer) -> "Sequential":
+        if not self.layers and not isinstance(layer, KerasNet):
+            if layer.input_shape is None and \
+                    not isinstance(layer, InputLayer):
+                raise ValueError(
+                    "first layer needs input_shape (parity with reference "
+                    "Sequential semantics)")
+        self.layers.append(layer)
+        self._graph = None
+        self.trainer = None
+        return self
+
+    def _input_shape(self):
+        first = self.layers[0]
+        if isinstance(first, Sequential):
+            return first._input_shape()
+        if isinstance(first, Model):
+            shapes = [v.shape for v in first.inputs]
+            return shapes[0] if len(shapes) == 1 else shapes
+        return first.input_shape
+
+    def graph_function(self) -> GraphFunction:
+        if self._graph is None:
+            if not self.layers:
+                raise ValueError("an empty Sequential has no graph")
+            inp = Variable(None, self._input_shape(),
+                           name=self.name + "_input")
+            x = inp
+            for layer in self.layers:
+                x = layer(x)
+            graph = GraphFunction([inp], [x])
+            _build_graph(self, graph, self._seed)
+            self._graph = graph
+        return self._graph
+
+    def forward(self, inputs, training=False, generator=None):
+        return self.graph_function().apply(inputs, training=training,
+                                           generator=generator)
+
+    def build(self, generator, input_shape):
+        self.graph_function()
+        return {}
+
+    def compute_output_shape(self, input_shape):
+        shape = input_shape
+        for layer in self.layers:
+            shape = layer.compute_output_shape(shape)
+        return shape
+
+    def to_model(self) -> Model:
+        """The functional ``Model`` over the same layer objects and
+        weights (``Sequential.toModel``, Topology.scala:914), with this
+        model's loss, optimizer and metrics."""
+        graph = self.graph_function()
+        m = Model(graph.inputs, graph.outputs
+                  if len(graph.outputs) > 1 else graph.outputs[0],
+                  name=self.name + "_model")
+        m.optimizer, m.loss, m.metrics = (self.optimizer, self.loss,
+                                          self.metrics)
+        return m
+
+    toModel = to_model
+
+    def new_graph(self, outputs: Sequence[str]) -> Model:
+        return self.to_model().new_graph(outputs)

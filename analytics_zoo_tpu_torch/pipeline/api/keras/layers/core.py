@@ -1,10 +1,13 @@
 """Core layers.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/core.py``;
-so far only ``Dense``, the classifier head of the serving path.
+so far ``Dense``, ``Activation``, ``Flatten`` and ``Select``: the layers
+of the BERT classifier head and of the recommendation models.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -49,3 +52,46 @@ class Dense(KerasLayer):
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape[:-1]) + (self.output_dim,)
+
+
+class Activation(KerasLayer):
+    """Applies an activation by name (``get_activation_fn``)."""
+
+    def __init__(self, activation, input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name)
+        self.fn = get_activation_fn(activation)
+
+    def forward(self, x, training=False, **kw):
+        return self.fn(x)
+
+
+class Flatten(KerasLayer):
+    """(B, ...) -> (B, prod(...)); a 1-D input (B,) becomes (B, 1)."""
+
+    def forward(self, x, training=False, **kw):
+        return x.reshape(x.shape[0], -1) if x.dim() > 1 else \
+            x.reshape(x.shape[0], 1)
+
+    def compute_output_shape(self, input_shape):
+        rest = list(input_shape[1:])
+        return (input_shape[0], int(math.prod(rest)) if rest else 1)
+
+
+class Select(KerasLayer):
+    """Select one index along a dim, removing it (Select.scala). ``dim``
+    counts the batch dim as 0; a negative ``dim`` or ``index`` counts
+    from the end."""
+
+    def __init__(self, dim, index, input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name)
+        self.dim = int(dim)
+        self.index = int(index)
+
+    def forward(self, x, training=False, **kw):
+        idx = self.index if self.index >= 0 else \
+            x.shape[self.dim] + self.index
+        return x.select(self.dim, idx)
+
+    def compute_output_shape(self, input_shape):
+        dim = self.dim if self.dim >= 0 else len(input_shape) + self.dim
+        return tuple(d for i, d in enumerate(input_shape) if i != dim)

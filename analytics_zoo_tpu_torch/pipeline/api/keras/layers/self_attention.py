@@ -6,7 +6,11 @@ post-LN blocks with tanh GELU; ``BERT.scala``: four inputs, erf GELU,
 extended mask ``(1 - mask) * -10000``).
 
 One layer owns every block's parameters, in the JAX layout
-(``block{i}.qkv_w`` (h, 3h), ...). Attention goes through
+(``block{i}.qkv_w`` (h, 3h), ...). The training and serving forward
+looks its ids up with ``jnp.take``'s semantics (``take_rows``: ids cast
+to int32, a NaN row for an id out of range, no device-side assert), so
+bf16's rounding of float ids (ROADMAP C4) gives what the JAX layer gives.
+Attention goes through
 ``ops.attention.flash_attention_blhd`` on the (B, L, H, d) reshape of the
 fused QKV projection — strided views, no copy — which launches the CUDA
 flash-attention forward kernel on the GPU, and in training its backward
@@ -46,6 +50,7 @@ from .....ops.attention import flash_attention_blhd
 from .....ops.fused_dropout_ln import dropout_add_layer_norm
 from .....ops.layernorm import layer_norm
 from ..engine.base import KerasLayer
+from .embeddings import take_rows
 
 _MULTI_GPU = "the multi-GPU slice of the port"
 
@@ -206,9 +211,8 @@ class TransformerLayer(KerasLayer):
             p["mlp_out_b"].to(n.dtype)
 
     def _embed(self, inputs):
-        tokens = (inputs[0] if isinstance(inputs, (list, tuple))
-                  else inputs).long()
-        e = self.tok_emb[tokens]
+        tokens = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
+        e = take_rows(self.tok_emb, tokens)
         e = e + self.pos_emb[None, :e.shape[1]]
         return e, None
 
@@ -405,9 +409,9 @@ class BERT(TransformerLayer):
 
     def _embed(self, inputs):
         tokens, positions, segments, mask = inputs
-        e = self.tok_emb[tokens.long()]
-        e = e + self.pos_emb[positions.long()]
-        e = e + self.seg_emb[segments.long()]
+        e = take_rows(self.tok_emb, tokens)
+        e = e + take_rows(self.pos_emb, positions)
+        e = e + take_rows(self.seg_emb, segments)
         e = self._ln(e, self.emb_ln_g, self.emb_ln_b, eps=1e-12)
         # extended mask, parity with BERT.scala buildInput:
         # (-mask + 1) * -10000, shape (B, 1, 1, L)

@@ -1,5 +1,5 @@
 """Parity module path: ``zoo.pipeline.api.keras.models``."""
 
-from .engine.topology import KerasNet, Model
+from .engine.topology import KerasNet, Model, Sequential
 
-__all__ = ["KerasNet", "Model"]
+__all__ = ["KerasNet", "Model", "Sequential"]

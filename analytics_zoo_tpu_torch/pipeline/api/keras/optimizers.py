@@ -14,14 +14,21 @@ defaults:
   ignored, as in the JAX package;
 - :class:`AdamWeightDecay` is adam, then decayed weights, then the
   learning rate;
+- :class:`RMSprop` is ``scale_by_rms`` (eps inside the square root, the
+  accumulator from 0, no bias correction), not ``torch.optim.RMSprop``;
+- :class:`Adagrad` is ``scale_by_rss`` (the accumulator from 0.1, eps
+  inside the square root), not ``torch.optim.Adagrad``;
+- :class:`Adadelta` is ``scale_by_adadelta`` and :class:`Adamax`
+  ``scale_by_adamax`` (eps added to |g| inside the max);
+- :class:`Ftrl` is the JAX package's stand-in: ``scale_by_rss`` at its
+  defaults, as Adagrad, and its own arguments unused;
 - ``clipvalue`` and ``clipnorm`` come first in the chain, the learning
   rate is ``schedule(count)`` (``decay`` gives ``lr / (1 + decay * count)``)
   with its own step count from 0.
 
 Each transformation's ``update`` returns new update tensors and updates
 its state tensors in place (the moments are as large as the model; a copy
-per step would double that memory). ``RMSprop``, ``Adagrad``,
-``Adadelta``, ``Adamax`` and ``Ftrl`` are not ported yet.
+per step would double that memory).
 """
 
 from __future__ import annotations
@@ -32,8 +39,6 @@ import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
-
-_LATER = "the optimizer slice of the port (after NeuralCF)"
 
 
 def global_norm(tree: Params) -> torch.Tensor:
@@ -121,6 +126,94 @@ class ScaleByAdam(Transformation):
             nu = state["nu"][k].mul_(self.b2).add_(g * g,
                                                   alpha=1.0 - self.b2)
             updates[k] = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+        state["count"] = count
+        return updates, state
+
+
+class ScaleByRms(Transformation):
+    """``optax.scale_by_rms``: nu = decay nu + (1 - decay) g^2 from 0,
+    u = g / sqrt(nu + eps)."""
+
+    def __init__(self, decay=0.9, eps=1e-8):
+        self.decay, self.eps = decay, eps
+
+    def init(self, params):
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+
+    def update(self, grads, state, params):
+        updates = {}
+        for k, g in grads.items():
+            nu = state[k].mul_(self.decay).add_(g * g, alpha=1.0 - self.decay)
+            updates[k] = g * torch.rsqrt(nu + self.eps)
+        return updates, state
+
+
+class ScaleByRss(Transformation):
+    """``optax.scale_by_rss``: s = s + g^2 from ``initial_accumulator_value``,
+    u = g / sqrt(s + eps) (0 where s is 0)."""
+
+    def __init__(self, initial_accumulator_value=0.1, eps=1e-7):
+        self.initial, self.eps = initial_accumulator_value, eps
+
+    def init(self, params):
+        return {k: torch.full_like(p, self.initial)
+                for k, p in params.items()}
+
+    def update(self, grads, state, params):
+        updates = {}
+        for k, g in grads.items():
+            s = state[k].add_(g * g)
+            updates[k] = torch.where(s > 0, torch.rsqrt(s + self.eps),
+                                     torch.zeros_like(s)) * g
+        return updates, state
+
+
+class ScaleByAdadelta(Transformation):
+    """``optax.scale_by_adadelta``: e_g = rho e_g + (1 - rho) g^2,
+    u = sqrt(e_x + eps) / sqrt(e_g + eps) g, then
+    e_x = rho e_x + (1 - rho) u^2."""
+
+    def __init__(self, rho=0.9, eps=1e-6):
+        self.rho, self.eps = rho, eps
+
+    def init(self, params):
+        return {"e_g": {k: torch.zeros_like(p) for k, p in params.items()},
+                "e_x": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(self, grads, state, params):
+        updates = {}
+        for k, g in grads.items():
+            e_g = state["e_g"][k].mul_(self.rho).add_(g * g,
+                                                     alpha=1.0 - self.rho)
+            e_x = state["e_x"][k]
+            u = torch.sqrt(e_x + self.eps) / torch.sqrt(e_g + self.eps) * g
+            e_x.mul_(self.rho).add_(u * u, alpha=1.0 - self.rho)
+            updates[k] = u
+        return updates, state
+
+
+class ScaleByAdamax(Transformation):
+    """``optax.scale_by_adamax``: mu = b1 mu + (1 - b1) g,
+    nu = max(|g| + eps, b2 nu), u = mu_hat / nu with mu's bias correction
+    at count + 1."""
+
+    def __init__(self, b1=0.9, b2=0.999, eps=1e-8):
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(self, grads, state, params):
+        count = state["count"] + 1
+        c1 = 1.0 - self.b1 ** count
+        updates = {}
+        for k, g in grads.items():
+            mu = state["mu"][k].mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu = state["nu"][k]
+            torch.maximum(g.abs() + self.eps, nu * self.b2, out=nu)
+            updates[k] = (mu / c1) / nu
         state["count"] = count
         return updates, state
 
@@ -349,24 +442,79 @@ class AdamWeightDecay(ZooOptimizer):
                      ScaleByLearningRate(sched))
 
 
+class RMSprop(ZooOptimizer):
+    def __init__(self, lr=0.001, decay_rate=0.9, epsilon=1e-8, **kw):
+        super().__init__(lr=lr, **kw)
+        self.decay_rate = decay_rate
+        self.epsilon = epsilon
+
+    def _core(self, sched):
+        return Chain(ScaleByRms(self.decay_rate, self.epsilon),
+                     ScaleByLearningRate(sched))
+
+
+class Adagrad(ZooOptimizer):
+    def __init__(self, lr=0.01, epsilon=1e-10, **kw):
+        super().__init__(lr=lr, **kw)
+        self.epsilon = epsilon
+
+    def _core(self, sched):
+        return Chain(ScaleByRss(eps=self.epsilon),
+                     ScaleByLearningRate(sched))
+
+
+class Adadelta(ZooOptimizer):
+    def __init__(self, lr=1.0, rho=0.95, epsilon=1e-8, **kw):
+        super().__init__(lr=lr, **kw)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def _core(self, sched):
+        return Chain(ScaleByAdadelta(self.rho, self.epsilon),
+                     ScaleByLearningRate(sched))
+
+
+class Adamax(ZooOptimizer):
+    def __init__(self, lr=0.002, beta_1=0.9, beta_2=0.999, epsilon=1e-8,
+                 **kw):
+        super().__init__(lr=lr, **kw)
+        self.beta_1, self.beta_2, self.epsilon = beta_1, beta_2, epsilon
+
+    def _core(self, sched):
+        return Chain(ScaleByAdamax(self.beta_1, self.beta_2, self.epsilon),
+                     ScaleByLearningRate(sched))
+
+
+class Ftrl(ZooOptimizer):
+    """The JAX package's stand-in for FTRL (optax has none): Adagrad-style
+    scaling at ``scale_by_rss``'s defaults. The FTRL arguments are taken
+    and unused there, and here."""
+
+    def __init__(self, lr=0.001, learning_rate_power=-0.5,
+                 initial_accumulator_value=0.1, l1_regularization_strength=0.0,
+                 l2_regularization_strength=0.0, **kw):
+        super().__init__(lr=lr, **kw)
+
+    def _core(self, sched):
+        return Chain(ScaleByRss(), ScaleByLearningRate(sched))
+
+
 _OPTIMIZERS = {
     "sgd": SGD,
     "adam": Adam,
+    "adamax": Adamax,
+    "rmsprop": RMSprop,
+    "adadelta": Adadelta,
+    "adagrad": Adagrad,
     "adamweightdecay": AdamWeightDecay,
+    "ftrl": Ftrl,
 }
-
-_NOT_PORTED = ("rmsprop", "adagrad", "adadelta", "adamax", "ftrl")
 
 
 def get_optimizer(identifier) -> ZooOptimizer:
     if isinstance(identifier, ZooOptimizer):
         return identifier
-    key = identifier.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {identifier!r} is not ported yet; it arrives with "
-            f"{_LATER}")
     try:
-        return _OPTIMIZERS[key]()
+        return _OPTIMIZERS[identifier.lower()]()
     except KeyError:
         raise ValueError(f"Unknown optimizer: {identifier}")

@@ -10,6 +10,17 @@ the frozen-layer masks, clipping, and the optimizer's functional update,
 applied to the model's own parameters in place. ``predict`` and
 ``InferenceModel`` therefore serve the trained weights.
 
+``compute_dtype`` (the model's ``set_compute_dtype``, else
+``ZooConfig.compute_dtype``): "bfloat16" runs the forward and backward
+of the loss (training and ``evaluate``) and of ``predict`` in bf16, as
+the JAX trainer's ``_cast_tree`` does: the floating parameters are cast
+inside autograd (``torch.func.functional_call`` over ``p.to(bf16)``, so
+each cast's backward hands a float32 gradient to its float32 parameter),
+and every floating input leaf is cast too — float-encoded ids included,
+which bf16 rounds above 256, as in the JAX package. Integer inputs pass
+unchanged. Predictions return to float32 before the loss. Parameters and
+the optimizer state stay float32.
+
 The training stream: each step draws its dropout from a
 ``torch.Generator`` on the device seeded from ``(seed, step)``, the
 counterpart of ``fold_in(key(seed), step)``. The stream differs from
@@ -32,7 +43,7 @@ import torch
 from ..common.nncontext import ZooContext, get_nncontext
 from ..common.zoo_trigger import EveryEpoch, MaxEpoch, TrainRecord, \
     ZooTrigger
-from ..feature.feature_set import FeatureSet, MiniBatch
+from ..feature.feature_set import ArrayFeatureSet, FeatureSet, MiniBatch
 from .api.keras.optimizers import global_norm
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.engine")
@@ -63,6 +74,14 @@ def _tree_float(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_tree_float(v) for v in x)
     return x.float()
+
+
+def _cast_floating(x, dtype):
+    """``x`` (a tensor, or a list or tuple of them) with every floating
+    tensor cast to ``dtype`` (``_cast_tree``)."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cast_floating(v, dtype) for v in x)
+    return x.to(dtype) if x.is_floating_point() else x
 
 
 class GradientClipping:
@@ -101,10 +120,18 @@ class SPMDTrainer:
 
     def __init__(self, model, loss_fn, optimizer, metrics=None,
                  ctx: Optional[ZooContext] = None, device=None,
-                 clipping: Optional[GradientClipping] = None, seed: int = 0):
+                 clipping: Optional[GradientClipping] = None, seed: int = 0,
+                 compute_dtype=None):
         self.ctx = ctx or get_nncontext()
         self.device = torch.device(device) if device is not None else \
             self.ctx.device
+        # an explicit per-model dtype wins; None falls back to the config,
+        # and only "bfloat16"/"bf16" turn the casts on
+        if compute_dtype is None:
+            compute_dtype = getattr(self.ctx.config, "compute_dtype", None)
+        #: torch.bfloat16, or None for float32
+        self.compute_dtype = torch.bfloat16 if str(compute_dtype) in \
+            ("bfloat16", "bf16") else None
         self.model = model
         self.loss_fn = loss_fn
         self.tx = optimizer.transformation()
@@ -151,10 +178,24 @@ class SPMDTrainer:
     # ------------------------------------------------------------------
     # one step
     # ------------------------------------------------------------------
+    def _forward(self, xs, generator, training: bool):
+        """The model's outputs on device inputs ``xs``, in the compute
+        dtype, as float32."""
+        if self.compute_dtype is None:
+            preds = self.model(list(xs), training=training,
+                               generator=generator)
+        else:
+            cast = {k: _cast_floating(p, self.compute_dtype)
+                    for k, p in self.model.named_parameters()}
+            preds = torch.func.functional_call(
+                self.model, cast,
+                (_cast_floating(list(xs), self.compute_dtype),),
+                dict(training=training, generator=generator))
+        return _tree_float(preds)
+
     def _loss_and_preds(self, batch, generator, training: bool):
         xs, y, w = batch
-        preds = self.model(list(xs), training=training, generator=generator)
-        preds_f = _tree_float(preds)
+        preds_f = self._forward(xs, generator, training)
         return self.loss_fn(preds_f, y, w), preds_f
 
     def generator(self, step: int) -> torch.Generator:
@@ -284,3 +325,32 @@ class SPMDTrainer:
         num, den = host["loss"]
         out["loss"] = float(num / max(den, 1e-12))
         return out
+
+    def predict(self, data, batch_size: int = 128):
+        """The model's outputs over ``data`` (a ``FeatureSet``, or an array
+        or list of arrays) as float32 numpy, in batches of
+        ``batch_size``: the last batch padded to full size and the padding
+        cut off on the device, one host transfer at the end (the JAX
+        trainer's ``predict``). None for an empty dataset."""
+        if not isinstance(data, FeatureSet):
+            data = ArrayFeatureSet(data)
+        self.model.to(self.device)
+        remaining = data.size()
+        chunks: List[Any] = []
+        with torch.inference_mode():
+            for xs, _, _ in data.batches(batch_size, shuffle=False,
+                                         drop_remainder=False,
+                                         pad_remainder=True):
+                real = min(batch_size, remaining)
+                remaining -= real
+                xs = [as_device_tensor(x, self.device) for x in xs]
+                out = self._forward(xs, None, False)
+                chunks.append([o[:real] for o in out]
+                              if isinstance(out, (list, tuple))
+                              else out[:real])
+        if not chunks:
+            return None
+        if isinstance(chunks[0], list):
+            return [torch.cat([c[i] for c in chunks]).cpu().numpy()
+                    for i in range(len(chunks[0]))]
+        return torch.cat(chunks).cpu().numpy()

@@ -21,7 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..api.keras.engine.topology import as_device_tensor
+from ..engine import as_device_tensor
 
 
 class AbstractModel:

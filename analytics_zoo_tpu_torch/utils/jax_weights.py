@@ -13,7 +13,7 @@ from the same mid-stream cache.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,11 +32,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def _auto_class(name: str) -> Optional[str]:
-    """The class a JAX auto-generated layer name encodes ("dense_3" ->
-    "dense"), or None for a user-given name."""
-    m = re.fullmatch(r"([a-z0-9]+)_\d+", name)
-    return m.group(1) if m else None
+def _auto_parts(name: str) -> Optional[Tuple[str, int]]:
+    """(class, number) of an auto-generated layer name ("dense_3" ->
+    ("dense", 3)), or None for a user-given name."""
+    m = re.fullmatch(r"([a-z0-9]+)_(\d+)", name)
+    return (m.group(1), int(m.group(2))) if m else None
 
 
 def load_jax_params(model, params: Mapping[str, Mapping[str, Any]]
@@ -45,37 +45,52 @@ def load_jax_params(model, params: Mapping[str, Mapping[str, Any]]
     graph model, or a single layer: then ``params`` holds one entry, the
     layer's pytree, as ``{layer.name: layer_params}``).
 
-    Layers match by name first. Port layers left over then pair with the
-    leftover JAX entries by topological position — ``params`` must keep
-    the insertion order ``GraphFunction.init`` gives it — and an
-    auto-generated JAX name must name the port layer's class ("bert_2"
-    is a BERT). Raises on a missing, extra or mis-shaped leaf, and on
+    A port layer with a user-given name (any name but its class's
+    auto-name pattern) takes the JAX entry of that name. Auto-named
+    layers ("dense_3", "embedding_12": the class, then a per-class
+    counter in creation order) pair by class and creation order: the
+    port's k-th auto-named Dense of the model takes the JAX entry with
+    the k-th smallest "dense_N". The two packages number their layers
+    with separate counters, and JAX hands its params back with the keys
+    sorted, so neither the numbers nor the order of ``params`` matter;
+    building the model with the same code on both sides is what lines
+    the layers up. Raises on a missing, extra or mis-shaped leaf, and on
     layers left unpaired.
     """
     layers = (model.graph_function().layers
               if hasattr(model, "graph_function") else [model])
     port_layers = [l for l in layers if any(True for _ in l.parameters())]
-    jax_names = list(params)
     pairs = []
-    unmatched_port = []
+    port_auto: Dict[str, list] = {}   # class -> [(number, layer)]
     for layer in port_layers:
-        if layer.name in params:
+        cls = type(layer).__name__.lower()
+        parts = _auto_parts(layer.name)
+        if parts is not None and parts[0] == cls:
+            port_auto.setdefault(cls, []).append((parts[1], layer))
+        elif layer.name in params:
             pairs.append((layer, layer.name))
         else:
-            unmatched_port.append(layer)
+            raise ValueError(f"cannot pair layers: port {layer.name} has "
+                             f"no JAX entry of that name")
     taken = {name for _, name in pairs}
-    unmatched_jax = [n for n in jax_names if n not in taken]
-    if len(unmatched_port) != len(unmatched_jax):
+    jax_auto: Dict[str, list] = {}    # class -> [(number, name)]
+    for name in params:
+        if name in taken:
+            continue
+        parts = _auto_parts(name)
+        if parts is None:
+            raise ValueError(f"cannot pair layers: JAX {name} has no port "
+                             f"layer of that name")
+        jax_auto.setdefault(parts[0], []).append((parts[1], name))
+    counts = lambda groups: {c: len(v) for c, v in groups.items()}
+    if counts(port_auto) != counts(jax_auto):
         raise ValueError(
-            f"cannot pair layers: port {[l.name for l in unmatched_port]} "
-            f"vs JAX {unmatched_jax}")
-    for layer, name in zip(unmatched_port, unmatched_jax):
-        cls = _auto_class(name)
-        if cls is not None and cls != type(layer).__name__.lower():
-            raise ValueError(
-                f"layer order differs: port {layer.name} "
-                f"({type(layer).__name__}) vs JAX {name} ({cls})")
-        pairs.append((layer, name))
+            f"cannot pair layers: port {counts(port_auto)} vs JAX "
+            f"{counts(jax_auto)} auto-named layers by class")
+    for cls, port in port_auto.items():
+        for (_, layer), (_, name) in zip(sorted(port, key=lambda t: t[0]),
+                                         sorted(jax_auto[cls])):
+            pairs.append((layer, name))
 
     for layer, name in pairs:
         src = _flatten(params[name])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and generation paths
-once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
+generation and NeuralCF paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -36,6 +36,12 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               first step and every block's qkv_w gradient nonzero, the
               five kernels' launch counts per step, ``evaluate``; then a
               dropout-off step on 2 rows against the port's CPU run.
+              ``train_bf16``: the same in bfloat16 (``set_compute_dtype``)
+              on int32 ids: every kernel launch given bf16 tensors, the
+              parameters, gradients and Adam moments float32, the
+              dropout-off step against the port's CPU bf16 step, and the
+              float32 and bf16 steps timed in alternating windows (the
+              bf16 step's device time by kernel group beside them).
 6. timing  -- request latency, tokens/s and peak memory of the served
               model and the forward kernel at the serving shape (profiler
               device time, CUDA events beside it); the
@@ -60,6 +66,15 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               (B=1 x 512, B=4 x 384; the flash forward there beside its
               bound and SDPA) and of one decode step at a gang of 8 and
               capacity 512 (wall, host enqueue, device busy and idle).
+8. ncf     -- ``bench.py``'s NeuralCF (MovieLens-1M's 6040 users and
+              3706 items, 5 classes, embeddings of 20, hidden 40-20-10,
+              MF branch; weights from ``--seed``) through ``fit`` on
+              bench.py's 262,144 synthetic ratings at batch 8192, float32:
+              steps/s as bench_ncf reckons it (a warm-up epoch, then 3
+              windows of 2 epochs), the loss finite and falling,
+              ``evaluate``, one step's launches and device idle share;
+              ``predict`` on the card against the CPU, ``predict_classes``,
+              ``predict`` on a feature set and ``recommend_for_user``.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -85,6 +100,10 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common import init_nncontext
+from analytics_zoo_tpu_torch.feature.feature_set import (ArrayFeatureSet,
+                                                         Sample)
+from analytics_zoo_tpu_torch.models.recommendation import (NeuralCF,
+                                                           UserItemFeature)
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import attention as attn
 from analytics_zoo_tpu_torch.ops import fused_dropout_ln as dln
@@ -145,6 +164,27 @@ ROW_SUM_TOL = 1e-5
 # backward of f32 products and reductions summed in another order)
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
+
+# the bf16 step, dropout off, card against the port's CPU bf16 step:
+# first estimates (both sides round the same products to bf16 at other
+# places: a few 2**-8 relative on the loss and on each gradient)
+BF16_LOSS_TOL = 2e-2
+BF16_GRAD_TOL = 5e-2
+# the f32 and bf16 training steps timed in alternating windows
+DTYPE_WINDOWS = 2
+
+# bench.py's NeuralCF (bench.py:155-162, bench_ncf :262-300): MovieLens-1M's
+# users and items, 5 rating classes, embeddings of 20, hidden 40/20/10,
+# batch 8192, 262,144 synthetic ratings (make_data :253-259), Adam at 1e-3,
+# float32 (the NCF ids are float32, and bf16 would round them: ROADMAP C4)
+NCF_USERS, NCF_ITEMS, NCF_CLASSES = 6040, 3706, 5
+NCF_KW = dict(user_embed=20, item_embed=20, hidden_layers=[40, 20, 10],
+              include_mf=True, mf_embed=20)
+NCF_BATCH, NCF_SAMPLES, NCF_TIMED_EPOCHS, NCF_WINDOWS = 8192, 262144, 2, 3
+NCF_PREDICT_ROWS, NCF_RECOMMEND_FEATURES, NCF_MAX_ITEMS = 8192, 2000, 5
+# the card's predictions against the port's CPU run: float32 products of
+# at most 60 terms summed in another order
+NCF_CPU_TOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). The
 # flash kernels' products run on the tensor cores: bf16 at 989 TFLOP/s,
@@ -658,8 +698,11 @@ def kernel_group(name: str) -> str:
     for symbol, group in PORT_KERNEL_SYMBOLS.items():
         if symbol in name:
             return group
-    if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas")):
+    if any(s in name for s in ("gemm", "xmma", "cutlass", "cublas",
+                               "nvjet")):
         return "matmul (cuBLAS)"
+    if "indexing_backward" in name:
+        return "embedding gradient (index_put accumulate)"
     if "elementwise" in name or "vectorized" in name:
         return "elementwise"
     if "reduce" in name:
@@ -680,19 +723,23 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    groups = {}
+    groups, other = {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        g = groups.setdefault(kernel_group(evt.key),
-                              {"device_ms": 0.0, "launches": 0})
+        group = kernel_group(evt.key)
+        g = groups.setdefault(group, {"device_ms": 0.0, "launches": 0})
         g["device_ms"] += evt.self_device_time_total / 1e3
         g["launches"] += evt.count
+        if group == "other":
+            other.append((evt.self_device_time_total / 1e3, evt.key[:80]))
     busy_ms = sum(g["device_ms"] for g in groups.values())
     if busy_ms == 0.0:
         return dict(wall_ms=wall_us / 1e3, groups=None, idle_share=None)
     for g in groups.values():
         g["share_of_wall"] = 1e3 * g["device_ms"] / wall_us
+    if other:   # the largest kernels no group claimed, by name
+        groups["other"]["top"] = sorted(other, reverse=True)[:3]
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_ms,
                 idle_share=1.0 - 1e3 * busy_ms / wall_us,
                 groups=dict(sorted(groups.items(),
@@ -741,10 +788,13 @@ def time_kernel(device, seed, dtype):
 # training
 # ---------------------------------------------------------------------------
 
-def train_data(seed, n, config=BERT_CONFIG, min_len=MIN_LEN):
-    """n rows of [tokens, positions, segments, mask] and 0/1 labels as
-    float32 numpy, lengths in [min_len, L]; the first token (a [CLS]-like
-    id) carries the label, so the classifier has something to learn."""
+def train_data(seed, n, config=BERT_CONFIG, min_len=MIN_LEN,
+               ids=np.float32):
+    """n rows of [tokens, positions, segments, mask] and 0/1 labels,
+    lengths in [min_len, L]; the ids as ``ids`` (float32, or int32 as
+    bench.py feeds BERT: bf16 would round float ids above 256), the mask
+    and labels float32. The first token (a [CLS]-like id) carries the
+    label, so the classifier has something to learn."""
     rs = np.random.default_rng(seed)
     l = config["seq_len"]
     lengths = rs.integers(min_len, l + 1, size=n)
@@ -752,9 +802,9 @@ def train_data(seed, n, config=BERT_CONFIG, min_len=MIN_LEN):
     tokens = rs.integers(1000, config["vocab"], size=(n, l))
     tokens[:, 0] = 101 + labels
     pos = np.arange(l)[None, :]
-    x = [tokens.astype(np.float32),
-         np.repeat(pos.astype(np.float32), n, axis=0),
-         (pos >= lengths[:, None] // 2).astype(np.float32),
+    x = [tokens.astype(ids),
+         np.repeat(pos.astype(ids), n, axis=0),
+         (pos >= lengths[:, None] // 2).astype(ids),
          (pos < lengths[:, None]).astype(np.float32)[:, None, None, :]]
     return x, labels.astype(np.float32), int(lengths.sum())
 
@@ -776,16 +826,36 @@ def check_grads(model):
     return min(worst.values())
 
 
-def train(seed):
-    """Model.compile + Model.fit, TRAIN_STEPS steps on one batch, with the
-    launch counts read around the fit calls; then evaluate."""
+def check_float32_state(model):
+    """Every parameter, gradient and Adam moment of a trained model is
+    float32 (bf16 compute keeps float32 master weights)."""
+    for name, p in model.named_parameters():
+        if p.dtype != torch.float32 or (p.grad is not None and
+                                        p.grad.dtype != torch.float32):
+            raise AssertionError(f"{name}: {p.dtype}, gradient "
+                                 f"{None if p.grad is None else p.grad.dtype}")
+    moments = model.trainer.opt_state[0]
+    bad = [k for part in ("mu", "nu") for k, t in moments[part].items()
+           if t.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"Adam moments not float32: {bad}")
+
+
+def train(seed, compute_dtype="float32"):
+    """Model.compile + Model.fit in ``compute_dtype``, TRAIN_STEPS steps on
+    one batch (float32 ids in float32, int32 ids in bfloat16), with the
+    launch counts and the dtypes the kernels were given read around the
+    fit calls; then evaluate."""
+    bf16 = compute_dtype == "bfloat16"
     config = dict(BERT_CONFIG, hidden_p_drop=TRAIN_P_DROP,
                   attn_p_drop=TRAIN_P_DROP)
     model = build_classifier(seed + 1, config)
     model.compile(optimizer=Adam(lr=TRAIN_LR),
                   loss="sparse_categorical_crossentropy",
                   metrics=["accuracy"])
-    x, y, real_tokens = train_data(seed, TRAIN_BATCH)
+    model.set_compute_dtype(compute_dtype)
+    x, y, real_tokens = train_data(seed, TRAIN_BATCH,
+                                   ids=np.int32 if bf16 else np.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.LAUNCHES.reset()
@@ -797,6 +867,7 @@ def train(seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _kernels.LAUNCHES.snapshot()
+    launch_dtypes = _kernels.LAUNCHES.by_dtype()
     peak = torch.cuda.max_memory_allocated()
     losses += model.trainer.step_losses
     n_block = BERT_CONFIG["n_block"]
@@ -807,6 +878,10 @@ def train(seed):
     expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
+    if launch_dtypes != {k: {compute_dtype: n} for k, n in expected.items()}:
+        raise AssertionError(f"the kernels were given {launch_dtypes}, "
+                             f"expected {compute_dtype} only")
+    check_float32_state(model)
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"losses {losses}")
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
@@ -817,40 +892,53 @@ def train(seed):
         raise AssertionError(f"evaluate gave {results}")
     return model, dict(
         model="BERT-base classifier (bench.py:353-438)", config=config,
-        seed=seed, optimizer=f"adam lr {TRAIN_LR}",
+        seed=seed, compute_dtype=compute_dtype,
+        ids=dtype_name(torch.int32 if bf16 else torch.float32),
+        optimizer=f"adam lr {TRAIN_LR}",
         loss="sparse_categorical_crossentropy", batch=TRAIN_BATCH,
         steps=TRAIN_STEPS, real_tokens_per_batch=real_tokens,
         losses=losses, min_qkv_w_grad_after_step_1=min_qkv_grad,
-        launches=launches, launches_per_step=per_step, fit_wall_s=wall,
-        peak_memory_bytes=peak, evaluate=results,
+        launches=launches, launches_per_step=per_step,
+        launch_dtypes=launch_dtypes, float32_params_and_moments=True,
+        fit_wall_s=wall, peak_memory_bytes=peak, evaluate=results,
         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
 
-def check_train_parity(seed, device):
-    """One training step, dropout off, on PARITY_ROWS rows: the card (the
-    flash kernels run, the dropout+add+LN kernels do not) against the
-    port's CPU run (plain versions) from the same weights."""
+def check_train_parity(seed, device, compute_dtype="float32"):
+    """One training step in ``compute_dtype``, dropout off, on PARITY_ROWS
+    rows: the card (the flash kernels run, the dropout+add+LN kernels do
+    not) against the port's CPU run (plain versions) from the same
+    weights. Returns the gaps, which must lie within the dtype's limits."""
+    bf16 = compute_dtype == "bfloat16"
+    loss_tol, grad_tol = (BF16_LOSS_TOL, BF16_GRAD_TOL) if bf16 else \
+        (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)
     config = dict(BERT_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0)
     model = build_classifier(seed + 2, config)
     cpu_model = copy.deepcopy(model)
     loss_fn = get_loss("sparse_categorical_crossentropy")
-    card = SPMDTrainer(model, loss_fn, get_optimizer("adam"), device=device)
+    card = SPMDTrainer(model, loss_fn, get_optimizer("adam"), device=device,
+                       compute_dtype=compute_dtype)
     cpu = SPMDTrainer(cpu_model, loss_fn, get_optimizer("adam"),
-                      device="cpu")
-    x, y, _ = train_data(seed + 2, PARITY_ROWS)
+                      device="cpu", compute_dtype=compute_dtype)
+    x, y, _ = train_data(seed + 2, PARITY_ROWS,
+                         ids=np.int32 if bf16 else np.float32)
     batch = (x, y, np.ones(PARITY_ROWS, np.float32))
     card.ensure_initialized()
     cpu.ensure_initialized()
     _kernels.LAUNCHES.reset()
     card_loss = card.loss_and_grads(card.put_batch(batch)).item()
     launches = _kernels.LAUNCHES.snapshot()
+    launch_dtypes = _kernels.LAUNCHES.by_dtype()
     n_block = BERT_CONFIG["n_block"]
     expected = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
                 attn.DKV_KERNEL_NAME: n_block}
-    if launches != expected:
-        raise AssertionError(f"parity step launches {launches}, expected "
-                             f"{expected}")
+    if launches != expected or any(set(v) != {compute_dtype}
+                                   for v in launch_dtypes.values()):
+        raise AssertionError(f"parity step launches {launch_dtypes}, "
+                             f"expected {expected} in {compute_dtype}")
+    t0 = time.perf_counter()
     cpu_loss = cpu.loss_and_grads(cpu.put_batch(batch)).item()
+    cpu_s = time.perf_counter() - t0
     cpu_params = dict(cpu_model.named_parameters())
     worst, worst_name = 0.0, None
     for name, p in model.named_parameters():
@@ -861,13 +949,16 @@ def check_train_parity(seed, device):
         if rel > worst:
             worst, worst_name = rel, name
     loss_err = abs(card_loss - cpu_loss)
-    emit("train_parity", rows=PARITY_ROWS, dropout=0.0, launches=launches,
-         card_loss=card_loss, cpu_loss=cpu_loss, loss_err=loss_err,
-         loss_tol=TRAIN_LOSS_TOL, max_grad_rel_err=worst,
-         max_grad_rel_err_param=worst_name, grad_tol=TRAIN_GRAD_TOL)
-    if loss_err > TRAIN_LOSS_TOL or worst > TRAIN_GRAD_TOL:
+    res = dict(rows=PARITY_ROWS, dropout=0.0, compute_dtype=compute_dtype,
+               launches=launches, card_loss=card_loss, cpu_loss=cpu_loss,
+               loss_err=loss_err, loss_tol=loss_tol,
+               max_grad_rel_err=worst, max_grad_rel_err_param=worst_name,
+               grad_tol=grad_tol, cpu_step_s=cpu_s)
+    if loss_err > loss_tol or worst > grad_tol:
+        emit("train_parity", ok=False, **res)
         raise AssertionError(f"card step differs from the CPU run: loss "
                              f"{loss_err}, gradient {worst} ({worst_name})")
+    return res
 
 
 def flash_bwd_bounds(b, lq, lk, h, d, dtype):
@@ -1036,6 +1127,194 @@ def time_training(model, seed):
         clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
                           "temperature.gpu"),
         profile=profile_device(lambda: trainer.train_step(batch)))
+
+
+def time_train_dtypes(models, seed):
+    """The float32 and the bf16 training step on one int32-id batch, timed
+    in alternating windows of TIMED_STEPS steps (f32, bf16, bf16, f32,
+    ...): each step's wall (host clock around a synchronised step), the
+    p50, tokens/s and the peak memory of each window; then the bf16
+    step's device time by kernel group. Both models stay on the card, so
+    each peak includes the other model's weights and optimizer state."""
+    x, y, real_tokens = train_data(seed, TRAIN_BATCH, ids=np.int32)
+    host = (x, y, np.ones(TRAIN_BATCH, np.float32))
+    batches = {dt: m.trainer.put_batch(host) for dt, m in models.items()}
+    step_s = {dt: [] for dt in models}
+    peaks = {dt: [] for dt in models}
+    order = list(models)
+    for w in range(DTYPE_WINDOWS):
+        for dt in (order if w % 2 == 0 else order[::-1]):
+            trainer = models[dt].trainer
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(TIMED_STEPS):
+                t0 = time.perf_counter()
+                trainer.train_step(batches[dt])
+                torch.cuda.synchronize()
+                step_s[dt].append(time.perf_counter() - t0)
+            peaks[dt].append(torch.cuda.max_memory_allocated())
+    l = BERT_CONFIG["seq_len"]
+    out = {}
+    for dt in models:
+        p50 = percentile(step_s[dt], 50)
+        out[dt] = dict(step_ms=[1e3 * t for t in step_s[dt]],
+                       step_p50_ms=1e3 * p50,
+                       padded_tokens_per_s=TRAIN_BATCH * l / p50,
+                       real_tokens_per_s=real_tokens / p50,
+                       peak_memory_bytes=max(peaks[dt]))
+    bf16 = models["bfloat16"].trainer
+    out["bfloat16"]["profile"] = profile_device(
+        lambda: bf16.train_step(batches["bfloat16"]))
+    out["bf16_speedup"] = out["float32"]["step_p50_ms"] / \
+        out["bfloat16"]["step_p50_ms"]
+    return dict(windows=DTYPE_WINDOWS, steps_per_window=TIMED_STEPS,
+                batch=TRAIN_BATCH, ids="int32", **out)
+
+
+# ---------------------------------------------------------------------------
+# NeuralCF
+# ---------------------------------------------------------------------------
+
+def ncf_data(seed):
+    """bench.py's make_data: float32 (user, item) ids from 1 and int32
+    rating classes 0-4."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.integers(1, NCF_USERS + 1, NCF_SAMPLES),
+                  rng.integers(1, NCF_ITEMS + 1, NCF_SAMPLES)],
+                 axis=1).astype(np.float32)
+    y = rng.integers(0, NCF_CLASSES, NCF_SAMPLES).astype(np.int32)
+    return x, y
+
+
+def windows_stats(fn, n):
+    """bench.py's ``_windows_stats``: ``fn`` (one timed window -> value)
+    run n times; (median, {min, median, max, n})."""
+    vals = sorted(fn() for _ in range(n))
+    med = vals[n // 2] if n % 2 else 0.5 * (vals[n // 2 - 1] + vals[n // 2])
+    return med, {"min": vals[0], "median": med, "max": vals[-1], "n": n}
+
+
+def check_ncf_inference(ncf, seed, device):
+    """``predict`` of NCF_PREDICT_ROWS rows on the card against the port's
+    CPU run from the same weights, ``predict_classes`` against the CPU's
+    classes, ``predict`` on an ArrayFeatureSet against the array, and
+    ``recommend_for_user`` on NCF_RECOMMEND_FEATURES pairs."""
+    rs = np.random.default_rng(seed + 13)
+    x = np.stack([rs.integers(1, NCF_USERS + 1, NCF_PREDICT_ROWS),
+                  rs.integers(1, NCF_ITEMS + 1, NCF_PREDICT_ROWS)],
+                 axis=1).astype(np.float32)
+    probs = ncf.predict(x, batch_size=NCF_BATCH)
+    classes = ncf.predict_classes(x, batch_size=NCF_BATCH)
+    on_set = ncf.predict(ArrayFeatureSet(x), batch_size=NCF_BATCH)
+    cpu_model = copy.deepcopy(ncf.model)
+    cpu_model.trainer = None
+    cpu = SPMDTrainer(cpu_model, get_loss("sparse_categorical_crossentropy"),
+                      get_optimizer("sgd"), device="cpu")
+    want = cpu.predict(x, batch_size=NCF_BATCH)
+    err = float(np.abs(probs - want).max())
+    same_classes = bool(np.array_equal(classes, want.argmax(-1)))
+    same_set = bool(np.array_equal(on_set, probs))
+    # recommendations: a few hundred users, several items each
+    users = rs.integers(1, 201, NCF_RECOMMEND_FEATURES)
+    items = rs.integers(1, NCF_ITEMS + 1, NCF_RECOMMEND_FEATURES)
+    feats = [UserItemFeature(u, i, Sample(np.array([u, i], np.float32)))
+             for u, i in zip(users, items)]
+    recs = ncf.recommend_for_user(feats, NCF_MAX_ITEMS)
+    by_user = {}
+    for r in recs:
+        by_user.setdefault(r.user_id, []).append(r.probability)
+    ranked = all(len(p) <= NCF_MAX_ITEMS and p == sorted(p, reverse=True)
+                 for p in by_user.values())
+    res = dict(rows=NCF_PREDICT_ROWS, cpu_max_abs_err=err,
+               cpu_tol=NCF_CPU_TOL, classes_equal_cpu=same_classes,
+               feature_set_equal_array=same_set,
+               recommend_features=NCF_RECOMMEND_FEATURES,
+               recommend_users=len(by_user), recommendations=len(recs),
+               max_items=NCF_MAX_ITEMS, recommendations_ranked=ranked)
+    if probs.shape != (NCF_PREDICT_ROWS, NCF_CLASSES) or \
+            not np.isfinite(probs).all() or err > NCF_CPU_TOL or \
+            not same_classes or not same_set or not ranked or \
+            len(by_user) != len(set(users.tolist())):
+        emit("ncf", ok=False, **res)
+        raise AssertionError(f"NCF inference on the card: {res}")
+    return res
+
+
+def ncf(seed, device):
+    """bench_ncf's configuration through ``fit``, ``evaluate``,
+    ``predict`` and ``recommend_for_user``, timed as bench_ncf reckons
+    it: one warm-up epoch, then windows of ``fit(nb_epoch=2)`` ending in a
+    host sync, each as steps over the window's wall."""
+    config = init_nncontext().config
+    seed0, config.seed = config.seed, seed + 11
+    model = NeuralCF(NCF_USERS, NCF_ITEMS, NCF_CLASSES, **NCF_KW)
+    config.seed = seed0     # the model drew its weights from seed + 11
+    model.compile(optimizer=Adam(lr=1e-3),
+                  loss="sparse_categorical_crossentropy")
+    x, y = ncf_data(seed + 12)
+    steps_per_epoch = NCF_SAMPLES // NCF_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=NCF_BATCH, nb_epoch=1)
+    warmup_s = time.perf_counter() - t0
+    losses = [list(model.model.trainer.step_losses)]
+
+    def window():
+        t1 = time.perf_counter()
+        model.fit(x, y, batch_size=NCF_BATCH, nb_epoch=NCF_TIMED_EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        losses.append(list(model.model.trainer.step_losses))
+        return steps_per_epoch * NCF_TIMED_EPOCHS / wall
+
+    med, stats = windows_stats(window, NCF_WINDOWS)
+    launches = _kernels.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    if launches:
+        raise AssertionError(f"NCF launched hand-written kernels {launches}")
+    flat = [v for run in losses for v in run]
+    first, last = np.mean(flat[:steps_per_epoch]), \
+        np.mean(flat[-steps_per_epoch:])
+    if len(flat) != steps_per_epoch * (1 + NCF_TIMED_EPOCHS * NCF_WINDOWS) \
+            or not np.isfinite(flat).all() or not last < first:
+        raise AssertionError(f"NCF losses: first epoch {first}, last "
+                             f"{last}, {len(flat)} steps")
+    results = model.evaluate(x[:NCF_PREDICT_ROWS], y[:NCF_PREDICT_ROWS],
+                             batch_size=NCF_BATCH)
+    if not np.isfinite(results["loss"]):
+        raise AssertionError(f"NCF evaluate gave {results}")
+    trainer = model.model.trainer
+    batch = trainer.put_batch(next(ArrayFeatureSet(x, y).batches(
+        NCF_BATCH)))
+    step = lambda: trainer.train_step(batch)
+    profile = profile_device(step)
+    # the step alone on a batch already on the card, no sync between
+    # steps as in fit: what the fit window adds is the host's batching
+    # and copies
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps_per_epoch):
+        step()
+    torch.cuda.synchronize()
+    step_only_ms = 1e3 * (time.perf_counter() - t0) / steps_per_epoch
+    step_launches = sum(g["launches"] for g in
+                        (profile["groups"] or {}).values())
+    inference = check_ncf_inference(model, seed, device)
+    return dict(
+        model="NeuralCF (bench.py bench_ncf, MovieLens-1M shape)",
+        users=NCF_USERS, items=NCF_ITEMS, classes=NCF_CLASSES, **NCF_KW,
+        optimizer="adam lr 0.001", loss="sparse_categorical_crossentropy",
+        compute_dtype="float32", batch=NCF_BATCH, samples=NCF_SAMPLES,
+        steps_per_epoch=steps_per_epoch, seed=seed,
+        params=sum(p.numel() for p in model.model.parameters()),
+        warmup_epoch_s=warmup_s, steps_per_s=med, steps_per_s_windows=stats,
+        first_epoch_mean_loss=first, last_epoch_mean_loss=last,
+        evaluate=results, hand_written_kernel_launches=launches,
+        launches_per_step=step_launches, step_profile=profile,
+        step_on_device_batch_ms=step_only_ms, fit_step_ms=1e3 / med,
+        peak_memory_bytes=peak, inference=inference)
 
 
 # ---------------------------------------------------------------------------
@@ -1528,11 +1807,16 @@ def main(argv=None):
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
          wall_s=wall, latency_s=latency, peak_memory_bytes=peak_bytes)
 
-    # 5. train
+    # 5. train, in float32 and then in bf16
     trained, train_report = train(args.seed)
     train_launches = train_report["launches"]
     emit("train", **train_report)
-    check_train_parity(args.seed, dev)
+    emit("train_parity", **check_train_parity(args.seed, dev))
+    trained_bf16, bf16_report = train(args.seed, "bfloat16")
+    bf16_report["parity"] = check_train_parity(args.seed, dev, "bfloat16")
+    bf16_report["timing"] = time_train_dtypes(
+        {"float32": trained, "bfloat16": trained_bf16}, args.seed)
+    emit("train_bf16", card=smi, **bf16_report)
 
     # 6. timing
     timed = [requests[i % REQUESTS] for i in range(TIMED_REQUESTS)]
@@ -1566,17 +1850,27 @@ def main(argv=None):
 
     # 7. generate, after the served and trained models' memory is freed
     # (their graphs hold reference cycles, so collect them first)
-    del trained, im, model
+    del trained, trained_bf16, im, model
     gc.collect()
     torch.cuda.empty_cache()
     gen_launches, prefill_k1 = generate(args.seed, dev, smi)
 
+    # 8. NeuralCF
+    emit("ncf", card=smi, **ncf(args.seed, dev))
+
     f32 = train_kern[torch.float32]
+    bf = train_kern[torch.bfloat16]
+    bf16_launches = bf16_report["launches"]
     errs = {attn.KERNEL_NAME: fwd_err[torch.float32],
             attn.DQ_KERNEL_NAME: bwd_err[torch.float32]["dq"],
             attn.DKV_KERNEL_NAME: bwd_err[torch.float32]["dkv"],
             dln.FWD_KERNEL_NAME: dln_err[torch.float32]["fwd"],
             dln.BWD_KERNEL_NAME: dln_err[torch.float32]["bwd"]}
+    errs_bf16 = {attn.KERNEL_NAME: fwd_err[torch.bfloat16],
+                 attn.DQ_KERNEL_NAME: bwd_err[torch.bfloat16]["dq"],
+                 attn.DKV_KERNEL_NAME: bwd_err[torch.bfloat16]["dkv"],
+                 dln.FWD_KERNEL_NAME: dln_err[torch.bfloat16]["fwd"],
+                 dln.BWD_KERNEL_NAME: dln_err[torch.bfloat16]["bwd"]}
     summary = []
     for name, (source, replaces) in KERNELS.items():
         row = f32[name]
@@ -1585,7 +1879,14 @@ def main(argv=None):
                      max_abs_err=errs[name], ms=row["ms"],
                      plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"],
-                     library_ms=row["library_ms"])
+                     library_ms=row["library_ms"],
+                     launches_bf16=bf16_launches[name],
+                     max_abs_err_bf16=errs_bf16[name],
+                     ms_bf16=bf[name]["ms"],
+                     plain_ms_bf16=bf[name]["plain_ms"],
+                     bound_ms_bf16=bf[name]["bound_ms"],
+                     bound_by_bf16=bf[name]["bound_by"],
+                     library_ms_bf16=bf[name]["library_ms"])
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

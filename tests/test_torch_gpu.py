@@ -405,6 +405,101 @@ def test_bert_fit_with_dropout_runs_every_training_kernel(cuda):
         tnn.set_nncontext(None)
 
 
+def test_bert_bf16_fit_runs_every_training_kernel_in_bf16(cuda):
+    """Model.fit under ``set_compute_dtype("bfloat16")`` with dropout on,
+    one step on int32 ids: every training kernel runs once a block (the
+    dropout+add+LN pair twice) and every launch is given bf16 tensors;
+    the parameters, their gradients and Adam's moments stay float32."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(device=cuda)
+    try:
+        l = 128
+        model = _small_classifier(l, 128, 0.1, seed=1)
+        model.compile(optimizer="adam",
+                      loss="sparse_categorical_crossentropy")
+        model.set_compute_dtype("bfloat16")
+        xs, y, _ = _small_batch(l, "cpu")
+        xs = [x.int().numpy() for x in xs[:3]] + [xs[3].numpy()]
+        _kernels.LAUNCHES.reset()
+        model.fit(xs, y.numpy(), batch_size=3, nb_epoch=1)
+        torch.cuda.synchronize()
+        expected = {ta.KERNEL_NAME: 2, ta.DQ_KERNEL_NAME: 2,
+                    ta.DKV_KERNEL_NAME: 2, tdln.FWD_KERNEL_NAME: 4,
+                    tdln.BWD_KERNEL_NAME: 4}
+        assert _kernels.LAUNCHES.snapshot() == expected
+        assert _kernels.LAUNCHES.by_dtype() == {
+            k: {"bfloat16": n} for k, n in expected.items()}
+        assert np.isfinite(model.trainer.step_losses).all()
+        for name, p in model.named_parameters():
+            assert p.dtype == torch.float32, name
+            assert p.grad.dtype == torch.float32, name
+            assert torch.isfinite(p.grad).all(), name
+        moments = model.trainer.opt_state[0]
+        assert all(t.dtype == torch.float32 for part in ("mu", "nu")
+                   for t in moments[part].values())
+    finally:
+        tnn.set_nncontext(None)
+
+
+def test_neuralcf_predict_on_the_card_matches_the_cpu(cuda):
+    """bench.py's NeuralCF (weights from a seed): ``predict`` on the card
+    against the same weights on the CPU, within 1e-5 (float32 products
+    of at most 60 terms summed in another order)."""
+    import copy
+
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import \
+        get_loss
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
+        get_optimizer
+    from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
+
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(device=cuda)
+    try:
+        ncf = NeuralCF(6040, 3706, 5, user_embed=20, item_embed=20,
+                       hidden_layers=[40, 20, 10], include_mf=True,
+                       mf_embed=20)
+        cpu_model = copy.deepcopy(ncf.model)
+        rs = np.random.default_rng(0)
+        x = np.stack([rs.integers(1, 6041, 3000), rs.integers(1, 3707, 3000)],
+                     1).astype(np.float32)
+        got = ncf.predict(x, batch_size=1024)
+        cpu = SPMDTrainer(cpu_model, get_loss("mse"), get_optimizer("sgd"),
+                          device="cpu")
+        want = cpu.predict(x, batch_size=1024)
+        assert got.shape == (3000, 5)
+        assert np.abs(got - want).max() <= 1e-5
+        assert next(ncf.model.parameters()).device.type == "cuda"
+    finally:
+        tnn.set_nncontext(None)
+
+
+def test_embedding_out_of_range_id_gives_a_nan_row_on_the_card(cuda):
+    """An id outside [-n, n) gives a NaN row on the card, with no
+    device-side assert; the others select their rows."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Embedding
+
+    layer = Embedding(10, 4)
+    layer.build_params(torch.Generator().manual_seed(0), (None, 3))
+    layer.to(cuda)
+    ids = torch.tensor([[1.0, 10.0, -11.0], [9.0, -1.0, 1e6]], device=cuda)
+    out = layer(ids)
+    torch.cuda.synchronize()
+    nan_rows = torch.isnan(out).all(-1).cpu()
+    assert nan_rows.tolist() == [[False, True, True], [False, False, True]]
+    table = layer.table.detach()
+    assert torch.equal(out[0, 0], table[1]) and \
+        torch.equal(out[1, 0], table[9]) and torch.equal(out[1, 1], table[9])
+
+
 def _small_decoder(seed):
     """A causal TransformerLayer (head dim 64) with seeded weights."""
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import \

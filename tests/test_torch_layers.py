@@ -121,11 +121,21 @@ def test_init_tensor_draws_follow_the_named_scheme():
 
 
 def test_activations_ported_so_far():
+    """Every activation name of the JAX package, against its function on
+    the same (positive, for log and sqrt) inputs, within 1e-6."""
+    from analytics_zoo_tpu.pipeline.api.keras.engine import base as jbase
     x = torch.tensor([[1.0, 2.0, 3.0]])
     sm = get_activation_fn("softmax")(x)
     np.testing.assert_allclose(sm.numpy(),
                                np.asarray(jax.nn.softmax(x.numpy())),
                                atol=1e-7)
     assert get_activation_fn("linear")(x) is x
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_activation_fn("mish")
+    v = np.random.default_rng(0).standard_normal((3, 7)).astype(np.float32)
+    for name in jbase.ACTIVATIONS:
+        xin = np.abs(v) + 0.1 if name in ("log", "sqrt") else 3 * v
+        got = get_activation_fn(name)(torch.from_numpy(xin)).numpy()
+        want = np.asarray(jbase.get_activation_fn(name)(jnp.asarray(xin)))
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+    with pytest.raises(ValueError, match="Unknown activation"):
+        get_activation_fn("nope")

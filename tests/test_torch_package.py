@@ -57,6 +57,7 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.pipeline.api.keras.optimizers, "
             "analytics_zoo_tpu_torch.pipeline.engine, "
             "analytics_zoo_tpu_torch.feature, "
+            "analytics_zoo_tpu_torch.models.recommendation, "
             "analytics_zoo_tpu_torch.common.zoo_trigger, "
             "analytics_zoo_tpu_torch.ops, "
             "analytics_zoo_tpu_torch.ops.kv_cache, "

@@ -201,6 +201,11 @@ OPTIMIZERS = [
     ("sgd_plateau", dict(lr=0.1, schedule=("Plateau", ()))),
     ("adamweightdecay", dict(lr=1e-2)),
     ("adamweightdecay_onecycle", dict(lr=1e-2, total=10)),
+    ("rmsprop", dict(lr=1e-2)),
+    ("adagrad", dict(lr=0.1)),
+    ("adadelta", dict(lr=1.0)),
+    ("adamax", dict(lr=1e-2)),
+    ("ftrl", dict(lr=0.1)),
 ]
 
 
@@ -210,7 +215,9 @@ def _build_optimizer(module, key, kw):
         cls, args = kw["schedule"]
         kw["schedule"] = getattr(module, cls)(*args)
     cls = {"adam": "Adam", "sgd": "SGD",
-           "adamweightdecay": "AdamWeightDecay"}[key.split("_")[0]]
+           "adamweightdecay": "AdamWeightDecay", "rmsprop": "RMSprop",
+           "adagrad": "Adagrad", "adadelta": "Adadelta", "adamax": "Adamax",
+           "ftrl": "Ftrl"}[key.split("_")[0]]
     return getattr(module, cls)(**kw)
 
 
@@ -250,13 +257,6 @@ def test_lr_schedules_match_jax():
         for step in range(25):
             np.testing.assert_allclose(ts(step), float(js(step)), rtol=1e-6,
                                        atol=1e-9)
-
-
-@pytest.mark.parametrize("name", ["rmsprop", "adagrad", "adadelta", "adamax",
-                                  "ftrl"])
-def test_optimizers_not_ported_yet_raise(name):
-    with pytest.raises(NotImplementedError, match="optimizer slice"):
-        topt.get_optimizer(name)
 
 
 def test_gradient_clipping_matches_jax():
