@@ -12,6 +12,15 @@ So a model's ``state_dict()`` keys are the JAX param paths joined by
 ".", and JAX weights copy over with no transposes
 (``utils/jax_weights.py``).
 
+A layer with non-trainable state (BatchNorm's moving statistics) sets
+``has_state`` and returns the JAX ``init_state`` dict from
+:meth:`KerasLayer.init_state`; ``build_params`` registers its tensors as
+float32 buffers, PyTorch's home for such state, where the JAX layer
+hands a new state back from ``call``. The layer updates its buffers in
+place in ``forward`` when ``training`` is True, once a call, and only
+reads them otherwise; ``named_parameters()`` (the trainable weights, the
+optimizer's tree, ``get_weights``) never holds them.
+
 Calling a layer on symbolic :class:`Variable`s records a graph node;
 calling it on tensors runs ``forward``.
 """
@@ -44,9 +53,12 @@ class KerasLayer(nn.Module):
       * ``forward(inputs, training=False, **kw) -> outputs``
       * ``compute_output_shape(input_shape) -> shape`` (batch dim = None)
 
-    Stochastic layers set ``stochastic=True`` and accept a ``generator``
-    keyword (a ``torch.Generator``)."""
+    Layers with non-trainable state set ``has_state=True`` and implement
+    ``init_state(input_shape) -> dict of tensors`` (registered as float32
+    buffers). Stochastic layers set ``stochastic=True`` and accept a
+    ``generator`` keyword (a ``torch.Generator``)."""
 
+    has_state = False
     stochastic = False
     num_outputs = 1
 
@@ -66,6 +78,9 @@ class KerasLayer(nn.Module):
     def build(self, generator, input_shape) -> Dict[str, Any]:
         return {}
 
+    def init_state(self, input_shape) -> Dict[str, Any]:
+        return {}
+
     def forward(self, inputs, training: bool = False, **kwargs):
         raise NotImplementedError(type(self).__name__)
 
@@ -74,7 +89,8 @@ class KerasLayer(nn.Module):
 
     # -- parameters --------------------------------------------------------
     def build_params(self, generator, input_shape) -> None:
-        """Run ``build`` and register its tensors on this module."""
+        """Run ``build`` and register its tensors on this module, and
+        ``init_state``'s as float32 buffers."""
         self.built = True
         for key, val in self.build(generator, input_shape).items():
             if isinstance(val, dict):
@@ -85,6 +101,8 @@ class KerasLayer(nn.Module):
                     {k: nn.Parameter(v) for k, v in val.items()}))
             else:
                 self.register_parameter(key, nn.Parameter(val))
+        for key, val in self.init_state(input_shape).items():
+            self.register_buffer(key, val.float())
 
     def param_tree(self) -> Dict[str, Any]:
         """This layer's parameters as the JAX-shaped nested dict."""
@@ -96,6 +114,10 @@ class KerasLayer(nn.Module):
                 node = node.setdefault(p, {})
             node[leaf] = param
         return tree
+
+    def state_tree(self) -> Dict[str, Any]:
+        """This layer's state buffers as the JAX ``init_state`` dict."""
+        return dict(self.named_buffers(recurse=False))
 
     # -- symbolic application -------------------------------------------
     def __call__(self, x, *args, **kwargs):

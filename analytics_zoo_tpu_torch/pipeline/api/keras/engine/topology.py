@@ -13,7 +13,11 @@ distinct layer of its graph as a submodule under the layer's name, so
 trains the model's own parameters in place, so ``predict`` and
 ``InferenceModel.load_keras_net`` serve the trained weights.
 ``set_compute_dtype("bfloat16")`` trains, evaluates and predicts in bf16
-over float32 parameters (the trainer's ``compute_dtype``).
+over float32 parameters (the trainer's ``compute_dtype``); the layers'
+state buffers (BatchNorm's moving statistics, the JAX model's
+``net_state``) stay float32. ``fit`` updates them, ``evaluate`` and
+``predict`` only read them, and ``get_weights``/``set_weights`` carry
+the parameters alone, as JAX's do.
 
 Layers own their parameters, so containers over the same layer objects
 share them: ``Sequential.to_model``, ``new_graph`` and a ``Model`` built
@@ -223,6 +227,16 @@ class KerasNet(KerasLayer):
             p = layer.param_tree()
             if p:
                 tree[layer.name] = p
+        return tree
+
+    def state_tree(self) -> Dict[str, Any]:
+        """{layer_name: layer state buffers}, the JAX ``net_state``'s
+        shape."""
+        tree = {}
+        for layer in self.graph_function().layers:
+            s = layer.state_tree()
+            if s:
+                tree[layer.name] = s
         return tree
 
     def get_weights(self) -> List[np.ndarray]:

@@ -1,8 +1,9 @@
 """Core layers.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/core.py``;
-so far ``Dense``, ``Activation``, ``Flatten`` and ``Select``: the layers
-of the BERT classifier head and of the recommendation models.
+so far ``Dense``, ``Activation``, ``Dropout``, ``Flatten`` and
+``Select``: the layers of the BERT classifier head, of the
+recommendation models and of the image classifiers.
 """
 
 from __future__ import annotations
@@ -63,6 +64,28 @@ class Activation(KerasLayer):
 
     def forward(self, x, training=False, **kw):
         return self.fn(x)
+
+
+class Dropout(KerasLayer):
+    """Zeroes each element with probability ``p`` while training and
+    scales the rest by ``1 / (1 - p)``; the identity when not training,
+    at ``p = 0`` or without a generator. The mask comes from the
+    trainer's per-step ``generator`` on x's device, so it differs from
+    JAX's ``bernoulli`` bits by design."""
+
+    stochastic = True
+
+    def __init__(self, p, input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name)
+        self.p = float(p)
+
+    def forward(self, x, training=False, generator=None, **kw):
+        if not training or generator is None or self.p <= 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 class Flatten(KerasLayer):

@@ -21,6 +21,15 @@ which bf16 rounds above 256, as in the JAX package. Integer inputs pass
 unchanged. Predictions return to float32 before the loss. Parameters and
 the optimizer state stay float32.
 
+The model's non-trainable state (BatchNorm's moving statistics, the JAX
+trainer's ``net_state``) lives in float32 buffers on its layers. The
+bf16 cast leaves them out, as JAX's leaves ``net_state`` out, so the
+layers read and update their own float32 buffers in either dtype. A
+training forward (``train_step``, ``loss_and_grads``) updates them in
+place, once a step: the state a step commits with its update, as JAX's
+``_step_body`` returns it. ``evaluate`` and ``predict`` run with
+``training=False`` and only read them.
+
 The training stream: each step draws its dropout from a
 ``torch.Generator`` on the device seeded from ``(seed, step)``, the
 counterpart of ``fold_in(key(seed), step)``. The stream differs from
@@ -206,8 +215,9 @@ class SPMDTrainer:
 
     def loss_and_grads(self, batch, training: bool = True):
         """Forward and backward of one device batch at the current step,
-        without an update: the loss, and each parameter's gradient left in
-        its ``.grad`` (None where the loss does not reach it)."""
+        without a parameter update: the loss, and each parameter's
+        gradient left in its ``.grad`` (None where the loss does not reach
+        it). A training forward updates the state buffers."""
         params = self.params()
         for p in params.values():
             p.grad = None
@@ -217,9 +227,9 @@ class SPMDTrainer:
         return loss.detach()
 
     def train_step(self, batch) -> torch.Tensor:
-        """One optimization step on a device batch (``_step_body``): fwd,
-        bwd, frozen masks, clipping, update. Returns the loss on the
-        device (no host sync)."""
+        """One optimization step on a device batch (``_step_body``): fwd
+        (which updates the state buffers), bwd, frozen masks, clipping,
+        update. Returns the loss on the device (no host sync)."""
         loss = self.loss_and_grads(batch)
         params = self.params()
         with torch.no_grad():

@@ -5,7 +5,8 @@ No JAX counterpart. The JAX package keeps a model's parameters as a pytree
 names and layouts on its modules. :func:`load_jax_params` takes that
 pytree as nested dicts of numpy arrays — convert with ``np.asarray``
 first; this module imports no JAX — and copies it into a port model, or
-into one layer built on its own. :func:`load_jax_decode_state` carries a
+into one layer built on its own; with ``state=``, the JAX ``net_state``
+(BatchNorm's moving statistics) comes along into the layers' buffers. :func:`load_jax_decode_state` carries a
 JAX KV-cache ``DecodeState`` into the port's, so both sides can start
 from the same mid-stream cache.
 """
@@ -39,27 +40,10 @@ def _auto_parts(name: str) -> Optional[Tuple[str, int]]:
     return (m.group(1), int(m.group(2))) if m else None
 
 
-def load_jax_params(model, params: Mapping[str, Mapping[str, Any]]
-                    ) -> None:
-    """Copy the JAX params pytree ``params`` into the port ``model`` (a
-    graph model, or a single layer: then ``params`` holds one entry, the
-    layer's pytree, as ``{layer.name: layer_params}``).
-
-    A port layer with a user-given name (any name but its class's
-    auto-name pattern) takes the JAX entry of that name. Auto-named
-    layers ("dense_3", "embedding_12": the class, then a per-class
-    counter in creation order) pair by class and creation order: the
-    port's k-th auto-named Dense of the model takes the JAX entry with
-    the k-th smallest "dense_N". The two packages number their layers
-    with separate counters, and JAX hands its params back with the keys
-    sorted, so neither the numbers nor the order of ``params`` matter;
-    building the model with the same code on both sides is what lines
-    the layers up. Raises on a missing, extra or mis-shaped leaf, and on
-    layers left unpaired.
-    """
-    layers = (model.graph_function().layers
-              if hasattr(model, "graph_function") else [model])
-    port_layers = [l for l in layers if any(True for _ in l.parameters())]
+def _pair_layers(port_layers, names) -> list:
+    """(port layer, JAX entry name) pairs: user-named layers by name,
+    auto-named ones by class and creation order (see
+    :func:`load_jax_params`). Raises on layers left unpaired."""
     pairs = []
     port_auto: Dict[str, list] = {}   # class -> [(number, layer)]
     for layer in port_layers:
@@ -67,14 +51,14 @@ def load_jax_params(model, params: Mapping[str, Mapping[str, Any]]
         parts = _auto_parts(layer.name)
         if parts is not None and parts[0] == cls:
             port_auto.setdefault(cls, []).append((parts[1], layer))
-        elif layer.name in params:
+        elif layer.name in names:
             pairs.append((layer, layer.name))
         else:
             raise ValueError(f"cannot pair layers: port {layer.name} has "
                              f"no JAX entry of that name")
     taken = {name for _, name in pairs}
     jax_auto: Dict[str, list] = {}    # class -> [(number, name)]
-    for name in params:
+    for name in names:
         if name in taken:
             continue
         parts = _auto_parts(name)
@@ -91,23 +75,60 @@ def load_jax_params(model, params: Mapping[str, Mapping[str, Any]]
         for (_, layer), (_, name) in zip(sorted(port, key=lambda t: t[0]),
                                          sorted(jax_auto[cls])):
             pairs.append((layer, name))
+    return pairs
 
-    for layer, name in pairs:
-        src = _flatten(params[name])
-        dst = dict(layer.named_parameters())
-        missing = sorted(set(dst) - set(src))
-        extra = sorted(set(src) - set(dst))
-        if missing or extra:
-            raise ValueError(f"{layer.name} <- {name}: missing {missing}, "
-                             f"extra {extra}")
-        for path, p in dst.items():
-            arr = np.asarray(src[path])
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"{layer.name}.{path} <- {name}.{path}: shape "
-                    f"{tuple(arr.shape)} vs {tuple(p.shape)}")
-            with torch.no_grad():
-                p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
+
+def _copy_leaves(layer, name, src_tree, dst, what) -> None:
+    src = _flatten(src_tree)
+    missing = sorted(set(dst) - set(src))
+    extra = sorted(set(src) - set(dst))
+    if missing or extra:
+        raise ValueError(f"{layer.name} <- {name}: {what} missing "
+                         f"{missing}, extra {extra}")
+    for path, t in dst.items():
+        arr = np.asarray(src[path])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(
+                f"{layer.name}.{path} <- {name}.{path}: shape "
+                f"{tuple(arr.shape)} vs {tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.array(arr)).to(t.dtype))
+
+
+def load_jax_params(model, params: Mapping[str, Mapping[str, Any]],
+                    state: Optional[Mapping[str, Mapping[str, Any]]] = None
+                    ) -> None:
+    """Copy the JAX params pytree ``params`` into the port ``model`` (a
+    graph model, or a single layer: then ``params`` holds one entry, the
+    layer's pytree, as ``{layer.name: layer_params}``), and with
+    ``state`` the JAX ``net_state`` (``{layer: {"moving_mean",
+    "moving_var"}}``) into the layers' state buffers.
+
+    A port layer with a user-given name (any name but its class's
+    auto-name pattern) takes the JAX entry of that name. Auto-named
+    layers ("dense_3", "embedding_12": the class, then a per-class
+    counter in creation order) pair by class and creation order: the
+    port's k-th auto-named Dense of the model takes the JAX entry with
+    the k-th smallest "dense_N". The two packages number their layers
+    with separate counters, and JAX hands its params back with the keys
+    sorted, so neither the numbers nor the order of ``params`` matter;
+    building the model with the same code on both sides is what lines
+    the layers up. The state pairs the same way, over the layers that
+    have state. Raises on a missing, extra or mis-shaped leaf, and on
+    layers left unpaired.
+    """
+    layers = (model.graph_function().layers
+              if hasattr(model, "graph_function") else [model])
+    with_params = [l for l in layers if any(True for _ in l.parameters())]
+    for layer, name in _pair_layers(with_params, params):
+        _copy_leaves(layer, name, params[name],
+                     dict(layer.named_parameters()), "params")
+    if state is None:
+        return
+    with_state = [l for l in layers if any(True for _ in l.buffers())]
+    for layer, name in _pair_layers(with_state, state):
+        _copy_leaves(layer, name, state[name], dict(layer.named_buffers()),
+                     "state")
 
 
 def load_jax_decode_state(state, device=None, rng=None) -> DecodeState:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
-generation and NeuralCF paths once on one NVIDIA GPU.
+generation, NeuralCF and ResNet-50 paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -75,6 +75,21 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``evaluate``, one step's launches and device idle share;
               ``predict`` on the card against the CPU, ``predict_classes``,
               ``predict`` on a feature set and ``recommend_for_user``.
+9. resnet  -- ``bench.py``'s ResNet-50 leg: ``ImageClassifier(1000,
+              "resnet-50")`` on 3 x 224 x 224 (weights from ``--seed``):
+              ``predict`` and one SGD step (float32 and bf16, on 3
+              starts with the residual branches' last gammas drawn from
+              U(0.1, 0.25)) against the port's CPU run: the loss, the
+              moving statistics and every layer's forward and backward
+              from the card's own inputs;
+              ``fit`` for 8 steps in bf16 at batch 256 on one seeded batch
+              (the loss finite and falling, every BatchNorm's float32
+              moving statistics moved, float32 weights, gradients and SGD
+              state, a gradient on every convolution, the five kernels
+              launched 0 times, ``evaluate``, ``predict`` rows summing to
+              1); the bf16 and float32 steps in alternating windows (p50,
+              images/s, MFU by bench.py's count, peak memory, device time
+              by kernel group, the SGD update's share).
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -102,6 +117,8 @@ import torch.nn.functional as F
 from analytics_zoo_tpu_torch.common import init_nncontext
 from analytics_zoo_tpu_torch.feature.feature_set import (ArrayFeatureSet,
                                                          Sample)
+from analytics_zoo_tpu_torch.models.image.imageclassification import \
+    ImageClassifier
 from analytics_zoo_tpu_torch.models.recommendation import (NeuralCF,
                                                            UserItemFeature)
 from analytics_zoo_tpu_torch.ops import _kernels
@@ -118,6 +135,8 @@ from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 from analytics_zoo_tpu_torch.serving.generation import (
     ContinuousBatchScheduler, GenRequest, PrefixCache,
     SpeculativeDecodeEngine, TransformerDecodeEngine)
+from analytics_zoo_tpu_torch.utils.layer_parity import (LayerRecorder,
+                                                        compare_layers)
 
 # bench.py's BERT-base classifier (bench.py:353-438)
 BERT_CONFIG = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
@@ -710,11 +729,12 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_device(fn):
-    """Device time by kernel group over one call of ``fn``, from
-    ``torch.profiler``: the groups' sums, their shares of the call's wall
-    time, and the device's idle share. None where the profiler recorded
-    no device time."""
+def profile_device(fn, group_of=None):
+    """Device time by kernel group (``group_of``, ``kernel_group`` by
+    default) over one call of ``fn``, from ``torch.profiler``: the
+    groups' sums, their shares of the call's wall time, and the device's
+    idle share. None where the profiler recorded no device time."""
+    group_of = group_of or kernel_group
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -727,7 +747,7 @@ def profile_device(fn):
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        group = kernel_group(evt.key)
+        group = group_of(evt.key)
         g = groups.setdefault(group, {"device_ms": 0.0, "launches": 0})
         g["device_ms"] += evt.self_device_time_total / 1e3
         g["launches"] += evt.count
@@ -1731,6 +1751,400 @@ def generate(seed, device, smi):
 
 
 # ---------------------------------------------------------------------------
+# ResNet-50
+# ---------------------------------------------------------------------------
+
+# bench.py's ResNet-50 leg (bench_resnet_mfu :551, _bench_resnet_mfu_at
+# :601): ImageClassifier(class_num=1000, model_name="resnet-50") on
+# 3 x 224 x 224 NCHW, bf16 over float32 weights, SGD at its default lr
+# 0.01, sparse categorical cross-entropy, seeded N(0, 1) images and int32
+# labels in [0, 1000); batch 256, the JAX package's own measured batch.
+# Its FLOP count a step is 3 x 2 x 4.09e9 x batch (bench.py:548, :646).
+RESNET_CLASSES, RESNET_SHAPE = 1000, (3, 224, 224)
+RESNET_BATCH, RESNET_STEPS = 256, 8
+RESNET_FLOPS_PER_IMAGE = 3 * 2 * 4.09e9
+RESNET_PARITY_ROWS, RESNET_PREDICT_ROWS = 2, 8
+# one train_step, card against the port's CPU run, on RESNET_PARITY_SEEDS
+# draws of the start (weights, the last gamma of each residual branch
+# from U(RESNET_BRANCH_GAMMA), 2 images), so that every parameter carries
+# a gradient. Whole model: (loss, moving statistics); float32 sums in
+# another order, bf16 rounds at other places. The gradients are held
+# layer by layer (utils/layer_parity.py): each layer's output, input
+# gradients and parameter gradients from the card's own inputs, over the
+# CPU's norm: float32 1e-4 (measured up to 9.8e-6 over the 3 starts,
+# NVIDIA H100 80GB HBM3), bf16 2e-2 (measured up to 4.1e-3, where bf16
+# arithmetic alone moves the CPU's layers up to 3.4e-3 from float32; the
+# fused backward on NCHW bf16, which rounds dgamma and dbeta through
+# bf16, read 5.1e-2). Whole-model gradients are reported, not gated: one
+# float32 step of this ResNet-50 lands 0.4-0.7% of a gradient's norm
+# from the float64 one on the CPU alone, as ReLU masks near zero flip
+# (tools/resnet_grad_conditioning.py).
+RESNET_PARITY_SEEDS = 3
+RESNET_BRANCH_GAMMA = (0.1, 0.25)
+RESNET_STEP_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+RESNET_LAYER_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+RESNET_PREDICT_TOL = 1e-4
+RESNET_ROW_SUM_TOL = 1e-3
+RESNET_TIMED_STEPS = 5
+
+
+def conv_kernel_group(name: str) -> str:
+    """The ResNet step's kernels by what they do, from their symbols:
+    cuDNN's convolutions (forward, backward data, backward filter) and
+    its NCHW <-> NHWC layout transposes, cuBLAS, PyTorch's batch norm
+    kernels, pooling, reductions (the loss, the layout copies' sums) and
+    elementwise kernels (ReLU, the adds, casts, SGD)."""
+    low = name.lower()
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "layout transposes (cuDNN)"
+    if "wgrad" in low:
+        return "convolution backward filter"
+    if "dgrad" in low:
+        return "convolution backward data"
+    if any(s in low for s in ("fprop", "implicit_convolve", "winograd",
+                              "convolve", "conv2d")):
+        return "convolution forward"
+    if any(s in low for s in ("cudnn", "xmma", "cutlass")):
+        return "convolution (other cuDNN)"
+    if any(s in low for s in ("gemm", "cublas", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "batch_norm" in low:
+        return "batch norm"
+    if "pool" in low:
+        return "pooling"
+    if "reduce" in low:
+        return "reduction"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+def draw_branch_gammas(model, seed):
+    """The gamma of the last BatchNorm of every bottleneck branch drawn
+    from U(RESNET_BRANCH_GAMMA) (0.1-0.25 of the Keras init of 1): small
+    enough to keep the step's activations moderate, nonzero so that every
+    convolution and BatchNorm in a branch carries a gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    lo, hi = RESNET_BRANCH_GAMMA
+    with torch.no_grad():
+        for node in model.graph_function().nodes:
+            if isinstance(node.layer, L.Add):
+                gamma = node.inputs[0].node.layer.gamma
+                gamma.copy_(lo + (hi - lo) * torch.rand(gamma.shape,
+                                                        generator=gen))
+
+
+def resnet_twin(model):
+    """A second build of ResNet-50 on the CPU holding ``model``'s weights
+    and moving statistics (copied in order: ``copy.deepcopy`` recurses
+    once a graph node deep, too deep for this graph)."""
+    twin = ImageClassifier(class_num=RESNET_CLASSES,
+                           model_name="resnet-50").model
+    with torch.no_grad():
+        for mine, theirs in ((twin.parameters(), model.parameters()),
+                             (twin.buffers(), model.buffers())):
+            for a, b in zip(mine, theirs):
+                a.copy_(b.detach().cpu())
+    return twin
+
+
+def resnet_data(seed, n):
+    """bench.py:616-617: N(0, 1) float32 images, int32 labels."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n,) + RESNET_SHAPE).astype(np.float32)
+    y = rng.integers(0, RESNET_CLASSES, (n,)).astype(np.int32)
+    return x, y
+
+
+def build_resnet(seed):
+    config = init_nncontext().config
+    seed0, config.seed = config.seed, seed
+    clf = ImageClassifier(class_num=RESNET_CLASSES, model_name="resnet-50")
+    config.seed = seed0     # the model drew its weights from seed
+    return clf
+
+
+def check_resnet_parity(seed, device):
+    """ResNet-50 on the card against the port's CPU run from the same
+    weights and seeded moving statistics: ``predict`` of
+    RESNET_PREDICT_ROWS images in float32; then, on RESNET_PARITY_SEEDS
+    starts (``draw_branch_gammas``), one SGD ``train_step`` on
+    RESNET_PARITY_ROWS images in float32 and in bf16: the loss and every
+    moving statistic after the step, every layer's forward and backward
+    from the card's own inputs (``compare_layers``; in bf16 also how far
+    bf16 arithmetic alone moves the CPU's layers from float32), a nonzero
+    CPU gradient on every convolution kernel, and no launch of K1-K5."""
+    clf = build_resnet(seed + 20)
+    gen = torch.Generator().manual_seed(seed + 21)
+    with torch.no_grad():
+        for name, b in clf.model.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=gen) + 0.5
+                    if name.endswith("moving_var") else
+                    0.2 * torch.randn(b.shape, generator=gen))
+    x, y = resnet_data(seed + 22, RESNET_PREDICT_ROWS)
+    loss_fn = get_loss("sparse_categorical_crossentropy")
+    cpu_model = resnet_twin(clf.model)
+    got = clf.predict(x, batch_size=RESNET_PREDICT_ROWS)
+    want = SPMDTrainer(cpu_model, loss_fn, get_optimizer("sgd"),
+                       device="cpu").predict(x, RESNET_PREDICT_ROWS)
+    predict_err = float(np.abs(got - want).max())
+    out = dict(predict_rows=RESNET_PREDICT_ROWS,
+               predict_max_abs_err=predict_err,
+               predict_tol=RESNET_PREDICT_TOL,
+               branch_gamma=RESNET_BRANCH_GAMMA, steps=[])
+    if got.shape != (RESNET_PREDICT_ROWS, RESNET_CLASSES) or \
+            not predict_err <= RESNET_PREDICT_TOL:
+        emit("resnet_parity", ok=False, **out)
+        raise AssertionError(f"ResNet-50 predict on the card differs from "
+                             f"the CPU by {predict_err}")
+    for k in range(RESNET_PARITY_SEEDS):
+        start = resnet_twin(clf.model)
+        draw_branch_gammas(start, seed + 30 + k)
+        xk, yk = resnet_data(seed + 40 + k, RESNET_PARITY_ROWS)
+        rows = ([xk], yk, np.ones(RESNET_PARITY_ROWS, np.float32))
+        for dtype in ("float32", "bfloat16"):
+            res = resnet_step_parity(start, rows, device, dtype)
+            res.update(seed=seed + 30 + k)
+            out["steps"].append(res)
+            if not res["ok"]:
+                emit("resnet_parity", ok=False, **out)
+                raise AssertionError(f"ResNet-50 {dtype} step on the card "
+                                     f"differs from the CPU: {res}")
+    return out
+
+
+def resnet_step_parity(start, rows, device, dtype):
+    """One ``train_step`` of copies of ``start`` on the card and on the
+    CPU in ``dtype``, the card's layers recorded and held against the
+    CPU's (see check_resnet_parity)."""
+    loss_fn = get_loss("sparse_categorical_crossentropy")
+    card_model, cpu_model = resnet_twin(start), resnet_twin(start)
+    card = SPMDTrainer(card_model, loss_fn, get_optimizer("sgd"),
+                       device=device, compute_dtype=dtype)
+    cpu = SPMDTrainer(cpu_model, loss_fn, get_optimizer("sgd"),
+                      device="cpu", compute_dtype=dtype)
+    card.ensure_initialized()
+    cpu.ensure_initialized()
+    _kernels.LAUNCHES.reset()
+    with LayerRecorder(card_model) as recorder:
+        card_loss = card.train_step(card.put_batch(rows)).item()
+    launches = _kernels.LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    cpu_loss = cpu.train_step(cpu.put_batch(rows)).item()
+    cpu_s = time.perf_counter() - t0
+    layers = compare_layers(
+        recorder, resnet_twin(start),
+        also_in=torch.float32 if dtype == "bfloat16" else None)
+    worst = {"y": (0.0, None), "dx": (0.0, None), "param": (0.0, None)}
+    wide = 0.0
+    for name, r in layers.items():
+        for key, val in [("y", r["y"])] + [("dx", d) for d in r["dx"]
+                                           if d is not None] + \
+                [("param", r[p]) for p in r["ref_norm"]]:
+            if not val <= worst[key][0]:
+                worst[key] = (val, name)
+        wide = max(wide, r.get("vs_float32", 0.0))
+    convs = {n: r["ref_norm"]["kernel"] for n, r in layers.items()
+             if n.startswith("convolution2d")}
+    zero_kernels = [n for n, norm in convs.items() if not norm > 0.0]
+    whole = max(((g.grad.cpu() - q.grad).norm() /
+                 max(q.grad.norm().item(), 1e-12)).item()
+                for g, q in zip(card_model.parameters(),
+                                cpu_model.parameters()))
+    finite = all(torch.isfinite(p.grad).all().item()
+                 for p in card_model.parameters())
+    stats_err = max((b.cpu() - c).abs().max().item()
+                    for b, c in zip(card_model.buffers(),
+                                    cpu_model.buffers()))
+    loss_tol, stats_tol = RESNET_STEP_TOL[dtype]
+    layer_tol = RESNET_LAYER_TOL[dtype]
+    ok = (not launches and finite and len(convs) == 53 and
+          not zero_kernels and
+          abs(card_loss - cpu_loss) <= loss_tol and
+          stats_err <= stats_tol and
+          all(v <= layer_tol for v, _ in worst.values()))
+    return dict(ok=ok, dtype=dtype, rows=RESNET_PARITY_ROWS,
+                card_loss=card_loss, cpu_loss=cpu_loss,
+                loss_err=abs(card_loss - cpu_loss), loss_tol=loss_tol,
+                moving_stats_max_abs_err=stats_err, stats_tol=stats_tol,
+                layers=len(layers), layer_tol=layer_tol,
+                layer_max_rel_err=worst,
+                layer_bf16_vs_float32_on_cpu=wide,
+                conv_kernels_checked=len(convs),
+                conv_kernels_with_zero_cpu_grad=zero_kernels,
+                min_conv_kernel_cpu_grad_norm=min(convs.values()),
+                whole_model_max_grad_rel_err=whole, grads_finite=finite,
+                kernel_launches=launches, cpu_step_s=cpu_s)
+
+
+def check_float32_leaves(tree, where):
+    """Every floating tensor in ``tree`` (dicts and lists of them) is
+    float32."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            check_float32_leaves(v, f"{where}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            check_float32_leaves(v, f"{where}[{i}]")
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point() and \
+            tree.dtype != torch.float32:
+        raise AssertionError(f"{where}: {tree.dtype}")
+
+
+def resnet_fit(seed, x, y):
+    """bench.py's configuration through ``compile``/``fit``/``evaluate``/
+    ``predict`` in bf16: RESNET_STEPS steps of ``fit`` on one seeded batch
+    of RESNET_BATCH images (one epoch a step), with K1-K5's launch counts
+    read around the fit."""
+    clf = build_resnet(seed + 23)
+    clf.compile(optimizer="sgd", loss="sparse_categorical_crossentropy")
+    clf.model.set_compute_dtype("bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    clf.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=RESNET_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    losses = list(clf.model.trainer.step_losses)
+    if launches:
+        raise AssertionError(f"the ResNet-50 fit launched {launches}")
+    if len(losses) != RESNET_STEPS or not np.isfinite(losses).all() or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"ResNet-50 losses {losses}")
+    model = clf.model
+    stats = model.state_tree()
+    moved = {}
+    for name, s in stats.items():
+        mean, var = s["moving_mean"], s["moving_var"]
+        if mean.dtype != torch.float32 or var.dtype != torch.float32 or \
+                not torch.isfinite(mean).all() or \
+                not torch.isfinite(var).all():
+            raise AssertionError(f"{name}: moving statistics {mean.dtype} "
+                                 f"{var.dtype}, or not finite")
+        moved[name] = min(mean.abs().max().item(),
+                          (var - 1).abs().max().item())
+    if len(stats) != 53 or min(moved.values()) <= 0.0:
+        raise AssertionError(f"moving statistics did not move: {moved}")
+    check_float32_leaves(dict(model.named_parameters()), "params")
+    check_float32_leaves({n: p.grad for n, p in model.named_parameters()},
+                         "grads")
+    check_float32_leaves(model.trainer.opt_state, "sgd state")
+    kernels = {n: p.grad.abs().max().item()
+               for n, p in model.named_parameters()
+               if n.endswith(".kernel") and "convolution2d" in n}
+    if len(kernels) != 53 or min(kernels.values()) <= 0.0:
+        raise AssertionError(f"convolution kernels without a gradient: "
+                             f"{[n for n, g in kernels.items() if g <= 0]}")
+    results = clf.evaluate(x, y, batch_size=RESNET_BATCH // 2)
+    probs = clf.predict(x[:RESNET_BATCH // 4], batch_size=RESNET_BATCH // 4)
+    row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+    if not np.isfinite(results["loss"]) or \
+            probs.shape != (RESNET_BATCH // 4, RESNET_CLASSES) or \
+            not row_err <= RESNET_ROW_SUM_TOL:
+        raise AssertionError(f"evaluate {results}, predict rows off 1 by "
+                             f"{row_err}")
+    return clf, dict(
+        model="ResNet-50 ImageClassifier (bench.py:551-646)",
+        classes=RESNET_CLASSES, input_shape=RESNET_SHAPE, data_format="th",
+        compute_dtype="bfloat16", optimizer="sgd lr 0.01",
+        loss="sparse_categorical_crossentropy", batch=RESNET_BATCH,
+        steps=RESNET_STEPS, seed=seed,
+        params=sum(p.numel() for p in model.parameters()), losses=losses,
+        k1_k5_launches=launches, fit_wall_s=wall, peak_memory_bytes=peak,
+        min_moving_stat_shift=min(moved.values()),
+        min_conv_kernel_grad=min(kernels.values()),
+        float32_params_grads_and_sgd_state=True, evaluate=results,
+        predict_rows=RESNET_BATCH // 4, predict_row_sum_max_err=row_err,
+        allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
+        cudnn_benchmark=torch.backends.cudnn.benchmark)
+
+
+def time_resnet_dtypes(bf16_clf, seed, x, y):
+    """The bf16 step of the fitted model and a float32 model's step at the
+    same batch, in alternating windows of RESNET_TIMED_STEPS steps (f32,
+    bf16, bf16, f32): host clock around each synchronised step, p50,
+    images/s, MFU by bench.py's count, each window's peak memory; then the
+    step's device time by kernel group in each dtype, and the bf16
+    forward and backward alone, whose difference from the step is the
+    SGD update."""
+    f32_clf = build_resnet(seed + 24)
+    f32_clf.compile(optimizer="sgd", loss="sparse_categorical_crossentropy")
+    trainers = {"float32": f32_clf.model._ensure_trainer(),
+                "bfloat16": bf16_clf.model.trainer}
+    trainers["float32"].ensure_initialized()
+    batches = {dt: t.put_batch(([x], y, np.ones(RESNET_BATCH, np.float32)))
+               for dt, t in trainers.items()}
+    trainers["float32"].train_step(batches["float32"])     # warm-up
+    step_s = {dt: [] for dt in trainers}
+    peaks = {dt: [] for dt in trainers}
+    order = list(trainers)
+    for w in range(DTYPE_WINDOWS):
+        for dt in (order if w % 2 == 0 else order[::-1]):
+            trainer = trainers[dt]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(RESNET_TIMED_STEPS):
+                t0 = time.perf_counter()
+                trainer.train_step(batches[dt])
+                torch.cuda.synchronize()
+                step_s[dt].append(time.perf_counter() - t0)
+            peaks[dt].append(torch.cuda.max_memory_allocated())
+    out = {}
+    for dt in trainers:
+        p50 = percentile(step_s[dt], 50)
+        flops = RESNET_FLOPS_PER_IMAGE * RESNET_BATCH
+        out[dt] = dict(batch=RESNET_BATCH,
+                       step_ms=[1e3 * t for t in step_s[dt]],
+                       step_p50_ms=1e3 * p50,
+                       images_per_s=RESNET_BATCH / p50,
+                       tflops_per_s=flops / p50 / 1e12,
+                       mfu=flops / p50 / PEAK_FLOPS[torch.bfloat16],
+                       bound_ms=1e3 * flops / PEAK_FLOPS[torch.bfloat16],
+                       peak_memory_bytes=max(peaks[dt]))
+    f32 = trainers["float32"]
+    out["float32"]["profile"] = profile_device(
+        lambda: f32.train_step(batches["float32"]), conv_kernel_group)
+    bf16 = trainers["bfloat16"]
+    batch = batches["bfloat16"]
+    step = profile_device(lambda: bf16.train_step(batch), conv_kernel_group)
+    fwd_bwd = profile_device(lambda: bf16.loss_and_grads(batch),
+                             conv_kernel_group)
+    out["bfloat16"]["profile"] = step
+    out["bfloat16"]["forward_backward_profile"] = fwd_bwd
+    if step["groups"] and fwd_bwd["groups"]:
+        out["bfloat16"]["launches_per_step"] = sum(
+            g["launches"] for g in step["groups"].values())
+        out["bfloat16"]["sgd_update"] = dict(
+            device_ms=step["device_busy_ms"] - fwd_bwd["device_busy_ms"],
+            launches=out["bfloat16"]["launches_per_step"] - sum(
+                g["launches"] for g in fwd_bwd["groups"].values()))
+    out["bf16_speedup_per_image"] = \
+        out["bfloat16"]["images_per_s"] / out["float32"]["images_per_s"]
+    return dict(windows=DTYPE_WINDOWS, steps_per_window=RESNET_TIMED_STEPS,
+                mfu_peak="989 TFLOP/s (bf16 dense, H100 SXM data sheet)",
+                flops_per_image=RESNET_FLOPS_PER_IMAGE, **out)
+
+
+def resnet(seed, device, smi):
+    """The resnet phase: parity with the CPU, bench.py's configuration
+    through fit in bf16, and the timing of the bf16 and float32 steps."""
+    t0 = time.perf_counter()
+    parity = check_resnet_parity(seed, device)
+    parity_s = time.perf_counter() - t0
+    x, y = resnet_data(seed + 25, RESNET_BATCH)
+    clf, report = resnet_fit(seed, x, y)
+    report["parity"] = parity
+    report["parity_s"] = parity_s
+    report["timing"] = time_resnet_dtypes(clf, seed, x, y)
+    report["clocks"] = nvidia_smi("clocks.sm,power.draw,power.limit,"
+                                  "temperature.gpu")
+    emit("resnet", card=smi, **report)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1857,6 +2271,11 @@ def main(argv=None):
 
     # 8. NeuralCF
     emit("ncf", card=smi, **ncf(args.seed, dev))
+
+    # 9. ResNet-50, after the generation and NCF models are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet(args.seed, dev, smi)
 
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]

@@ -629,3 +629,176 @@ def test_fast_path_streams_equal_plain_on_the_card(cuda):
         k=3)
     assert drive(spec) == plain
     assert 0.0 < spec.acceptance_rate < 1.0
+
+
+# ---------------------------------------------------------------------------
+# the image slice: convolution, pooling and BatchNorm on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layer_name", ["MaxPooling2D", "AveragePooling2D"])
+@pytest.mark.parametrize("size", [112, 113])
+def test_same_pooling_at_stride_2_on_the_card_matches_the_cpu(cuda,
+                                                              layer_name,
+                                                              size):
+    """ResNet-50's stem pool, (3, 3) at stride 2 with XLA's "SAME" pads
+    ((0, 1) on 112, (1, 1) on 113), on the card against the CPU: max
+    pooling exactly, the unpadded-count average within 1e-6."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+
+    layer = getattr(tl, layer_name)((3, 3), strides=(2, 2),
+                                    border_mode="same")
+    x = torch.randn(2, 8, size, size,
+                    generator=torch.Generator().manual_seed(size))
+    want = layer(x)
+    got = layer(x.to(cuda)).cpu()
+    assert got.shape == want.shape == (2, 8, (size + 1) // 2,
+                                       (size + 1) // 2)
+    assert (got - want).abs().max().item() <= \
+        (0.0 if layer_name == "MaxPooling2D" else 1e-6)
+
+
+@pytest.mark.parametrize("memory", ["nchw", "channels_last"])
+@pytest.mark.parametrize("shape", [(2, 512, 7, 7), (2, 64, 56, 56)])
+def test_batch_norm_bf16_parameter_gradients_on_the_card_match_float64(
+        cuda, memory, shape):
+    """``batch_norm_train`` on bf16 activations with float32 gamma and
+    beta: dgamma and dbeta within 1e-5 of their float64 values (the
+    float32 sums' accuracy), dx and y within a bf16 rounding (1e-2), in
+    NCHW memory as in channels-last. PyTorch's fused backward on NCHW
+    bf16 rounds dgamma and dbeta through bf16; the op runs on the
+    channel-innermost view, which does not."""
+    from analytics_zoo_tpu_torch.ops.batchnorm import batch_norm_train
+
+    gen = torch.Generator().manual_seed(shape[1])
+    x = (2 * torch.randn(shape, generator=gen) + 0.5).bfloat16()
+    # constant over each image's positions, as global pooling's gradient
+    dy = (torch.randn(shape[:2] + (1, 1), generator=gen) *
+          (torch.rand(shape, generator=gen) > 0.5)).bfloat16()
+    gamma = torch.rand(shape[1], generator=gen) + 0.5
+    beta = torch.randn(shape[1], generator=gen)
+
+    def run(device, dtype, fmt):
+        wide = torch.promote_types(dtype, torch.float32)
+        xd = x.to(device=device, dtype=dtype).contiguous(
+            memory_format=fmt).requires_grad_(True)
+        g, b = (t.to(device=device, dtype=wide).requires_grad_(True)
+                for t in (gamma, beta))
+        y, _, _ = batch_norm_train(xd, g, b, 1, 1e-3)
+        y.backward(dy.to(device=device, dtype=dtype).contiguous(
+            memory_format=fmt))
+        return [t.detach().double().cpu()
+                for t in (y, xd.grad, g.grad, b.grad)]
+
+    fmt = torch.channels_last if memory == "channels_last" else \
+        torch.contiguous_format
+    want = run("cpu", torch.float64, torch.contiguous_format)
+    got = run(cuda, torch.bfloat16, fmt)
+    rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
+    assert rel[0] <= 1e-2 and rel[1] <= 1e-2, rel
+    assert rel[2] <= 1e-5 and rel[3] <= 1e-5, rel
+
+
+def _draw_branch_gammas(model, seed):
+    """The gamma of the last BatchNorm of every bottleneck branch drawn
+    from U(0.1, 0.25): every convolution and BatchNorm in a branch then
+    carries a gradient."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for node in model.graph_function().nodes:
+            if isinstance(node.layer, tl.Add):
+                gamma = node.inputs[0].node.layer.gamma
+                gamma.copy_(0.1 + 0.15 * torch.rand(gamma.shape,
+                                                    generator=gen))
+
+
+def test_resnet50_predict_and_train_step_on_the_card_match_the_cpu(cuda):
+    """ResNet-50 at 3x64x64 (weights from a seed, random moving
+    statistics): ``predict`` on the card against the CPU within 1e-5
+    (float32 softmax rows; cuDNN's convolutions sum in another order);
+    then one SGD ``train_step`` on 4 images with the residual branches'
+    last gammas drawn from U(0.1, 0.25): loss within 1e-5, the moving
+    statistics within 1e-5, no launch of the five hand-written kernels,
+    and every layer's output, input gradients and parameter gradients,
+    recorded on the card and recomputed on the CPU from the card's own
+    inputs (``utils/layer_parity.py``), within 1e-4 of the CPU's norm,
+    with a nonzero CPU gradient on each of the 53 convolution kernels.
+    The whole model's gradients are not compared: a rounding-sized change
+    of this step's input moves them by up to 1.7e-2 of a tensor's norm,
+    as ReLU masks near zero flip (tools/resnet_grad_conditioning.py). The CPU models are second builds whose weights
+    and statistics are copied in order (``copy.deepcopy`` recurses once
+    a graph node deep, too deep for ResNet-50's graph)."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import \
+        get_loss
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
+        get_optimizer
+    from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
+    from analytics_zoo_tpu_torch.utils.layer_parity import (LayerRecorder,
+                                                            compare_layers)
+
+    def cpu_twin(model):
+        twin = ImageClassifier(class_num=10, model_name="resnet-50",
+                               input_shape=(3, 64, 64)).model
+        with torch.no_grad():
+            for mine, theirs in ((twin.parameters(), model.parameters()),
+                                 (twin.buffers(), model.buffers())):
+                for a, b in zip(mine, theirs):
+                    a.copy_(b)
+        return twin
+
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(device=cuda)
+    try:
+        clf = ImageClassifier(class_num=10, model_name="resnet-50",
+                              input_shape=(3, 64, 64))
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, b in clf.model.named_buffers():
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5
+                        if name.endswith("moving_var") else
+                        0.2 * torch.randn(b.shape, generator=gen))
+        rs = np.random.default_rng(0)
+        x = rs.standard_normal((6, 3, 64, 64)).astype(np.float32)
+        y = rs.integers(0, 10, 4).astype(np.int32)
+        cpu_model = cpu_twin(clf.model)
+        got = clf.predict(x, batch_size=4)
+        loss = get_loss("sparse_categorical_crossentropy")
+        cpu = SPMDTrainer(cpu_model, loss, get_optimizer("sgd"),
+                          device="cpu")
+        assert np.abs(got - cpu.predict(x, batch_size=4)).max() <= 1e-5
+        _draw_branch_gammas(clf.model, 2)
+        _draw_branch_gammas(cpu_model, 2)
+        reference = cpu_twin(cpu_model)
+        gpu = SPMDTrainer(clf.model, loss, get_optimizer("sgd"), device=cuda)
+        for t in (gpu, cpu):
+            t.ensure_initialized()
+        batch = ([x[:4]], y, np.ones(4, np.float32))
+        _kernels.LAUNCHES.reset()
+        with LayerRecorder(clf.model) as recorder:
+            got_loss = gpu.train_step(gpu.put_batch(batch)).item()
+        assert _kernels.LAUNCHES.snapshot() == {}
+        want_loss = cpu.train_step(cpu.put_batch(batch)).item()
+        assert abs(got_loss - want_loss) <= 1e-5
+        for (name, b), c in zip(clf.model.named_buffers(),
+                                cpu_model.buffers()):
+            assert b.dtype == torch.float32
+            assert (b.cpu() - c).abs().max() <= 1e-5, name
+        for name, p in clf.model.named_parameters():
+            assert torch.isfinite(p.grad).all(), name
+        layers = compare_layers(recorder, reference)
+        assert len(layers) == len(recorder.layers)
+        convs = [n for n in layers if n.startswith("convolution2d")]
+        assert len(convs) == 53
+        assert all(layers[n]["ref_norm"]["kernel"] > 0 for n in convs)
+        for name, r in layers.items():
+            errs = [r["y"]] + [d for d in r["dx"] if d is not None] + \
+                [r[k] for k in r["ref_norm"]]
+            assert max(errs) <= 1e-4, (name, r)
+    finally:
+        tnn.set_nncontext(None)

@@ -58,15 +58,20 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.pipeline.engine, "
             "analytics_zoo_tpu_torch.feature, "
             "analytics_zoo_tpu_torch.models.recommendation, "
+            "analytics_zoo_tpu_torch.models.image, "
+            "analytics_zoo_tpu_torch.models.image.imageclassification, "
             "analytics_zoo_tpu_torch.common.zoo_trigger, "
             "analytics_zoo_tpu_torch.ops, "
             "analytics_zoo_tpu_torch.ops.kv_cache, "
             "analytics_zoo_tpu_torch.ops.quant, "
+            "analytics_zoo_tpu_torch.ops.batchnorm, "
+            "analytics_zoo_tpu_torch.ops.conv, "
             "analytics_zoo_tpu_torch.serving, "
             "analytics_zoo_tpu_torch.serving.generation, "
             "analytics_zoo_tpu_torch.serving.admission, "
             "analytics_zoo_tpu_torch.utils.telemetry, "
             "analytics_zoo_tpu_torch.utils.profiling, "
+            "analytics_zoo_tpu_torch.utils.layer_parity, "
             "analytics_zoo_tpu_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
