@@ -36,9 +36,32 @@ class ZooConfig:
     pipeline_parallel: int = 1
     # seed for weights a model draws when it is built
     seed: int = 42
-    # microbatches per optimizer step; the port's trainer takes 1 only and
-    # refuses more (gradient accumulation is not ported yet)
+    # microbatches per optimizer step: each batch is split into this many
+    # equal microbatches, their gradients summed weighted by each one's
+    # sample-weight mass before the one update (peak activation memory is
+    # one microbatch's). Must divide batch_size. 1 = off.
     grad_accum_steps: int = 1
+    # failed steps ``train`` restores the latest checkpoint for and goes on
+    # (reference: bigdl.failure.retryTimes, Topology.scala:1172)
+    failure_retry_times: int = 5
+    checkpoint_dir: Optional[str] = None
+    # steps per summary window: the loss is read on the host, and the
+    # TensorBoard scalars written, once a window
+    log_every_n_steps: int = 50
+    # the GradNorm scalar, logged only where L2-norm clipping computes the
+    # norm anyway (never an extra reduce)
+    log_grad_norm: bool = False
+    # write checkpoints on a background thread: the snapshot to host
+    # memory stays synchronous, serialisation, checksums and file IO move
+    # off the training loop
+    async_checkpoint: bool = False
+    # keep-last-k retention of the checkpoint store (ckpt-<step>/ under
+    # the checkpoint directory); <= 0 keeps every checkpoint
+    keep_checkpoints: int = 3
+    # resume from the latest checkpoint of the checkpoint directory at the
+    # start of ``train`` (also ZOO_TPU_AUTO_RESUME); off, a ``fit`` into a
+    # directory of old checkpoints starts afresh
+    auto_resume: bool = False
     # the dtype of a model's forward and backward when the model sets none
     # (``KerasNet.set_compute_dtype``): "bfloat16" (or "bf16") casts the
     # floating parameters and inputs inside the step; the parameters and

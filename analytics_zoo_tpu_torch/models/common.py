@@ -4,15 +4,39 @@ Counterpart of ``analytics_zoo_tpu/models/common.py`` (parity:
 ``ZooModel.scala`` + ``KerasZooModel`` and the python mirror
 ``pyzoo/zoo/models/common/zoo_model.py``): a built-in model owns an
 internal Keras graph (``self.model``) and forwards the training and
-inference surface to it. Saving and loading a zoo model arrive with the
-persistence slice of the port and raise until then; ``Ranker`` arrives
-with the text-matching models.
+inference surface to it. ``save_model``/``load_model`` keep a zoo model
+in the JAX package's layout: the internal Keras model under ``keras/``
+(``KerasNet.save_model``) and ``zoo_model.pkl`` with the class, its
+module (the JAX package's path, as ``model_io`` writes class paths) and
+the recorded config, so either package loads what the other saved.
+``Ranker`` arrives with the text-matching models.
 """
 
 from __future__ import annotations
 
-_PERSISTENCE = ("saving and loading a zoo model is not ported yet; it "
-                "arrives with the persistence slice of the port")
+import os
+import pickle
+
+from ..pipeline.api.keras.engine.model_io import (FILE_PREFIX,
+                                                  file_module, port_class)
+
+
+class _MetaUnpickler(pickle.Unpickler):
+    """Reads ``zoo_model.pkl``: builtins and numpy, and the JAX package's
+    classes mapped to the port's (``model_io.port_class``); anything else
+    is refused."""
+
+    _SAFE = {"builtins", "collections", "numpy", "numpy.core.multiarray",
+             "numpy._core.multiarray", "numpy.dtypes"}
+
+    def find_class(self, module, name):
+        if module in self._SAFE:
+            return super().find_class(module, name)
+        if module.startswith(FILE_PREFIX):
+            return port_class(f"{module}.{name}")
+        raise pickle.UnpicklingError(
+            f"zoo_model.pkl names {module}.{name}, outside the zoo and "
+            "the builtins")
 
 
 class ZooModel:
@@ -40,6 +64,13 @@ class ZooModel:
         return self.model.predict_classes(
             x, batch_size=batch_size, zero_based_label=zero_based_label)
 
+    def set_tensorboard(self, log_dir, app_name):
+        self.model.set_tensorboard(log_dir, app_name)
+
+    def set_checkpoint(self, path, over_write=True, trigger=None):
+        self.model.set_checkpoint(path, over_write=over_write,
+                                  trigger=trigger)
+
     def set_constant_gradient_clipping(self, min_value, max_value):
         self.model.set_constant_gradient_clipping(min_value, max_value)
 
@@ -54,13 +85,36 @@ class ZooModel:
 
     # -- persistence ---------------------------------------------------
     def save_model(self, path, weight_path=None, over_write=False):
-        raise NotImplementedError(_PERSISTENCE)
+        """Save the wrapper's config and the internal Keras model."""
+        if os.path.exists(path) and not over_write:
+            raise IOError(f"{path} exists; pass over_write=True")
+        os.makedirs(path, exist_ok=True)
+        self.model.save_model(os.path.join(path, "keras"), over_write=True)
+        meta = {"class": type(self).__name__,
+                "module": file_module(type(self).__module__),
+                "config": getattr(self, "_zoo_config", {})}
+        with open(os.path.join(path, "zoo_model.pkl"), "wb") as f:
+            pickle.dump(meta, f)
 
     saveModel = save_model
 
     @classmethod
     def load_model(cls, path, weight_path=None):
-        raise NotImplementedError(_PERSISTENCE)
+        """The zoo model a ``save_model`` directory holds (either
+        package's), its internal model on the context's device."""
+        from ..pipeline.api.keras.models import KerasNet
+
+        with open(os.path.join(path, "zoo_model.pkl"), "rb") as f:
+            meta = _MetaUnpickler(f).load()
+        klass = port_class(f"{meta['module']}.{meta['class']}")
+        obj = klass.__new__(klass)
+        obj._zoo_config = dict(meta["config"])
+        for k, v in meta["config"].items():
+            setattr(obj, k, v)
+        obj.model = KerasNet.load_model(os.path.join(path, "keras"))
+        return obj
+
+    loadModel = load_model
 
     def _record_config(self, **kwargs):
         self._zoo_config = kwargs

@@ -23,11 +23,18 @@ optimizer's tree, ``get_weights``) never holds them.
 
 Calling a layer on symbolic :class:`Variable`s records a graph node;
 calling it on tensors runs ``forward``.
+
+Every subclass's ``__init__`` records its bound arguments (``get_config``,
+``from_config``), as the JAX base does: ``model_io`` saves a model as its
+layers' classes and configs, and the port's constructors take the JAX
+signatures' argument names, so the configs are the JAX package's.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
+import inspect
 import math
 from typing import Any, Dict, Optional
 
@@ -43,6 +50,27 @@ def _auto_name(cls_name: str) -> str:
     key = cls_name.lower()
     _name_counters[key] += 1
     return f"{key}_{_name_counters[key]}"
+
+
+def _capture_config(init):
+    """Wrap ``__init__`` to record the bound constructor arguments
+    (``_capture_config`` of the JAX base)."""
+
+    @functools.wraps(init)
+    def wrapped(self, *args, **kwargs):
+        if "_config" not in self.__dict__:
+            try:
+                bound = inspect.signature(init).bind(self, *args, **kwargs)
+                bound.apply_defaults()
+                cfg = dict(bound.arguments)
+                cfg.pop("self", None)
+                cfg.pop("kwargs", None)
+            except TypeError:
+                cfg = {}
+            self.__dict__["_config"] = cfg
+        init(self, *args, **kwargs)
+
+    return wrapped
 
 
 class KerasLayer(nn.Module):
@@ -61,6 +89,11 @@ class KerasLayer(nn.Module):
     has_state = False
     stochastic = False
     num_outputs = 1
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if "__init__" in cls.__dict__:
+            cls.__init__ = _capture_config(cls.__dict__["__init__"])
 
     def __init__(self, input_shape=None, name: Optional[str] = None,
                  **kwargs):
@@ -135,6 +168,25 @@ class KerasLayer(nn.Module):
                     for i, s in enumerate(out_shape))
             return Variable(node, out_shape)
         return super().__call__(x, *args, **kwargs)
+
+    # -- serialization ---------------------------------------------------
+    def get_config(self) -> Dict[str, Any]:
+        cfg = dict(self.__dict__.get("_config", {}))
+        cfg.pop("name", None)
+        return cfg
+
+    @classmethod
+    def from_config(cls, config):
+        """The layer ``config`` describes. A ``**kw`` catch-all recorded
+        under its own name (a signature's ``kw`` where the JAX base drops
+        only ``kwargs``) is spread back into keywords, so a config
+        round-trips unchanged."""
+        config = dict(config)
+        for p in inspect.signature(cls.__init__).parameters.values():
+            if p.kind is p.VAR_KEYWORD and isinstance(config.get(p.name),
+                                                      dict):
+                config.update(config.pop(p.name))
+        return cls(**config)
 
     def extra_repr(self):
         return f"name={self.name}"

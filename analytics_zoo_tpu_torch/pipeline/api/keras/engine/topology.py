@@ -22,19 +22,32 @@ the parameters alone, as JAX's do.
 Layers own their parameters, so containers over the same layer objects
 share them: ``Sequential.to_model``, ``new_graph`` and a ``Model`` built
 over layers of another model train the same weights (the layers of the
-reference's ``toModel``/``newGraph`` are shared modules too). Not ported
-yet: save/load, checkpoints and TensorBoard summaries.
+reference's ``toModel``/``newGraph`` are shared modules too).
+
+``set_checkpoint`` and ``fit(checkpoint_trigger=...)`` checkpoint into the
+trainer's store, ``set_tensorboard`` writes the TrainSummary and
+ValidationSummary scalars (``get_train_summary`` /
+``get_validation_summary`` read them back), and ``save_model`` /
+``load_model`` keep a model as the JAX package does: ``architecture.json``
+(``engine/model_io.py``) and ``weights.npz`` (the parameters and state
+trees, ``utils/serialization.py``), so a directory either package saved
+loads in the other. A graph whose configs hold a callable raises
+``UnserializableConfig`` (the JAX package pickles those; ROADMAP A8).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .....common.zoo_trigger import MaxEpoch
+from .....common.zoo_trigger import EveryEpoch, MaxEpoch, ZooTrigger
 from .....feature.feature_set import ArrayFeatureSet, FeatureSet
+from .....utils import serialization, tensorboard
+from .....utils.jax_weights import load_jax_params
 from ....engine import GradientClipping, SPMDTrainer
 from ..metrics import get_metric
 from ..objectives import get_loss
@@ -77,6 +90,9 @@ class KerasNet(KerasLayer):
         self._clipping = GradientClipping()
         self._frozen: set = set()
         self._compute_dtype = None
+        self._tb = None
+        self._checkpoint_dir: Optional[str] = None
+        self._checkpoint_trigger: Optional[ZooTrigger] = None
 
     # -- abstract ------------------------------------------------------
     def graph_function(self) -> GraphFunction:
@@ -101,6 +117,39 @@ class KerasNet(KerasLayer):
     def clear_gradient_clipping(self):
         self._clipping = GradientClipping()
 
+    def set_tensorboard(self, log_dir, app_name):
+        """Write the training and validation scalars under
+        ``log_dir/app_name/{train,validation}`` (Topology.scala:204-243)."""
+        self._tb = (log_dir, app_name)
+        if self.trainer is not None:
+            self._attach_summaries(self.trainer)
+
+    def get_train_summary(self, tag=None):
+        """[(step, wall_time, tag, value)] of the training scalars."""
+        if not self._tb:
+            return []
+        return tensorboard.read_scalars(
+            os.path.join(self._tb[0], self._tb[1], "train"), tag)
+
+    def get_validation_summary(self, tag=None):
+        if not self._tb:
+            return []
+        return tensorboard.read_scalars(
+            os.path.join(self._tb[0], self._tb[1], "validation"), tag)
+
+    def set_checkpoint(self, path, over_write=True,
+                       trigger: Optional[ZooTrigger] = None):
+        """Checkpoint into ``path`` on ``trigger`` (each epoch by
+        default) while training."""
+        self._checkpoint_dir = path
+        self._checkpoint_trigger = trigger or EveryEpoch()
+        if self.trainer is not None:
+            self.trainer.checkpoint_dir = path
+            self.trainer.checkpoint_trigger = self._checkpoint_trigger
+
+    def set_evaluate_status(self):  # parity no-op (eval uses training=False)
+        return self
+
     def set_compute_dtype(self, dtype):
         """Run forward and backward in ``dtype`` ("bfloat16" or "bf16"; any
         other value is float32) over float32 parameters, whatever
@@ -123,7 +172,16 @@ class KerasNet(KerasLayer):
                                    compute_dtype=self._compute_dtype)
         if self._frozen:
             self.trainer.set_frozen(self._frozen)
+        if self._checkpoint_dir:
+            self.trainer.checkpoint_dir = self._checkpoint_dir
+            self.trainer.checkpoint_trigger = self._checkpoint_trigger
+        if self._tb:
+            self._attach_summaries(self.trainer)
         return self.trainer
+
+    def _attach_summaries(self, trainer):
+        trainer.train_summary = tensorboard.TrainSummary(*self._tb)
+        trainer.val_summary = tensorboard.ValidationSummary(*self._tb)
 
     # -- freeze (GraphNet freeze/unFreeze parity) ----------------------
     def freeze(self, names: Optional[Sequence[str]] = None):
@@ -180,11 +238,8 @@ class KerasNet(KerasLayer):
             validation_data=None, distributed=True,
             checkpoint_trigger=None):
         """Train ``nb_epoch`` more epochs on the context's device
-        (Topology.scala:343)."""
-        if checkpoint_trigger is not None:
-            raise NotImplementedError(
-                "checkpoints are not ported yet; they arrive with the "
-                "persistence slice of the port")
+        (Topology.scala:343), checkpointing on ``checkpoint_trigger`` (or
+        the ``set_checkpoint`` trigger)."""
         trainer = self._ensure_trainer()
         train_set = to_feature_set(x, y)
         val_set = None
@@ -194,6 +249,7 @@ class KerasNet(KerasLayer):
                 to_feature_set(validation_data)
         trainer.train(train_set, batch_size,
                       end_trigger=MaxEpoch(trainer.epoch + nb_epoch),
+                      checkpoint_trigger=checkpoint_trigger,
                       validation_set=val_set)
         return self
 
@@ -256,6 +312,61 @@ class KerasNet(KerasLayer):
                     raise ValueError(f"shape {tuple(w.shape)} does not "
                                      f"match {tuple(p.shape)}")
                 p.copy_(w.to(p.dtype))
+
+    # -- persistence ---------------------------------------------------
+    def save_model(self, path, weight_path=None, over_write=False):
+        """Save the architecture (``architecture.json``, the layers'
+        classes and configs and the DAG, ``engine/model_io.py``; array
+        configs in ``config_arrays.npz``) and the weights
+        (``weights.npz``: the parameters and state trees), in the JAX
+        package's format (``KerasNet.saveModel``, Topology.scala:109)."""
+        from . import model_io
+
+        if os.path.exists(path) and not over_write:
+            raise IOError(f"{path} exists; pass over_write=True")
+        spec, arrays = model_io.graph_to_spec(self.graph_function(),
+                                              self.name)
+        os.makedirs(path, exist_ok=True)
+        for stale in ("architecture.json", "config_arrays.npz",
+                      "architecture.pkl"):
+            sp = os.path.join(path, stale)
+            if os.path.exists(sp):
+                os.remove(sp)
+        with open(os.path.join(path, "architecture.json"), "w") as f:
+            json.dump(spec, f, indent=1)
+        if arrays:
+            np.savez(os.path.join(path, "config_arrays.npz"), **arrays)
+        serialization.save_pytree(os.path.join(path, "weights.npz"),
+                                  {"params": self.param_tree(),
+                                   "state": self.state_tree()})
+
+    saveModel = save_model
+
+    @staticmethod
+    def load_model(path, weight_path=None) -> "Model":
+        """The model a ``save_model`` directory holds (either package's),
+        rebuilt as a ``Model`` with the file's layer names and its
+        weights; it runs on the context's device."""
+        from . import model_io
+
+        json_path = os.path.join(path, "architecture.json")
+        if not os.path.exists(json_path):
+            raise NotImplementedError(
+                f"{path} holds no architecture.json: a pickled "
+                "architecture (the JAX package's fallback for Lambda / "
+                "CustomLoss graphs) loads once those layers are ported "
+                "(ROADMAP A8)")
+        with open(json_path) as f:
+            spec = json.load(f)
+        arrays = {}
+        arr_path = os.path.join(path, "config_arrays.npz")
+        if os.path.exists(arr_path):
+            with np.load(arr_path, allow_pickle=False) as z:
+                arrays = {k: z[k] for k in z.files}
+        model = model_io.spec_to_model(spec, arrays)
+        blob = serialization.load_pytree(os.path.join(path, "weights.npz"))
+        load_jax_params(model, blob["params"], blob.get("state") or {})
+        return model
 
 
 class Model(KerasNet):

@@ -10,6 +10,14 @@ reads a clamped index, so an out-of-range id never reaches the device as
 an index: no host error on the CPU and no device-side assert on the
 card. An out-of-range row gets no gradient, as in JAX's scatter-add.
 
+Under a bf16 (or float16) table that takes a gradient, the rows are
+gathered from the table's float32 values and cast back, so the forward is
+the same and the backward's scatter-add sums the duplicate ids in
+float32: PyTorch's ``index_put_`` backward adds each duplicate into a
+tensor of the table's dtype, and in bf16 thousands of additions into one
+row round at every step (BERT's 2-row segment table at batch 32 x 512
+lost a third of its gradient's norm; ROADMAP C6).
+
 ``WordEmbedding`` (frozen GloVe vectors) is not ported yet: it needs a
 GloVe file, which the repository does not hold.
 """
@@ -28,7 +36,11 @@ def take_rows(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     idx = x.to(torch.int32).long()
     idx = torch.where(idx < 0, idx + n, idx)
     valid = (idx >= 0) & (idx < n)
-    rows = table[idx.clamp(0, n - 1)]
+    if table.dtype in (torch.bfloat16, torch.float16) and \
+            table.requires_grad and torch.is_grad_enabled():
+        rows = table.float()[idx.clamp(0, n - 1)].to(table.dtype)
+    else:
+        rows = table[idx.clamp(0, n - 1)]
     return torch.where(valid[..., None], rows,
                        torch.full((), float("nan"), dtype=rows.dtype,
                                   device=rows.device))

@@ -6,13 +6,16 @@ bounding concurrent predicts, ``doPredict`` :622-656, ``retrieveModel``
 :710). As in the JAX package the model's weights are shared and the
 queue holds concurrency permits, not copies.
 
-This slice ports the float path of a native Keras model
-(``load_keras_net``). Quantised models, the foreign-format loaders and
-calibration arrive with later slices.
+The float path of a native Keras model is ported: ``load_keras_net`` on a
+model in memory, and ``load`` (``load_bigdl``, ``do_load``) on a
+directory that ``save_model`` wrote, a ``KerasNet``'s or a zoo model's,
+by either package. Quantised models, the foreign-format loaders and
+calibration arrive with later slices (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -102,10 +105,37 @@ class InferenceModel:
             self._permits.put(object())
         self._granted = n
 
+    @staticmethod
+    def _resolve_model_dir(model_path: str) -> str:
+        """A zoo-model directory (``ZooModel.save_model``: zoo_model.pkl
+        and a ``keras/`` subdirectory) resolves to its Keras model's."""
+        if os.path.exists(os.path.join(model_path, "zoo_model.pkl")):
+            return os.path.join(model_path, "keras")
+        return model_path
+
+    def load(self, model_path: str, weight_path: Optional[str] = None,
+             device=None):
+        """Load a saved model directory (doLoad parity): a ``KerasNet``'s
+        ``save_model`` directory or a zoo model's, onto ``device`` (the
+        context's when None, ``cuda:0`` unless the context was made for
+        another device)."""
+        from ..api.keras.models import KerasNet
+
+        self._install(FloatModel(
+            KerasNet.load_model(self._resolve_model_dir(model_path)),
+            device=device))
+        return self
+
+    load_bigdl = load
+    do_load = load
+
     def load_keras_net(self, net, device=None, quantize: bool = False):
-        """Load an in-memory KerasNet onto ``device`` — the context's
-        device when None, which is ``cuda:0`` unless the context was made
-        for another device. The model moves there in place."""
+        """Load an in-memory KerasNet (or a zoo model's) onto ``device`` —
+        the context's device when None, which is ``cuda:0`` unless the
+        context was made for another device. The model moves there in
+        place."""
+        if hasattr(net, "model") and not hasattr(net, "graph_function"):
+            net = net.model
         if quantize:
             raise NotImplementedError(
                 "quantised inference is not ported yet; it arrives with "

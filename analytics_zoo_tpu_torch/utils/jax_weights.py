@@ -9,12 +9,27 @@ into one layer built on its own; with ``state=``, the JAX ``net_state``
 (BatchNorm's moving statistics) comes along into the layers' buffers. :func:`load_jax_decode_state` carries a
 JAX KV-cache ``DecodeState`` into the port's, so both sides can start
 from the same mid-stream cache.
+
+The other direction is what the files hold. A model's ``param_tree()``
+and ``state_tree()`` are already the JAX-shaped trees (``{layer name:
+{...}}``) that ``model.npz`` and ``weights.npz`` store;
+:func:`optimizer_leaves` gives the optimizer state as the leaf list of
+``optim.npz``, in the order optax's ``tree_leaves`` gives the same
+optimizer: each transform of the chain in turn; within one, its fields
+in optax's order (``count``, ``mu``, ``nu``; ``e_g``, ``e_x``), a count
+as a 0-d int32 array, and each per-parameter tree by parameter path
+sorted level by level (:func:`param_order`). Reading one back,
+:func:`param_order` sorts by the file's paths: a file written by another
+model instance (or by the JAX package, with its own layer numbering)
+pairs its layers with the model's as :func:`load_jax_params` does, and
+:func:`load_optimizer_leaves` copies the leaves into the live state. The
+checkpoint store and ``save_model`` both go through these.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +144,102 @@ def load_jax_params(model, params: Mapping[str, Mapping[str, Any]],
     for layer, name in _pair_layers(with_state, state):
         _copy_leaves(layer, name, state[name], dict(layer.named_buffers()),
                      "state")
+
+
+def _graph_layers(model):
+    return (model.graph_function().layers
+            if hasattr(model, "graph_function") else [model])
+
+
+def param_order(model, names: Optional[Sequence[str]] = None) -> List[str]:
+    """The model's parameter paths (``named_parameters()`` keys, the
+    trainer's and optimizer's keys) in the order a file's per-parameter
+    leaves are stored: sorted by path level by level, where a path's
+    layer name is the file's. ``names`` are the file's layer names (the
+    keys of its params tree); None takes the model's own. They pair with
+    the model's layers as in :func:`load_jax_params`."""
+    layers = [l for l in _graph_layers(model)
+              if any(True for _ in l.parameters())]
+    if names is None:
+        pairs = [(l, l.name) for l in layers]
+    else:
+        pairs = _pair_layers(layers, list(names))
+    keys = []
+    for layer, name in pairs:
+        for path, _ in layer.named_parameters():
+            port = path if layer is model else f"{layer.name}.{path}"
+            keys.append((tuple([name] + path.split(".")), port))
+    return [port for _, port in sorted(keys)]
+
+
+def _opt_walk(state, order, param_set, visit):
+    """Visit the optimizer state's leaves in optax's order: ``visit(leaf)``
+    returns the value that replaces it. Returns the rebuilt state."""
+    if state is None:
+        return None
+    if isinstance(state, (list, tuple)):
+        return type(state)(_opt_walk(s, order, param_set, visit)
+                           for s in state)
+    if isinstance(state, dict):
+        if state and all(k in param_set for k in state):
+            out = dict(state)
+            for k in order:
+                if k in state:
+                    out[k] = visit(state[k])
+            return out
+        return {k: _opt_walk(v, order, param_set, visit)
+                for k, v in state.items()}
+    return visit(state)
+
+
+def optimizer_leaves(opt_state, order: Sequence[str]) -> List[Any]:
+    """The leaves of a port optimizer state (``Transformation.init``'s
+    structure) in optax's ``tree_leaves`` order for the same optimizer;
+    ``order`` is :func:`param_order`'s. Tensors are returned as they are;
+    a count becomes a 0-d int32 array, as optax keeps it."""
+    leaves: List[Any] = []
+
+    def visit(leaf):
+        leaves.append(np.asarray(leaf, np.int32)
+                      if isinstance(leaf, (int, np.integer)) else leaf)
+        return leaf
+
+    _opt_walk(opt_state, list(order), set(order), visit)
+    return leaves
+
+
+def check_optimizer_leaves(opt_state, leaves: Sequence[Any],
+                           order: Sequence[str]) -> None:
+    """Raise unless ``leaves`` match the optimizer state's leaves in
+    number and shape."""
+    live = optimizer_leaves(opt_state, order)
+    if len(live) != len(leaves):
+        raise ValueError(f"the file holds {len(leaves)} optimizer leaves, "
+                         f"this optimizer has {len(live)}")
+    for i, (have, got) in enumerate(zip(live, leaves)):
+        if tuple(np.shape(got)) != tuple(have.shape):
+            raise ValueError(f"optimizer leaf {i}: shape "
+                             f"{tuple(np.shape(got))} vs {tuple(have.shape)}")
+
+
+def load_optimizer_leaves(opt_state, leaves: Sequence[Any],
+                          order: Sequence[str]):
+    """``opt_state`` with each leaf taken from ``leaves`` (in the order of
+    :func:`optimizer_leaves`): tensors are copied into in place, counts
+    become Python ints. Returns the state; raises when the number of
+    leaves or a shape disagrees, before any tensor is written."""
+    check_optimizer_leaves(opt_state, leaves, order)
+    it = iter(leaves)
+
+    def visit(leaf):
+        src = next(it)
+        if isinstance(leaf, (int, np.integer)):
+            return int(np.asarray(src))
+        with torch.no_grad():
+            leaf.copy_(torch.from_numpy(np.array(src)).to(leaf.dtype))
+        return leaf
+
+    return _opt_walk(opt_state, list(order), set(order), visit)
 
 
 def load_jax_decode_state(state, device=None, rng=None) -> DecodeState:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
-generation, NeuralCF and ResNet-50 paths once on one NVIDIA GPU.
+generation, NeuralCF, checkpoint and ResNet-50 paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -75,7 +76,34 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``evaluate``, one step's launches and device idle share;
               ``predict`` on the card against the CPU, ``predict_classes``,
               ``predict`` on a feature set and ``recommend_for_user``.
-9. resnet  -- ``bench.py``'s ResNet-50 leg: ``ImageClassifier(1000,
+9. checkpoint -- the engine's checkpoint store, failure policy,
+              accumulation and persistence on the ``train_bf16``
+              classifier (bf16, int32 ids, dropout 0.1, Adam) over 8
+              distinct batches of 32 x 512 (random labels) for 2 epochs,
+              a checkpoint every 4 steps, keeping 2: a reference run with
+              TensorBoard summaries (one Loss a 2-step window, each the
+              step loss it names) and validation; a run whose step 10
+              fails (``ZOO_TPU_FAULT=step:raise@10``) and is retried from
+              ``ckpt-8`` in the same ``fit``; a run preempted at step 6
+              (the drain writes ``ckpt-6``) and a new model from another
+              seed resuming it (``auto_resume``); a run with async
+              writes. Each equals the reference bit for bit (parameters,
+              Adam moments, step, losses), and the async run's files
+              carry the reference's crc32c. A byte flipped in the newest
+              ``optim.npz`` falls back to ``ckpt-12``, equal to the
+              reference's state there. Accumulation 4 launches K1-K5
+              48/48/48/96/96 a step; its step time and peak memory beside
+              accumulation 1's; a dropout-off step against accumulation 1
+              in float32 and bf16. ``save_model`` then
+              ``InferenceModel.load`` serves the trained classifier and a
+              ResNet-50 ``ZooModel`` (seeded moving statistics) bit for
+              bit against ``predict``. Reported: checkpoint bytes, each
+              save's seconds (snapshot, serialisation, crc32c, write), the
+              async stall, load seconds, crc32c GB/s, the step with an
+              async checkpoint every 4 steps against none in alternating
+              windows, free disk. Its directories, under
+              ``build/chip_smoke_checkpoint``, are deleted at the end.
+10. resnet -- ``bench.py``'s ResNet-50 leg: ``ImageClassifier(1000,
               "resnet-50")`` on 3 x 224 x 224 (weights from ``--seed``):
               ``predict`` and one SGD step (float32 and bf16, on 3
               starts with the residual branches' last gammas drawn from
@@ -104,7 +132,10 @@ import concurrent.futures
 import copy
 import gc
 import json
+import logging
 import math
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -115,6 +146,8 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common import init_nncontext
+from analytics_zoo_tpu_torch.common.zoo_trigger import (SeveralIteration,
+                                                        ZooTrigger)
 from analytics_zoo_tpu_torch.feature.feature_set import (ArrayFeatureSet,
                                                          Sample)
 from analytics_zoo_tpu_torch.models.image.imageclassification import \
@@ -130,11 +163,16 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
 from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     Adam, get_optimizer)
-from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
+from analytics_zoo_tpu_torch.pipeline.engine import (SPMDTrainer,
+                                                     TrainingPreempted,
+                                                     clear_preemption,
+                                                     request_preemption)
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 from analytics_zoo_tpu_torch.serving.generation import (
     ContinuousBatchScheduler, GenRequest, PrefixCache,
     SpeculativeDecodeEngine, TransformerDecodeEngine)
+from analytics_zoo_tpu_torch.utils import faults
+from analytics_zoo_tpu_torch.utils.crc32c import crc32c
 from analytics_zoo_tpu_torch.utils.layer_parity import (LayerRecorder,
                                                         compare_layers)
 
@@ -1751,6 +1789,555 @@ def generate(seed, device, smi):
 
 
 # ---------------------------------------------------------------------------
+# checkpoint: the engine's store, failure policy, accumulation, save/load
+# ---------------------------------------------------------------------------
+
+# bench.py's classifier in bf16 on int32 ids (the train_bf16 setup) over 8
+# distinct batches of TRAIN_BATCH rows, shuffled per epoch, 2 epochs; a
+# checkpoint every CKPT_EVERY steps into a store keeping CKPT_KEEP.
+CKPT_BATCHES, CKPT_EPOCHS, CKPT_EVERY, CKPT_KEEP = 8, 2, 4, 2
+CKPT_STEPS = CKPT_BATCHES * CKPT_EPOCHS
+CKPT_FAIL_AT, CKPT_PREEMPT_AT, CKPT_LOG_EVERY = 10, 6, 2
+CKPT_ACCUM = 4
+# the phase's directories, under the checkout (build/ is ignored by git),
+# deleted when the phase ends
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_checkpoint")
+# alternating windows of one epoch each: an async checkpoint every
+# CKPT_EVERY steps against none
+CKPT_TIMED_WINDOWS = 4
+CKPT_SERVE_ROWS, CKPT_RESNET_ROWS = 8, 8
+# one step, dropout off, accumulation CKPT_ACCUM against 1 on the same
+# weights and batch: the loss, and each parameter's gradient relative to
+# its norm, at the train parity gate's tolerances (PERF.md §2). Float32:
+# products summed over 8-row microbatches and then added, against one sum
+# over 32 rows; the head's 2-element bias gradient, a sum of 32 terms that
+# mostly cancel, moves 8e-5 of its norm under that alone. bf16: the
+# products' bf16 roundings fall at other places.
+ACCUM_LOSS_TOL = {"float32": TRAIN_LOSS_TOL, "bfloat16": BF16_LOSS_TOL}
+ACCUM_GRAD_TOL = {"float32": TRAIN_GRAD_TOL, "bfloat16": BF16_GRAD_TOL}
+# bf16: a gradient past ACCUM_GRAD_TOL of its norm passes when accumulation
+# lands no further than this many times the full batch's distance from
+# the float32 step's gradient (see check_accumulation): accumulation
+# rounds CKPT_ACCUM partial sums to bf16 where the full batch rounds one,
+# so its rounding error is up to CKPT_ACCUM times the full batch's
+# (about sqrt(CKPT_ACCUM) times when the roundings are independent)
+ACCUM_BF16_FACTOR = float(CKPT_ACCUM)
+
+
+class _Config:
+    """Set fields of the context's config for a ``with`` block."""
+
+    def __init__(self, **fields):
+        self.fields = fields
+
+    def __enter__(self):
+        cfg = init_nncontext().config
+        self.saved = {k: getattr(cfg, k) for k in self.fields}
+        for k, v in self.fields.items():
+            setattr(cfg, k, v)
+
+    def __exit__(self, *exc):
+        cfg = init_nncontext().config
+        for k, v in self.saved.items():
+            setattr(cfg, k, v)
+        return False
+
+
+class _Tap(ZooTrigger):
+    """A checkpoint trigger wrapping ``inner`` that also calls ``fn`` the
+    first time iteration ``at`` is reached, mid-epoch (``fn`` may record
+    the state, or request a preemption)."""
+
+    def __init__(self, inner, at=None, fn=None):
+        self.inner, self.at, self.fn = inner, at, fn
+
+    def __call__(self, record):
+        if self.fn is not None and record.iteration == self.at and \
+                not record.epoch_finished:
+            self.fn()
+            self.fn = None
+        return self.inner(record)
+
+
+class _StepClock(ZooTrigger):
+    """A checkpoint trigger wrapping ``inner`` (or none) that synchronises
+    the card and reads the host clock after every step."""
+
+    def __init__(self, inner=None):
+        self.inner, self.ticks = inner, []
+
+    def __call__(self, record):
+        if not record.epoch_finished:
+            torch.cuda.synchronize()
+            self.ticks.append(time.perf_counter())
+        return self.inner(record) if self.inner is not None else False
+
+
+class _Messages(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def ckpt_model(seed, dropout=TRAIN_P_DROP, dtype="bfloat16"):
+    """The classifier of ``build_classifier`` with named layers: every run
+    of the phase writes the same layer names into its checkpoints, so two
+    runs' files can be compared byte for byte."""
+    config = dict(BERT_CONFIG, hidden_p_drop=dropout, attn_p_drop=dropout)
+    l = config["seq_len"]
+    ins = [L.Input(shape=(l,), name=n) for n in
+           ("tokens", "positions", "segments")] + \
+        [L.Input(shape=(1, 1, l), name="mask")]
+    _, pooled = L.BERT(name="ckpt_bert", **config)(ins)
+    model = Model(ins, L.Dense(N_CLASSES, activation="softmax",
+                               name="ckpt_head")(pooled), seed=seed)
+    model.compile(optimizer=Adam(lr=TRAIN_LR),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    model.set_compute_dtype(dtype)
+    return model
+
+
+def trainer_state(trainer):
+    """(name, device clone) of every parameter and Adam moment."""
+    moments = trainer.opt_state[0]
+    out = [(k, p.detach().clone()) for k, p in trainer.params().items()]
+    out += [(f"{part}:{k}", t.detach().clone())
+            for part in ("mu", "nu") for k, t in moments[part].items()]
+    return out
+
+
+def check_state_equal(trainer, want, what):
+    """Every tensor of ``trainer_state`` equal to ``want``'s, in order (a
+    model built anew has other auto-generated layer names)."""
+    got = trainer_state(trainer)
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} tensors, expected "
+                             f"{len(want)}")
+    bad = [k for (k, g), (_, t) in zip(got, want) if not torch.equal(g, t)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} tensors differ from the "
+                             f"reference run, first {bad[0]}")
+
+
+def manifest_crcs(directory):
+    out = {}
+    for sub in sorted(os.listdir(directory)):
+        if sub.startswith(SPMDTrainer.CKPT_PREFIX):
+            with open(os.path.join(directory, sub, "manifest.json")) as f:
+                out[sub] = {k: v["crc32c"] for k, v in
+                            json.load(f)["files"].items()}
+    return out
+
+
+def ckpt_fit(model, x, y, directory, trigger, epochs=CKPT_EPOCHS, **kw):
+    model.set_checkpoint(directory, trigger=trigger)
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=epochs, **kw)
+    return model.trainer
+
+
+def collect():
+    """Free the card's memory of the models dropped so far (their graphs
+    hold reference cycles)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rel(a, b):
+    return ((a - b).norm() / max(b.norm().item(), 1e-12)).item()
+
+
+def check_accumulation(seed, device):
+    """One dropout-off step with accumulation CKPT_ACCUM against the same
+    step without, on one batch and the same weights: float32, then bf16.
+    The loss within ACCUM_LOSS_TOL; each gradient within ACCUM_GRAD_TOL of
+    its norm, or in bf16, where a small gradient summed from terms that
+    cancel (the head's 2-element bias) carries bf16's rounding of each
+    microbatch's partial sum, no further from the float32 step's gradient
+    than ACCUM_BF16_FACTOR times the bf16 full batch's own distance."""
+    out = {}
+    loss_fn = get_loss("sparse_categorical_crossentropy")
+    ref = None
+    for dtype in ("float32", "bfloat16"):
+        model = build_classifier(seed + 7, dict(
+            BERT_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0))
+        trainer = SPMDTrainer(model, loss_fn, Adam(lr=TRAIN_LR),
+                              device=device, compute_dtype=dtype)
+        trainer.ensure_initialized()
+        x, y, _ = train_data(seed + 7, TRAIN_BATCH, ids=np.int32
+                             if dtype == "bfloat16" else np.float32)
+        batch = trainer.put_batch((x, y, np.ones(TRAIN_BATCH, np.float32)))
+        runs = {}
+        for accum in (1, CKPT_ACCUM):
+            with _Config(grad_accum_steps=accum):
+                loss = trainer.loss_and_grads(batch).item()
+            runs[accum] = (loss, [p.grad.detach().clone() for p in
+                                  model.parameters()])
+        names = [k for k, _ in model.named_parameters()]
+        (l1, g1), (l4, g4) = runs[1], runs[CKPT_ACCUM]
+        tol = ACCUM_GRAD_TOL[dtype]
+        worst, worst_name, bad = 0.0, None, []
+        for k, a, b, r in zip(names, g4, g1, ref or [None] * len(names)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{k}: non-finite accumulated gradient")
+            rel = _rel(a, b)
+            if rel > worst:
+                worst, worst_name = rel, k
+            if rel > tol and (r is None or _rel(a, r) >
+                              ACCUM_BF16_FACTOR * _rel(b, r)):
+                bad.append(k)
+        res = dict(loss_accum1=l1, loss_accum4=l4, loss_err=abs(l4 - l1),
+                   loss_tol=ACCUM_LOSS_TOL[dtype], max_grad_rel_err=worst,
+                   max_grad_rel_err_param=worst_name, grad_tol=tol)
+        if ref is not None:
+            k = names.index(worst_name)
+            res.update(worst_accum4_vs_float32=_rel(g4[k], ref[k]),
+                       worst_accum1_vs_float32=_rel(g1[k], ref[k]),
+                       float32_factor=ACCUM_BF16_FACTOR)
+        out[dtype] = res
+        if res["loss_err"] > res["loss_tol"] or bad:
+            emit("checkpoint", ok=False, accumulation=out)
+            raise AssertionError(f"accumulation {CKPT_ACCUM} differs from "
+                                 f"the full batch in {dtype} ({bad}): {res}")
+        if ref is None:
+            ref = g1
+        del model, trainer, runs, g4
+        collect()
+    return out
+
+
+def time_accumulation(model, x, y):
+    """Launches of one training step under accumulation CKPT_ACCUM, then
+    the step at accumulation 1 and CKPT_ACCUM in alternating windows of
+    TIMED_STEPS steps (1, 4, 4, 1): wall per step and peak memory."""
+    trainer = model.trainer
+    batch = trainer.put_batch(([a[:TRAIN_BATCH] for a in x], y[:TRAIN_BATCH],
+                               np.ones(TRAIN_BATCH, np.float32)))
+    n_block = BERT_CONFIG["n_block"]
+    per_step = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
+                attn.DKV_KERNEL_NAME: n_block,
+                dln.FWD_KERNEL_NAME: 2 * n_block,
+                dln.BWD_KERNEL_NAME: 2 * n_block}
+    want = {k: CKPT_ACCUM * v for k, v in per_step.items()}
+    with _Config(grad_accum_steps=CKPT_ACCUM):
+        torch.cuda.synchronize()
+        _kernels.LAUNCHES.reset()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = _kernels.LAUNCHES.snapshot()
+        dtypes = _kernels.LAUNCHES.by_dtype()
+    if launches != want or any(set(v) != {"bfloat16"}
+                               for v in dtypes.values()):
+        raise AssertionError(f"accumulation {CKPT_ACCUM}: launches "
+                             f"{dtypes}, expected {want} in bfloat16")
+    step_s = {1: [], CKPT_ACCUM: []}
+    peaks = {1: [], CKPT_ACCUM: []}
+    for accum in (1, CKPT_ACCUM, CKPT_ACCUM, 1):
+        with _Config(grad_accum_steps=accum):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(TIMED_STEPS):
+                t0 = time.perf_counter()
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+                step_s[accum].append(time.perf_counter() - t0)
+            peaks[accum].append(torch.cuda.max_memory_allocated())
+    timing = {f"accum{a}": dict(step_ms=[1e3 * t for t in ts],
+                                step_p50_ms=1e3 * percentile(ts, 50),
+                                peak_memory_bytes=max(peaks[a]))
+              for a, ts in step_s.items()}
+    return launches, per_step, timing
+
+
+def save_serve(model, x, directory, device):
+    """``save_model``, ``InferenceModel().load`` and 8 rows served on the
+    card, bit for bit against ``predict`` in float32 on the card."""
+    model.set_compute_dtype("float32")
+    rows = [a[:CKPT_SERVE_ROWS] for a in x]
+    want = model.predict(rows, batch_size=CKPT_SERVE_ROWS)
+    t0 = time.perf_counter()
+    model.save_model(directory)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    im = InferenceModel().load(directory)
+    load_s = time.perf_counter() - t0
+    if im.model.device != device:
+        raise AssertionError(f"InferenceModel.load put it on "
+                             f"{im.model.device}")
+    _kernels.LAUNCHES.reset()
+    got = im.predict(rows)
+    served_k1 = _kernels.LAUNCHES.get(attn.KERNEL_NAME)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"the loaded classifier serves other outputs: "
+                             f"max {np.abs(got - want).max()}")
+    return dict(rows=CKPT_SERVE_ROWS, save_s=save_s, load_s=load_s,
+                launches_served=served_k1, equal=True)
+
+
+def save_serve_resnet(seed, directory):
+    """A ResNet-50 ``ImageClassifier`` with seeded moving statistics
+    through ``ZooModel.save_model`` and ``InferenceModel().load`` on the
+    zoo-model directory: ``predict`` at batch 8, bit for bit."""
+    clf = build_resnet(seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in clf.model.named_buffers():
+            buf.copy_(0.5 + torch.rand(buf.shape, generator=gen)
+                      if name.endswith("moving_var") else
+                      0.1 * torch.randn(buf.shape, generator=gen))
+    x = np.random.default_rng(seed).standard_normal(
+        (CKPT_RESNET_ROWS,) + RESNET_SHAPE).astype(np.float32)
+    want = clf.predict(x, batch_size=CKPT_RESNET_ROWS)
+    clf.save_model(directory)
+    im = InferenceModel().load(directory)
+    got = im.predict(x)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"the loaded ResNet-50 serves other outputs: "
+                             f"max {np.abs(got - want).max()}")
+    n_stats = sum(1 for _ in clf.model.buffers())
+    return dict(rows=CKPT_RESNET_ROWS, moving_statistics=n_stats,
+                equal=True)
+
+
+def time_async_steps(model, x, y, directory):
+    """Steps with an async checkpoint every CKPT_EVERY steps against none,
+    in alternating one-epoch windows (async, none, none, async): each
+    step's wall between synchronised clock reads, and the p50."""
+    step_s = {"async": [], "none": []}
+    with _Config(async_checkpoint=True, keep_checkpoints=CKPT_KEEP):
+        for w in range(CKPT_TIMED_WINDOWS):
+            kind = ("async", "none", "none", "async")[w % 4]
+            clock = _StepClock(SeveralIteration(CKPT_EVERY)
+                               if kind == "async" else None)
+            ckpt_fit(model, x, y, directory, clock, epochs=1)
+            step_s[kind] += list(np.diff(clock.ticks))
+    model.trainer.wait_for_checkpoint()
+    return {k: dict(step_ms=[1e3 * t for t in v],
+                    step_p50_ms=1e3 * percentile(v, 50),
+                    step_max_ms=1e3 * max(v))
+            for k, v in step_s.items()}
+
+
+def checkpoint(seed, device, smi, root):
+    """The checkpoint phase (see the module docstring): returns the
+    phase's report and the launches a step under accumulation."""
+    os.makedirs(root, exist_ok=True)
+    disk = shutil.disk_usage(root)
+    dirs = {k: os.path.join(root, k) for k in
+            ("reference", "retry", "preempt", "async", "timed", "tb",
+             "saved_bert", "saved_resnet")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    x, y, _ = train_data(seed + 3, CKPT_BATCHES * TRAIN_BATCH, ids=np.int32)
+    # labels apart from the tokens (train_data's first token carries its
+    # label, which the classifier learns to a loss of 0.0 in 5 steps): the
+    # losses stay informative over all 16 steps
+    y = np.random.default_rng(seed + 5).integers(
+        0, N_CLASSES, len(y)).astype(np.float32)
+    val_x, val_y, _ = train_data(seed + 4, TRAIN_BATCH, ids=np.int32)
+    messages = _Messages()
+    logging.getLogger("analytics_zoo_tpu_torch.engine").addHandler(messages)
+    logging.getLogger("analytics_zoo_tpu_torch.engine").setLevel(logging.INFO)
+    report = dict(model="BERT-base classifier (bench.py:353-438)",
+                  compute_dtype="bfloat16", ids="int32", batch=TRAIN_BATCH,
+                  batches_per_epoch=CKPT_BATCHES, epochs=CKPT_EPOCHS,
+                  checkpoint_every=CKPT_EVERY, keep=CKPT_KEEP,
+                  free_disk_bytes_before=disk.free, card=smi)
+    base = dict(keep_checkpoints=CKPT_KEEP, async_checkpoint=False,
+                failure_retry_times=0, auto_resume=False,
+                log_every_n_steps=CKPT_LOG_EVERY)
+
+    # 1. the reference run R, with summaries and validation
+    at12 = {}
+    with _Config(**base):
+        np.random.seed(seed)
+        r_model = ckpt_model(seed + 11)
+        r_model.set_tensorboard(dirs["tb"], "reference")
+        trigger = _Tap(SeveralIteration(CKPT_EVERY), 3 * CKPT_EVERY,
+                       lambda: at12.update(state=trainer_state(
+                           r_model.trainer)))
+        t0 = time.perf_counter()
+        r = ckpt_fit(r_model, x, y, dirs["reference"], trigger,
+                     validation_data=(val_x, val_y))
+        r_wall = time.perf_counter() - t0
+    r_losses = list(r.step_losses)
+    ref = trainer_state(r)
+    if r.step != CKPT_STEPS or len(r_losses) != CKPT_STEPS or \
+            not np.isfinite(r_losses).all():
+        raise AssertionError(f"reference run: step {r.step}, losses "
+                             f"{r_losses}")
+    r_crcs = manifest_crcs(dirs["reference"])
+    if sorted(r_crcs) != [f"ckpt-{CKPT_STEPS - CKPT_EVERY}",
+                          f"ckpt-{CKPT_STEPS}"]:
+        raise AssertionError(f"retention kept {sorted(r_crcs)}")
+    summary = r_model.get_train_summary("Loss")
+    want_steps = list(range(CKPT_LOG_EVERY, CKPT_STEPS + 1, CKPT_LOG_EVERY))
+    if [s for s, _, _, _ in summary] != want_steps or any(
+            v != np.float32(r_losses[s - 1]) for s, _, _, v in summary):
+        raise AssertionError(f"Loss summary {summary} against the step "
+                             f"losses {r_losses}")
+    val_summary = r_model.get_validation_summary()
+    if not val_summary:
+        raise AssertionError("no validation summary")
+    saves = [s for s in r.checkpoint_stats]
+    report["reference"] = dict(
+        losses=r_losses, wall_s=r_wall, saves=len(saves),
+        summary_loss_windows=len(summary),
+        summary_tags=sorted({t for _, _, t, _ in
+                             r_model.get_train_summary()}),
+        validation_scalars=len(val_summary))
+    report["sync_save"] = dict(
+        bytes=saves[-1]["bytes"],
+        per_save=[{k: v for k, v in s.items()} for s in saves])
+    del r_model, r
+    collect()
+
+    # 2. a failed step at CKPT_FAIL_AT, retried in the same fit
+    os.environ["ZOO_TPU_FAULT"] = f"step:raise@{CKPT_FAIL_AT}"
+    faults.reset()
+    try:
+        with _Config(**dict(base, failure_retry_times=1)):
+            np.random.seed(seed)
+            f_model = ckpt_model(seed + 11)
+            f = ckpt_fit(f_model, x, y, dirs["retry"],
+                         SeveralIteration(CKPT_EVERY))
+    finally:
+        del os.environ["ZOO_TPU_FAULT"]
+        faults.reset()
+    check_state_equal(f, ref, "the retried run")
+    retried = [m for m in messages.lines if m.startswith("step failed")]
+    if (f.step, f.epoch) != (CKPT_STEPS, CKPT_EPOCHS) or not retried or \
+            f.step_losses != r_losses:
+        raise AssertionError(f"retried run: step {f.step} epoch {f.epoch} "
+                             f"losses {f.step_losses}, log {retried}")
+    restored = [m for m in messages.lines if m.startswith("restored")]
+    report["retry"] = dict(fault=f"step:raise@{CKPT_FAIL_AT}",
+                           log=retried + restored, equal=True)
+    del f_model, f
+    collect()
+    shutil.rmtree(dirs["retry"])
+
+    # 3. preemption at CKPT_PREEMPT_AT, then a fresh model resumes
+    with _Config(**base):
+        np.random.seed(seed)
+        p_model = ckpt_model(seed + 11)
+        try:
+            ckpt_fit(p_model, x, y, dirs["preempt"],
+                     _Tap(SeveralIteration(CKPT_EVERY), CKPT_PREEMPT_AT,
+                          request_preemption))
+            raise AssertionError("the preemption was not honoured")
+        except TrainingPreempted:
+            pass
+        finally:
+            clear_preemption()
+        drained = p_model.trainer.step
+    del p_model
+    collect()
+    with open(os.path.join(dirs["preempt"], "latest")) as fh:
+        latest = fh.read()
+    if drained != CKPT_PREEMPT_AT or latest != f"ckpt-{CKPT_PREEMPT_AT}":
+        raise AssertionError(f"drained at {drained}, latest {latest}")
+    messages.lines.clear()
+    with _Config(**dict(base, auto_resume=True)):
+        a_model = ckpt_model(seed + 23)     # other weights: the load must win
+        a = ckpt_fit(a_model, x, y, dirs["preempt"],
+                     SeveralIteration(CKPT_EVERY))
+    resumed = [m for m in messages.lines if m.startswith("auto-resume")]
+    want_log = f"auto-resume: restored step {CKPT_PREEMPT_AT} epoch 0 " \
+        f"(+{CKPT_PREEMPT_AT} batches)"
+    if not resumed or not resumed[0].startswith(want_log):
+        raise AssertionError(f"auto-resume said {resumed}")
+    check_state_equal(a, ref, "the resumed run")
+    if a.step != CKPT_STEPS or a.step_losses != r_losses[CKPT_PREEMPT_AT:]:
+        raise AssertionError(f"resumed run: step {a.step} losses "
+                             f"{a.step_losses}")
+    report["preempt"] = dict(drained_at=drained, resumed=resumed[0],
+                             load_s=a.last_load_s, equal=True)
+    del a_model, a
+    collect()
+    shutil.rmtree(dirs["preempt"])
+
+    # 4. async writes: the same state and the same bytes as R
+    with _Config(**dict(base, async_checkpoint=True)):
+        np.random.seed(seed)
+        s_model = ckpt_model(seed + 11)
+        s = ckpt_fit(s_model, x, y, dirs["async"],
+                     SeveralIteration(CKPT_EVERY))
+    check_state_equal(s, ref, "the async run")
+    if s.step_losses != r_losses:
+        raise AssertionError(f"async run losses {s.step_losses}")
+    s_crcs = manifest_crcs(dirs["async"])
+    if s_crcs != r_crcs:
+        raise AssertionError(f"async checkpoints {s_crcs} against the "
+                             f"reference's {r_crcs}")
+    report["async"] = dict(
+        equal=True, same_crc32c=sorted(s_crcs),
+        stall_ms=[1e3 * st["stall_s"] for st in s.checkpoint_stats],
+        snapshot_ms=[1e3 * st["snapshot_s"] for st in s.checkpoint_stats],
+        wait_for_previous_ms=[1e3 * st["wait_s"]
+                              for st in s.checkpoint_stats])
+    shutil.rmtree(dirs["async"])
+
+    # 5. gradient accumulation: launches, time and memory on the trained
+    # model, then the dropout-off step against accumulation 1
+    launches, per_step, acc_timing = time_accumulation(s_model, x, y)
+    report["accumulation"] = dict(
+        steps=CKPT_ACCUM, launches_per_step=launches,
+        launches_per_step_accum1=per_step, timing=acc_timing)
+    # the step with and without an async checkpoint every CKPT_EVERY
+    report["async_step_timing"] = time_async_steps(s_model, x, y,
+                                                   dirs["timed"])
+    shutil.rmtree(dirs["timed"], ignore_errors=True)
+
+    # 6. a corrupt newest checkpoint falls back to the previous one
+    newest = f"ckpt-{CKPT_STEPS}"
+    path = os.path.join(dirs["reference"], newest, "optim.npz")
+    with open(path, "r+b") as fh:
+        fh.seek(os.path.getsize(path) // 2)
+        byte = fh.read(1)
+        fh.seek(-1, os.SEEK_CUR)
+        fh.write(bytes([byte[0] ^ 0xFF]))
+    messages.lines.clear()
+    s.load_checkpoint(dirs["reference"])
+    skipped = [m for m in messages.lines if "unusable" in m]
+    if s.step != CKPT_STEPS - CKPT_EVERY or not skipped:
+        raise AssertionError(f"after the corruption: step {s.step}, "
+                             f"log {messages.lines}")
+    check_state_equal(s, at12["state"], "the fallback restore")
+    report["corruption"] = dict(flipped=f"{newest}/optim.npz",
+                                restored_step=s.step, log=skipped[0],
+                                load_s=s.last_load_s, equal=True)
+    with open(os.path.join(dirs["reference"], f"ckpt-{CKPT_STEPS - CKPT_EVERY}",
+                           "model.npz"), "rb") as fh:
+        blob = fh.read()
+    t0 = time.perf_counter()
+    crc32c(blob)
+    crc_s = time.perf_counter() - t0
+    report["crc32c"] = dict(bytes=len(blob), s=crc_s,
+                            gb_per_s=len(blob) / crc_s / 1e9)
+    del at12, ref, blob
+    shutil.rmtree(dirs["reference"])
+
+    # 7. save, load, serve
+    report["save_serve_bert"] = save_serve(s_model, x, dirs["saved_bert"],
+                                           device)
+    del s_model, s
+    collect()
+    report["accumulation"]["parity"] = check_accumulation(seed, device)
+    report["save_serve_resnet"] = save_serve_resnet(seed + 13,
+                                                    dirs["saved_resnet"])
+    logging.getLogger("analytics_zoo_tpu_torch.engine").removeHandler(
+        messages)
+    shutil.rmtree(root)
+    collect()
+    return report, launches
+
+
+# ---------------------------------------------------------------------------
 # ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -2272,9 +2859,13 @@ def main(argv=None):
     # 8. NeuralCF
     emit("ncf", card=smi, **ncf(args.seed, dev))
 
-    # 9. ResNet-50, after the generation and NCF models are freed
-    gc.collect()
-    torch.cuda.empty_cache()
+    # 9. checkpoint, after the generation and NCF models are freed
+    collect()
+    ckpt_report, accum_launches = checkpoint(args.seed, dev, smi, CKPT_ROOT)
+    emit("checkpoint", **ckpt_report)
+
+    # 10. ResNet-50
+    collect()
     resnet(args.seed, dev, smi)
 
     f32 = train_kern[torch.float32]
@@ -2305,7 +2896,8 @@ def main(argv=None):
                      plain_ms_bf16=bf[name]["plain_ms"],
                      bound_ms_bf16=bf[name]["bound_ms"],
                      bound_by_bf16=bf[name]["bound_by"],
-                     library_ms_bf16=bf[name]["library_ms"])
+                     library_ms_bf16=bf[name]["library_ms"],
+                     launches_grad_accum4=accum_launches[name])
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

@@ -271,3 +271,24 @@ def test_bf16_float_positions_past_256_round_in_bert_as_in_jax():
     assert np.isnan(got[0]).all() and np.isnan(want[0]).all()
     assert np.isfinite(got[1]).all()
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=BF16_LOSS_TOL)
+
+
+def test_bf16_embedding_gradient_sums_duplicate_ids_in_float32():
+    """A bf16 table's gradient over 8192 lookups of 2 rows (BERT's segment
+    table at batch 16 x 512) lands within 2**-8 of the float64 sum: the
+    rows are gathered from float32 values, so the scatter-add of the
+    backward sums in float32 and rounds to bf16 once (ROADMAP C6). Summed
+    in bf16, one addition at a time, it lands ~10% off."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.embeddings \
+        import take_rows
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(2, 8, generator=gen).bfloat16().requires_grad_()
+    ids = torch.randint(0, 2, (8192,), generator=gen)
+    up = torch.randn(8192, 8, generator=gen).bfloat16()
+    rows = take_rows(table, ids.float())
+    assert torch.equal(rows, table.detach()[ids])
+    (rows * up).sum().backward()
+    want = torch.zeros(2, 8, dtype=torch.float64).index_add_(
+        0, ids, up.double())
+    err = ((table.grad.double() - want).norm() / want.norm()).item()
+    assert err <= 2 ** -8

@@ -802,3 +802,97 @@ def test_resnet50_predict_and_train_step_on_the_card_match_the_cpu(cuda):
             assert max(errs) <= 1e-4, (name, r)
     finally:
         tnn.set_nncontext(None)
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint store on the card
+# ---------------------------------------------------------------------------
+
+def _small_trainer(device, tmp_path, async_checkpoint=False):
+    """A Dense + BatchNorm model under Adam on ``device``, 3 steps in."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import \
+        get_loss
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
+
+    tnn.set_nncontext(tnn.ZooContext(tnn.ZooConfig(
+        async_checkpoint=async_checkpoint), device=device))
+    model = Sequential(seed=3)
+    model.add(tl.Dense(32, input_shape=(16,), name="ck_d1"))
+    model.add(tl.BatchNormalization(name="ck_bn"))
+    model.add(tl.Activation("relu", name="ck_relu"))
+    model.add(tl.Dense(4, name="ck_d2"))
+    model.graph_function()
+    trainer = SPMDTrainer(model, get_loss("mse"), Adam(lr=1e-2))
+    trainer.checkpoint_dir = str(tmp_path)
+    rs = np.random.default_rng(0)
+    batch = trainer.put_batch(([rs.standard_normal((8, 16)).astype(
+        np.float32)], rs.standard_normal((8, 4)).astype(np.float32),
+        np.ones(8, np.float32)))
+    trainer.ensure_initialized()
+    for _ in range(3):
+        trainer.train_step(batch)
+    return trainer, batch
+
+
+def _device_state(trainer):
+    from analytics_zoo_tpu_torch.utils.jax_weights import (optimizer_leaves,
+                                                           param_order)
+    tensors = list(trainer.model.parameters()) + \
+        list(trainer.model.buffers()) + \
+        [l for l in optimizer_leaves(trainer.opt_state,
+                                     param_order(trainer.model))
+         if torch.is_tensor(l)]
+    return [t.detach().clone() for t in tensors]
+
+
+def test_a_checkpoint_restores_a_cuda_trainer_bit_for_bit(cuda, tmp_path):
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    try:
+        trainer, batch = _small_trainer(cuda, tmp_path)
+        want = _device_state(trainer)
+        trainer.save_checkpoint()
+        fresh, _ = _small_trainer(cuda, tmp_path / "other")
+        for _ in range(2):
+            fresh.train_step(batch)
+        fresh.load_checkpoint(str(tmp_path))
+        got = _device_state(fresh)
+        assert fresh.step == 3 and len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and torch.equal(g, w)
+        assert fresh.opt_state[0]["count"] == 3
+    finally:
+        tnn.set_nncontext(None)
+
+
+def test_an_async_save_then_a_step_keeps_the_saved_state(cuda, tmp_path):
+    """The snapshot is complete before ``save_checkpoint`` returns: the
+    step launched right after it changes the parameters in place, and the
+    files hold the state from before that step."""
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    try:
+        trainer, batch = _small_trainer(cuda, tmp_path,
+                                        async_checkpoint=True)
+        want = _device_state(trainer)
+        trainer.save_checkpoint()
+        trainer.train_step(batch)
+        trainer.wait_for_checkpoint()
+        assert not torch.equal(_device_state(trainer)[0], want[0])
+        fresh, _ = _small_trainer(cuda, tmp_path / "other")
+        fresh.load_checkpoint(str(tmp_path))
+        for g, w in zip(_device_state(fresh), want):
+            assert torch.equal(g, w)
+    finally:
+        tnn.set_nncontext(None)
+
+
+def test_native_crc32c_equals_the_reference_on_64_mb(cuda):
+    from analytics_zoo_tpu_torch.utils.crc32c import (crc32c,
+                                                      crc32c_reference)
+    data = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(0)).numpy()
+    assert crc32c(data) == crc32c_reference(data.tobytes())

@@ -319,13 +319,19 @@ def test_predict_takes_a_feature_set():
 
 
 def test_zoo_model_persistence_is_not_ported_yet(tmp_path):
+    """Zoo-model persistence is ported now: a NeuralCF saved and loaded
+    back predicts bit for bit as before, over the same 8 weight arrays
+    (``tests/test_torch_model_io.py`` holds it against JAX)."""
     tncf = trec.NeuralCF(20, 10, 2, user_embed=4, item_embed=4,
                          hidden_layers=[8], mf_embed=4)
-    with pytest.raises(NotImplementedError, match="persistence slice"):
-        tncf.save_model(str(tmp_path / "m"))
-    with pytest.raises(NotImplementedError, match="persistence slice"):
-        ZooModel.load_model(str(tmp_path / "m"))
-    assert len(tncf.get_weights()) == 4 + 2 * 2   # 4 tables, 2 Dense
+    tnn.init_nncontext(device="cpu")
+    x = np.array([[1, 2], [20, 10], [5, 7]], np.float32)
+    want = tncf.predict(x, batch_size=2)
+    tncf.save_model(str(tmp_path / "m"))
+    back = ZooModel.load_model(str(tmp_path / "m"))
+    assert isinstance(back, trec.NeuralCF) and back.user_count == 20
+    np.testing.assert_array_equal(back.predict(x, batch_size=2), want)
+    assert len(tncf.get_weights()) == len(back.get_weights()) == 4 + 2 * 2
 
 
 # ---------------------------------------------------------------------------

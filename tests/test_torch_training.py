@@ -432,16 +432,32 @@ def test_training_with_dropout_draws_from_the_step_generator():
         teng.step_seed(1, 1)
 
 
-def test_fit_refuses_what_is_not_ported(monkeypatch):
+def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path):
+    """Gradient accumulation and checkpoint triggers train now; what
+    stays refused names its ROADMAP item: the sharded checkpoint format
+    (A12) and saving a graph whose config holds a callable (A8)."""
+    from analytics_zoo_tpu_torch.common.zoo_trigger import SeveralIteration
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine.model_io import \
+        UnserializableConfig
     monkeypatch.setenv("ZOO_TPU_GRAD_ACCUM_STEPS", "2")
     tnn.init_nncontext(device="cpu")
     model = _classifier("torch")
     model.compile(optimizer="sgd", loss="sparse_categorical_crossentropy")
     x, y = _data(3, 4)
-    with pytest.raises(NotImplementedError, match="grad_accum_steps"):
-        model.fit(x, y, batch_size=4, nb_epoch=1)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        model.fit(x, y, batch_size=4, checkpoint_trigger=object())
+    model.fit(x, y, batch_size=4, nb_epoch=1)
+    assert model.trainer.step == 1 and len(model.trainer.step_losses) == 1
+    model.set_checkpoint(str(tmp_path / "ckpt"))
+    model.fit(x, y, batch_size=4, checkpoint_trigger=SeveralIteration(1),
+              nb_epoch=1)
+    assert (tmp_path / "ckpt" / "latest").read_text() == "ckpt-2"
+    monkeypatch.setenv("ZOO_TPU_SHARDED_CHECKPOINT", "1")
+    with pytest.raises(NotImplementedError, match="A12"):
+        model.fit(x, y, batch_size=4, checkpoint_trigger=SeveralIteration(1),
+                  nb_epoch=1)
+    bad = tl.Dense(2, activation=lambda t: t * 2.0)
+    inp = tl.Input(shape=(3,))
+    with pytest.raises(UnserializableConfig, match="A8"):
+        TModel(inp, bad(inp)).save_model(str(tmp_path / "m"))
 
 
 def test_fit_on_an_array_feature_set_with_validation_and_clipping():
