@@ -7,18 +7,21 @@ its counterpart's subpackage and module name. This package imports
 
 Package map (the part ported so far: serving, training in float32 or
 bf16 with checkpoints and gradient accumulation, saving and loading, and
-generating with Keras-style models):
+generating with Keras-style models, recurrent ones among them):
   common/     context: config (``compute_dtype`` among it) and the device
               the entry points run on; the trigger algebra
   feature/    ``Sample``, ``FeatureSet``: in-memory arrays batched in the
               JAX order
-  models/     ``ZooModel``; the recommenders ``NeuralCF`` and
-              ``WideAndDeep``
+  models/     ``ZooModel``; the recommenders ``NeuralCF``,
+              ``WideAndDeep`` and ``SessionRecommender``; the image
+              classifiers; ``TextClassifier``, ``AnomalyDetector``,
+              ``KNRM`` and ``Seq2seq``
   ops/        attention (hand-written CUDA flash-attention forward and
               backward under ``ops/csrc``), layer norm, dropout + residual
               + layer norm (hand-written CUDA forward and backward), the
               KV cache
-  pipeline/   keras-style graph, layers, ``Model`` and ``Sequential`` with
+  pipeline/   keras-style graph, layers (the recurrent ones and their
+              wrappers among them), ``Lambda``, ``Model`` and ``Sequential`` with
               ``compile``/``fit``/``evaluate``/``predict`` and
               ``save_model``/``load_model`` (``engine/model_io.py``),
               losses, metrics, optimizers, the training engine (with its

@@ -9,13 +9,15 @@ in the JAX package's layout: the internal Keras model under ``keras/``
 (``KerasNet.save_model``) and ``zoo_model.pkl`` with the class, its
 module (the JAX package's path, as ``model_io`` writes class paths) and
 the recorded config, so either package loads what the other saved.
-``Ranker`` arrives with the text-matching models.
+``Ranker`` gives the text-matching models NDCG and MAP over query groups.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+
+import numpy as np
 
 from ..pipeline.api.keras.engine.model_io import (FILE_PREFIX,
                                                   file_module, port_class)
@@ -123,3 +125,53 @@ class ZooModel:
 
 
 KerasZooModel = ZooModel
+
+
+class Ranker:
+    """Validation with ranking metrics for matching models (parity:
+    ``pyzoo/zoo/models/common/ranker.py`` ``evaluateNDCG``/``evaluateMAP``).
+    ``x`` is a list of query groups ``[(features, labels), ...]``: one
+    query's candidates, features ``(list_length, ...)`` and labels
+    ``(list_length,)`` or ``(list_length, 1)``. A ``TextSet`` is not
+    ported yet (``feature/text``, ROADMAP A11). Mix into a model exposing
+    ``predict``."""
+
+    def _ranking_groups(self, x):
+        if hasattr(x, "features"):
+            raise NotImplementedError(
+                "ranking a TextSet needs feature/text, which arrives with "
+                "ROADMAP A11; pass [(features, labels), ...]")
+        for feats, labels in x:
+            yield np.asarray(feats), np.asarray(labels).reshape(-1)
+
+    def _ranked_relevance(self, feats, labels, threshold):
+        scores = np.asarray(
+            self.predict(feats, batch_size=max(len(feats), 1))).reshape(-1)
+        order = np.argsort(-scores, kind="stable")
+        return (labels > threshold).astype(np.float64)[order]
+
+    def evaluate_ndcg(self, x, k: int, threshold: float = 0.0) -> float:
+        """Mean NDCG@k over the query groups of ``x``. Queries with no
+        positive record contribute 0 (reference semantics)."""
+        vals = []
+        for feats, labels in self._ranking_groups(x):
+            rel = self._ranked_relevance(feats, labels, threshold)
+            gains = rel[:k]
+            discounts = np.log2(np.arange(2, len(gains) + 2))
+            dcg = float((gains / discounts).sum())
+            ideal = np.sort(rel)[::-1][:k]
+            idcg = float((ideal / discounts[:len(ideal)]).sum())
+            vals.append(dcg / idcg if idcg > 0 else 0.0)
+        return float(np.mean(vals)) if vals else 0.0
+
+    def evaluate_map(self, x, threshold: float = 0.0) -> float:
+        """Mean average precision over the query groups of ``x``."""
+        vals = []
+        for feats, labels in self._ranking_groups(x):
+            rel = self._ranked_relevance(feats, labels, threshold)
+            if rel.sum() == 0:
+                vals.append(0.0)
+                continue
+            prec = np.cumsum(rel) / np.arange(1, len(rel) + 1)
+            vals.append(float((prec * rel).sum() / rel.sum()))
+        return float(np.mean(vals)) if vals else 0.0

@@ -8,8 +8,10 @@ tensors, nested one level for grouped parameters — and
 :meth:`KerasLayer.build_params` registers it on the module under the JAX
 names and layouts: top-level leaves as parameters, nested dicts as
 ``nn.ParameterDict``s (``block0.qkv_w``; a Dense ``kernel`` is (in, out)).
-So a model's ``state_dict()`` keys are the JAX param paths joined by
-".", and JAX weights copy over with no transposes
+A layer that wraps others (``TimeDistributed``, ``Bidirectional``,
+Seq2seq's coders) holds them as submodules under the JAX tree's keys and
+builds them in its own ``build_params``. So a model's ``state_dict()``
+keys are the JAX param paths joined by ".", and JAX weights copy over with no transposes
 (``utils/jax_weights.py``).
 
 A layer with non-trainable state (BatchNorm's moving statistics) sets
@@ -71,6 +73,14 @@ def _capture_config(init):
         init(self, *args, **kwargs)
 
     return wrapped
+
+
+def is_symbolic(x) -> bool:
+    """Whether a layer call on ``x`` records a graph node: ``x`` is a
+    ``Variable`` or a non-empty list of them."""
+    return isinstance(x, Variable) or (
+        isinstance(x, (list, tuple)) and bool(x) and
+        all(isinstance(v, Variable) for v in x))
 
 
 class KerasLayer(nn.Module):
@@ -154,9 +164,7 @@ class KerasLayer(nn.Module):
 
     # -- symbolic application -------------------------------------------
     def __call__(self, x, *args, **kwargs):
-        if isinstance(x, Variable) or (
-                isinstance(x, (list, tuple)) and x and
-                all(isinstance(v, Variable) for v in x)):
+        if is_symbolic(x):
             inputs = [x] if isinstance(x, Variable) else list(x)
             in_shape = inputs[0].shape if len(inputs) == 1 else \
                 [v.shape for v in inputs]

@@ -18,8 +18,8 @@ refused, and a JAX class the port does not have yet raises
 
 Layers whose configs hold arbitrary callables (``Lambda``, a callable
 activation) cannot be saved by definition. The JAX package falls back to
-pickle for those graphs; here ``UnserializableConfig`` is raised until
-``Lambda`` and ``CustomLoss`` are ported (ROADMAP A8).
+pickle for those graphs; here ``UnserializableConfig`` is raised (the
+pickle fallback waits with ``CustomLoss``, ROADMAP A8 and A10).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ from .convolutional import (AtrousConvolution1D, AtrousConvolution2D,
                             Cropping2D, SeparableConvolution2D, UpSampling1D,
                             UpSampling2D, ZeroPadding1D, ZeroPadding2D)
 from .core import Activation, Dense, Dropout, Flatten, Select
-from .embeddings import Embedding, SparseEmbedding
+from .embeddings import Embedding, SparseEmbedding, WordEmbedding
 from .merge import (Add, Average, Concatenate, Maximum, Merge, Multiply,
                     merge)
 from .normalization import (LRN2D, BatchNormalization, LayerNorm,
@@ -14,7 +14,9 @@ from .pooling import (AveragePooling1D, AveragePooling2D, AveragePooling3D,
                       GlobalAveragePooling3D, GlobalMaxPooling1D,
                       GlobalMaxPooling2D, GlobalMaxPooling3D, MaxPooling1D,
                       MaxPooling2D, MaxPooling3D)
+from .recurrent import GRU, LSTM, SimpleRNN
 from .self_attention import BERT, TransformerLayer
+from .wrappers import Bidirectional, TimeDistributed
 
 Conv1D = Convolution1D
 Conv2D = Convolution2D
@@ -31,4 +33,5 @@ __all__ = ["Input", "InputLayer", "KerasLayer", "Activation", "Dense",
            "GlobalMaxPooling1D", "GlobalMaxPooling2D", "GlobalMaxPooling3D",
            "GlobalAveragePooling1D", "GlobalAveragePooling2D",
            "GlobalAveragePooling3D", "BatchNormalization", "LayerNorm",
-           "LRN2D", "WithinChannelLRN2D"]
+           "LRN2D", "WithinChannelLRN2D", "SimpleRNN", "LSTM", "GRU",
+           "TimeDistributed", "Bidirectional", "WordEmbedding"]

@@ -24,6 +24,13 @@ model instance (or by the JAX package, with its own layer numbering)
 pairs its layers with the model's as :func:`load_jax_params` does, and
 :func:`load_optimizer_leaves` copies the leaves into the live state. The
 checkpoint store and ``save_model`` both go through these.
+
+A layer's tree may nest deeper than one level: a wrapper's role keys
+(``bidirectional_1.forward.W``, ``timedistributed_1.layer.kernel``) and a
+Seq2seq coder's ``l{i}`` groups and ``embedding`` are submodule paths, so
+they flatten, pair and sort as the JAX trees do; a frozen
+``WordEmbedding`` table stays a parameter (it takes a zero gradient), so
+it keeps its place among optax's leaves.
 """
 
 from __future__ import annotations

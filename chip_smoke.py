@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
-generation, NeuralCF, checkpoint and ResNet-50 paths once on one NVIDIA
-GPU.
+generation, NeuralCF, checkpoint, sequence-model and ResNet-50 paths once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -103,7 +103,32 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               async checkpoint every 4 steps against none in alternating
               windows, free disk. Its directories, under
               ``build/chip_smoke_checkpoint``, are deleted at the end.
-10. resnet -- ``bench.py``'s ResNet-50 leg: ``ImageClassifier(1000,
+10. sequence -- the recurrent layers through the zoo's sequence models,
+              float32, TF32 off, weights from ``--seed``. The
+              TextClassifier of the reference's news20 example (20
+              classes, 500 tokens, a seeded (5001, 200) table through a
+              frozen ``WordEmbedding``, encoder 256, batch 128, Adagrad
+              0.01) with each encoder (cnn, lstm, gru): ``predict`` on 32
+              rows against the port's CPU run; 8 ``fit`` steps on one batch
+              (the loss finite and falling, a gradient on every trainable
+              parameter, the table unmoved); ``evaluate``; the three steps
+              timed in alternating windows (p50, launches a step, device
+              busy and idle share, peak memory). Then AnomalyDetector
+              (unroll 24, hidden 8-32-15, dropouts 0.2, batch 1024), KNRM
+              (10 + 40 tokens, vocab 20,000, 300-d, 21 kernels; ranking
+              with ``rank_hinge`` on pair-kept batches and classification;
+              NDCG@3 and MAP against the CPU), SessionRecommender (10,000
+              items, widths 40-20, with history; ``recommend_for_session``
+              against the CPU) and Seq2seq (LSTM, 2 layers of 256, a dense
+              bridge, a TimeDistributed generator; ``infer`` against the
+              CPU's and against ``infer_reference`` with a stop sign):
+              ``predict`` against the CPU and 4 falling ``fit`` steps each.
+              The launch counts are set to 0 as the phase starts and read
+              as it ends (and after each fit and infer): K1-K5 are
+              launched 0 times in the whole phase, timed and profiled
+              steps included, and the summary line's
+              ``launches_sequence`` is that count.
+11. resnet -- ``bench.py``'s ResNet-50 leg: ``ImageClassifier(1000,
               "resnet-50")`` on 3 x 224 x 224 (weights from ``--seed``):
               ``predict`` and one SGD step (float32 and bf16, on 3
               starts with the residual branches' last gammas drawn from
@@ -150,10 +175,16 @@ from analytics_zoo_tpu_torch.common.zoo_trigger import (SeveralIteration,
                                                         ZooTrigger)
 from analytics_zoo_tpu_torch.feature.feature_set import (ArrayFeatureSet,
                                                          Sample)
+from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.image.imageclassification import \
     ImageClassifier
-from analytics_zoo_tpu_torch.models.recommendation import (NeuralCF,
-                                                           UserItemFeature)
+from analytics_zoo_tpu_torch.models.recommendation import (
+    NeuralCF, SessionRecommender, UserItemFeature)
+from analytics_zoo_tpu_torch.models.seq2seq import (Bridge, RNNDecoder,
+                                                    RNNEncoder, Seq2seq)
+from analytics_zoo_tpu_torch.models.textclassification import \
+    TextClassifier
+from analytics_zoo_tpu_torch.models.textmatching import KNRM
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import attention as attn
 from analytics_zoo_tpu_torch.ops import fused_dropout_ln as dln
@@ -162,7 +193,7 @@ from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
 from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
 from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
-    Adam, get_optimizer)
+    Adagrad, Adam, get_optimizer)
 from analytics_zoo_tpu_torch.pipeline.engine import (SPMDTrainer,
                                                      TrainingPreempted,
                                                      clear_preemption,
@@ -2338,6 +2369,461 @@ def checkpoint(seed, device, smi, root):
 
 
 # ---------------------------------------------------------------------------
+# the sequence models: recurrent layers, TextClassifier and the zoo
+# ---------------------------------------------------------------------------
+
+# the reference TextClassifier example's defaults (pyzoo/zoo/examples/
+# textclassification/text_classification.py, news20): 20 classes, 500
+# tokens a text, GloVe 6B 200-d vectors for the 5000 most frequent words
+# (a seeded (5001, 200) table stands in: no GloVe file is in the
+# repository), encoder output 256, batch 128, Adagrad at 0.01
+TC_CLASSES, TC_SEQ_LEN, TC_TOKEN_LEN, TC_MAX_WORDS = 20, 500, 200, 5000
+TC_ENCODER_DIM, TC_BATCH, TC_STEPS, TC_LR = 256, 128, 8, 0.01
+TC_ENCODERS = ("cnn", "lstm", "gru")
+TC_PREDICT_ROWS = 32
+TC_TIMED_STEPS, TC_WINDOWS = 5, 2
+# the card's predictions against the port's CPU run of the same weights:
+# a 500-step recurrence (and the convolution) in float32, summed in
+# another order by cuBLAS / cuDNN and the CPU's BLAS
+SEQ_CPU_TOL = 1e-4
+# the other zoo models: predict against the CPU, then SEQ_FIT_STEPS steps
+# of fit on one seeded batch
+SEQ_FIT_STEPS = 4
+# AnomalyDetector at the repo example's unroll (24) and the model's
+# default hidden widths and dropouts
+AD_UNROLL, AD_HIDDEN, AD_DROPOUTS, AD_BATCH = 24, (8, 32, 15), \
+    (0.2, 0.2, 0.2), 1024
+# KNRM at the reference's defaults (KNRM.scala): query 10, document 40,
+# 300-d embeddings, 21 kernels; a 20,000-word vocabulary
+KNRM_L1, KNRM_L2, KNRM_VOCAB, KNRM_EMBED, KNRM_KERNELS = 10, 40, 20000, \
+    300, 21
+KNRM_PAIRS, KNRM_QUERIES, KNRM_CANDIDATES = 256, 32, 10
+# SessionRecommender at its default rnn and mlp widths (40, 20), with the
+# history: 10,000 items embedded in 100, sessions of 10 clicks and
+# histories of 5 (chosen here: the reference sets no defaults)
+SR_ITEMS, SR_EMBED, SR_SESSION, SR_HISTORY, SR_BATCH = 10000, 100, 10, 5, \
+    1024
+SR_RECOMMEND, SR_MAX_ITEMS = 16, 5
+# Seq2seq: an LSTM of 2 layers and 256 wide, a dense bridge, a
+# TimeDistributed(Dense(feat)) generator
+S2S_LAYERS, S2S_HIDDEN, S2S_FEAT, S2S_T_IN, S2S_T_OUT, S2S_BATCH = \
+    2, 256, 32, 40, 20, 64
+S2S_INFER_ROWS, S2S_INFER_LEN = 8, 20
+# infer_reference re-runs the decoder over the whole prefix, so its
+# products differ in shape (and summation) from the cached step's
+S2S_REFERENCE_TOL = 1e-4
+
+
+def cpu_twin(model):
+    """A copy of ``model`` (a KerasNet on the card) on the CPU, with a CPU
+    trainer."""
+    trainer, model.trainer = model.trainer, None
+    try:
+        cpu_model = copy.deepcopy(model)
+    finally:
+        model.trainer = trainer
+    cpu_model.trainer = SPMDTrainer(cpu_model, get_loss("mse"),
+                                    get_optimizer("sgd"), device="cpu")
+    return cpu_model
+
+
+def zoo_twin(model):
+    """A zoo model over the CPU twin of ``model``'s Keras model."""
+    twin = copy.copy(model)
+    twin.model = cpu_twin(model.model)
+    return twin
+
+
+def seeded_zoo_model(make, seed):
+    """A zoo model built with the context's seed set to ``seed`` (its
+    weights come from the seed the graph is built under)."""
+    config = init_nncontext().config
+    seed0, config.seed = config.seed, seed
+    try:
+        model = make()
+        model.model.graph_function()
+    finally:
+        config.seed = seed0
+    return model
+
+
+def check_predict(name, model, x, batch):
+    """``predict`` on the card against the CPU's: the largest
+    difference, gated at SEQ_CPU_TOL."""
+    got = model.predict(x, batch_size=batch)
+    want = cpu_twin(model.model).trainer.predict(x, batch_size=batch)
+    got_l = got if isinstance(got, list) else [got]
+    want_l = want if isinstance(want, list) else [want]
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got_l, want_l))
+    if not all(np.isfinite(g).all() and g.shape == w.shape
+               for g, w in zip(got_l, want_l)) or err > SEQ_CPU_TOL:
+        raise AssertionError(f"{name}: predict on the card off the CPU's "
+                             f"by {err} (tol {SEQ_CPU_TOL})")
+    return got, err
+
+
+def no_launches(name):
+    """K1-K5's launches since the sequence phase set the counts to 0:
+    none, or ``name`` fails."""
+    launches = _kernels.LAUNCHES.snapshot()
+    if launches:
+        raise AssertionError(f"{name} launched hand-written kernels "
+                             f"{launches}")
+    return launches
+
+
+def fit_one_batch(name, model, x, y, batch, steps):
+    """``steps`` steps of ``fit`` on one batch (one epoch a step): the
+    losses (finite and falling), K1-K5's launches since the phase began
+    (none), the wall and the peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=batch, nb_epoch=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = no_launches(name)
+    peak = torch.cuda.max_memory_allocated()
+    losses = list(model.model.trainer.step_losses)
+    if len(losses) != steps or not np.isfinite(losses).all() or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} losses {losses}")
+    return dict(losses=losses, k1_k5_launches=launches, fit_wall_s=wall,
+                peak_memory_bytes=peak)
+
+
+def text_data(seed, n):
+    rs = np.random.default_rng(seed)
+    x = rs.integers(0, TC_MAX_WORDS + 1, (n, TC_SEQ_LEN)).astype(np.int32)
+    y = rs.integers(0, TC_CLASSES, n).astype(np.int32)
+    return x, y
+
+
+def text_classifier_leg(encoder, seed, table, x, y):
+    """The full-width TextClassifier with ``encoder``: predict against
+    the CPU; TC_STEPS steps of fit (falling loss, a finite nonzero
+    gradient on every trainable parameter, the frozen table unmoved,
+    K1-K5 not launched); evaluate."""
+    model = seeded_zoo_model(lambda: TextClassifier(
+        TC_CLASSES, table, sequence_length=TC_SEQ_LEN, encoder=encoder,
+        encoder_output_dim=TC_ENCODER_DIM), seed)
+    probs, err = check_predict(f"TextClassifier({encoder})", model,
+                               x[:TC_PREDICT_ROWS], TC_PREDICT_ROWS)
+    no_launches(f"TextClassifier({encoder}) predict")
+    row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+    if row_err > ROW_SUM_TOL:
+        raise AssertionError(f"TextClassifier({encoder}) predict rows off "
+                             f"1 by {row_err}")
+    table_layer = model.model.layers[0]
+    table0 = table_layer.table.detach().clone()
+    model.compile(Adagrad(lr=TC_LR), "sparse_categorical_crossentropy",
+                  ["accuracy"])
+    fit = fit_one_batch(f"TextClassifier({encoder})", model, x, y,
+                        TC_BATCH, TC_STEPS)
+    grads = {}
+    for n, p in model.model.named_parameters():
+        if p is table_layer.table:
+            continue
+        g = p.grad
+        grads[n] = 0.0 if g is None or not torch.isfinite(g).all() \
+            else g.abs().max().item()
+    if min(grads.values()) <= 0.0:
+        raise AssertionError(f"TextClassifier({encoder}) parameters "
+                             f"without a gradient: "
+                             f"{[n for n, g in grads.items() if g <= 0]}")
+    if not torch.equal(table_layer.table.detach(), table0) or (
+            table_layer.table.grad is not None and
+            table_layer.table.grad.any()):
+        raise AssertionError(f"TextClassifier({encoder}): the frozen "
+                             "table moved or took a gradient")
+    results = model.evaluate(x, y, batch_size=TC_BATCH)
+    if not np.isfinite(results["loss"]) or \
+            not 0.0 <= results["accuracy"] <= 1.0:
+        raise AssertionError(f"TextClassifier({encoder}) evaluate "
+                             f"{results}")
+    return model, dict(
+        encoder=encoder, params=sum(p.numel() for p in
+                                    model.model.parameters()),
+        predict_rows=TC_PREDICT_ROWS, predict_cpu_max_abs_err=err,
+        predict_row_sum_max_err=row_err, min_param_grad=min(grads.values()),
+        trainable_params_with_grad=len(grads), frozen_table_unmoved=True,
+        evaluate=results, **fit)
+
+
+def time_text_classifiers(models, x, y):
+    """Each encoder's training step in alternating windows of
+    TC_TIMED_STEPS (cnn, lstm, gru, gru, lstm, cnn): host clock around a
+    synchronised step, p50, each window's peak memory; then one step's
+    device time, launches and idle share from the profiler."""
+    host = ([x], y, np.ones(len(y), np.float32))
+    trainers = {e: m.model.trainer for e, m in models.items()}
+    batches = {e: t.put_batch(host) for e, t in trainers.items()}
+    step_s = {e: [] for e in models}
+    peaks = {e: [] for e in models}
+    order = list(models)
+    for w in range(TC_WINDOWS):
+        for e in (order if w % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(TC_TIMED_STEPS):
+                t0 = time.perf_counter()
+                trainers[e].train_step(batches[e])
+                torch.cuda.synchronize()
+                step_s[e].append(time.perf_counter() - t0)
+            peaks[e].append(torch.cuda.max_memory_allocated())
+    out = {}
+    for e in models:
+        prof = profile_device(lambda: trainers[e].train_step(batches[e]))
+        launches = sum(g["launches"] for g in (prof["groups"] or {})
+                       .values())
+        out[e] = dict(step_ms=[1e3 * t for t in step_s[e]],
+                      step_p50_ms=1e3 * percentile(step_s[e], 50),
+                      texts_per_s=TC_BATCH / percentile(step_s[e], 50),
+                      peak_memory_bytes=max(peaks[e]),
+                      launches_per_step=launches,
+                      device_busy_ms=prof.get("device_busy_ms"),
+                      idle_share=prof["idle_share"], profile=prof)
+    return dict(windows=TC_WINDOWS, steps_per_window=TC_TIMED_STEPS,
+                batch=TC_BATCH, **out)
+
+
+def anomaly_leg(seed):
+    rs = np.random.default_rng(seed)
+    t = np.arange(AD_BATCH + AD_UNROLL, dtype=np.float32)
+    series = np.sin(t / 12.0) + 0.1 * rs.standard_normal(t.shape)
+    feats, labels, _ = AnomalyDetector.unroll(series, AD_UNROLL)
+    feats, labels = feats[:AD_BATCH], labels[:AD_BATCH, None]
+    model = seeded_zoo_model(lambda: AnomalyDetector(
+        (AD_UNROLL, 1), hidden_layers=AD_HIDDEN, dropouts=AD_DROPOUTS), seed)
+    _, err = check_predict("AnomalyDetector", model, feats, AD_BATCH)
+    model.compile("rmsprop", "mse")
+    fit = fit_one_batch("AnomalyDetector", model, feats, labels, AD_BATCH,
+                        SEQ_FIT_STEPS)
+    pred = model.predict(feats, batch_size=AD_BATCH).reshape(-1)
+    _, _, anomaly = AnomalyDetector.detect_anomalies(labels, pred, 5)
+    flagged = int(np.isfinite(anomaly).sum())
+    if flagged < 1:
+        raise AssertionError("AnomalyDetector flagged nothing")
+    return dict(feature_shape=[AD_UNROLL, 1], hidden_layers=AD_HIDDEN,
+                dropouts=AD_DROPOUTS, batch=AD_BATCH, optimizer="rmsprop",
+                loss="mse", predict_cpu_max_abs_err=err,
+                anomalies_flagged=flagged, **fit)
+
+
+def knrm_pairs(rs, n):
+    """n interleaved (relevant, irrelevant) documents for n / 2 queries:
+    the relevant one repeats the query's words."""
+    q = rs.integers(1, KNRM_VOCAB, (n // 2, KNRM_L1))
+    pos = np.tile(q, (1, KNRM_L2 // KNRM_L1 + 1))[:, :KNRM_L2]
+    neg = rs.integers(1, KNRM_VOCAB, (n // 2, KNRM_L2))
+    x = np.empty((n, KNRM_L1 + KNRM_L2), np.float32)
+    x[0::2] = np.concatenate([q, pos], 1)
+    x[1::2] = np.concatenate([q, neg], 1)
+    y = np.zeros((n, 1), np.float32)
+    y[0::2] = 1.0
+    return x, y
+
+
+def knrm_group(rs):
+    """One query's KNRM_CANDIDATES documents: the first two repeat the
+    query's words (label 1), the rest are random (label 0)."""
+    q = rs.integers(1, KNRM_VOCAB, KNRM_L1)
+    docs = rs.integers(1, KNRM_VOCAB, (KNRM_CANDIDATES, KNRM_L2))
+    docs[:2, :KNRM_L1] = q
+    x = np.concatenate([np.tile(q, (KNRM_CANDIDATES, 1)), docs], 1)
+    labels = np.zeros(KNRM_CANDIDATES, np.float32)
+    labels[:2] = 1.0
+    return x.astype(np.float32), labels
+
+
+class RankingPairs(ArrayFeatureSet):
+    """Rows in (relevant, irrelevant) pairs, shuffled a pair at a time:
+    ``rank_hinge`` pairs consecutive rows of a batch, and
+    ``ArrayFeatureSet`` shuffles single rows, which would pair them at
+    random (ROADMAP C8; the reference keeps a pair in one sample)."""
+
+    def batches(self, batch_size, shuffle=False, seed=0, **kw):
+        rows = np.arange(self._n)
+        if shuffle:
+            pairs = np.random.default_rng(seed).permutation(self._n // 2)
+            rows = np.stack([2 * pairs, 2 * pairs + 1], 1).reshape(-1)
+        view = ArrayFeatureSet([f[rows] for f in self.features],
+                               [l[rows] for l in self.labels])
+        return view.batches(batch_size, shuffle=False, **kw)
+
+
+def knrm_leg(seed, target_mode, loss):
+    rs = np.random.default_rng(seed)
+    x, y = knrm_pairs(rs, KNRM_PAIRS)
+    model = seeded_zoo_model(lambda: KNRM(
+        KNRM_L1, KNRM_L2, KNRM_VOCAB, embed_size=KNRM_EMBED,
+        kernel_num=KNRM_KERNELS, target_mode=target_mode), seed)
+    _, err = check_predict(f"KNRM({target_mode})", model, x, KNRM_PAIRS)
+    model.compile(Adam(lr=1e-3), loss)
+    fit = fit_one_batch(f"KNRM({target_mode})", model, RankingPairs(x, y),
+                        None, KNRM_PAIRS, SEQ_FIT_STEPS)
+    # ranking on the card against the CPU twin of the trained weights
+    groups = [knrm_group(rs) for _ in range(KNRM_QUERIES)]
+    twin = zoo_twin(model)
+    ndcg, ndcg_cpu = model.evaluate_ndcg(groups, 3), \
+        twin.evaluate_ndcg(groups, 3)
+    mean_ap, map_cpu = model.evaluate_map(groups), twin.evaluate_map(groups)
+    if abs(ndcg - ndcg_cpu) > 1e-6 or abs(mean_ap - map_cpu) > 1e-6:
+        raise AssertionError(f"KNRM({target_mode}): NDCG@3 {ndcg} / "
+                             f"{ndcg_cpu}, MAP {mean_ap} / {map_cpu} on "
+                             "the card / the CPU")
+    return dict(target_mode=target_mode, loss=loss, batch=KNRM_PAIRS,
+                text1_length=KNRM_L1, text2_length=KNRM_L2,
+                vocab=KNRM_VOCAB, embed_size=KNRM_EMBED,
+                kernel_num=KNRM_KERNELS, predict_cpu_max_abs_err=err,
+                ndcg_at_3=ndcg, ndcg_at_3_cpu=ndcg_cpu, map=mean_ap,
+                map_cpu=map_cpu, query_groups=KNRM_QUERIES, **fit)
+
+
+def session_leg(seed):
+    rs = np.random.default_rng(seed)
+    sess = rs.integers(1, SR_ITEMS + 1, (SR_BATCH, SR_SESSION)) \
+        .astype(np.int32)
+    hist = rs.integers(1, SR_ITEMS + 1, (SR_BATCH, SR_HISTORY)) \
+        .astype(np.int32)
+    y = (sess[:, -1] - 1).astype(np.int32)
+    model = seeded_zoo_model(lambda: SessionRecommender(
+        SR_ITEMS, SR_EMBED, session_length=SR_SESSION, include_history=True,
+        history_length=SR_HISTORY), seed)
+    _, err = check_predict("SessionRecommender", model, [sess, hist],
+                           SR_BATCH)
+    model.compile(Adam(lr=1e-3), "sparse_categorical_crossentropy")
+    fit = fit_one_batch("SessionRecommender", model, [sess, hist], y,
+                        SR_BATCH, SEQ_FIT_STEPS)
+    samples = [Sample([s, h]) for s, h in zip(sess[:SR_RECOMMEND],
+                                              hist[:SR_RECOMMEND])]
+    recs = model.recommend_for_session(samples, SR_MAX_ITEMS)
+    want = zoo_twin(model).recommend_for_session(samples, SR_MAX_ITEMS)
+    same = [[i for i, _ in r] for r in recs] == \
+        [[i for i, _ in r] for r in want]
+    prob_err = float(np.abs(np.array([[p for _, p in r] for r in recs]) -
+                            np.array([[p for _, p in r] for r in want]))
+                     .max())
+    if not same or prob_err > SEQ_CPU_TOL:
+        raise AssertionError(f"recommend_for_session on the card: items "
+                             f"equal {same}, probabilities off by "
+                             f"{prob_err}")
+    return dict(items=SR_ITEMS, item_embed=SR_EMBED,
+                rnn_hidden_layers=[40, 20], mlp_hidden_layers=[40, 20],
+                session_length=SR_SESSION, history_length=SR_HISTORY,
+                batch=SR_BATCH, predict_cpu_max_abs_err=err,
+                recommend_sessions=SR_RECOMMEND, max_items=SR_MAX_ITEMS,
+                recommendations_equal_cpu=same,
+                recommendation_prob_max_err=prob_err, **fit)
+
+
+def seq2seq_leg(seed):
+    def make():
+        return Seq2seq(
+            RNNEncoder.initialize("lstm", S2S_LAYERS, S2S_HIDDEN),
+            RNNDecoder.initialize("lstm", S2S_LAYERS, S2S_HIDDEN),
+            [S2S_T_IN, S2S_FEAT], [S2S_T_OUT, S2S_FEAT],
+            bridge=Bridge("dense", S2S_HIDDEN),
+            generator=L.TimeDistributed(L.Dense(S2S_FEAT)))
+
+    rs = np.random.default_rng(seed)
+    x_enc = rs.standard_normal((S2S_BATCH, S2S_T_IN, S2S_FEAT)) \
+        .astype(np.float32)
+    x_dec = rs.standard_normal((S2S_BATCH, S2S_T_OUT, S2S_FEAT)) \
+        .astype(np.float32)
+    y = np.roll(x_dec, -1, axis=1)
+    model = seeded_zoo_model(make, seed)
+    _, err = check_predict("Seq2seq", model, [x_enc, x_dec], S2S_BATCH)
+    model.compile(Adam(lr=1e-3), "mse")
+    fit = fit_one_batch("Seq2seq", model, [x_enc, x_dec], y, S2S_BATCH,
+                        SEQ_FIT_STEPS)
+    start = rs.standard_normal(S2S_FEAT).astype(np.float32)
+    src = x_enc[:S2S_INFER_ROWS]
+    t0 = time.perf_counter()
+    got = model.infer(src, start, max_seq_len=S2S_INFER_LEN)
+    infer_s = time.perf_counter() - t0
+    # the same weights' infer on the CPU
+    twin = zoo_twin(model)
+    layers = {l.name: l for l in twin.model.graph_function().layers}
+    for role in ("encoder", "decoder", "bridge", "generator"):
+        setattr(twin, role, layers[getattr(model, role).name])
+    want = twin.infer(src, start, max_seq_len=S2S_INFER_LEN)
+    cpu_err = float(np.abs(got - want).max())
+    # the reference's loop on the card, one row, stopped by a token of
+    # its own stream
+    free = model.infer_reference(src[0], start, max_seq_len=6)
+    stop = free[0, 4]
+    ref = model.infer_reference(src[0], start, max_seq_len=S2S_INFER_LEN,
+                                stop_sign=stop)
+    cached = model.infer(src[0], start, max_seq_len=S2S_INFER_LEN,
+                         stop_sign=stop)
+    ref_err = float(np.abs(ref - cached).max()) \
+        if ref.shape == cached.shape else float("inf")
+    launches = no_launches("Seq2seq infer")
+    if got.shape != (S2S_INFER_ROWS, S2S_INFER_LEN + 1, S2S_FEAT) or \
+            not np.isfinite(got).all() or cpu_err > SEQ_CPU_TOL or \
+            ref.shape != (1, 5, S2S_FEAT) or \
+            ref_err > S2S_REFERENCE_TOL or launches:
+        raise AssertionError(
+            f"Seq2seq infer: shape {got.shape}, off the CPU by {cpu_err}; "
+            f"with the stop sign {ref.shape} / {cached.shape}, off the "
+            f"reference loop by {ref_err}; launches {launches}")
+    return dict(rnn_type="lstm", nlayers=S2S_LAYERS, hidden=S2S_HIDDEN,
+                bridge="dense", generator="TimeDistributed(Dense)",
+                feat=S2S_FEAT, t_in=S2S_T_IN, t_out=S2S_T_OUT,
+                batch=S2S_BATCH, predict_cpu_max_abs_err=err,
+                infer_rows=S2S_INFER_ROWS, infer_len=S2S_INFER_LEN,
+                infer_s=infer_s, infer_cpu_max_abs_err=cpu_err,
+                infer_reference_steps=int(ref.shape[1]),
+                infer_reference_max_abs_err=ref_err, **fit)
+
+
+def sequence(seed, smi):
+    """The sequence phase: the TextClassifier leg at news20's widths for
+    each encoder, timed in alternating windows; then AnomalyDetector,
+    KNRM (both target modes), SessionRecommender and Seq2seq. The launch
+    counts are set to 0 as it starts and read as it ends, so every
+    predict, fit, evaluate, timed and profiled step and infer of the
+    phase is counted. Returns the report and K1-K5's launches over the
+    phase (none, or it fails)."""
+    t0 = time.perf_counter()
+    _kernels.LAUNCHES.reset()
+    table = np.random.default_rng(seed + 40).standard_normal(
+        (TC_MAX_WORDS + 1, TC_TOKEN_LEN)).astype(np.float32)
+    x, y = text_data(seed + 41, TC_BATCH)
+    models, legs = {}, {}
+    for i, encoder in enumerate(TC_ENCODERS):
+        models[encoder], legs[encoder] = text_classifier_leg(
+            encoder, seed + 42 + i, table, x, y)
+    timing = time_text_classifiers(models, x, y)
+    del models
+    collect()
+    others = dict(
+        anomaly_detector=anomaly_leg(seed + 45),
+        knrm_ranking=knrm_leg(seed + 46, "ranking", "rank_hinge"),
+        knrm_classification=knrm_leg(seed + 47, "classification",
+                                     "binary_crossentropy"),
+        session_recommender=session_leg(seed + 48),
+        seq2seq=seq2seq_leg(seed + 49))
+    collect()
+    launches = no_launches("the sequence phase")
+    return dict(
+        card=smi, model="TextClassifier (text_classification.py, news20)",
+        classes=TC_CLASSES, sequence_length=TC_SEQ_LEN,
+        token_length=TC_TOKEN_LEN, max_words=TC_MAX_WORDS,
+        encoder_output_dim=TC_ENCODER_DIM, batch=TC_BATCH,
+        optimizer=f"adagrad lr {TC_LR}",
+        loss="sparse_categorical_crossentropy", steps=TC_STEPS,
+        compute_dtype="float32",
+        allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+        text_classifier=legs, timing=timing, **others,
+        k1_k5_launches=launches,
+        clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                          "temperature.gpu"),
+        wall_s=time.perf_counter() - t0), launches
+
+
+# ---------------------------------------------------------------------------
 # ResNet-50
 # ---------------------------------------------------------------------------
 
@@ -2864,7 +3350,12 @@ def main(argv=None):
     ckpt_report, accum_launches = checkpoint(args.seed, dev, smi, CKPT_ROOT)
     emit("checkpoint", **ckpt_report)
 
-    # 10. ResNet-50
+    # 10. the sequence models
+    collect()
+    seq_report, seq_launches = sequence(args.seed, smi)
+    emit("sequence", **seq_report)
+
+    # 11. ResNet-50
     collect()
     resnet(args.seed, dev, smi)
 
@@ -2897,7 +3388,8 @@ def main(argv=None):
                      bound_ms_bf16=bf[name]["bound_ms"],
                      bound_by_bf16=bf[name]["bound_by"],
                      library_ms_bf16=bf[name]["library_ms"],
-                     launches_grad_accum4=accum_launches[name])
+                     launches_grad_accum4=accum_launches[name],
+                     launches_sequence=seq_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

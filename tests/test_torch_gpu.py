@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels against their plain versions, on the card.
+"""The hand-written CUDA kernels against their plain versions, on the card,
+and the paths without one (the recurrent layers, Seq2seq's ``infer``)
+against the CPU.
 
 Marked ``gpu``: they need an NVIDIA Hopper GPU and the CUDA toolkit (the
 kernels build at first use), and skip where there is none. Run them on a
@@ -896,3 +898,89 @@ def test_native_crc32c_equals_the_reference_on_64_mb(cuda):
     data = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8,
                          generator=torch.Generator().manual_seed(0)).numpy()
     assert crc32c(data) == crc32c_reference(data.tobytes())
+
+
+# -- the recurrent layers and Seq2seq (no hand-written kernel) --------------
+
+RNN_TOL = (1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("layer_name", ["LSTM", "GRU", "Bidirectional"])
+def test_recurrent_layer_on_the_card_matches_the_cpu(cuda, layer_name):
+    """Forward and backward at B=32, T=128, H=256 against the same
+    layer's CPU run (float32, TF32 off): the output and every gradient
+    within 1e-4 of the CPU's max plus 1e-4 relative, a T-step recurrence
+    of matmuls summed in another order by cuBLAS. No hand-written kernel
+    launches."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+
+    make = {"LSTM": lambda: tl.LSTM(256, return_sequences=True),
+            "GRU": lambda: tl.GRU(256, go_backwards=True),
+            "Bidirectional": lambda: tl.Bidirectional(
+                tl.LSTM(256, return_sequences=True))}[layer_name]
+    cpu = make()
+    cpu.build_params(torch.Generator().manual_seed(0), (None, 128, 64))
+    card = make()
+    card.build_params(torch.Generator().manual_seed(0), (None, 128, 64))
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(32, 128, 64, generator=gen)
+    runs = {}
+    _kernels.LAUNCHES.reset()
+    for name, layer, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        xi = x.to(dev).clone().requires_grad_()
+        out = layer(xi)
+        ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+        (out * ct.to(dev)).sum().backward()
+        runs[name] = [out.detach(), xi.grad] + \
+            [p.grad for _, p in layer.named_parameters()]
+    assert not _kernels.LAUNCHES.snapshot()
+    for got, want in zip(runs["card"], runs["cpu"]):
+        _close(got.cpu(), want, RNN_TOL)
+
+
+def test_seq2seq_infer_on_the_card_matches_the_cpu(cuda):
+    """``Seq2seq.infer`` on the card (LSTM, 2 layers, hidden 256, a dense
+    bridge, a TimeDistributed generator) against the same model's CPU
+    ``infer`` within 1e-4; then a stop sign from the card's own stream
+    freezes its row there and leaves the other rows as they were."""
+    import copy
+
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.models.seq2seq import (Bridge, RNNDecoder,
+                                                        RNNEncoder, Seq2seq)
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import \
+        get_loss
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
+        get_optimizer
+
+    tnn.set_nncontext(None)
+    try:
+        tnn.init_nncontext()
+        model = Seq2seq(RNNEncoder.initialize("lstm", 2, 256),
+                        RNNDecoder.initialize("lstm", 2, 256), [20, 32],
+                        [1, 32], bridge=Bridge("dense", 256),
+                        generator=tl.TimeDistributed(tl.Dense(32)))
+        rs = np.random.default_rng(3)
+        x = rs.standard_normal((4, 20, 32)).astype(np.float32)
+        start = rs.standard_normal(32).astype(np.float32)
+        twin = copy.deepcopy(model)
+        twin.model.trainer = SPMDTrainer(
+            twin.model, get_loss("mse"), get_optimizer("sgd"), device="cpu")
+        want = twin.infer(x, start, max_seq_len=12)
+        got = model.infer(x, start, max_seq_len=12)
+        assert next(model.model.parameters()).is_cuda
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        stop = got[0, 5]
+        stopped = model.infer(x, start, max_seq_len=12, stop_sign=stop)
+        assert stopped.shape == got.shape
+        np.testing.assert_array_equal(stopped[0, 5:],
+                                      np.repeat(stop[None], 8, axis=0))
+        np.testing.assert_array_equal(stopped[1:], got[1:])
+    finally:
+        tnn.set_nncontext(None)

@@ -171,7 +171,7 @@ def test_what_cannot_be_saved_or_loaded_names_its_roadmap_item(tmp_path):
     with pytest.raises(model_io.UnserializableConfig, match="A8"):
         model.save_model(str(tmp_path / "callable"))
     jmodel = JSequential()
-    jmodel.add(jl.LSTM(4, input_shape=(3, 2)))
+    jmodel.add(jl.SpatialDropout1D(0.5, input_shape=(3, 2)))
     jmodel.save_model(str(tmp_path / "lstm"))
     with pytest.raises(NotImplementedError, match="A8"):
         KerasNet.load_model(str(tmp_path / "lstm"))
@@ -208,6 +208,20 @@ CONFIG_CASES = {
     "LRN2D": lambda m: m.LRN2D(alpha=1e-2, n=3),
     "WithinChannelLRN2D": lambda m: m.WithinChannelLRN2D(size=3),
     "InputLayer": lambda m: m.InputLayer(input_shape=(3,)),
+    "SimpleRNN": lambda m: m.SimpleRNN(4, activation="relu",
+                                       input_shape=(5, 3)),
+    "LSTM": lambda m: m.LSTM(4, return_sequences=True, go_backwards=True),
+    "GRU": lambda m: m.GRU(3, inner_activation="sigmoid"),
+    # wrapped and array-holding layers carry a name: the spec holds the
+    # inner layer's name and keys the arrays by the layer's
+    "TimeDistributed": lambda m: m.TimeDistributed(
+        m.Dense(2, name="td_inner"), input_shape=(4, 3)),
+    "Bidirectional": lambda m: m.Bidirectional(
+        m.GRU(3, return_sequences=True, name="bidi_inner"),
+        merge_mode="ave"),
+    "WordEmbedding": lambda m: m.WordEmbedding(
+        weights=np.arange(12, dtype=np.float32).reshape(4, 3),
+        input_length=6, name="word_embedding_case"),
 }
 for _case, (_make, _) in IMAGE_LAYER_CASES.items():
     CONFIG_CASES[_case] = _make
@@ -248,4 +262,5 @@ def test_layer_config_matches_jax_and_round_trips(case):
     assert t_spec["config"] == j_spec["config"]
     again = type(tlayer).from_config(tcfg)
     assert type(again) is type(tlayer)
+    again.name = tlayer.name     # the spec keys a config's arrays by it
     assert model_io._layer_spec(again, {})["config"] == t_spec["config"]

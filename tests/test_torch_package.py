@@ -60,6 +60,11 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.models.recommendation, "
             "analytics_zoo_tpu_torch.models.image, "
             "analytics_zoo_tpu_torch.models.image.imageclassification, "
+            "analytics_zoo_tpu_torch.models.textclassification, "
+            "analytics_zoo_tpu_torch.models.anomalydetection, "
+            "analytics_zoo_tpu_torch.models.textmatching, "
+            "analytics_zoo_tpu_torch.models.seq2seq, "
+            "analytics_zoo_tpu_torch.pipeline.api.autograd, "
             "analytics_zoo_tpu_torch.common.zoo_trigger, "
             "analytics_zoo_tpu_torch.ops, "
             "analytics_zoo_tpu_torch.ops.kv_cache, "
