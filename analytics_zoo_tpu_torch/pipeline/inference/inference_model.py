@@ -11,6 +11,12 @@ model in memory, and ``load`` (``load_bigdl``, ``do_load``) on a
 directory that ``save_model`` wrote, a ``KerasNet``'s or a zoo model's,
 by either package. Quantised models, the foreign-format loaders and
 calibration arrive with later slices (ROADMAP A10).
+
+``predict_async`` returns the outputs on the model's device.
+:class:`HostCopy` starts their copy to the host without waiting; its
+``wait`` is the one point that waits for that batch's work: the Cluster
+Serving loop dispatches a batch, starts its copy, and its writer thread
+waits on that copy alone.
 """
 
 from __future__ import annotations
@@ -25,6 +31,48 @@ import numpy as np
 import torch
 
 from ..engine import as_device_tensor
+
+
+class HostCopy:
+    """Outputs of one dispatch on their way to host memory.
+
+    For CUDA tensors the copy goes into pinned host memory, issued
+    without blocking on the current stream, followed by a recorded
+    ``torch.cuda.Event``: ``wait`` then blocks on that event alone, so
+    it covers this dispatch's kernels and copy and not the work queued
+    after it on the same stream (``.cpu()`` would wait for that too).
+    Half-precision outputs become float32 on the card before the copy.
+    CPU tensors and host arrays are taken as they are."""
+
+    def __init__(self, out):
+        self._multi = isinstance(out, (list, tuple))
+        outs = list(out) if self._multi else [out]
+        self._event = None
+        with torch.inference_mode():
+            self._host = [self._start(o) for o in outs]
+        if any(isinstance(o, torch.Tensor) and o.device.type == "cuda"
+               for o in outs):
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    @staticmethod
+    def _start(o):
+        if not isinstance(o, torch.Tensor) or o.device.type != "cuda":
+            return o
+        if o.dtype in (torch.float16, torch.bfloat16):
+            o = o.float()
+        host = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+        host.copy_(o, non_blocking=True)
+        return host
+
+    def wait(self):
+        """The outputs as numpy arrays (a list for a multi-output model),
+        once this dispatch's copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        out = [o.numpy() if isinstance(o, torch.Tensor) else np.asarray(o)
+               for o in self._host]
+        return out if self._multi else out[0]
 
 
 class AbstractModel:
@@ -56,8 +104,10 @@ class FloatModel(AbstractModel):
             from ...common.nncontext import get_nncontext
             device = get_nncontext().device
         self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        # a Sequential builds its weights (on the CPU) when its graph is
+        # first asked for: build them before the move, or they stay behind
         self._graph = model.graph_function()
+        self.model = model.to(self.device).eval()
 
     def _as_input_list(self, inputs):
         return [as_device_tensor(x, self.device)
@@ -142,6 +192,14 @@ class InferenceModel:
                 "the quantisation slice of the port")
         self._install(FloatModel(net, device=device))
         return self
+
+    def load_quantized(self, model_path: str,
+                       calibration_path: Optional[str] = None, **kw):
+        """The int8 loader of the JAX package; the port has no quantised
+        backend yet."""
+        raise NotImplementedError(
+            "quantised inference (load_quantized) is not ported yet "
+            "(ROADMAP A10)")
 
     # ------------------------------------------------------------------
     # predict (doPredict :622-656 + retrieveModel :710)

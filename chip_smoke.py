@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
-generation, NeuralCF, checkpoint, sequence-model and ResNet-50 paths once
-on one NVIDIA GPU.
+generation, NeuralCF, checkpoint, sequence-model, ResNet-50 and Cluster
+Serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -143,6 +143,37 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               1); the bf16 and float32 steps in alternating windows (p50,
               images/s, MFU by bench.py's count, peak memory, device time
               by kernel group, the SGD update's share).
+12. cluster_serving -- Cluster Serving: the ``resnet`` phase's ResNet-50
+              (weights from ``--seed``, saved with ``save_model`` and
+              deployed by ``InferenceModel.load``) and the ``generate``
+              phase's GPT-width decoder (``build_transformer_engine``)
+              behind one ``ClusterServing`` (config as a dict: batch 16,
+              buckets 1-16, top 5, 2 decode workers, 8 generate slots,
+              ``max_len`` 512, 32 new tokens) on a ``FileStreamQueue``.
+              A client process writes 256 predict records of (3, 224,
+              224) float32 and 32 generate records (prompts of 32-448
+              tokens, every 9th record) as fast as it can and waits for
+              all 288 with ``OutputQueue.wait_all``. Gated: every uri
+              answered once, no duplicate or gap in the queue's ledger,
+              nothing dropped, dead-lettered or shed; ``warmup`` ran all
+              5 buckets; the top-5 rows against the port's CPU predict
+              (16 images, 1e-4) and the card's direct predict (all, 1e-5;
+              two classes within the tolerance may trade places); every
+              stream equal to the scheduler's alone on the same engine,
+              8 also to ``greedy_reference``; K1 launched 12 times a
+              prefill and K2-K5 never, in the main run and over the phase.
+              Then a ``ModelRegistry`` with v1 and v2 (seed + 1; a canary
+              of weight 0.5) behind ``RoutedClusterServing`` on the
+              in-process queue: 64 records, each against its version's
+              direct predict, the canary's share against crc32 of the
+              uris; v2 promoted, v1 undeployed, the manifest listing v2
+              alone. Timed: the pipelined and synchronous loops in
+              alternating windows of 128 records (records/s, per-row
+              queue, device and server ms p50/p95, buckets), a window's
+              device busy and idle share, warm-up a bucket, TTFT,
+              end-to-end and tokens/s of the generate records, peak
+              memory. Its files, under ``build/chip_smoke_serving``, are
+              deleted at the end.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -159,12 +190,14 @@ import gc
 import json
 import logging
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -199,6 +232,13 @@ from analytics_zoo_tpu_torch.pipeline.engine import (SPMDTrainer,
                                                      clear_preemption,
                                                      request_preemption)
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                             ClusterServingHelper,
+                                             FileStreamQueue,
+                                             InProcessStreamQueue,
+                                             InputQueue, ModelRegistry,
+                                             OutputQueue,
+                                             RoutedClusterServing)
 from analytics_zoo_tpu_torch.serving.generation import (
     ContinuousBatchScheduler, GenRequest, PrefixCache,
     SpeculativeDecodeEngine, TransformerDecodeEngine)
@@ -3218,6 +3258,448 @@ def resnet(seed, device, smi):
 
 
 # ---------------------------------------------------------------------------
+# 12. cluster serving
+# ---------------------------------------------------------------------------
+
+# Cluster Serving's stream: bench.py's ResNet-50 ImageClassifier (predict
+# records of one (3, 224, 224) float32 tensor) and the generate phase's
+# GPT-width decoder (generate records) served from one file-backed stream
+# fed by a client in a second process. Every CS_GEN_EVERY-th record is a
+# generate record, with a prompt of CS_MIN_PROMPT-CS_MAX_PROMPT tokens.
+CS_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_serving")
+CS_PREDICTS, CS_GENERATES, CS_GEN_EVERY = 256, 32, 9
+CS_MIN_PROMPT, CS_MAX_PROMPT = 32, 448
+CS_CONFIG = {"data": {"image_shape": "3, 224, 224"},
+             "params": {"batch_size": 16, "top_n": 5, "decode_workers": 2,
+                        "warmup": True},
+             "generate": {"slots": 8, "max_len": 512, "max_new_tokens": 32}}
+CS_BUCKETS = [1, 2, 4, 8, 16]
+CS_CLIENT_TIMEOUT_S = 300.0
+# the served rows against the port's CPU predict of CS_CPU_ROWS images
+# (50 layers of float32 convolutions summed in another order: RESNET_
+# PREDICT_TOL), and against the card's own direct predict of every image
+# in batches of 16 (the loop pads to other batch shapes, where cuDNN may
+# pick another algorithm: probabilities of ~1e-3 move by ~1e-9). Two
+# classes whose probabilities lie within the tolerance may trade places
+# in the top 5 (a near tie); any other difference in the ids fails.
+CS_CPU_ROWS, CS_CPU_TOL, CS_DIRECT_TOL = 16, 1e-4, 1e-5
+CS_REFERENCE_STREAMS = 8
+CS_REGISTRY_RECORDS, CS_CANARY_WEIGHT = 64, 0.5
+# pipelined and synchronous loops in alternating windows (pipelined,
+# synchronous, synchronous, pipelined) of CS_WINDOW predict records, all
+# queued before the loop starts
+CS_WINDOW, CS_WINDOWS = 128, 4
+
+
+def cs_spec():
+    """What makes the stream, handed to the client process whole."""
+    return dict(predicts=CS_PREDICTS, generates=CS_GENERATES,
+                every=CS_GEN_EVERY, min_prompt=CS_MIN_PROMPT,
+                max_prompt=CS_MAX_PROMPT, shape=RESNET_SHAPE,
+                vocab=GPT_CONFIG["vocab"])
+
+
+def cs_images(seed, spec):
+    """The stream's images: N(0, 1) float32, as bench.py's ResNet leg."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((spec["predicts"],) + tuple(spec["shape"])) \
+        .astype(np.float32)
+
+
+def cs_stream(seed, spec):
+    """[(uri, kind, payload)] in stream order: the images and the
+    prompts, every ``spec["every"]``-th record a prompt."""
+    n = spec["predicts"] + spec["generates"]
+    if n // spec["every"] != spec["generates"]:
+        raise ValueError(f"{spec['generates']} prompts are not every "
+                         f"{spec['every']}th of {n} records")
+    images = cs_images(seed, spec)
+    rs = np.random.default_rng(seed + 1)
+    prompts = [rs.integers(1, spec["vocab"], size=int(m))
+               for m in rs.integers(spec["min_prompt"],
+                                    spec["max_prompt"] + 1,
+                                    size=spec["generates"])]
+    out, i_img = [], 0
+    for i in range(n):
+        if i % spec["every"] == spec["every"] - 1:
+            k = i // spec["every"]
+            out.append((f"gen-{k}", "generate", prompts[k]))
+        else:
+            out.append((f"img-{i_img}", "predict", images[i_img]))
+            i_img += 1
+    return out
+
+
+def cs_client(root, seed, spec, results):
+    """The client process: InputQueue and OutputQueue over a
+    FileStreamQueue at ``root``. Writes the stream as fast as it can, then
+    waits for every result; puts {"results": {uri: (value, timing,
+    finish, type)}, ...} (or {"error": ...}) on ``results``."""
+    from analytics_zoo_tpu_torch.serving.client import (InputQueue,
+                                                        OutputQueue)
+    from analytics_zoo_tpu_torch.serving.queue_backend import \
+        FileStreamQueue
+    try:
+        stream = cs_stream(seed, spec)
+        q = FileStreamQueue(root)
+        iq = InputQueue(backend=q)
+        t0 = time.time()
+        for uri, kind, payload in stream:
+            if kind == "predict":
+                iq.enqueue(uri, t=payload)
+            else:
+                iq.enqueue_generate(uri, payload)
+        t_written = time.time()
+        got = OutputQueue(backend=q).wait_all(
+            [uri for uri, _, _ in stream], timeout=CS_CLIENT_TIMEOUT_S,
+            poll=0.005, max_poll=0.05)
+        t_done = time.time()
+        results.put({"results": {
+            uri: (np.asarray(r), r.timing, getattr(r, "finish", None),
+                  type(r).__name__) for uri, r in got.items()},
+            "write_s": t_written - t0, "wall_s": t_done - t0,
+            "leftover": sorted(q.all_results(pop=False)),
+            "stream_len": q.stream_len()})
+    except Exception:  # noqa: BLE001 - reported to the parent
+        import traceback
+        results.put({"error": traceback.format_exc()})
+
+
+def top_ids_agree(got_row, probs, tol):
+    """A served top-n row ([[id, p], ...]) against a probability vector:
+    (the largest probability error, the places where the ids differ by a
+    near tie, and whether every other place agrees). The ids must equal
+    the top-n of ``probs`` except where two classes' probabilities lie
+    within ``tol``."""
+    ids = got_row[:, 0].astype(np.int64)
+    want = np.argsort(probs)[::-1][:len(ids)]
+    err = float(np.abs(got_row[:, 1] - probs[ids]).max())
+    ties, ok = 0, True
+    for a, b in zip(ids, want):
+        if a != b:
+            if abs(probs[a] - probs[b]) <= tol:
+                ties += 1
+            else:
+                ok = False
+    return err, ties, ok and err <= tol
+
+
+def check_served_rows(name, served, uris, probs, tol):
+    """Every served predict row against ``probs`` (rows in ``uris``'s
+    order): the largest error and the count of near ties; fails past
+    ``tol``."""
+    worst, ties, bad = 0.0, 0, []
+    for uri, p in zip(uris, probs):
+        err, t, ok = top_ids_agree(served[uri], p, tol)
+        worst, ties = max(worst, err), ties + t
+        if not ok:
+            bad.append(uri)
+    if bad:
+        raise AssertionError(f"{name}: rows {bad[:5]} differ (largest "
+                             f"probability error {worst}, tol {tol})")
+    return dict(rows=len(uris), max_abs_err=worst, tol=tol, near_ties=ties)
+
+
+def cs_direct_predict(im, x, batch=16):
+    return np.concatenate([im.predict(x[i:i + batch])
+                           for i in range(0, len(x), batch)])
+
+
+def cs_window(im, x, pipelined):
+    """One timing window: len(x) predict records queued on an in-process
+    stream, then a loop of the CS_CONFIG model started and stopped after
+    the last result: records/s, per-row queue/device/server ms, buckets."""
+    config = copy.deepcopy(CS_CONFIG)
+    config["params"]["pipelined"] = pipelined
+    backend = InProcessStreamQueue()
+    iq = InputQueue(backend=backend)
+    uris = [f"w-{i}" for i in range(len(x))]
+    for uri, row in zip(uris, x):
+        iq.enqueue(uri, t=row)
+    server = ClusterServing(model=im,
+                            helper=ClusterServingHelper(config=config),
+                            backend=backend)
+    t0 = time.perf_counter()
+    server.start()
+    got = OutputQueue(backend=backend).wait_all(uris, timeout=120,
+                                                poll=0.001, max_poll=0.005)
+    wall = time.perf_counter() - t0
+    server.stop()
+    if len(got) != len(uris):
+        raise AssertionError(f"timing window: {len(got)} of {len(uris)} "
+                             f"results")
+    timing = {k: [r.timing[k] for r in got.values()]
+              for k in ("queue_ms", "device_ms", "server_ms")}
+    out = dict(pipelined=pipelined, records=len(uris), wall_s=wall,
+               records_per_s=len(uris) / wall,
+               buckets=server.pipeline_stats()["buckets"])
+    for k, v in timing.items():
+        out[f"{k}_p50"] = percentile(v, 50)
+        out[f"{k}_p95"] = percentile(v, 95)
+    return out
+
+
+def cs_registry_leg(seed, x, dirs):
+    """The registry leg on the in-process transport: v1 then v2 (a canary
+    of CS_CANARY_WEIGHT) of "resnet50" behind RoutedClusterServing, 64
+    records served, each against its own version's direct predict; the
+    canary's share against crc32 of the uris; v2 promoted and v1
+    undeployed after its drain, and the manifest then lists v2 alone."""
+    root = os.path.join(CS_ROOT, "registry")
+    registry = ModelRegistry(root=root)
+    backend = InProcessStreamQueue()
+    serving = RoutedClusterServing(
+        registry, helper=ClusterServingHelper(config=CS_CONFIG),
+        backend=backend)
+    t0 = time.perf_counter()
+    serving.deploy("resnet50", path=dirs[0])
+    serving.deploy("resnet50", path=dirs[1], canary_weight=CS_CANARY_WEIGHT)
+    deploy_s = time.perf_counter() - t0
+    uris = [f"reg-{i}" for i in range(CS_REGISTRY_RECORDS)]
+    iq = InputQueue(backend=backend)
+    for uri, row in zip(uris, x):
+        iq.enqueue(uri, model="resnet50", t=row)
+    serving.start()
+    got = OutputQueue(backend=backend).wait_all(uris, timeout=120)
+    serving.stop()
+    stats = serving.pipeline_stats()
+    if len(got) != len(uris) or stats["dead_letters"] or stats["dropped"]:
+        raise AssertionError(f"registry leg: {len(got)} results, "
+                             f"{stats['dead_letters']} dead letters")
+    versions = registry._models["resnet50"]
+    direct = {v: cs_direct_predict(versions[v].model, x) for v in (1, 2)}
+    routed = {u: 2 if zlib.crc32(u.encode()) % 10000 / 10000.0 <
+              CS_CANARY_WEIGHT else 1 for u in uris}
+    rows = {v: [i for i, u in enumerate(uris) if routed[u] == v]
+            for v in (1, 2)}
+    checks = {f"v{v}": check_served_rows(
+        f"registry v{v}", {u: np.asarray(got[u]) for u in uris},
+        [uris[i] for i in rows[v]], direct[v][rows[v]], CS_DIRECT_TOL)
+        for v in (1, 2)}
+    served = {v: versions[v].requests for v in (1, 2)}
+    if served != {v: len(rows[v]) for v in (1, 2)}:
+        raise AssertionError(f"canary split {served}, crc32 of the uris "
+                             f"gives {[len(rows[v]) for v in (1, 2)]}")
+    registry.promote("resnet50", 2)
+    removed = registry.undeploy("resnet50", 1)
+    with open(os.path.join(root, ModelRegistry.MANIFEST)) as f:
+        manifest = json.load(f)["models"]["resnet50"]
+    listed = [v["version"] for v in manifest["versions"]]
+    if removed != [1] or listed != [2] or manifest["active"] != 2 or \
+            manifest["canary"] is not None:
+        raise AssertionError(f"after promote and undeploy: removed "
+                             f"{removed}, manifest {manifest}")
+    return dict(records=len(uris), deploy_s=deploy_s,
+                canary_weight=CS_CANARY_WEIGHT, routed_v2=served[2],
+                routed_v1=served[1], rows=checks,
+                manifest_versions=listed, buckets=stats["buckets"])
+
+
+def cluster_serving(seed, device, smi):
+    """The cluster_serving phase: the main run (file transport, a client
+    process, predict and generate records from one stream), the registry
+    leg, and the timing of the pipelined and synchronous loops. Returns
+    K1-K5's launches in the main run."""
+    shutil.rmtree(CS_ROOT, ignore_errors=True)
+    os.makedirs(CS_ROOT)
+    _kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    dirs = []
+    for k in range(2):
+        clf = build_resnet(seed + k)
+        dirs.append(os.path.join(CS_ROOT, f"resnet50-v{k + 1}"))
+        clf.save_model(dirs[-1])
+        del clf
+    im = InferenceModel().load(dirs[0])
+    if im.model.device != device:
+        raise AssertionError(f"InferenceModel.load put it on "
+                             f"{im.model.device}")
+    layer = build_decoder(seed)
+    server = ClusterServing(model=im,
+                            helper=ClusterServingHelper(config=CS_CONFIG),
+                            backend=FileStreamQueue(
+                                os.path.join(CS_ROOT, "stream")))
+    server.build_transformer_engine(layer)
+    engine = server._gen_engine
+    setup_s = time.perf_counter() - t0
+    warm = server.warmup() if server.helper.warmup else {}
+    if sorted(warm) != CS_BUCKETS:
+        raise AssertionError(f"warmup returned buckets {sorted(warm)}")
+
+    # the main run: the client process writes the stream and waits
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    spec = cs_spec()
+    client = ctx.Process(target=cs_client, args=(
+        os.path.join(CS_ROOT, "stream"), seed, spec, results))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    server.start()
+    client.start()
+    try:
+        reply = results.get(timeout=CS_CLIENT_TIMEOUT_S + 120)
+    finally:
+        client.join(timeout=60)
+        if client.is_alive():
+            client.kill()
+        server.stop()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    prefills = engine.prefill_calls
+    if "error" in reply:
+        raise AssertionError(f"the client process failed: {reply['error']}")
+    stats = server.pipeline_stats()
+    gen_stats = stats.get("generation", {})
+    stream = cs_stream(seed, spec)
+    got = reply["results"]
+    expected = {attn.KERNEL_NAME: GPT_CONFIG["n_block"] * prefills}
+    integrity = dict(
+        results=len(got), uris=len(stream),
+        results_out=stats["results_out"], records_in=stats["records_in"],
+        dropped=stats["dropped"], dead_letters=stats["dead_letters"],
+        shed=stats["shed"], queue=stats["queue"],
+        committed=gen_stats.get("committed"),
+        duplicate_commits=gen_stats.get("duplicate_commits"),
+        leftover_results=reply["leftover"],
+        stream_len=reply["stream_len"])
+    if sorted(got) != sorted(u for u, _, _ in stream) or \
+            stats["results_out"] != len(stream) or \
+            stats["records_in"] != len(stream) or \
+            stats["dropped"] or stats["dead_letters"] or stats["shed"] or \
+            stats["queue"]["duplicates"] or stats["queue"]["seq_gaps"] or \
+            gen_stats.get("committed") != CS_GENERATES or \
+            gen_stats.get("duplicate_commits") or reply["leftover"] or \
+            reply["stream_len"]:
+        emit("cluster_serving", check="main run", ok=False, **integrity)
+        raise AssertionError(f"cluster serving main run: {integrity}")
+    if launches != expected:
+        raise AssertionError(f"cluster serving launches {launches}, "
+                             f"expected {expected} ({prefills} prefills)")
+
+    # the predict rows: all against the card's direct predict, the first
+    # CS_CPU_ROWS against the port's CPU predict
+    img_uris = [u for u, kind, _ in stream if kind == "predict"]
+    x = cs_images(seed, spec)
+    served = {u: got[u][0] for u in img_uris}
+    if any(got[u][3] != "ServingResult" or served[u].shape != (5, 2)
+           for u in img_uris):
+        raise AssertionError("a predict result is not a top-5 row")
+    direct = cs_direct_predict(im, x)
+    direct_check = check_served_rows("direct predict", served, img_uris,
+                                     direct, CS_DIRECT_TOL)
+    cpu_model = SPMDTrainer(resnet_twin(im.model.model),
+                            get_loss("sparse_categorical_crossentropy"),
+                            get_optimizer("sgd"), device="cpu")
+    cpu_probs = cpu_model.predict(x[:CS_CPU_ROWS], CS_CPU_ROWS)
+    cpu_check = check_served_rows("CPU predict", served,
+                                  img_uris[:CS_CPU_ROWS], cpu_probs,
+                                  CS_CPU_TOL)
+    del cpu_model
+
+    # the generate streams: against the scheduler alone on the same
+    # engine, and CS_REFERENCE_STREAMS of them against greedy_reference
+    gens = [(u, p) for u, kind, p in stream if kind == "generate"]
+    streams = {}
+    for u, _ in gens:
+        value, _, finish, kind = got[u]
+        if kind != "GenerationResult" or finish != "max_new_tokens" or \
+                len(value) != CS_CONFIG["generate"]["max_new_tokens"]:
+            raise AssertionError(f"{u}: {kind}, {finish}, {len(value)} "
+                                 f"tokens")
+        streams[f"g{len(streams)}"] = [int(t) for t in value]
+    prompts = [p for _, p in gens]
+    alone, _, _ = run_scheduler(engine, prompts,
+                                CS_CONFIG["generate"]["max_new_tokens"],
+                                max_slots=CS_CONFIG["generate"]["slots"])
+    check_streams("cluster serving against the scheduler alone", layer,
+                  prompts, streams,
+                  {u: p["tokens"] for u, p in alone.items()})
+    refs = {f"g{i}": greedy_reference(
+        layer, prompts[i], CS_CONFIG["generate"]["max_new_tokens"])[0]
+        for i in range(CS_REFERENCE_STREAMS)}
+    check_streams("cluster serving against greedy_reference", layer,
+                  prompts[:CS_REFERENCE_STREAMS],
+                  {u: streams[u] for u in refs}, refs)
+    ttft = [got[u][1]["ttft_ms"] for u, _ in gens]
+    e2e = [got[u][1]["done_ts_ms"] - got[u][1]["enqueue_ts_ms"]
+           for u, _ in gens]
+    gen_span_s = (max(got[u][1]["done_ts_ms"] for u, _ in gens) -
+                  min(got[u][1]["enqueue_ts_ms"] for u, _ in gens)) / 1e3
+    rows = {k: [got[u][1][k] for u in img_uris]
+            for k in ("queue_ms", "device_ms", "server_ms")}
+    main = dict(
+        records=len(stream), predicts=CS_PREDICTS, generates=CS_GENERATES,
+        prompt_lengths=[int(p.size) for p in prompts], setup_s=setup_s,
+        warmup_s=warm, launches=launches, launches_expected=expected,
+        prefills=prefills, wall_s=wall, client_write_s=reply["write_s"],
+        client_wall_s=reply["wall_s"],
+        records_per_s=len(stream) / reply["wall_s"],
+        buckets=stats["buckets"], direct=direct_check, cpu=cpu_check,
+        reference_streams=CS_REFERENCE_STREAMS,
+        ttft_p50_ms=percentile(ttft, 50), ttft_p95_ms=percentile(ttft, 95),
+        generate_e2e_p50_ms=percentile(e2e, 50),
+        generate_e2e_p95_ms=percentile(e2e, 95),
+        generate_tokens_per_s=CS_GENERATES *
+        CS_CONFIG["generate"]["max_new_tokens"] / gen_span_s,
+        peak_memory_bytes=peak, **integrity)
+    for k, v in rows.items():
+        main[f"predict_{k}_p50"] = percentile(v, 50)
+        main[f"predict_{k}_p95"] = percentile(v, 95)
+    emit("cluster_serving", check="main run", ok=True,
+         model="ImageClassifier(1000, 'resnet-50') and TransformerLayer "
+               "(GPT-1 widths)", config=CS_CONFIG, seed=seed, card=smi,
+         **main)
+    del server
+
+    # the registry leg
+    registry = cs_registry_leg(seed, x[:CS_REGISTRY_RECORDS], dirs)
+    emit("cluster_serving", check="registry", ok=True, **registry)
+
+    # timing: pipelined against synchronous, alternating windows
+    windows = [cs_window(im, x[:CS_WINDOW], pipelined=w in (0, 3))
+               for w in range(CS_WINDOWS)]
+    prof = profile_device(lambda: cs_window(im, x[:CS_WINDOW], True),
+                          conv_kernel_group)
+    # across the phase: K1 once a block for every prefill (the loop's, the
+    # scheduler's alone and greedy_reference's), K2-K5 never
+    phase_launches = _kernels.LAUNCHES.snapshot()
+    phase_prefills = engine.prefill_calls + CS_REFERENCE_STREAMS
+    want = {attn.KERNEL_NAME: GPT_CONFIG["n_block"] * phase_prefills}
+    if phase_launches != want:
+        raise AssertionError(f"the cluster_serving phase launched "
+                             f"{phase_launches}, expected {want} "
+                             f"({phase_prefills} prefills)")
+    del layer, engine
+    summary = {}
+    for mode in (True, False):
+        ws = [w for w in windows if w["pipelined"] == mode]
+        summary["pipelined" if mode else "synchronous"] = dict(
+            records_per_s=[w["records_per_s"] for w in ws],
+            **{k: [w[k] for w in ws] for k in ws[0]
+               if k.endswith(("_p50", "_p95"))},
+            buckets=[w["buckets"] for w in ws])
+    emit("timing", path="cluster_serving", card=smi,
+         window_records=CS_WINDOW, windows=windows, by_loop=summary,
+         main_run=dict(records_per_s=main["records_per_s"],
+                       ttft_p50_ms=main["ttft_p50_ms"],
+                       ttft_p95_ms=main["ttft_p95_ms"],
+                       generate_e2e_p50_ms=main["generate_e2e_p50_ms"],
+                       generate_e2e_p95_ms=main["generate_e2e_p95_ms"],
+                       generate_tokens_per_s=main["generate_tokens_per_s"],
+                       peak_memory_bytes=peak),
+         warmup_s=warm, profile=prof, phase_launches=phase_launches,
+         phase_prefills=phase_prefills,
+         clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                           "temperature.gpu"))
+    shutil.rmtree(CS_ROOT)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3359,6 +3841,10 @@ def main(argv=None):
     collect()
     resnet(args.seed, dev, smi)
 
+    # 12. Cluster Serving
+    collect()
+    cs_launches = cluster_serving(args.seed, dev, smi)
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -3389,7 +3875,8 @@ def main(argv=None):
                      bound_by_bf16=bf[name]["bound_by"],
                      library_ms_bf16=bf[name]["library_ms"],
                      launches_grad_accum4=accum_launches[name],
-                     launches_sequence=seq_launches.get(name, 0))
+                     launches_sequence=seq_launches.get(name, 0),
+                     launches_cluster_serving=cs_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

@@ -984,3 +984,114 @@ def test_seq2seq_infer_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(stopped[1:], got[1:])
     finally:
         tnn.set_nncontext(None)
+
+
+def _serve_on(device, model, records, generate_layer=None, **params):
+    """Queue ``records`` ({uri: image}, then {uri: prompt} for generate),
+    serve them with the port's pipelined ClusterServing on ``device`` and
+    return (results, the server)."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch import serving as ts
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    backend = ts.InProcessStreamQueue()
+    iq = ts.InputQueue(backend=backend)
+    images, prompts = records
+    for uri, x in images.items():
+        iq.enqueue(uri, t=x)
+    for uri, p in prompts.items():
+        iq.enqueue_generate(uri, np.asarray(p))
+    helper = ts.ClusterServingHelper(config={
+        "data": {"image_shape": "3, 16, 16"},
+        "params": {"batch_size": 4, "top_n": 0, **params},
+        "generate": {"slots": 2, "max_len": 128, "max_new_tokens": 5}})
+    tnn.set_nncontext(None)
+    try:
+        tnn.init_nncontext()
+        im = InferenceModel().load_keras_net(model, device=device)
+        server = ts.ClusterServing(model=im, helper=helper, backend=backend)
+        if generate_layer is not None:
+            server.build_transformer_engine(generate_layer)
+        server.start()
+        try:
+            got = ts.OutputQueue(backend=backend).wait_all(
+                list(images) + list(prompts), timeout=120)
+        finally:
+            server.stop()
+    finally:
+        tnn.set_nncontext(None)
+    return got, server
+
+
+def _serving_cnn():
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras import models as tm
+
+    seq = tm.Sequential()
+    seq.add(tl.Convolution2D(4, 3, 3, activation="relu",
+                             input_shape=(3, 16, 16)))
+    seq.add(tl.Flatten())
+    seq.add(tl.Dense(10, activation="softmax"))
+    return seq
+
+
+def test_cluster_serving_on_the_card_copies_through_pinned_memory(cuda):
+    """The pipelined loop on the card: each batch's outputs come back
+    through a ``HostCopy`` (pinned memory, a CUDA event), the rows equal
+    the same model's CPU ``predict`` within 1e-5, and a bf16 output comes
+    back as float32."""
+    import copy
+
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
+        HostCopy
+
+    model = _serving_cnn()
+    cpu_model = copy.deepcopy(model)
+    rs = np.random.default_rng(0)
+    images = {f"r{i}": rs.standard_normal((3, 16, 16)).astype(np.float32)
+              for i in range(11)}
+    got, server = _serve_on(cuda, model, (images, {}))
+    want = cpu_model.predict(np.stack(list(images.values())), batch_size=16)
+    for i, uri in enumerate(images):
+        assert np.abs(np.asarray(got[uri]) - want[i]).max() <= 1e-5
+    stats = server.pipeline_stats()
+    assert stats["results_out"] == 11 and stats["dropped"] == 0
+    out = torch.randn(4, 10, device=cuda, dtype=torch.bfloat16)
+    copy_ = HostCopy([out, out.float()])
+    assert copy_._event is not None and copy_._host[0].is_pinned()
+    a, b = copy_.wait()
+    assert a.dtype == np.float32 and np.array_equal(a, b)
+
+
+def test_cluster_serving_generate_on_the_card_launches_k1_a_prefill(cuda):
+    """Generate records through the loop on the card: K1 is launched once
+    a block for every prefill the engine counted and the other kernels
+    never; the streams equal ``decode_step``'s greedy stream."""
+    import numpy as np
+
+    layer = _small_decoder(0)
+    rs = np.random.default_rng(1)
+    prompts = {f"g{i}": rs.integers(1, 97, size=int(n))
+               for i, n in enumerate((5, 40, 77))}
+    _kernels.LAUNCHES.reset()
+    got, server = _serve_on(cuda, _serving_cnn(), ({}, prompts),
+                            generate_layer=layer)
+    launches = _kernels.LAUNCHES.snapshot()
+    calls = server._gen_engine.prefill_calls
+    assert calls >= 1
+    assert launches == {ta.KERNEL_NAME: 2 * calls}
+    for uri, prompt in prompts.items():
+        state = layer.init_decode_state(1, 128)
+        logits, state = layer.prefill(
+            torch.as_tensor(prompt[None], device=cuda),
+            torch.tensor([prompt.size], device=cuda), state)
+        want = []
+        for _ in range(5):
+            want.append(int(torch.argmax(logits[0])))
+            logits, state = layer.decode_step(
+                state, torch.tensor([want[-1]], device=cuda))
+        assert [int(t) for t in np.asarray(got[uri])] == want, uri
