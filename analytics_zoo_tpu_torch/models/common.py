@@ -9,7 +9,8 @@ in the JAX package's layout: the internal Keras model under ``keras/``
 (``KerasNet.save_model``) and ``zoo_model.pkl`` with the class, its
 module (the JAX package's path, as ``model_io`` writes class paths) and
 the recorded config, so either package loads what the other saved.
-``Ranker`` gives the text-matching models NDCG and MAP over query groups.
+``Ranker`` gives the text-matching models NDCG and MAP over query groups
+(a ``TextSet`` of relation lists, or ``[(features, labels), ...]``).
 """
 
 from __future__ import annotations
@@ -130,19 +131,24 @@ KerasZooModel = ZooModel
 class Ranker:
     """Validation with ranking metrics for matching models (parity:
     ``pyzoo/zoo/models/common/ranker.py`` ``evaluateNDCG``/``evaluateMAP``).
-    ``x`` is a list of query groups ``[(features, labels), ...]``: one
-    query's candidates, features ``(list_length, ...)`` and labels
-    ``(list_length,)`` or ``(list_length, 1)``. A ``TextSet`` is not
-    ported yet (``feature/text``, ROADMAP A11). Mix into a model exposing
-    ``predict``."""
+    ``x`` is a ``TextSet`` whose every TextFeature holds ONE query's
+    candidate batch -- features ``(listLength, d)``, labels
+    ``(listLength, 1)``, exactly what ``TextSet.from_relation_lists``
+    builds -- or a list of query groups ``[(features, labels), ...]``.
+    Mix into a model exposing ``predict``."""
 
     def _ranking_groups(self, x):
-        if hasattr(x, "features"):
-            raise NotImplementedError(
-                "ranking a TextSet needs feature/text, which arrives with "
-                "ROADMAP A11; pass [(features, labels), ...]")
-        for feats, labels in x:
-            yield np.asarray(feats), np.asarray(labels).reshape(-1)
+        if hasattr(x, "features"):           # a TextSet
+            for tf_ in x.features:
+                sample = tf_.get_sample()
+                assert sample is not None, \
+                    "TextFeature has no sample; run from_relation_lists " \
+                    "(or generate_sample) first"
+                yield (np.asarray(sample.features[0]),
+                       np.asarray(sample.labels[0]).reshape(-1))
+        else:                                 # [(features, labels), ...]
+            for feats, labels in x:
+                yield np.asarray(feats), np.asarray(labels).reshape(-1)
 
     def _ranked_relevance(self, feats, labels, threshold):
         scores = np.asarray(

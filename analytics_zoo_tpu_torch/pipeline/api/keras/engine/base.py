@@ -322,6 +322,26 @@ ACTIVATIONS = {
 }
 
 
+class NamedActivation:
+    """An activation by name: calls ``ACTIVATIONS[name]``. The int8 path
+    reads ``name`` (a relu commutes with the requantize scale, so a
+    relu layer or epilogue stays on an int8 chain)."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name):
+        self.name = name
+
+    def __call__(self, x):
+        return ACTIVATIONS[self.name](x)
+
+    def __reduce__(self):
+        return (NamedActivation, (self.name,))
+
+    def __repr__(self):
+        return f"activation:{self.name}"
+
+
 def get_activation_fn(name):
     if name is None:
         return None
@@ -330,4 +350,4 @@ def get_activation_fn(name):
     key = name.lower()
     if key not in ACTIVATIONS:
         raise ValueError(f"Unknown activation: {name}")
-    return ACTIVATIONS[key]
+    return NamedActivation(key)

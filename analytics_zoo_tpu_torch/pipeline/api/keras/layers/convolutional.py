@@ -74,7 +74,7 @@ class Convolution2D(KerasLayer):
         return params
 
     def forward(self, x, training=False, **kw):
-        return quant.conv2d(x, self.kernel, self.subsample,
+        return quant.conv2d(x, quant.kernel_of(self), self.subsample,
                             _padding(self.border_mode),
                             rhs_dilation=self.dilation,
                             dimension_numbers=_dn(self.dim_ordering),

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from .....ops import quant
 from ..engine.base import KerasLayer, get_activation_fn, init_tensor
 
 
@@ -42,14 +43,13 @@ class Dense(KerasLayer):
         return params
 
     def forward(self, x, training=False, **kw):
-        # the float epilogue of ops/quant.py matmul: matmul + bias +
-        # activation (the int8 paths arrive with quantised inference)
-        y = torch.matmul(x, self.kernel.to(x.dtype))
-        if self.use_bias:
-            y = y + self.bias.to(y.dtype)
-        if self.activation is not None:
-            y = self.activation(y)
-        return y
+        # quant.matmul owns the whole epilogue: a float kernel gives
+        # matmul + bias + activation; a calibrated int8 kernel (supplied
+        # by QuantizedModel) folds the bias into the int32 accumulator
+        # and may emit int8 for the next requantization-chain link
+        return quant.matmul(x, quant.kernel_of(self),
+                            bias=self.bias if self.use_bias else None,
+                            activation=self.activation)
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape[:-1]) + (self.output_dim,)

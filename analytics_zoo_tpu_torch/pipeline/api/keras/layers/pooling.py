@@ -3,9 +3,10 @@
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/
 pooling.py``, whose layers lower to ``lax.reduce_window``. "SAME" pads
 are XLA's (``ops/conv.py``): asymmetric where the total is odd, so the
-padding is explicit -- -inf for max pooling, and average pooling divides
-each window's sum by its count of unpadded cells, which
-``count_include_pad=False`` gives only for symmetric pads. A
+padding is explicit -- -inf for max pooling (int8's least value for an
+int8 input, which max pooling passes on a requantization chain), and
+average pooling divides each window's sum by its count of unpadded
+cells, which ``count_include_pad=False`` gives only for symmetric pads. A
 channels-last layout ("tf", and the 1D layers' (batch, steps, dim))
 enters the library pooling as a channels-last view.
 """
@@ -36,7 +37,15 @@ def _pool(x, window, strides, border_mode, mode, layout):
     pads = same_pads(xc.shape[2:], window, strides) \
         if border_mode == "same" else [(0, 0)] * len(window)
     nsp = len(window)
-    if mode == "max":
+    if mode == "max" and xc.dtype == torch.int8:
+        # int8 activations flow through max pooling on a requantization
+        # chain: the identity of integer max is iinfo.min, not -inf; the
+        # library pooling takes no int8 on the card, so the window runs
+        # on float16, where every int8 value is exact
+        y = _MAX_POOL[nsp](
+            pad_spatial(xc, pads, torch.iinfo(torch.int8).min)
+            .to(torch.float16), window, strides).to(torch.int8)
+    elif mode == "max":
         y = _MAX_POOL[nsp](pad_spatial(xc, pads, -float("inf")), window,
                            strides)
     elif any(p for pair in pads for p in pair):

@@ -177,9 +177,9 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def as_device_tensor(a, device) -> torch.Tensor:
-    """A host array as a tensor on ``device``; float64 arrives as float32,
-    as ``jnp.asarray`` gives it without x64."""
-    t = torch.as_tensor(np.asarray(a))
+    """A host array (or a tensor) as a tensor on ``device``; float64
+    arrives as float32, as ``jnp.asarray`` gives it without x64."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
     if t.dtype == torch.float64:
         t = t.float()
     return t.to(device)

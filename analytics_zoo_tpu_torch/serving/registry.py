@@ -3,9 +3,9 @@
 Counterpart of ``analytics_zoo_tpu/serving/registry.py``, copied over the
 port's ``InferenceModel`` (the default loader is its ``load`` of a saved
 model's or zoo model's directory) and ``utils/file_io.py``; the manifest
-is the JAX package's. Int8 versions wait for the port's quantised
-backend (ROADMAP A10): ``deploy(quantize=True)`` raises, and an int8
-version recovered from a manifest fails to load and is left ``failed``.
+is the JAX package's. An int8 version (``deploy(quantize=True)``, or a
+pre-loaded quantized model) loads through ``load_quantized`` with its
+calibration scales, and ``recover`` reloads it as int8.
 
 The reference binds one serving process to one ``InferenceModel``
 (ClusterServing.scala:44-392) — updating a model means restarting the
@@ -73,6 +73,14 @@ class UnknownModelError(RegistryError):
 class DeployError(RegistryError):
     """Deploy failed (load/warmup/compile); the routing pointer was not
     moved — the previous version keeps serving."""
+
+
+def _is_int8(model: Optional[InferenceModel]) -> bool:
+    """Whether a pre-loaded InferenceModel carries an int8 backend."""
+    from ..pipeline.inference.inference_model import QuantizedModel
+
+    return model is not None and \
+        isinstance(getattr(model, "model", None), QuantizedModel)
 
 
 class ModelVersion:
@@ -236,18 +244,19 @@ class ModelRegistry:
         the manifest without loading (offline deploy; the next
         :meth:`recover` loads it).
 
-        ``quantize`` (an int8 version in the JAX package) raises
-        ``NotImplementedError``: the port has no quantised backend yet
-        (ROADMAP A10).
+        ``quantize`` deploys the version as int8: loaded through
+        :meth:`InferenceModel.load_quantized` with ``calibration``
+        (exported scales JSON; defaults to a ``calibration.json`` inside
+        the model directory), so requantization chains are planned at
+        load time. The version carries ``dtype="int8"`` -- its own
+        dispatch key, distinct from any f32 version, so an int8 build can
+        canary side by side against its f32 baseline. A pre-loaded
+        quantized ``model`` is recorded as int8 too.
         """
         name = name or self.default_model
         if model is None and path is None:
             raise ValueError("deploy needs a loaded model or a path")
-        if quantize:
-            raise NotImplementedError(
-                "int8 deploys need the quantised backend, which is not "
-                "ported yet (ROADMAP A10)")
-        dtype = "f32"
+        dtype = "int8" if quantize or _is_int8(model) else "f32"
         with self._lock:
             versions = self._models.setdefault(name, {})
             version = max(versions, default=0) + 1

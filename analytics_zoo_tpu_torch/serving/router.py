@@ -215,8 +215,9 @@ class RoutedClusterServing(ClusterServing):
                calibration: Optional[str] = None):
         """Deploy into this server's registry with its bucket warmup;
         ``canary_weight`` deploys as a canary instead of activating;
-        ``quantize`` (an int8 version) raises until the port has a
-        quantised backend (ROADMAP A10)."""
+        ``quantize`` deploys an int8 version (with optional exported
+        ``calibration`` scales) for side-by-side comparison against the
+        f32 baseline."""
         mv = self.registry.deploy(
             name, model=model, path=path,
             warmup=self.registry_warmup() if warmup else None,

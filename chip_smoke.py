@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
-generation, NeuralCF, checkpoint, sequence-model, ResNet-50 and Cluster
-Serving paths once on one NVIDIA GPU.
+generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
+Serving and int8 inference paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -116,10 +116,15 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               busy and idle share, peak memory). Then AnomalyDetector
               (unroll 24, hidden 8-32-15, dropouts 0.2, batch 1024), KNRM
               (10 + 40 tokens, vocab 20,000, 300-d, 21 kernels; ranking
-              with ``rank_hinge`` on pair-kept batches and classification;
-              NDCG@3 and MAP against the CPU), SessionRecommender (10,000
-              items, widths 40-20, with history; ``recommend_for_session``
-              against the CPU) and Seq2seq (LSTM, 2 layers of 256, a dense
+              by the reference's route: 32 queries and 512 documents as
+              TextSets through tokenize, normalize, word2idx and
+              shape_sequence, ``TimeDistributed(knrm.model)`` fitted with
+              ``rank_hinge`` on the 256 pairs of ``from_relation_pairs``,
+              NDCG@3 and MAP on ``from_relation_lists``; classification
+              on arrays; NDCG@3 and MAP against the CPU),
+              SessionRecommender (10,000 items, widths 40-20, with
+              history; ``recommend_for_session`` against the CPU) and
+              Seq2seq (LSTM, 2 layers of 256, a dense
               bridge, a TimeDistributed generator; ``infer`` against the
               CPU's and against ``infer_reference`` with a stop sign):
               ``predict`` against the CPU and 4 falling ``fit`` steps each.
@@ -174,6 +179,34 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               end-to-end and tokens/s of the generate records, peak
               memory. Its files, under ``build/chip_smoke_serving``, are
               deleted at the end.
+13. int8   -- int8 inference (``QuantizedModel``), float32 with TF32 off,
+              weights from ``--seed``: ``bench.py``'s bench_quant MLP
+              (512-1024-1024-128, batch 64) and CNN (3 x 64 x 64, batch
+              8), calibrated on 3 seeded batches: the JAX package's chain
+              plan, and under a ``TorchDispatchMode`` census one int32
+              product a kernel (``torch._int_mm``), no float product, a
+              rounding a chain edge plus the entry quantize and one
+              division; ``ImageClassifier(1000, "vgg-16")`` on 3 x 224 x
+              224 calibrated on 4 seeded batches of 8: 15 chain edges, 16
+              int32 products, one division, one softmax; 2 images against
+              the port's CPU int8 run from the same scales (every int32
+              accumulator and int8 activation equal, the softmax within
+              1e-6); ``save_calibration`` then ``load_quantized`` (the
+              same chains, the rows bit for bit); ResNet-50 (54 kernels,
+              no chain) deployed as v1 float32 and v2 int8
+              (``deploy(quantize=True)`` of the same directory, canary
+              0.5) behind ``RoutedClusterServing``: 64 records each
+              against its version's direct predict, distinct dispatch
+              keys, ``recover`` reloading v2 as int8, 2 rows against the
+              CPU's int8 run (the top class equal, within 2e-2 of the
+              row's largest probability: the float batch norm between int8
+              convolutions rounds differently on the card); int8 against
+              float32 reported. Timed: both models in float32 and int8 at
+              batch 16 and 64 in alternating windows (records/s, device
+              time by group, launches, idle share, peak memory), the
+              parameter bytes and the phase's peak memory. K1-K5 are
+              launched 0 times in the phase. Its files, under
+              ``build/chip_smoke_int8``, are deleted at the end.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -206,8 +239,10 @@ import torch.nn.functional as F
 from analytics_zoo_tpu_torch.common import init_nncontext
 from analytics_zoo_tpu_torch.common.zoo_trigger import (SeveralIteration,
                                                         ZooTrigger)
+from analytics_zoo_tpu_torch.feature.common import Relation
 from analytics_zoo_tpu_torch.feature.feature_set import (ArrayFeatureSet,
                                                          Sample)
+from analytics_zoo_tpu_torch.feature.text import TextFeature, TextSet
 from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.image.imageclassification import \
     ImageClassifier
@@ -222,8 +257,10 @@ from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import attention as attn
 from analytics_zoo_tpu_torch.ops import fused_dropout_ln as dln
 from analytics_zoo_tpu_torch.ops import kv_cache
+from analytics_zoo_tpu_torch.ops import quant
 from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
-from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+from analytics_zoo_tpu_torch.pipeline.api.keras.models import (Model,
+                                                            Sequential)
 from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     Adagrad, Adam, get_optimizer)
@@ -246,6 +283,7 @@ from analytics_zoo_tpu_torch.utils import faults
 from analytics_zoo_tpu_torch.utils.crc32c import crc32c
 from analytics_zoo_tpu_torch.utils.layer_parity import (LayerRecorder,
                                                         compare_layers)
+from analytics_zoo_tpu_torch.utils.op_census import OpCensus
 
 # bench.py's BERT-base classifier (bench.py:353-438)
 BERT_CONFIG = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
@@ -2438,6 +2476,12 @@ AD_UNROLL, AD_HIDDEN, AD_DROPOUTS, AD_BATCH = 24, (8, 32, 15), \
 KNRM_L1, KNRM_L2, KNRM_VOCAB, KNRM_EMBED, KNRM_KERNELS = 10, 40, 20000, \
     300, 21
 KNRM_PAIRS, KNRM_QUERIES, KNRM_CANDIDATES = 256, 32, 10
+# the ranking leg's corpora, as TextSets: KNRM_QUERIES queries of KNRM_L1
+# words, each with KNRM_RELEVANT documents of KNRM_L2 words that open
+# with the query's words and KNRM_IRRELEVANT random ones, over the
+# 26**3 three-letter words (a vocabulary below KNRM_VOCAB); one relation
+# pair a relevant document gives 256 pairs
+KNRM_WORDS, KNRM_RELEVANT, KNRM_IRRELEVANT = 26 ** 3, 8, 8
 # SessionRecommender at its default rnn and mlp widths (40, 20), with the
 # history: 10,000 items embedded in 100, sessions of 10 clicks and
 # histories of 5 (chosen here: the reference sets no defaults)
@@ -2487,11 +2531,16 @@ def seeded_zoo_model(make, seed):
     return model
 
 
+def keras_of(model):
+    """The Keras model of a zoo model, or ``model`` itself."""
+    return model if hasattr(model, "graph_function") else model.model
+
+
 def check_predict(name, model, x, batch):
     """``predict`` on the card against the CPU's: the largest
     difference, gated at SEQ_CPU_TOL."""
     got = model.predict(x, batch_size=batch)
-    want = cpu_twin(model.model).trainer.predict(x, batch_size=batch)
+    want = cpu_twin(keras_of(model)).trainer.predict(x, batch_size=batch)
     got_l = got if isinstance(got, list) else [got]
     want_l = want if isinstance(want, list) else [want]
     err = max(float(np.abs(g - w).max()) for g, w in zip(got_l, want_l))
@@ -2524,7 +2573,7 @@ def fit_one_batch(name, model, x, y, batch, steps):
     wall = time.perf_counter() - t0
     launches = no_launches(name)
     peak = torch.cuda.max_memory_allocated()
-    losses = list(model.model.trainer.step_losses)
+    losses = list(keras_of(model).trainer.step_losses)
     if len(losses) != steps or not np.isfinite(losses).all() or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"{name} losses {losses}")
@@ -2676,20 +2725,83 @@ def knrm_group(rs):
     return x.astype(np.float32), labels
 
 
-class RankingPairs(ArrayFeatureSet):
-    """Rows in (relevant, irrelevant) pairs, shuffled a pair at a time:
-    ``rank_hinge`` pairs consecutive rows of a batch, and
-    ``ArrayFeatureSet`` shuffles single rows, which would pair them at
-    random (ROADMAP C8; the reference keeps a pair in one sample)."""
+def knrm_word(i):
+    return chr(97 + i // 676 % 26) + chr(97 + i // 26 % 26) + chr(97 + i % 26)
 
-    def batches(self, batch_size, shuffle=False, seed=0, **kw):
-        rows = np.arange(self._n)
-        if shuffle:
-            pairs = np.random.default_rng(seed).permutation(self._n // 2)
-            rows = np.stack([2 * pairs, 2 * pairs + 1], 1).reshape(-1)
-        view = ArrayFeatureSet([f[rows] for f in self.features],
-                               [l[rows] for l in self.labels])
-        return view.batches(batch_size, shuffle=False, **kw)
+
+def knrm_corpora(rs):
+    """The ranking leg's query and document TextSets, through tokenize,
+    normalize, word2idx (the documents extend the queries' index) and
+    shape_sequence, and their relations."""
+    queries, docs, relations = [], [], []
+    for qi in range(KNRM_QUERIES):
+        words = [knrm_word(int(i))
+                 for i in rs.integers(0, KNRM_WORDS, KNRM_L1)]
+        queries.append(TextFeature(" ".join(words).title() + ".",
+                                   uri=f"q{qi}"))
+        for j in range(KNRM_RELEVANT + KNRM_IRRELEVANT):
+            body = [knrm_word(int(i))
+                    for i in rs.integers(0, KNRM_WORDS, KNRM_L2)]
+            if j < KNRM_RELEVANT:
+                body[:KNRM_L1] = words
+            docs.append(TextFeature(" ".join(body), uri=f"d{qi}-{j}"))
+            relations.append(Relation(f"q{qi}", f"d{qi}-{j}",
+                                      int(j < KNRM_RELEVANT)))
+    q = TextSet.array(queries).tokenize().normalize().word2idx() \
+        .shape_sequence(KNRM_L1)
+    d = TextSet.array(docs).tokenize().normalize() \
+        .word2idx(existing_map=q.get_word_index()).shape_sequence(KNRM_L2)
+    return q, d, relations
+
+
+def knrm_ranking_leg(seed):
+    """KNRM's ranking route as the reference takes it: the zoo model's
+    graph under ``TimeDistributed`` (input (2, L1 + L2): a relevant and
+    an irrelevant document for one query), trained by ``fit`` with
+    ``rank_hinge`` on a ``from_relation_pairs`` TextSet, whose samples
+    keep each pair whole through the shuffle; then NDCG@3 and MAP on a
+    ``from_relation_lists`` TextSet, on the card and on the CPU twin of
+    the trained weights (the wrapper trains KNRM's own)."""
+    rs = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    q, d, relations = knrm_corpora(rs)
+    pairs = TextSet.from_relation_pairs(relations, q, d)
+    lists = TextSet.from_relation_lists(relations, q, d)
+    text_s = time.perf_counter() - t0
+    words = len(d.get_word_index())
+    if len(pairs) < KNRM_PAIRS or words >= KNRM_VOCAB or \
+            len(lists) != KNRM_QUERIES:
+        raise AssertionError(f"KNRM corpora: {len(pairs)} pairs, {words} "
+                             f"words, {len(lists)} lists")
+    knrm = seeded_zoo_model(lambda: KNRM(
+        KNRM_L1, KNRM_L2, KNRM_VOCAB, embed_size=KNRM_EMBED,
+        kernel_num=KNRM_KERNELS, target_mode="ranking"), seed)
+    ranker = Sequential()
+    ranker.add(L.TimeDistributed(knrm.model,
+                                 input_shape=(2, KNRM_L1 + KNRM_L2)))
+    x = pairs.to_feature_set().features[0]
+    _, err = check_predict("KNRM(ranking)", ranker, x, len(pairs))
+    ranker.compile(Adam(lr=1e-3), "rank_hinge")
+    fit = fit_one_batch("KNRM(ranking)", ranker, pairs, None, len(pairs),
+                        SEQ_FIT_STEPS)
+    twin = zoo_twin(knrm)
+    ndcg, ndcg_cpu = knrm.evaluate_ndcg(lists, 3), \
+        twin.evaluate_ndcg(lists, 3)
+    mean_ap, map_cpu = knrm.evaluate_map(lists), twin.evaluate_map(lists)
+    if abs(ndcg - ndcg_cpu) > 1e-6 or abs(mean_ap - map_cpu) > 1e-6:
+        raise AssertionError(f"KNRM(ranking): NDCG@3 {ndcg} / {ndcg_cpu}, "
+                             f"MAP {mean_ap} / {map_cpu} on the card / "
+                             "the CPU")
+    return dict(target_mode="ranking", loss="rank_hinge",
+                route="TimeDistributed(knrm.model) on TextSet "
+                      "from_relation_pairs", pairs=len(pairs),
+                batch=len(pairs), queries=KNRM_QUERIES,
+                documents=len(d), words=words, text_pipeline_s=text_s,
+                text1_length=KNRM_L1, text2_length=KNRM_L2,
+                vocab=KNRM_VOCAB, embed_size=KNRM_EMBED,
+                kernel_num=KNRM_KERNELS, predict_cpu_max_abs_err=err,
+                ndcg_at_3=ndcg, ndcg_at_3_cpu=ndcg_cpu, map=mean_ap,
+                map_cpu=map_cpu, query_lists=len(lists), **fit)
 
 
 def knrm_leg(seed, target_mode, loss):
@@ -2700,8 +2812,8 @@ def knrm_leg(seed, target_mode, loss):
         kernel_num=KNRM_KERNELS, target_mode=target_mode), seed)
     _, err = check_predict(f"KNRM({target_mode})", model, x, KNRM_PAIRS)
     model.compile(Adam(lr=1e-3), loss)
-    fit = fit_one_batch(f"KNRM({target_mode})", model, RankingPairs(x, y),
-                        None, KNRM_PAIRS, SEQ_FIT_STEPS)
+    fit = fit_one_batch(f"KNRM({target_mode})", model, x, y, KNRM_PAIRS,
+                        SEQ_FIT_STEPS)
     # ranking on the card against the CPU twin of the trained weights
     groups = [knrm_group(rs) for _ in range(KNRM_QUERIES)]
     twin = zoo_twin(model)
@@ -2840,7 +2952,7 @@ def sequence(seed, smi):
     collect()
     others = dict(
         anomaly_detector=anomaly_leg(seed + 45),
-        knrm_ranking=knrm_leg(seed + 46, "ranking", "rank_hinge"),
+        knrm_ranking=knrm_ranking_leg(seed + 46),
         knrm_classification=knrm_leg(seed + 47, "classification",
                                      "binary_crossentropy"),
         session_recommender=session_leg(seed + 48),
@@ -3700,6 +3812,537 @@ def cluster_serving(seed, device, smi):
 
 
 # ---------------------------------------------------------------------------
+# int8 inference
+# ---------------------------------------------------------------------------
+
+Q_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke_int8")
+# bench.py's bench_quant models (bench.py:860-880) at its batches,
+# calibrated as bench_quant calibrates them: 3 seeded batches of 4
+Q_BENCH_CALIB_BATCHES, Q_BENCH_CALIB_ROWS = 3, 4
+# VGG-16 and ResNet-50 at full width, ImageClassifier(1000) on 3 x 224 x
+# 224, calibrated on 4 seeded batches of 8; 2 images held against the CPU
+Q_CALIB_BATCHES, Q_CALIB_ROWS, Q_PARITY_ROWS = 4, 8, 2
+Q_VGG_KERNELS, Q_VGG_CHAINS, Q_RESNET_KERNELS = 16, 15, 54
+# int8 against float32 on the card, reported only, over this many images
+Q_AGREEMENT_ROWS = 16
+# a float output of the int8 path against the CPU's from the same int32
+# accumulators: float32 epilogue and softmax in another order
+Q_FLOAT_TOL = 1e-6
+# ResNet-50's int8 rows on the card against the CPU's int8 run from the
+# same scales, relative to the row's largest probability, with the same
+# top class: BatchNorm runs in float32 between the int8 convolutions, and
+# the card's batch norm rounds differently from the CPU's, so an int8
+# step may flip at a rounding tie of the next quantize; in the CPU parity
+# tests such a flip moved a random-weight ResNet-50's probability by 1.1%
+# of the row's largest (tests/test_torch_quantized_model.py)
+Q_RESNET_TOL = 2e-2
+Q_CS_CONFIG = {"data": {"image_shape": "3, 224, 224"},
+               "params": {"batch_size": 16, "top_n": 5, "warmup": True}}
+Q_REGISTRY_RECORDS, Q_CANARY_WEIGHT = 64, 0.5
+# the timed runs: float32 and calibrated int8 of both models at each
+# batch, Q_WINDOW_BATCHES batches a window, the windows alternating
+Q_TIMED_BATCHES, Q_WINDOW_BATCHES, Q_WINDOWS = (16, 64), 4, 2
+
+
+def q_bench_models():
+    """bench_quant's MLP (512-1024-1024-128) and CNN (3 x 64 x 64), with
+    its layer names, its batches and the JAX package's chain plan for
+    them (tests/test_torch_quantized_model.py holds the port's plan
+    against JAX's)."""
+    def mlp(seed):
+        m = Sequential(seed=seed)
+        m.add(L.Dense(1024, activation="relu", input_shape=(512,),
+                      name="qd1"))
+        m.add(L.Dense(1024, activation="relu", name="qd2"))
+        m.add(L.Dense(128, activation="relu", name="qout"))
+        return m
+
+    def cnn(seed):
+        m = Sequential(seed=seed)
+        m.add(L.Convolution2D(32, 3, 3, activation="relu",
+                              border_mode="same", input_shape=(3, 64, 64),
+                              name="qc1"))
+        m.add(L.Convolution2D(32, 3, 3, activation="relu",
+                              subsample=(2, 2), name="qc2"))
+        m.add(L.Flatten())
+        m.add(L.Dense(64, activation="relu", name="qcd1"))
+        m.add(L.Dense(10, activation="relu", name="qcout"))
+        return m
+
+    return {"dense": (mlp, (64, 512), 3,
+                      [("qd1", "qd2"), ("qd2", "qout")]),
+            "cnn": (cnn, (8, 3, 64, 64), 4,
+                    [("qc1", "qc2"), ("qc2", "qcd1"), ("qcd1", "qcout")])}
+
+
+class Int8Trace:
+    """What the int8 path computed in one forward, in order: every int32
+    accumulator (``quant.int_product``), every entry quantize's int8
+    (``quant._quantize_act``) and every int8 layer output (a requantized
+    chain link, pooling, flatten), copied to the host."""
+
+    def __init__(self, model):
+        self.layers = model.graph_function().layers
+
+    def __enter__(self):
+        self.acc, self.entry, self.act = [], [], []
+        self._saved = (quant.int_product, quant._quantize_act)
+        product, quantize = self._saved
+
+        def int_product(a, w):
+            out = product(a, w)
+            self.acc.append(out.cpu())
+            return out
+
+        def quantize_act(x, act_scale):
+            out = quantize(x, act_scale)
+            self.entry.append(out.cpu())
+            return out
+
+        def hook(module, inputs, out):
+            if isinstance(out, torch.Tensor) and out.dtype == torch.int8:
+                self.act.append(out.cpu())
+
+        quant.int_product, quant._quantize_act = int_product, quantize_act
+        self._hooks = [layer.register_forward_hook(hook)
+                       for layer in self.layers]
+        return self
+
+    def __exit__(self, *exc):
+        quant.int_product, quant._quantize_act = self._saved
+        for h in self._hooks:
+            h.remove()
+        return False
+
+
+def compare_traces(card, cpu):
+    """Element counts and the share of them that differ, per kind, and the
+    largest difference of an int8 value (in quantization steps)."""
+    out = {}
+    for kind in ("acc", "entry", "act"):
+        a, b = getattr(card, kind), getattr(cpu, kind)
+        if [t.shape for t in a] != [t.shape for t in b]:
+            raise AssertionError(f"int8 traces differ in shape ({kind}): "
+                                 f"{len(a)} against {len(b)} tensors")
+        n = sum(t.numel() for t in a)
+        diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+        step = max([int((x.int() - y.int()).abs().max()) for x, y in
+                    zip(a, b) if x.numel()] or [0])
+        out[kind] = dict(tensors=len(a), elements=n, differing=diff,
+                         max_abs_diff=step)
+    return out
+
+
+def q_census(fn):
+    with OpCensus() as census:
+        out = fn()
+    return out, census.int8_summary()
+
+
+def check_census(name, got, want):
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"{name}: the int8 forward ran {got}, "
+                             f"expected {want}")
+    return got
+
+
+def cpu_int8_copy(im, directory, model):
+    """``model`` saved to ``directory`` with ``im``'s calibration, loaded
+    back on the CPU by ``load_quantized``: the port's CPU int8 run from
+    the same scales."""
+    model.save_model(directory)
+    keras_dir = InferenceModel._resolve_model_dir(directory)
+    im.save_calibration(os.path.join(keras_dir,
+                                     InferenceModel.CALIBRATION_FILE))
+    return InferenceModel().load_quantized(directory, device="cpu")
+
+
+def int8_bench_leg(seed, rs):
+    """bench_quant's two models: the chain plan, the forward's structure
+    under an op census (one int32 product a kernel, no float product, a
+    rounding a chain edge plus the entry quantize, one division), the
+    card's int8 outputs against the CPU's from the same scales, and (report
+    only) against float32."""
+    out = {}
+    for key, (make, shape, n_kernels, chains) in q_bench_models().items():
+        m = make(seed)
+        calib = [rs.standard_normal((Q_BENCH_CALIB_ROWS,) + shape[1:])
+                 .astype(np.float32) for _ in range(Q_BENCH_CALIB_BATCHES)]
+        x = rs.standard_normal(shape).astype(np.float32)
+        f32 = InferenceModel().load_keras_net(m)
+        q = InferenceModel().load_keras_net(m, calibration=calib)
+        if q.model.chains != chains:
+            raise AssertionError(f"{key}: chains {q.model.chains}, the JAX "
+                                 f"plan is {chains}")
+        got, census = q_census(lambda: q.predict(x))
+        check_census(key, census, dict(
+            int32_products=n_kernels, float_products=0,
+            roundings=len(chains) + 1, divisions=1))
+        cpu = cpu_int8_copy(q, os.path.join(Q_ROOT, key), m)
+        want = cpu.predict(x)
+        err = float(np.abs(got - want).max())
+        if err > Q_FLOAT_TOL * max(float(np.abs(want).max()), 1e-30):
+            raise AssertionError(f"{key}: int8 on the card off the CPU's "
+                                 f"by {err}")
+        ref = f32.predict(x)
+        out[key] = dict(batch=shape[0], chains=["->".join(c) for c in
+                                                 chains],
+                        census=census, cpu_max_abs_err=err,
+                        rel_err_vs_f32=float(np.mean(np.abs(got - ref)) /
+                                             (np.mean(np.abs(ref)) or 1.0)),
+                        param_bytes=q.model.param_bytes())
+    return out
+
+
+def build_image_classifier(seed, name):
+    config = init_nncontext().config
+    seed0, config.seed = config.seed, seed
+    clf = ImageClassifier(class_num=RESNET_CLASSES, model_name=name)
+    clf.model.graph_function()
+    config.seed = seed0     # the model drew its weights from seed
+    return clf
+
+
+def image_batches(rs, n, rows):
+    return [rs.standard_normal((rows,) + RESNET_SHAPE).astype(np.float32)
+            for _ in range(n)]
+
+
+def agreement(got, ref):
+    """int8 rows against float32 rows: mean relative error and top-1
+    agreement."""
+    return dict(rel_err=float(np.mean(np.abs(got - ref)) /
+                              np.mean(np.abs(ref))),
+                top1_agreement=float(np.mean(got.argmax(1) ==
+                                             ref.argmax(1))))
+
+
+def int8_vgg_leg(seed, rs):
+    """VGG-16 at full width, the fully chained case: 15 chain edges, 16
+    int32 products, one division (the entry quantize) and one softmax;
+    2 images against the CPU's int8 run from the same scales (every
+    int32 accumulator and int8 activation equal, the softmax within
+    Q_FLOAT_TOL); save_calibration then load_quantized (the same chains,
+    the rows bit for bit). Returns the report and the models for the
+    timed runs."""
+    t0 = time.perf_counter()
+    clf = build_image_classifier(seed, "vgg-16")
+    build_s = time.perf_counter() - t0
+    calib = image_batches(rs, Q_CALIB_BATCHES, Q_CALIB_ROWS)
+    x = rs.standard_normal((Q_PARITY_ROWS,) + RESNET_SHAPE).astype(
+        np.float32)
+    f32 = InferenceModel().load_keras_net(clf)
+    t0 = time.perf_counter()
+    q = InferenceModel().load_keras_net(clf, calibration=calib)
+    calibrate_s = time.perf_counter() - t0
+    chains = q.model.chains
+    if len(q.model.kernels) != Q_VGG_KERNELS or \
+            len(chains) != Q_VGG_CHAINS:
+        raise AssertionError(f"VGG-16: {len(q.model.kernels)} kernels, "
+                             f"chains {chains}")
+    _, census = q_census(lambda: q.predict(x))
+    check_census("VGG-16", census, dict(
+        int32_products=Q_VGG_KERNELS, float_products=0,
+        roundings=Q_VGG_CHAINS + 1, divisions=1, softmaxes=1))
+    with Int8Trace(clf.model) as card:
+        got = q.predict(x)
+    directory = os.path.join(Q_ROOT, "vgg16")
+    cpu = cpu_int8_copy(q, directory, clf)
+    t0 = time.perf_counter()
+    with Int8Trace(cpu.model.model) as host:
+        want = cpu.predict(x)
+    cpu_s = time.perf_counter() - t0
+    traces = compare_traces(card, host)
+    err = float(np.abs(got - want).max())
+    if any(t["differing"] for t in traces.values()) or \
+            err > Q_FLOAT_TOL * float(np.abs(want).max()):
+        raise AssertionError(f"VGG-16 int8 on the card against the CPU: "
+                             f"{traces}, softmax off by {err}")
+    reloaded = InferenceModel().load_quantized(directory)
+    if reloaded.model.chains != chains or \
+            not np.array_equal(reloaded.predict(x), got):
+        raise AssertionError("VGG-16: load_quantized of the saved "
+                             "directory planned other chains or rows")
+    xs = rs.standard_normal((Q_AGREEMENT_ROWS,) + RESNET_SHAPE).astype(
+        np.float32)
+    report = dict(
+        model="ImageClassifier(1000, 'vgg-16')", input=list(RESNET_SHAPE),
+        build_s=build_s, calibrate_s=calibrate_s,
+        calibration=f"{Q_CALIB_BATCHES} batches of {Q_CALIB_ROWS}",
+        kernels=len(q.model.kernels), chains=len(chains), census=census,
+        cpu_traces=traces, cpu_softmax_max_abs_err=err, cpu_int8_s=cpu_s,
+        reloaded_chains_equal=True,
+        vs_f32=agreement(np.concatenate([q.predict(xs[i:i + 8])
+                                         for i in range(0, len(xs), 8)]),
+                         np.concatenate([f32.predict(xs[i:i + 8])
+                                         for i in range(0, len(xs), 8)])),
+        param_bytes=q.model.param_bytes())
+    del cpu, reloaded
+    return report, (f32, q, InferenceModel().load_keras_net(clf,
+                                                            quantize=True))
+
+
+def int8_resnet_leg(seed, rs, device):
+    """ResNet-50 at full width, the case with no chains (BatchNorm after
+    every convolution: 54 kernels, each quantizing its own input): v1
+    float32 and v2 int8 (``deploy(quantize=True)`` of the same
+    directory, its calibration.json; a canary of Q_CANARY_WEIGHT) behind
+    RoutedClusterServing on the in-process stream, 64 records each
+    against its version's direct predict, distinct f32 and int8
+    dispatch keys; ``recover(load=True)`` reloads v2 as int8 with equal
+    rows; the int8 rows against the CPU's int8 run from the same scales
+    (Q_RESNET_TOL). Returns the report and the models for the timed
+    runs."""
+    clf = build_resnet(seed)
+    directory = os.path.join(Q_ROOT, "resnet50")
+    clf.save_model(directory)
+    calib = image_batches(rs, Q_CALIB_BATCHES, Q_CALIB_ROWS)
+    f32 = InferenceModel().load_keras_net(clf)
+    t0 = time.perf_counter()
+    q = InferenceModel().load_keras_net(clf, calibration=calib)
+    calibrate_s = time.perf_counter() - t0
+    if len(q.model.kernels) != Q_RESNET_KERNELS or q.model.chains:
+        raise AssertionError(f"ResNet-50: {len(q.model.kernels)} kernels, "
+                             f"chains {q.model.chains}")
+    x = rs.standard_normal((Q_REGISTRY_RECORDS,) + RESNET_SHAPE).astype(
+        np.float32)
+    _, census = q_census(lambda: q.predict(x[:Q_PARITY_ROWS]))
+    check_census("ResNet-50", census, dict(
+        int32_products=Q_RESNET_KERNELS, float_products=0,
+        roundings=Q_RESNET_KERNELS, divisions=Q_RESNET_KERNELS,
+        softmaxes=1))
+    keras_dir = InferenceModel._resolve_model_dir(directory)
+    q.save_calibration(os.path.join(keras_dir,
+                                    InferenceModel.CALIBRATION_FILE))
+
+    root = os.path.join(Q_ROOT, "registry")
+    registry = ModelRegistry(root=root)
+    backend = InProcessStreamQueue()
+    serving = RoutedClusterServing(
+        registry, helper=ClusterServingHelper(config=Q_CS_CONFIG),
+        backend=backend)
+    t0 = time.perf_counter()
+    mv1 = serving.deploy("resnet50", path=directory)
+    mv2 = serving.deploy("resnet50", path=directory, quantize=True,
+                         canary_weight=Q_CANARY_WEIGHT)
+    deploy_s = time.perf_counter() - t0
+    qm = mv2.model.model
+    if (mv1.dtype, mv2.dtype) != ("f32", "int8") or not qm.calibrated or \
+            qm.chains or qm.device != device:
+        raise AssertionError(f"int8 deploy: dtypes {mv1.dtype}, "
+                             f"{mv2.dtype}, calibrated {qm.calibrated}, "
+                             f"on {qm.device}")
+    uris = [f"q-{i}" for i in range(Q_REGISTRY_RECORDS)]
+    iq = InputQueue(backend=backend)
+    for uri, row in zip(uris, x):
+        iq.enqueue(uri, model="resnet50", t=row)
+    serving.start()
+    got = OutputQueue(backend=backend).wait_all(uris, timeout=120)
+    serving.stop()
+    stats = serving.pipeline_stats()
+    if len(got) != len(uris) or stats["dead_letters"] or stats["dropped"]:
+        raise AssertionError(f"int8 registry: {len(got)} results, "
+                             f"{stats['dead_letters']} dead letters")
+    direct = {1: cs_direct_predict(mv1.model, x),
+              2: cs_direct_predict(mv2.model, x)}
+    routed = {u: 2 if zlib.crc32(u.encode()) % 10000 / 10000.0 <
+              Q_CANARY_WEIGHT else 1 for u in uris}
+    rows = {v: [i for i, u in enumerate(uris) if routed[u] == v]
+            for v in (1, 2)}
+    checks = {f"v{v}": check_served_rows(
+        f"int8 registry v{v}", {u: np.asarray(got[u]) for u in uris},
+        [uris[i] for i in rows[v]], direct[v][rows[v]], CS_DIRECT_TOL)
+        for v in (1, 2)}
+    keys = sorted(serving.bucket_counts)
+    if not any(k.endswith(":int8") for k in keys) or \
+            not any(k.endswith(":f32") for k in keys):
+        raise AssertionError(f"dispatch keys {keys}")
+    recovered = ModelRegistry(root=root).recover(load=True)
+    r2 = recovered._models["resnet50"][2]
+    if r2.dtype != "int8" or not r2.model.model.calibrated or \
+            not np.array_equal(r2.model.predict(x[:Q_PARITY_ROWS]),
+                               direct[2][:Q_PARITY_ROWS]):
+        raise AssertionError("recover did not reload v2 as the same int8 "
+                             "model")
+    del recovered, r2
+
+    xp = x[:Q_PARITY_ROWS]
+    with Int8Trace(clf.model) as card:
+        card_rows = q.predict(xp)
+    cpu = InferenceModel().load_quantized(directory, device="cpu")
+    with Int8Trace(cpu.model.model) as host:
+        cpu_rows = cpu.predict(xp)
+    traces = compare_traces(card, host)
+    errs = np.abs(card_rows - cpu_rows).max(1) / cpu_rows.max(1)
+    if not np.array_equal(card_rows, direct[2][:Q_PARITY_ROWS]) or \
+            (card_rows.argmax(1) != cpu_rows.argmax(1)).any() or \
+            (errs > Q_RESNET_TOL).any():
+        raise AssertionError(f"ResNet-50 int8 on the card against the "
+                             f"CPU: {errs} of the rows' largest, {traces}")
+    report = dict(
+        model="ImageClassifier(1000, 'resnet-50')", calibrate_s=calibrate_s,
+        kernels=len(q.model.kernels), chains=0, census=census,
+        deploy_s=deploy_s, records=len(uris), routed_int8=len(rows[2]),
+        routed_f32=len(rows[1]), rows=checks, dispatch_keys=keys,
+        recovered_dtype="int8",
+        cpu_rel_err=[float(e) for e in errs], cpu_tol=Q_RESNET_TOL,
+        cpu_traces=traces,
+        vs_f32=agreement(direct[2], direct[1]),
+        param_bytes=q.model.param_bytes())
+    del serving, registry, mv1, mv2, cpu
+    return report, (f32, q, InferenceModel().load_keras_net(clf,
+                                                            quantize=True))
+
+
+def int8_op_group(evt):
+    """A device kernel's group in the int8 and float forwards, by the
+    outermost aten op that launched it: the integer GEMM, im2col and
+    padding (the patch copy, its zero fill, SAME pads), pooling (its
+    float16 widening is elementwise), cuDNN convolutions and float
+    products of the float32 model, batch norm, layout copies, and the
+    elementwise rest (the entry quantize, requantize, bias and scale
+    epilogues, relu, residual adds, softmax)."""
+    top, parent = evt, evt.cpu_parent
+    while parent is not None:
+        if parent.name.startswith("aten::"):
+            top = parent
+        parent = parent.cpu_parent
+    name = top.name
+    if name == "aten::_int_mm":
+        return "integer GEMM (cuBLASLt)"
+    if name in ("aten::copy_", "aten::zero_", "aten::zeros",
+                "aten::pad", "aten::constant_pad_nd", "aten::fill_"):
+        return "im2col and padding"
+    if "max_pool" in name or "avg_pool" in name:
+        return "pooling"
+    if "conv" in name:
+        return "convolution (cuDNN, float32)"
+    if name in ("aten::matmul", "aten::mm", "aten::addmm", "aten::linear"):
+        return "matmul (cuBLAS, float32)"
+    if "batch_norm" in name:
+        return "batch norm"
+    if name in ("aten::contiguous", "aten::clone"):
+        return "layout copies"
+    return "requantize and elementwise"
+
+
+def profile_forward(fn):
+    """Device time by ``int8_op_group`` over one call of ``fn``, from
+    ``torch.profiler`` (each kernel attributed to the CPU op that launched
+    it), launches, and the device's idle share of the call's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    groups, by = {}, "launching op"
+
+    def add(group, ms, n):
+        g = groups.setdefault(group, {"device_ms": 0.0, "launches": 0})
+        g["device_ms"] += ms
+        g["launches"] += n
+
+    for evt in prof.events():
+        for k in getattr(evt, "kernels", ()):
+            add(int8_op_group(evt), k.duration / 1e3, 1)
+    if not groups:      # no kernel tied to its op: group by kernel name
+        by = "kernel name"
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                add(conv_kernel_group(evt.key),
+                    evt.self_device_time_total / 1e3, evt.count)
+    busy_ms = sum(g["device_ms"] for g in groups.values())
+    if busy_ms == 0.0:
+        return dict(wall_ms=wall_us / 1e3, groups=None, idle_share=None)
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_ms,
+                grouped_by=by,
+                launches=sum(g["launches"] for g in groups.values()),
+                idle_share=1.0 - 1e3 * busy_ms / wall_us,
+                groups=dict(sorted(groups.items(),
+                                   key=lambda kv: -kv[1]["device_ms"])))
+
+
+def time_int8(models, rs):
+    """Float32, calibrated int8 and weight-only int8 (each kernel
+    dequantized at every call) forwards of each model at each batch of
+    Q_TIMED_BATCHES: records/s over Q_WINDOWS alternating windows of
+    Q_WINDOW_BATCHES batches (inputs already on the card), then one
+    profiled batch (device time by group, launches, idle share) and the
+    peak memory of a batch."""
+    runs = {(name, dtype, b): im for name, ims in models.items()
+            for dtype, im in zip(("float32", "int8", "int8 weight-only"),
+                                 ims)
+            for b in Q_TIMED_BATCHES}
+    inputs = {b: torch.from_numpy(rs.standard_normal(
+        (b,) + RESNET_SHAPE).astype(np.float32)).cuda()
+        for b in Q_TIMED_BATCHES}
+    for (_, _, b), im in runs.items():        # warm every configuration
+        im.predict_async(inputs[b])
+    rates = {key: [] for key in runs}
+    for _ in range(Q_WINDOWS):
+        for key, im in runs.items():
+            x = inputs[key[2]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(Q_WINDOW_BATCHES):
+                im.predict_async(x)
+            torch.cuda.synchronize()
+            rates[key].append(Q_WINDOW_BATCHES * key[2] /
+                              (time.perf_counter() - t0))
+    out = []
+    for key, im in runs.items():
+        x = inputs[key[2]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        im.predict_async(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_forward(lambda: im.predict_async(x))
+        out.append(dict(model=key[0], dtype=key[1], batch=key[2],
+                        records_per_s=rates[key],
+                        records_per_s_median=float(np.median(rates[key])),
+                        peak_memory_bytes=peak, profile=prof))
+    return out
+
+
+def int8_phase(seed, device, smi):
+    """The int8 phase: bench_quant's models, VGG-16 (chained) and
+    ResNet-50 (no chains, served through the registry) at full width, in
+    float32 with TF32 off and in calibrated int8, weights from ``seed``;
+    then the timed runs. The launch counts are set to 0 as it starts and
+    read as it ends. Returns the report and K1-K5's launches."""
+    shutil.rmtree(Q_ROOT, ignore_errors=True)
+    os.makedirs(Q_ROOT)
+    t0 = time.perf_counter()
+    _kernels.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rs = np.random.default_rng(seed + 60)
+    bench = int8_bench_leg(seed + 61, rs)
+    vgg, vgg_models = int8_vgg_leg(seed + 62, rs)
+    resnet_report, resnet_models = int8_resnet_leg(seed + 63, rs, device)
+    peak = torch.cuda.max_memory_allocated()
+    timing = time_int8({"vgg-16": vgg_models, "resnet-50": resnet_models},
+                       rs)
+    launches = _kernels.LAUNCHES.snapshot()
+    if launches:
+        raise AssertionError(f"the int8 phase launched hand-written "
+                             f"kernels {launches}")
+    shutil.rmtree(Q_ROOT)
+    return dict(card=smi, compute="float32 (TF32 off) and int8",
+                bench_quant=bench, vgg16=vgg, resnet50=resnet_report,
+                timing=timing, peak_memory_bytes=peak,
+                k1_k5_launches=launches,
+                clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                                  "temperature.gpu"),
+                wall_s=time.perf_counter() - t0), launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3845,6 +4488,11 @@ def main(argv=None):
     collect()
     cs_launches = cluster_serving(args.seed, dev, smi)
 
+    # 13. int8 inference
+    collect()
+    int8_report, int8_launches = int8_phase(args.seed, dev, smi)
+    emit("int8", **int8_report)
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -3876,7 +4524,8 @@ def main(argv=None):
                      library_ms_bf16=bf[name]["library_ms"],
                      launches_grad_accum4=accum_launches[name],
                      launches_sequence=seq_launches.get(name, 0),
-                     launches_cluster_serving=cs_launches.get(name, 0))
+                     launches_cluster_serving=cs_launches.get(name, 0),
+                     launches_int8=int8_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

@@ -1095,3 +1095,134 @@ def test_cluster_serving_generate_on_the_card_launches_k1_a_prefill(cuda):
             logits, state = layer.decode_step(
                 state, torch.tensor([want[-1]], device=cuda))
         assert [int(t) for t in np.asarray(got[uri])] == want, uri
+
+
+# ---------------------------------------------------------------------------
+# int8 inference: torch._int_mm on the card against the CPU's plain version
+# ---------------------------------------------------------------------------
+
+def _int8_pair(rs_seed, kshape, act_scale, requant_scale=None):
+    from analytics_zoo_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(rs_seed)
+    w = torch.randn(kshape, generator=g) * 0.2
+    qt = quant.quantize_weight(w, "k").with_act_scale(act_scale)
+    if requant_scale is not None:
+        qt = qt.with_requant(quant.chain_requant(act_scale, qt.scale,
+                                                 requant_scale))
+    return qt
+
+
+@pytest.mark.parametrize("rows", [1, 5, 16, 17, 64])
+@pytest.mark.parametrize("k,n", [(147, 64), (512, 1000), (24, 12)])
+def test_int8_matmul_on_the_card_equals_the_cpu(cuda, rows, k, n):
+    """Rows below ``torch._int_mm``'s 17, an inner size of 147 (ResNet-50's
+    stem) and an output of 12 are padded to its rules: the int32
+    products, int8 requantized outputs and float outputs equal the CPU's
+    int32 matmul (float within 1e-6 relative)."""
+    from analytics_zoo_tpu_torch.ops import quant
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine.base import \
+        NamedActivation
+
+    g = torch.Generator().manual_seed(rows + k)
+    x = torch.randn(rows, k, generator=g)
+    a = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8)
+    qt = _int8_pair(k, (k, n), 0.02, 0.5)
+    want = quant.int_product(a, qt)
+    got = quant.int_product(a.to(cuda), qt.to(cuda))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    bias = torch.randn(n, generator=g)
+    relu = NamedActivation("relu")
+    for w in (qt, qt.with_requant(None)):
+        want = quant.matmul(x, w, bias, relu)
+        got = quant.matmul(x.to(cuda), w.to(cuda), bias.to(cuda), relu)
+        if want.dtype == torch.int8:
+            assert torch.equal(got.cpu(), want)
+        else:
+            _close(got.cpu(), want, (1e-6, 1e-6))
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 3, 32, 32), (7, 7, 3, 64), (2, 2), "SAME"),     # k = 147
+    ((4, 64, 14, 14), (3, 3, 64, 128), (1, 1), "SAME"),
+    ((1, 16, 9, 9), (1, 1, 16, 24), (2, 2), "VALID"),
+])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_int8_conv2d_on_the_card_equals_the_cpu(cuda, case, layout):
+    from analytics_zoo_tpu_torch.ops import quant
+
+    xshape, kshape, strides, padding = case
+    g = torch.Generator().manual_seed(sum(xshape))
+    x = torch.randn(xshape, generator=g)
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    dn = (layout, "HWIO", layout)
+    qt = _int8_pair(7, kshape, float(x.abs().max()) / 127, 0.3)
+    xq = quant._quantize_act(x, qt.act_scale)
+    want = quant._conv_int8(xq, qt, strides, padding, None, dn)
+    got = quant._conv_int8(xq.to(cuda), qt.to(cuda), strides, padding,
+                           None, dn)
+    assert torch.equal(got.cpu(), want)
+    bias = torch.randn(kshape[-1], generator=g)
+    for w in (qt, qt.with_requant(None)):
+        want = quant.conv2d(x, w, strides, padding, None, dn, bias)
+        got = quant.conv2d(x.to(cuda), w.to(cuda), strides, padding, None,
+                           dn, bias.to(cuda))
+        if want.dtype == torch.int8:
+            assert torch.equal(got.cpu(), want)
+        else:
+            _close(got.cpu(), want, (1e-6, 1e-6))
+
+
+@pytest.mark.parametrize("border_mode", ["valid", "same"])
+def test_int8_max_pooling_on_the_card_equals_the_cpu(cuda, border_mode):
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import \
+        MaxPooling2D
+
+    x = torch.randint(-128, 128, (2, 8, 9, 9), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(1))
+    layer = MaxPooling2D((3, 3), strides=(2, 2), border_mode=border_mode)
+    want = layer(x)
+    got = layer(x.to(cuda))
+    assert got.dtype == torch.int8 and torch.equal(got.cpu(), want)
+
+
+def test_chained_cnn_predict_on_the_card_equals_the_cpu(cuda):
+    """A calibrated, fully chained CNN: the card's int8 predict equals
+    the CPU's run with the same scales, one division and one int32
+    product per kernel."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import \
+        Sequential
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.utils.op_census import OpCensus
+
+    def build():
+        m = Sequential(seed=3)
+        m.add(L.Convolution2D(16, 3, 3, activation="relu",
+                              border_mode="same", input_shape=(3, 32, 32),
+                              name="c1"))
+        m.add(L.MaxPooling2D((2, 2), name="mp"))
+        m.add(L.Convolution2D(16, 3, 3, activation="relu", name="c2"))
+        m.add(L.Flatten(name="fl"))
+        m.add(L.Dense(32, activation="relu", name="d1"))
+        m.add(L.Dense(10, activation="softmax", name="out"))
+        return m
+
+    g = torch.Generator().manual_seed(4)
+    calib = [torch.randn(8, 3, 32, 32, generator=g).numpy()
+             for _ in range(3)]
+    x = torch.randn(4, 3, 32, 32, generator=g).numpy()
+    cpu = InferenceModel().load_keras_net(build(), device="cpu",
+                                          calibration=calib)
+    card = InferenceModel().load_keras_net(
+        build(), device=cuda, scales=cpu.model.export_calibration())
+    assert card.model.chains == cpu.model.chains == [
+        ("c1", "c2"), ("c2", "d1"), ("d1", "out")]
+    with OpCensus() as census:
+        got = card.predict(x)
+    s = census.int8_summary()
+    assert (s["int32_products"], s["float_products"], s["divisions"]) == \
+        (4, 0, 1), s
+    _close(torch.from_numpy(got), torch.from_numpy(cpu.predict(x)),
+           (1e-6, 1e-6))

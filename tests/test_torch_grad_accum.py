@@ -31,6 +31,7 @@ from analytics_zoo_tpu.pipeline.api.keras.models import \
     Sequential as JSequential
 from analytics_zoo_tpu_torch.common import nncontext as tnn
 from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+from analytics_zoo_tpu_torch.pipeline.api.keras.engine import base
 from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
 from analytics_zoo_tpu_torch.pipeline.engine import GradientClipping
 from analytics_zoo_tpu_torch.utils import load_jax_params
@@ -74,17 +75,35 @@ def _fit_weights(n_epochs=3, **cfg):
     x, y = _data(256, seed=1)
     model = _model(seed=7)
     model.fit(x, y, batch_size=64, nb_epoch=n_epochs)
-    return [np.asarray(w) for w in model.get_weights()], model
+    return model
 
 
-def test_grad_accum_matches_full_batch():
+def _weights_in_graph_order(model):
+    """The model's weights layer by layer in graph order: ``get_weights``
+    sorts by layer name as a string, so two models whose auto-names
+    straddle a power of ten (``dense_9``, ``dense_10``) list theirs in
+    different orders."""
+    return [np.asarray(p.detach()) for layer in
+            model.graph_function().layers
+            for _, p in layer.named_parameters()]
+
+
+def test_grad_accum_matches_full_batch(monkeypatch):
     """grad_accum_steps=4 follows the full-batch trajectory: the same
-    weighted-mean gradient up to float32 summation order."""
-    w1, m1 = _fit_weights(grad_accum_steps=1)
-    w4, m4 = _fit_weights(grad_accum_steps=4)
-    assert m1.trainer.step == m4.trainer.step == 12
-    for a, b in zip(w1, w4):
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+    weighted-mean gradient up to float32 summation order. The layers are
+    auto-named; the comparison pairs them by position, so it holds
+    whatever number of Dense layers the process built before (after 8,
+    the first model's two are ``dense_9`` and ``dense_10``, which
+    ``get_weights`` lists in reverse)."""
+    for built_before in (8, 9, 10):
+        monkeypatch.setitem(base._name_counters, "dense", built_before)
+        m1 = _fit_weights(grad_accum_steps=1)
+        m4 = _fit_weights(grad_accum_steps=4)
+        assert m1.trainer.step == m4.trainer.step == 12
+        w1, w4 = _weights_in_graph_order(m1), _weights_in_graph_order(m4)
+        assert [w.shape for w in w1] == [w.shape for w in w4]
+        for a, b in zip(w1, w4):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
 
 
 def test_grad_accum_composes_with_freeze_and_clipping():

@@ -241,9 +241,19 @@ def test_conv_gradients_match_jax(case):
 
 
 def test_quantized_kernels_wait_for_quantized_model():
-    with pytest.raises(NotImplementedError, match="QuantizedModel"):
-        tquant.conv2d(torch.zeros(1, 1, 3, 3), object(), (1, 1), "SAME",
-                      None, ("NCHW", "HWIO", "NCHW"))
+    """The convolution op takes a quantized kernel since QuantizedModel
+    arrived (ROADMAP A10): a weight-only one convolves with its
+    dequantized kernel (``tests/test_torch_quant.py`` holds every tier
+    against JAX)."""
+    rs = np.random.default_rng(3)
+    x = torch.from_numpy(rs.standard_normal((1, 2, 5, 5)).astype(np.float32))
+    w = rs.standard_normal((3, 3, 2, 4)).astype(np.float32)
+    qt = tquant.quantize_weight(w, name="['c']['kernel']")
+    dn = ("NCHW", "HWIO", "NCHW")
+    got = tquant.conv2d(x, qt, (1, 1), "SAME", None, dn)
+    want = tquant.conv2d(x, qt.dequantize(), (1, 1), "SAME", None, dn)
+    assert torch.equal(got, want)
+    assert qt.q.dtype == torch.int8 and tuple(qt.scale.shape) == (1, 1, 1, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ from analytics_zoo_tpu.pipeline.api.keras import layers as jl
 from analytics_zoo_tpu.pipeline.api.keras import models as jm
 from analytics_zoo_tpu_torch import serving as ts
 from analytics_zoo_tpu_torch.common import nncontext as tnn
+from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+from analytics_zoo_tpu_torch.pipeline.api.keras import models as tmodels
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel as TIM
 from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
     AbstractModel
@@ -254,9 +256,104 @@ def test_control_server_deploys_and_reports(saved, tmp_path):
 
 
 def test_int8_deploys_wait_for_the_quantised_backend(saved):
+    """The quantised backend has arrived (ROADMAP A10): an int8 deploy
+    loads through ``load_quantized`` and carries ``dtype="int8"``, a
+    weight-only one here (no calibration.json in the directory)."""
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
+        QuantizedModel
+
     registry = ts.ModelRegistry()
-    with pytest.raises(NotImplementedError, match="A10"):
-        registry.deploy("cnn", path=saved[0], quantize=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TIM().load_quantized(saved[0])
-    assert registry.stats()["models"] == {}
+    mv = registry.deploy("cnn", path=saved[0], quantize=True)
+    assert mv.dtype == "int8"
+    assert isinstance(mv.model.model, QuantizedModel)
+    assert not mv.model.model.calibrated
+    assert isinstance(TIM().load_quantized(saved[0]).model, QuantizedModel)
+    assert registry.stats()["models"]["cnn"]["versions"][1]["dtype"] == \
+        "int8"
+
+
+# -- int8 versions (tests/test_quant_chains.py's serving tests, ported) ------
+
+def _tiny_image_model(pkg):
+    L, M = (jl, jm) if pkg == "jax" else (tl, tmodels)
+    m = M.Sequential()
+    m.add(L.Flatten(input_shape=(3, 8, 8)))
+    m.add(L.Dense(5, activation="softmax", name="head"))
+    m.compile("sgd", "sparse_categorical_crossentropy")
+    return m
+
+
+def test_serving_int8_version_routing(tmp_path):
+    """An int8 deploy rides its own (model, version, dtype) dispatch key
+    next to the f32 baseline, serves each record as its version's direct
+    predict does, and the dtype and calibration survive manifest
+    recovery (the int8 version reloads through ``load_quantized``); the
+    JAX package's calibration.json and the int8 rows agree with JAX's."""
+    from analytics_zoo_tpu.pipeline.inference import InferenceModel as JIM
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
+        QuantizedModel
+
+    jmodel = _tiny_image_model("jax")
+    model_dir = tmp_path / "m"
+    jmodel.save_model(str(model_dir))
+    rng = np.random.default_rng(3)
+    calib = [rng.standard_normal((4, 3, 8, 8)).astype(np.float32)
+             for _ in range(3)]
+    jinf = JIM().load_keras_net(jmodel, calibration=calib)
+    jinf.save_calibration(str(model_dir / TIM.CALIBRATION_FILE))
+
+    root = str(tmp_path / "reg")
+    registry = ts.ModelRegistry(root=root)
+    backend = ts.InProcessStreamQueue()
+    serving = ts.RoutedClusterServing(registry, helper=ts.ClusterServingHelper(
+        config={"data": {"image_shape": "3, 8, 8"},
+                "params": {"batch_size": 4, "top_n": 0}}), backend=backend)
+    mv1 = serving.deploy("m", path=str(model_dir))
+    mv2 = serving.deploy("m", path=str(model_dir), quantize=True)
+    assert (mv1.dtype, mv2.dtype) == ("f32", "int8")
+    assert isinstance(mv2.model.model, QuantizedModel)
+    assert mv2.model.model.calibrated        # calibration.json picked up
+
+    serving.start()
+    x = rng.standard_normal((3, 8, 8)).astype(np.float32)
+    in_q = ts.InputQueue(backend=backend)
+    out_q = ts.OutputQueue(backend=backend)
+    uris = []
+    try:
+        for i in range(6):       # explicit pins: both dtypes get traffic
+            for v in (1, 2):
+                uri = f"q-{v}-{i}"
+                uris.append(uri)
+                in_q.enqueue(uri, model="m", version=str(v), input=x)
+        got = out_q.wait_all(uris, timeout=30.0)
+    finally:
+        serving.stop()
+    assert len(got) == len(uris)
+    direct = {v: mv.model.predict(x[None])[0] for v, mv in
+              ((1, mv1), (2, mv2))}
+    want_int8 = np.asarray(jinf.predict(x[None]))[0]
+    np.testing.assert_allclose(direct[2], want_int8, rtol=0, atol=1e-6)
+    for uri in uris:
+        np.testing.assert_allclose(np.asarray(got[uri]),
+                                   direct[int(uri.split("-")[1])],
+                                   rtol=0, atol=PROB_TOL)
+    keys = list(serving.bucket_counts)
+    assert any(k.startswith("m:v1:") and k.endswith(":f32") for k in keys)
+    assert any(k.startswith("m:v2:") and k.endswith(":int8") for k in keys)
+
+    reg2 = ts.ModelRegistry(root=root).recover(load=True)
+    r1, r2 = reg2._models["m"][1], reg2._models["m"][2]
+    assert (r1.dtype, r2.dtype) == ("f32", "int8")
+    assert isinstance(r2.model.model, QuantizedModel)
+    assert r2.model.model.chains == mv2.model.model.chains
+    np.testing.assert_array_equal(r2.model.predict(x[None])[0], direct[2])
+
+
+def test_registry_stats_report_dtype():
+    m = _tiny_image_model("torch")
+    reg = ts.ModelRegistry()
+    inf = TIM().load_keras_net(m, quantize=True)
+    mv = reg.deploy("q", model=inf)
+    assert mv.dtype == "int8"                # inferred from the model
+    stats = reg.stats()["models"]["q"]["versions"][1]
+    assert stats["dtype"] == "int8"

@@ -419,13 +419,24 @@ def test_knrm_matches_jax(target_mode, loss, tmp_path):
 
 
 def test_ranking_a_text_set_names_its_roadmap_item():
+    """``Ranker`` takes a TextSet since ROADMAP A11.1 landed: each
+    feature's sample is one query group, as a list of groups gives it
+    (``tests/test_torch_text.py`` holds the TextSet route against JAX)."""
+    from analytics_zoo_tpu_torch.feature.feature_set import Sample
+    from analytics_zoo_tpu_torch.feature.text import TextFeature, TextSet
+
     tm = KNRM(L1, L2, KVOCAB, embed_size=KEMBED, kernel_num=3)
-
-    class TextSet:
-        features = []
-
-    with pytest.raises(NotImplementedError, match="A11"):
-        tm.evaluate_map(TextSet())
+    x, y = _knrm_pairs(3, 6)
+    groups = [(x[i:i + 4], y[i:i + 4]) for i in range(0, 12, 4)]
+    features = []
+    for feats, labels in groups:
+        tf = TextFeature(uri=str(len(features)))
+        tf[TextFeature.sample] = Sample(feats, labels)
+        features.append(tf)
+    text_set = TextSet.array(features)
+    assert tm.evaluate_map(text_set) == tm.evaluate_map(groups)
+    assert tm.evaluate_ndcg(text_set, 3) == tm.evaluate_ndcg(groups, 3)
+    assert tm.evaluate_map(TextSet.array([])) == 0.0
     with pytest.raises(ValueError, match="target_mode"):
         KNRM(L1, L2, KVOCAB, target_mode="regression")
 
