@@ -1,8 +1,8 @@
 """Serving clients: InputQueue / OutputQueue.
 
-Counterpart of ``analytics_zoo_tpu/serving/client.py``, copied; the
-routed-generate placement (``route_workdir``) waits for the port of the
-fleet router (ROADMAP A14) and raises.
+Counterpart of ``analytics_zoo_tpu/serving/client.py``, copied; routed
+generate placement (``route_workdir``) goes through the port's fleet
+router (``routing.py``).
 
 Parity: ``pyzoo/zoo/serving/client.py`` — ``InputQueue.enqueue_image``
 (:83, base64-encoded jpg into the stream), ``OutputQueue.dequeue``/``query``
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import time
 from typing import Dict, Iterable, Optional
 
@@ -146,18 +147,29 @@ class InputQueue(API):
                  address: Optional[str] = None,
                  route_workdir: Optional[str] = None):
         """``route_workdir`` opts generate enqueues into length- and
-        cache-aware fleet placement in the JAX package
-        (``serving/routing.py``); the port has no fleet router yet
-        (ROADMAP A14), so it raises."""
-        if route_workdir is not None:
-            raise NotImplementedError(
-                "routed generate placement (route_workdir) needs the fleet "
-                "router, which is not ported yet (ROADMAP A14)")
+        cache-aware fleet placement: point it at the ServingFleet
+        workdir (where workers write heartbeats) and a file-rooted
+        transport, and each generate record lands on the cheapest
+        worker's substream instead of the shared any-claim stream —
+        degrading back to any-claim whenever reports are stale
+        (docs/serving-generate.md#fleet-routing)."""
         super().__init__(backend=backend, address=address)
+        self._routed = None
+        if route_workdir is not None:
+            from .routing import RoutedGenerateQueue, file_root
+
+            src = address or os.environ.get("ZOO_SERVING_TRANSPORT")
+            if file_root(src) is None and hasattr(self.db, "stream_dir"):
+                # backend injected directly or built from a bare path:
+                # recover the file root from its stream directory
+                src = "file:" + os.path.dirname(self.db.stream_dir)
+            if file_root(src) is not None:
+                self._routed = RoutedGenerateQueue(
+                    route_workdir, src=src, base=self.db)
 
     @property
     def routing_stats(self) -> Optional[dict]:
-        return None
+        return self._routed.stats() if self._routed is not None else None
 
     def _route_fields(self, rec: dict, model: Optional[str],
                       version: Optional[int],
@@ -243,8 +255,14 @@ class InputQueue(API):
         if temperature is not None:
             gen["temperature"] = float(temperature)
         rec = {"uri": uri, "generate": gen}
-        return self._traced_enqueue(
-            self._route_fields(rec, model, version, deadline_ms))
+        rec = self._route_fields(rec, model, version, deadline_ms)
+        if self._routed is not None:
+            with telemetry.span("client/enqueue",
+                                trace_id=rec["trace_id"], uri=uri):
+                telemetry.flow("serving/request", rec["trace_id"], "s")
+                rid, _decision = self._routed.enqueue_routed(rec)
+            return rid
+        return self._traced_enqueue(rec)
 
     @staticmethod
     def base64_encode_image(data: bytes) -> str:

@@ -79,7 +79,7 @@ import numpy as np
 from ..pipeline.inference import InferenceModel
 from ..pipeline.inference.inference_model import AbstractModel, HostCopy
 from ..pipeline.inference.inference_summary import InferenceSummary
-from ..utils import telemetry
+from ..utils import telemetry, yaml_subset
 from ..utils.slo import SloEngine, parse_slo_class_config, parse_slo_config
 from ..utils.telemetry import span
 from .admission import (AdaptiveBatcher, AdmissionController, SHED_CAPACITY,
@@ -200,10 +200,10 @@ class ClusterServingHelper:
     def __init__(self, config_path: Optional[str] = None,
                  config: Optional[dict] = None):
         if config is None:
-            import yaml
-
+            # the port's reader of the config's YAML subset (PyYAML's
+            # safe_load results, without PyYAML)
             with open(config_path) as f:
-                config = yaml.safe_load(f) or {}
+                config = yaml_subset.safe_load(f) or {}
         model = config.get("model") or {}
         data = config.get("data") or {}
         params = config.get("params") or {}

@@ -15,10 +15,11 @@ transport-agnostic:
 - :class:`FileStreamQueue` — directory-backed, multi-process on one host
   (each record one msgpack file, atomic rename), no external service;
 - :class:`RedisStreamQueue` — the reference transport, used when the
-  ``redis`` client package is importable and a server address is given.
-
-The network transports (``socket://``, ``shard://``) are not ported yet
-(ROADMAP A14): :func:`get_queue_backend` raises for them.
+  ``redis`` client package is importable and a server address is given;
+- :class:`~analytics_zoo_tpu_torch.serving.socket_queue.SocketStreamQueue`
+  — the stdlib network transport (``socket://host:port``): a TCP broker
+  with server-side claims, redelivery, and result long-poll; and its
+  sharded fabric (``shard://``, ``serving/shard_fabric.py``).
 
 All implement XADD-like ``enqueue``, XREAD-like ``read_batch``, a
 results hash (``put_result``/``get_result``), and the memory-watermark trim
@@ -452,9 +453,10 @@ class RedisStreamQueue(StreamQueue):  # pragma: no cover - needs a server
 def get_queue_backend(spec: Optional[str] = None) -> StreamQueue:
     """``None``/'inproc' -> InProcessStreamQueue (also registered as the
     process-wide default so clients and server share it); 'file:<dir>' ->
-    FileStreamQueue; 'host:port' -> RedisStreamQueue. 'socket://...' and
-    'shard://...' (the network broker and its sharded fabric) are not
-    ported yet and raise."""
+    FileStreamQueue; 'socket://host:port' -> SocketStreamQueue (network
+    broker, serving/socket_queue.py); 'shard://host:p1,host:p2,...' ->
+    ShardedStreamQueue (HRW-sharded broker fabric, serving/
+    shard_fabric.py); 'host:port' -> RedisStreamQueue."""
     global _DEFAULT_INPROC
     if spec is None or spec == "inproc":
         if _DEFAULT_INPROC is None:
@@ -462,10 +464,15 @@ def get_queue_backend(spec: Optional[str] = None) -> StreamQueue:
         return _DEFAULT_INPROC
     if spec.startswith("file:"):
         return FileStreamQueue(spec[len("file:"):])
-    if spec.startswith(("socket://", "shard://")):
-        raise NotImplementedError(
-            f"transport {spec!r}: the socket broker and the shard fabric "
-            f"are not ported yet (ROADMAP A14); use 'inproc' or 'file:'")
+    if spec.startswith("socket://"):
+        from .socket_queue import SocketStreamQueue, parse_socket_spec
+
+        host, port = parse_socket_spec(spec)
+        return SocketStreamQueue(host, port)
+    if spec.startswith("shard://"):
+        from .shard_fabric import ShardedStreamQueue, parse_shard_spec
+
+        return ShardedStreamQueue(parse_shard_spec(spec))
     host, _, port = spec.partition(":")
     return RedisStreamQueue(host, int(port or 6379))
 

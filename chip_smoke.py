@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
-Serving and int8 inference paths once on one NVIDIA GPU.
+Serving, int8 inference and serving-fleet paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -207,6 +207,34 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               parameter bytes and the phase's peak memory. K1-K5 are
               launched 0 times in the phase. Its files, under
               ``build/chip_smoke_int8``, are deleted at the end.
+14. fleet  -- the rest of Cluster Serving through the port's CLI
+              (``python -m analytics_zoo_tpu_torch.serving.cli``), the
+              cluster_serving phase's deployment (bench.py's ResNet-50,
+              weights from ``--seed``, saved with ``save_model``; batch
+              16, buckets 1-16, top 5, float32, TF32 off in every process:
+              ``NVIDIA_TF32_OVERRIDE=0`` in the workers' environment),
+              tensor records of (3, 224, 224) float32 from client
+              processes. Leg A: ``init`` (a second refuses), ``status`` 3,
+              ``start --device cuda`` (a second refuses), 128 records each
+              answered once, the top-5 rows within 1e-5 of the card's
+              direct predict and 16 within 1e-4 of the CPU's, ``status``
+              0, ``restart``, 16 more, ``stop``, ``shutdown``, no pidfile.
+              Leg B: ``broker`` and ``fleet --workers 2 --transport
+              socket://...`` as processes (min = max = 2 workers); a clean
+              window of 128 records; 256 records with worker 1 SIGKILLed
+              once 32 are answered (its heartbeat on disk): the broker
+              redelivers, every record is enqueued, delivered and acked
+              once, the supervisor restarts the worker and ``status``
+              shows it; every worker pid among ``nvidia-smi``'s compute
+              apps; then the same fleet with the echo stub (0 ms a batch)
+              for the socket transport's ceiling. Leg C: 2 broker
+              processes, a fleet of 2 over their ``shard://`` spec, 128
+              records spread over both, a status row for each shard.
+              Reported: records/s of each leg, the ceiling, each worker's
+              seconds from spawn to first heartbeat, the phase's wall.
+              K1-K5 are launched 0 times in this process over the phase
+              (``launches_fleet``). Its files, under
+              ``build/chip_smoke_fleet``, are deleted at the end.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -218,14 +246,19 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import gc
+import io
 import json
 import logging
 import math
 import multiprocessing
 import os
+import queue
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -275,7 +308,11 @@ from analytics_zoo_tpu_torch.serving import (ClusterServing,
                                              InProcessStreamQueue,
                                              InputQueue, ModelRegistry,
                                              OutputQueue,
-                                             RoutedClusterServing)
+                                             RoutedClusterServing,
+                                             SocketStreamQueue)
+from analytics_zoo_tpu_torch.serving import cli as zoo_cli
+from analytics_zoo_tpu_torch.serving.fleet import read_health
+from analytics_zoo_tpu_torch.serving.shard_fabric import wait_broker_up
 from analytics_zoo_tpu_torch.serving.generation import (
     ContinuousBatchScheduler, GenRequest, PrefixCache,
     SpeculativeDecodeEngine, TransformerDecodeEngine)
@@ -4344,6 +4381,677 @@ def int8_phase(seed, device, smi):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 14. the fleet: the zoo-serving CLI, the socket broker and shard fabric
+# ---------------------------------------------------------------------------
+
+# Cluster Serving's deployment of the cluster_serving phase (bench.py's
+# ResNet-50, batch 16, buckets 1-16, top 5, float32 with TF32 off) served
+# from worker processes through the port's CLI: Leg A, the daemon on the
+# file transport (start, restart, stop); Leg B, a fleet of 2 over one
+# socket broker (a clean window, then a SIGKILL of worker 1 and its
+# redelivery; then the same fleet with the echo stub for the transport's
+# ceiling); Leg C, a fleet of 2 over 2 broker processes (shard://).
+FL_REPO = os.path.dirname(os.path.abspath(__file__))
+FL_ROOT = os.path.join(FL_REPO, "build", "chip_smoke_fleet")
+FL_A_RECORDS, FL_A_AFTER_RESTART = 128, 16
+FL_B_CLEAN, FL_B_RECORDS, FL_B_KILL_AFTER = 256, 256, 32
+FL_CEILING_RECORDS = 512
+FL_C_RECORDS = 128
+FL_WORKERS = 2
+# client processes of the timed socket windows (one client alone writes
+# 602 KB records slower than two workers serve them); Leg A's file
+# transport and the kill run have one
+FL_CLIENTS = 4
+# one wait for a process to come up, or for a client's results
+FL_TIMEOUT_S = 240.0
+# the echo stub's row is the mean of the record's floats, the same numpy
+# float32 reduction in the worker and here
+FL_ECHO_TOL = 1e-6
+FL_CONFIG = """\
+model:
+{model}
+data:
+  src: {src}
+  image_shape: 3, 224, 224
+params:
+  batch_size: 16
+  top_n: {top_n}
+  warmup: {warmup}
+  workers: {workers}
+  min_workers: {workers}
+  max_workers: {workers}
+  health_interval: 0.25
+  health_timeout: 30
+"""
+
+
+def fl_config(workdir, src, model_dir=None):
+    """Write ``workdir``'s config.yaml: the saved ResNet-50, or (no
+    ``model_dir``) the echo stub at 0 ms a batch with raw output."""
+    os.makedirs(workdir, exist_ok=True)
+    model = (f"  path: {model_dir}" if model_dir else
+             "  stub_ms_per_batch: 0")
+    with open(os.path.join(workdir, "config.yaml"), "w") as f:
+        f.write(FL_CONFIG.format(model=model, src=src,
+                                 top_n=5 if model_dir else 0,
+                                 warmup="true" if model_dir else "false",
+                                 workers=FL_WORKERS))
+
+
+def fl_env():
+    """The environment of every process the phase starts: the checkout on
+    PYTHONPATH, no ZOO_ override, and TF32 off in cuBLAS and cuDNN (as
+    this process has it through torch.backends)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ZOO_")}
+    env["PYTHONPATH"] = FL_REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["NVIDIA_TF32_OVERRIDE"] = "0"
+    return env
+
+
+def fl_tail(path, n=3000):
+    try:
+        with open(path, errors="replace") as f:
+            return f"\n--- {path} ---\n" + f.read()[-n:]
+    except OSError:
+        return f"\n--- {path}: none ---"
+
+
+def fl_cli(workdir, *args, timeout=180):
+    """One CLI call in a process of its own (``start`` and ``restart``
+    fork a daemon, which must not inherit this process's CUDA context)."""
+    return subprocess.run(
+        [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.cli", *args,
+         "--dir", workdir], capture_output=True, text=True, timeout=timeout,
+        env=fl_env(), cwd=FL_REPO)
+
+
+def fl_main(workdir, *args):
+    """One CLI call in this process, for the verbs that touch no device:
+    (rc, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = zoo_cli.main([*args, "--dir", workdir])
+    return rc, buf.getvalue()
+
+
+def fl_expect(what, rc, want, out):
+    if rc != want:
+        raise AssertionError(f"fleet: {what} returned {rc}, expected "
+                             f"{want}:\n{out}")
+
+
+def fl_spawn(procs, workdir, log, *args):
+    """A long-running CLI verb (broker, fleet) with its output in ``log``."""
+    with open(log, "ab") as f:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.cli",
+             *args, "--dir", workdir], stdout=f, stderr=subprocess.STDOUT,
+            env=fl_env(), cwd=FL_REPO)
+    procs.append(p)
+    return p
+
+
+def fl_stop(p, timeout=60.0):
+    """SIGTERM (a fleet drains and stops its workers), then SIGKILL."""
+    if p.poll() is None:
+        p.terminate()
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def fl_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def fl_free_ports(n):
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def fl_images(seed, n):
+    rng = np.random.default_rng(seed + 14)
+    return rng.standard_normal((n,) + RESNET_SHAPE).astype(np.float32)
+
+
+def fl_client(spec, seed, first, n, prefix, go, results):
+    """A client process: ``n`` tensor records (images ``first`` on) into
+    the transport ``spec`` as fast as it can once ``go`` is set, then
+    every result; puts {"ready"} when prepared, then {"rows": {uri:
+    (value, type)}, "t0", "t_written", "t_done"} (or {"error"})."""
+    from analytics_zoo_tpu_torch.serving.client import (InputQueue,
+                                                        OutputQueue)
+    from analytics_zoo_tpu_torch.serving.queue_backend import \
+        get_queue_backend
+    try:
+        x = fl_images(seed, first + n)[first:]
+        q = get_queue_backend(spec)
+        iq, oq = InputQueue(backend=q), OutputQueue(backend=q)
+        uris = [f"{prefix}-{first + i}" for i in range(n)]
+        results.put({"ready": True})
+        if not go.wait(FL_TIMEOUT_S):
+            raise RuntimeError("never told to start")
+        t0 = time.time()
+        for uri, row in zip(uris, x):
+            iq.enqueue(uri, t=row)
+        t_written = time.time()
+        got = oq.wait_all(uris, timeout=FL_TIMEOUT_S, poll=0.005,
+                          max_poll=0.05)
+        t_done = time.time()
+        results.put({"rows": {u: (np.asarray(r), type(r).__name__)
+                              for u, r in got.items()},
+                     "t0": t0, "t_written": t_written, "t_done": t_done})
+    except Exception:  # noqa: BLE001 - reported to the parent
+        import traceback
+        results.put({"error": traceback.format_exc()})
+
+
+def fl_run_client(spec, seed, first, n, prefix, clients=1,
+                  while_waiting=None):
+    """Images ``first`` to ``first + n`` from ``clients`` spawned client
+    processes (contiguous shares), started together once all are
+    prepared; ``while_waiting()`` is polled until every reply is in.
+    Returns {"rows", "uris", "write_s", "wall_s", "clients"} from the
+    first enqueue; raises on a client error or a missing uri. Clients of
+    a ``file:`` transport pop each other's results: give it one."""
+    ctx = multiprocessing.get_context("spawn")
+    results, go = ctx.Queue(), ctx.Event()
+    cut = np.linspace(first, first + n, clients + 1).astype(int)
+    procs = [ctx.Process(target=fl_client,
+                         args=(spec, seed, int(a), int(b - a), prefix, go,
+                               results))
+             for a, b in zip(cut[:-1], cut[1:])]
+    for proc in procs:
+        proc.start()
+    replies, ready = [], 0
+    try:
+        deadline = time.time() + 2 * FL_TIMEOUT_S
+        while len(replies) < clients:
+            try:
+                msg = results.get(timeout=0.01)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if time.time() > deadline or dead:
+                    raise AssertionError(f"fleet client {prefix}: "
+                                         f"{len(replies)} of {clients} "
+                                         f"replies (exits {dead})")
+                if go.is_set() and while_waiting is not None:
+                    while_waiting()
+                continue
+            if "error" in msg:
+                raise AssertionError(f"fleet client {prefix}: "
+                                     f"{msg['error']}")
+            if msg.get("ready"):
+                ready += 1
+                if ready == clients:
+                    go.set()
+            else:
+                replies.append(msg)
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=30)
+    rows = {u: v for r in replies for u, v in r["rows"].items()}
+    want = [f"{prefix}-{first + i}" for i in range(n)]
+    if sorted(rows) != sorted(want):
+        missing = sorted(set(want) - set(rows))
+        raise AssertionError(f"fleet client {prefix}: {len(rows)} of {n} "
+                             f"results, missing {missing[:5]}")
+    t0 = min(r["t0"] for r in replies)
+    return dict(rows=rows, uris=want, clients=clients,
+                write_s=max(r["t_written"] for r in replies) - t0,
+                wall_s=max(r["t_done"] for r in replies) - t0)
+
+
+def fl_check_rows(name, reply, direct, first):
+    """Every row a top-5 ServingResult within CS_DIRECT_TOL of the card's
+    direct predict of its image."""
+    rows = reply["rows"]
+    if any(kind != "ServingResult" or v.shape != (5, 2)
+           for v, kind in rows.values()):
+        raise AssertionError(f"{name}: a result is not a top-5 row")
+    uris = reply["uris"]
+    return check_served_rows(name, {u: rows[u][0] for u in uris}, uris,
+                             direct[first:first + len(uris)], CS_DIRECT_TOL)
+
+
+def fl_spawned_at(pid):
+    """The epoch second at which process ``pid`` started (/proc)."""
+    with open(f"/proc/{pid}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        boot = time.time() - float(f.read().split()[0])
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def fl_wait_workers(workdir, fleet, log, not_pids=()):
+    """Block until every worker has a heartbeat from a pid not in
+    ``not_pids``; {wid: (pid, seconds from spawn to first heartbeat)}."""
+    deadline = time.time() + FL_TIMEOUT_S
+    while time.time() < deadline:
+        if fleet.poll() is not None:
+            raise AssertionError(f"fleet: the fleet exited rc "
+                                 f"{fleet.returncode}" + fl_tail(log))
+        hs = [read_health(workdir, w) for w in range(FL_WORKERS)]
+        if all(h and h.get("pid") and h["pid"] not in not_pids
+               for h in hs):
+            return {w: (h["pid"], h["started_at"] -
+                        fl_spawned_at(h["pid"])) for w, h in enumerate(hs)}
+        time.sleep(0.05)
+    raise AssertionError("fleet: workers not up" + fl_tail(log))
+
+
+def fl_compute_apps():
+    """nvidia-smi's compute apps: [(pid, used_memory)], one a CUDA
+    context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout
+    return [(int(pid), mem.strip()) for pid, mem in
+            (line.split(",", 1) for line in out.strip().splitlines())]
+
+
+def fl_on_card(what, baseline, pids):
+    """Each process of ``pids`` holds a context on the card: nvidia-smi
+    lists one compute app more for each than ``baseline`` (its list
+    before they started). A sandbox's nvidia-smi may not see the pids of
+    its processes (it lists them as 1), so the count is held, and any
+    listed pid that is not one of this sandbox's must be a worker's.
+    Returns the list."""
+    ours = set(pids) | {os.getpid()} | {p for p, _ in baseline}
+    deadline = time.time() + 30.0
+    while True:
+        apps = fl_compute_apps()
+        if len(apps) == len(baseline) + len(pids):
+            break
+        if time.time() > deadline:
+            raise AssertionError(f"fleet: {what}: {len(apps)} compute "
+                                 f"apps on the card, expected "
+                                 f"{len(baseline)} + {len(pids)}: {apps}")
+        time.sleep(0.2)
+    stray = [p for p, _ in apps if p not in ours and p != 1]
+    if stray:
+        raise AssertionError(f"fleet: {what}: compute apps {stray} are not "
+                             f"the workers {sorted(pids)}: {apps}")
+    return dict(pids=sorted(pids), apps=[[p, m] for p, m in apps],
+                baseline=[[p, m] for p, m in baseline])
+
+
+def fl_broker_stats(port):
+    q = SocketStreamQueue("127.0.0.1", port, connect_timeout=5.0)
+    try:
+        return q.stats()
+    finally:
+        q.close()
+
+
+def fl_exactly_once(name, before, after, n, ports):
+    """Broker counters over a run of ``n`` records (summed over ``ports``):
+    each enqueued, delivered and acked once (a redelivery adds one
+    delivery), and nothing left queued, claimed or pending."""
+    d = {k: sum(after[p][k] - before[p][k] for p in ports)
+         for k in ("enqueued", "delivered", "redelivered", "acked")}
+    left = {k: sum(after[p][k] for p in ports)
+            for k in ("stream_len", "claims_outstanding",
+                      "results_pending")}
+    if d["enqueued"] != n or d["acked"] != n or \
+            d["delivered"] != n + d["redelivered"] or any(left.values()):
+        raise AssertionError(f"{name}: broker counters {d}, left {left}, "
+                             f"for {n} records")
+    return dict(d, **left)
+
+
+def fl_leg_a(seed, model_dir, direct, cpu_probs, daemons):
+    """Leg A: init, status, start, a client's records, status, restart,
+    more records, stop and shutdown, on the file transport."""
+    wd = os.path.join(FL_ROOT, "serving")
+    spec = "file:" + os.path.join(FL_ROOT, "stream_a")
+    rc, out = fl_main(wd, "init")
+    fl_expect("init", rc, 0, out)
+    rc, out = fl_main(wd, "init")
+    fl_expect("a second init", rc, 1, out)
+    fl_config(wd, spec, model_dir)
+    rc, out = fl_main(wd, "status")
+    fl_expect("status while stopped", rc, 3, out)
+    log = os.path.join(wd, zoo_cli.LOGFILE)
+    pidfile = os.path.join(wd, zoo_cli.PIDFILE)
+    warm_line = f"warmup: {len(CS_BUCKETS)}/{len(CS_BUCKETS)} buckets"
+
+    def start(verb):
+        t0 = time.time()
+        daemons.append(wd)
+        res = fl_cli(wd, verb, "--device", "cuda")
+        fl_expect(verb, res.returncode, 0, res.stdout + res.stderr)
+        want = 1 if verb == "start" else 2
+        while time.time() - t0 < FL_TIMEOUT_S:
+            try:
+                with open(log) as f:
+                    text = f.read()
+            except OSError:
+                text = ""
+            if text.count(warm_line) >= want:
+                return time.time() - t0, zoo_cli._read_pid(pidfile)
+            if "Traceback" in text:
+                break
+            time.sleep(0.1)
+        raise AssertionError(f"fleet: the daemon did not warm up after "
+                             f"{verb}" + fl_tail(log))
+
+    baseline = fl_compute_apps()
+    start_s, pid = start("start")
+    res = fl_cli(wd, "start", "--device", "cuda")
+    fl_expect("a second start", res.returncode, 1, res.stdout + res.stderr)
+    apps = fl_on_card("the daemon", baseline, [pid])
+    reply = fl_run_client(spec, seed, 0, FL_A_RECORDS, "a")
+    rows = fl_check_rows("fleet leg A against the direct predict", reply,
+                         direct, 0)
+    cpu = check_served_rows(
+        "fleet leg A against the CPU",
+        {u: reply["rows"][u][0] for u in reply["uris"]},
+        reply["uris"][:CS_CPU_ROWS], cpu_probs, CS_CPU_TOL)
+    stats, deadline = {}, time.time() + 30
+    while time.time() < deadline and \
+            stats.get("results_out") != FL_A_RECORDS:
+        try:
+            with open(os.path.join(wd, zoo_cli.STATSFILE)) as f:
+                stats = json.load(f)
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.2)
+    if stats.get("records_in") != FL_A_RECORDS or \
+            stats.get("results_out") != FL_A_RECORDS or \
+            stats.get("dropped") or stats.get("dead_letters") or \
+            stats.get("shed") or stats["queue"]["duplicates"]:
+        raise AssertionError(f"fleet leg A: the daemon's stats {stats}")
+    rc, status = fl_main(wd, "status")
+    fl_expect("status while serving", rc, 0, status)
+    if f"running (pid {pid})" not in status or \
+            f"records_in={FL_A_RECORDS}" not in status:
+        raise AssertionError(f"fleet leg A: status printed\n{status}")
+    restart_s, pid2 = start("restart")
+    if pid2 in (None, pid):
+        raise AssertionError(f"fleet leg A: restart left pid {pid2}")
+    reply2 = fl_run_client(spec, seed, FL_A_RECORDS, FL_A_AFTER_RESTART,
+                           "a")
+    rows2 = fl_check_rows("fleet leg A after the restart", reply2, direct,
+                          FL_A_RECORDS)
+    for verb in ("stop", "shutdown"):
+        rc, out = fl_main(wd, verb)
+        fl_expect(verb, rc, 0, out)
+    rc, out = fl_main(wd, "status")
+    fl_expect("status after shutdown", rc, 3, out)
+    if os.path.exists(pidfile) or os.path.exists(log):
+        raise AssertionError("fleet leg A: the pidfile or log is left")
+    daemons.clear()
+    return dict(transport=spec, records=FL_A_RECORDS,
+                after_restart=FL_A_AFTER_RESTART,
+                start_to_warm_s=start_s, restart_to_warm_s=restart_s,
+                daemon_pids=[pid, pid2], compute_apps=apps,
+                records_per_s=FL_A_RECORDS / reply["wall_s"],
+                client_write_s=reply["write_s"],
+                client_wall_s=reply["wall_s"], direct=rows, cpu=cpu,
+                after_restart_rows=rows2,
+                daemon_stats=dict(records_in=stats["records_in"],
+                                  results_out=stats["results_out"],
+                                  buckets=stats.get("buckets")),
+                status=status)
+
+
+def fl_leg_b(seed, model_dir, direct, port, procs, worker_pids):
+    """Leg B: a broker and a fleet of 2 through the CLI; a clean window;
+    a run with worker 1 SIGKILLed; then the echo-stub fleet on the same
+    broker for the transport's ceiling."""
+    spec = f"socket://127.0.0.1:{port}"
+    wd = os.path.join(FL_ROOT, "fleet_b")
+    fl_config(wd, spec, model_dir)
+    broker = fl_spawn(procs, wd, os.path.join(FL_ROOT, "broker_b.log"),
+                      "broker", "--transport", spec)
+    wait_broker_up("127.0.0.1", port, timeout=60.0)
+    log = os.path.join(FL_ROOT, "fleet_b.log")
+    baseline = fl_compute_apps()
+    fleet = fl_spawn(procs, wd, log, "fleet", "--workers", str(FL_WORKERS),
+                     "--transport", spec, "--device", "cuda")
+    up = fl_wait_workers(wd, fleet, log)
+    worker_pids.update(pid for pid, _ in up.values())
+    apps = fl_on_card("the socket fleet", baseline,
+                      [pid for pid, _ in up.values()])
+    before = {port: fl_broker_stats(port)}
+    clean = fl_run_client(spec, seed, 0, FL_B_CLEAN, "b-clean",
+                          clients=FL_CLIENTS)
+    counts_clean = fl_exactly_once("fleet leg B's clean window", before,
+                                   {port: fl_broker_stats(port)},
+                                   FL_B_CLEAN, [port])
+    rows_clean = fl_check_rows("fleet leg B's clean window", clean, direct,
+                               0)
+
+    # the kill: worker 1 exists (its heartbeat is on disk) and the band
+    # (min = max = 2) cannot retire it; SIGKILL once 32 results are back
+    victim = read_health(wd, 1)
+    if not victim or not victim.get("pid"):
+        raise AssertionError("fleet leg B: no heartbeat for worker 1")
+    before = {port: fl_broker_stats(port)}
+    kill = {}
+
+    def maybe_kill():
+        if kill:
+            return
+        st = fl_broker_stats(port)
+        acked = st["acked"] - before[port]["acked"]
+        if acked >= FL_B_KILL_AFTER:
+            os.kill(int(victim["pid"]), signal.SIGKILL)
+            kill.update(t=time.time(), acked=acked,
+                        claims_outstanding=st["claims_outstanding"])
+
+    reply = fl_run_client(spec, seed, 0, FL_B_RECORDS, "b",
+                          while_waiting=maybe_kill)
+    if not kill:
+        raise AssertionError("fleet leg B: the run ended before the kill")
+    time.sleep(1.0)             # a late duplicate would land now
+    after = {port: fl_broker_stats(port)}
+    counts = fl_exactly_once("fleet leg B with the SIGKILL", before, after,
+                             FL_B_RECORDS, [port])
+    if counts["redelivered"] <= 0:
+        raise AssertionError(f"fleet leg B: nothing redelivered after the "
+                             f"kill {kill}: {counts}")
+    rows = fl_check_rows("fleet leg B with the SIGKILL", reply, direct, 0)
+    restarted = fl_wait_workers(wd, fleet, log, not_pids={victim["pid"]})
+    if restarted[0][0] != up[0][0]:
+        raise AssertionError(f"fleet leg B: worker 0 changed {restarted}")
+    new_pid, restart_s = restarted[1]
+    worker_pids.add(new_pid)
+    rc, status = fl_main(wd, "status")
+    fl_expect("the fleet's status", rc, 0, status)
+    if "worker 1:" not in status or "restarts=1" not in status or \
+            f"transport {spec}:" not in status or \
+            f"redelivered={after[port]['redelivered']}" not in status:
+        raise AssertionError(f"fleet leg B: status printed\n{status}")
+    apps_after = fl_on_card("the socket fleet after the restart", baseline,
+                            [up[0][0], new_pid])
+    fl_stop(fleet)
+    leg = dict(transport=spec, clean_records=FL_B_CLEAN,
+               records=FL_B_RECORDS, kill_after=FL_B_KILL_AFTER,
+               worker_start_s={w: s for w, (_, s) in up.items()},
+               restarted_worker_start_s=restart_s,
+               kill=kill,
+               victim_pid=victim["pid"], new_pid=new_pid,
+               compute_apps=apps, compute_apps_after_restart=apps_after,
+               clients=FL_CLIENTS,
+               clean_records_per_s=FL_B_CLEAN / clean["wall_s"],
+               clean_client_write_s=clean["write_s"],
+               clean_client_wall_s=clean["wall_s"],
+               kill_run_wall_s=reply["wall_s"], broker_clean=counts_clean,
+               broker=counts, direct_clean=rows_clean, direct=rows,
+               status=status)
+
+    # the socket transport's ceiling: the same fleet, broker and records
+    # with the echo stub (0 ms a batch, raw output)
+    wd_s = os.path.join(FL_ROOT, "fleet_stub")
+    fl_config(wd_s, spec)
+    log_s = os.path.join(FL_ROOT, "fleet_stub.log")
+    stub = fl_spawn(procs, wd_s, log_s, "fleet", "--workers",
+                    str(FL_WORKERS), "--transport", spec, "--device", "cuda")
+    up_s = fl_wait_workers(wd_s, stub, log_s)
+    worker_pids.update(pid for pid, _ in up_s.values())
+    before = {port: fl_broker_stats(port)}
+    ceiling = fl_run_client(spec, seed, 0, FL_CEILING_RECORDS, "s",
+                            clients=FL_CLIENTS)
+    counts_s = fl_exactly_once("the socket ceiling", before,
+                               {port: fl_broker_stats(port)},
+                               FL_CEILING_RECORDS, [port])
+    x = fl_images(seed, FL_CEILING_RECORDS)
+    means = x.reshape(len(x), -1).mean(axis=1)
+    worst = max(abs(float(ceiling["rows"][u][0].ravel()[0]) -
+                    float(means[i]))
+                for i, u in enumerate(ceiling["uris"]))
+    if worst > FL_ECHO_TOL:
+        raise AssertionError(f"the socket ceiling: echo rows {worst} off")
+    fl_stop(stub)
+    fl_stop(broker)
+    record_bytes = int(np.prod(RESNET_SHAPE)) * 4
+    ceiling_leg = dict(
+        transport=spec, model="echo stub, 0 ms a batch",
+        clients=FL_CLIENTS,
+        records=FL_CEILING_RECORDS, record_bytes=record_bytes,
+        records_per_s=FL_CEILING_RECORDS / ceiling["wall_s"],
+        mb_per_s=FL_CEILING_RECORDS * record_bytes / ceiling["wall_s"] / 1e6,
+        client_write_s=ceiling["write_s"], client_wall_s=ceiling["wall_s"],
+        worker_start_s={w: s for w, (_, s) in up_s.items()},
+        broker=counts_s, echo_max_abs_err=worst, echo_tol=FL_ECHO_TOL)
+    return leg, ceiling_leg
+
+
+def fl_leg_c(seed, model_dir, direct, ports, procs, worker_pids):
+    """Leg C: two broker processes, a fleet of 2 over their shard:// spec,
+    128 records, a status row for each shard."""
+    spec = "shard://" + ",".join(f"127.0.0.1:{p}" for p in ports)
+    wd = os.path.join(FL_ROOT, "fleet_c")
+    fl_config(wd, spec, model_dir)
+    brokers = [fl_spawn(procs, wd, os.path.join(FL_ROOT, f"broker_{p}.log"),
+                        "broker", "--transport", f"socket://127.0.0.1:{p}")
+               for p in ports]
+    for p in ports:
+        wait_broker_up("127.0.0.1", p, timeout=60.0)
+    log = os.path.join(FL_ROOT, "fleet_c.log")
+    baseline = fl_compute_apps()
+    fleet = fl_spawn(procs, wd, log, "fleet", "--workers", str(FL_WORKERS),
+                     "--transport", spec, "--device", "cuda")
+    up = fl_wait_workers(wd, fleet, log)
+    worker_pids.update(pid for pid, _ in up.values())
+    before = {p: fl_broker_stats(p) for p in ports}
+    reply = fl_run_client(spec, seed, 0, FL_C_RECORDS, "c",
+                          clients=FL_CLIENTS)
+    after = {p: fl_broker_stats(p) for p in ports}
+    counts = fl_exactly_once("fleet leg C", before, after, FL_C_RECORDS,
+                             ports)
+    per_shard = {p: after[p]["enqueued"] - before[p]["enqueued"]
+                 for p in ports}
+    if min(per_shard.values()) <= 0:
+        raise AssertionError(f"fleet leg C: a shard carried nothing "
+                             f"{per_shard}")
+    rows = fl_check_rows("fleet leg C", reply, direct, 0)
+    rc, status = fl_main(wd, "status")
+    fl_expect("the shard fleet's status", rc, 0, status)
+    shard_rows = [ln for ln in status.splitlines()
+                  if ln.strip().startswith("shard socket://127.0.0.1:")
+                  and "health=up" in ln]
+    if f"transport {spec}: healthy=2/2" not in status or \
+            len(shard_rows) != len(ports):
+        raise AssertionError(f"fleet leg C: status printed\n{status}")
+    apps = fl_on_card("the shard fleet", baseline,
+                      [pid for pid, _ in up.values()])
+    fl_stop(fleet)
+    for b in brokers:
+        fl_stop(b)
+    return dict(transport=spec, records=FL_C_RECORDS, clients=FL_CLIENTS,
+                records_per_shard=per_shard,
+                records_per_s=FL_C_RECORDS / reply["wall_s"],
+                worker_start_s={w: s for w, (_, s) in up.items()},
+                compute_apps=apps, broker=counts, direct=rows,
+                status=status)
+
+
+def fleet_phase(seed, device, smi):
+    """The fleet phase (14 in the module docstring). Returns its report and
+    K1-K5's launches in this process over the phase (none)."""
+    shutil.rmtree(FL_ROOT, ignore_errors=True)
+    os.makedirs(FL_ROOT)
+    _kernels.LAUNCHES.reset()
+    t_phase = time.perf_counter()
+    procs, worker_pids, daemons = [], set(), []
+    report = dict(card=smi, workers=FL_WORKERS,
+                  config=FL_CONFIG.format(model="  path: <resnet50>",
+                                          src="<per leg>", top_n=5,
+                                          warmup="true",
+                                          workers=FL_WORKERS))
+    try:
+        # the model, and its direct predict on the card and the CPU's
+        model_dir = os.path.join(FL_ROOT, "resnet50")
+        clf = build_resnet(seed)
+        clf.save_model(model_dir)
+        del clf
+        im = InferenceModel().load(model_dir)
+        if im.model.device != device:
+            raise AssertionError(f"InferenceModel.load put it on "
+                                 f"{im.model.device}")
+        x = fl_images(seed, FL_B_RECORDS)
+        direct = cs_direct_predict(im, x)
+        cpu_model = SPMDTrainer(resnet_twin(im.model.model),
+                                get_loss("sparse_categorical_crossentropy"),
+                                get_optimizer("sgd"), device="cpu")
+        cpu_probs = cpu_model.predict(x[:CS_CPU_ROWS], CS_CPU_ROWS)
+        del cpu_model, im
+        collect()
+
+        report["leg_a"] = fl_leg_a(seed, model_dir, direct, cpu_probs,
+                                   daemons)
+        emit("fleet", check="leg A: the CLI daemon on file:", ok=True,
+             **report["leg_a"])
+        port_b, *ports_c = fl_free_ports(3)
+        report["leg_b"], report["ceiling"] = fl_leg_b(
+            seed, model_dir, direct, port_b, procs, worker_pids)
+        emit("fleet", check="leg B: a fleet of 2 over socket://", ok=True,
+             **report["leg_b"])
+        emit("fleet", check="the socket transport's ceiling", ok=True,
+             **report["ceiling"])
+        report["leg_c"] = fl_leg_c(seed, model_dir, direct, ports_c, procs,
+                                   worker_pids)
+        emit("fleet", check="leg C: a fleet of 2 over shard://", ok=True,
+             **report["leg_c"])
+        alive = sorted(p for p in worker_pids if fl_alive(p))
+        if alive:
+            raise AssertionError(f"fleet: workers {alive} outlived their "
+                                 f"fleets")
+    finally:
+        for p in procs:
+            fl_stop(p, timeout=30.0)
+        for wd in daemons:
+            fl_main(wd, "stop")
+        for pid in worker_pids:
+            if fl_alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        shutil.rmtree(FL_ROOT, ignore_errors=True)
+    report["launches"] = no_launches("the fleet phase")
+    report["wall_s"] = time.perf_counter() - t_phase
+    return report, report["launches"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4493,6 +5201,21 @@ def main(argv=None):
     int8_report, int8_launches = int8_phase(args.seed, dev, smi)
     emit("int8", **int8_report)
 
+    # 14. the fleet: the CLI, the socket broker and the shard fabric
+    collect()
+    fleet_report, fleet_launches = fleet_phase(args.seed, dev, smi)
+    emit("fleet", check="phase", ok=True, wall_s=fleet_report["wall_s"],
+         launches=fleet_launches, card=smi, timing=dict(
+             leg_a_records_per_s=fleet_report["leg_a"]["records_per_s"],
+             leg_b_clean_records_per_s=fleet_report["leg_b"][
+                 "clean_records_per_s"],
+             socket_ceiling_records_per_s=fleet_report["ceiling"][
+                 "records_per_s"],
+             leg_c_records_per_s=fleet_report["leg_c"]["records_per_s"],
+             worker_start_s=fleet_report["leg_b"]["worker_start_s"],
+             restarted_worker_start_s=fleet_report["leg_b"][
+                 "restarted_worker_start_s"]))
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -4525,7 +5248,8 @@ def main(argv=None):
                      launches_grad_accum4=accum_launches[name],
                      launches_sequence=seq_launches.get(name, 0),
                      launches_cluster_serving=cs_launches.get(name, 0),
-                     launches_int8=int8_launches.get(name, 0))
+                     launches_int8=int8_launches.get(name, 0),
+                     launches_fleet=fleet_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

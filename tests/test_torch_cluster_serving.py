@@ -226,14 +226,30 @@ def test_file_queue_ledger_counts_duplicates_and_gaps_as_jax(tmp_path):
 
 @pytest.mark.parametrize("spec", ["socket://127.0.0.1:1", "shard://a:1,b:2"])
 def test_network_transports_are_not_ported_yet(spec):
-    with pytest.raises(NotImplementedError, match="A14"):
-        ts.get_queue_backend(spec)
+    """The network transports are ported now (the name is kept from
+    when they raised): ``get_queue_backend`` gives the counterpart of
+    JAX's class for each spec, without connecting."""
+    q = {pkg: mod.get_queue_backend(spec) for pkg, mod in MOD.items()}
+    try:
+        assert type(q["torch"]).__name__ == type(q["jax"]).__name__
+        assert type(q["torch"]).__name__ in ("SocketStreamQueue",
+                                             "ShardedStreamQueue")
+    finally:
+        for v in q.values():
+            v.close()
 
 
 def test_routed_generate_placement_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="A14"):
-        ts.InputQueue(backend=ts.InProcessStreamQueue(),
-                      route_workdir=str(tmp_path))
+    """Routed placement is ported now (the name is kept from when it
+    raised): as in JAX, a queue that is not file-rooted leaves
+    placement off, and a file-rooted one turns it on."""
+    for pkg, mod in MOD.items():
+        iq = mod.InputQueue(backend=mod.InProcessStreamQueue(),
+                            route_workdir=str(tmp_path))
+        assert iq.routing_stats is None, pkg
+        fq = mod.FileStreamQueue(str(tmp_path / pkg / "stream"))
+        iq = mod.InputQueue(backend=fq, route_workdir=str(tmp_path / pkg))
+        assert iq.routing_stats["routed"] == 0, pkg
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ from analytics_zoo_tpu_torch.common import nncontext as tnn
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu", "yaml",
+             "msgpack")
 
 
 @pytest.fixture(autouse=True)
@@ -74,6 +75,13 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.serving, "
             "analytics_zoo_tpu_torch.serving.generation, "
             "analytics_zoo_tpu_torch.serving.admission, "
+            "analytics_zoo_tpu_torch.serving.cli, "
+            "analytics_zoo_tpu_torch.serving.fleet_worker, "
+            "analytics_zoo_tpu_torch.serving.routing, "
+            "analytics_zoo_tpu_torch.serving.shard_fabric, "
+            "analytics_zoo_tpu_torch.serving.socket_queue, "
+            "analytics_zoo_tpu_torch.launcher, "
+            "analytics_zoo_tpu_torch.utils.yaml_subset, "
             "analytics_zoo_tpu_torch.utils.telemetry, "
             "analytics_zoo_tpu_torch.utils.profiling, "
             "analytics_zoo_tpu_torch.utils.layer_parity, "
