@@ -6,7 +6,8 @@ builds a device mesh over every visible chip; this one holds one
 and raises when no CUDA device is present — it never falls back to the
 CPU; a caller that wants the CPU asks for it (``device="cpu"``). The
 mesh, multi-process initialisation and compile cache arrive with later
-slices.
+slices. A context whose config asks for telemetry arms the telemetry
+spine (``_maybe_enable_telemetry``).
 """
 
 from __future__ import annotations
@@ -67,6 +68,43 @@ class ZooConfig:
     # floating parameters and inputs inside the step; the parameters and
     # the optimizer state stay float32
     compute_dtype: str = "float32"
+    # profiling: when set, a torch.profiler trace of profile_num_steps
+    # steps after profile_start_step, written as Chrome-trace JSON there
+    # (utils/profiling.ProfilerHook)
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 10
+    profile_num_steps: int = 5
+    # the telemetry spine (utils/telemetry.py): span tracer, metrics
+    # registry, flight recorder. Off by default
+    telemetry: bool = False
+    # with telemetry on: trace-<pid>.json and a periodic metrics-<pid>.json
+    # land here; fault-path flight dumps and OOM forensics go to
+    # <trace_dir>/debug/
+    trace_dir: Optional[str] = None
+    # the training health monitor (pipeline/health.py): a NaN/Inf sentinel
+    # on the loss (and the grad norm when L2 clipping computes it) kept on
+    # the device and read at each logging window and before every
+    # checkpoint save, and EWMA z-score spike detection a window
+    health_monitor: bool = False
+    # escalate a latched non-finite to halt through the preemption drain
+    # (no final save: `latest` keeps the last good step)
+    health_halt: bool = False
+    # |z| above this many moving standard deviations flags a spike on
+    # loss / grad_norm / step_time_ms
+    health_z_threshold: float = 6.0
+    # logging windows observed before spike detection arms
+    health_warmup_windows: int = 5
+    # a grad-norm sentinel even without L2-norm clipping (one more
+    # global-norm reduction a step)
+    health_grad_sentinel: bool = False
+    # the device-memory accountant (utils/memory.py): the first step of
+    # each program measured (parameters, optimizer state, saved
+    # activations, transfers, the allocator's step peak on CUDA), and the
+    # card's allocator statistics polled each logging window
+    memory_accounting: bool = True
+    # share of the card's memory at which the allocated bytes latch one
+    # OOM-forensics dump; 0 disables it
+    hbm_watermark_fraction: float = 0.92
 
     @classmethod
     def from_env(cls, **overrides):
@@ -127,7 +165,22 @@ class ZooContext:
     def __init__(self, config: Optional[ZooConfig] = None, device=None):
         self.config = config or ZooConfig.from_env()
         self.device = _resolve_device(device)
+        _maybe_enable_telemetry(self.config)
         logger.info("ZooContext: device %s", self.device)
+
+
+def _maybe_enable_telemetry(cfg: ZooConfig):
+    """Arm the telemetry spine from ``ZooConfig.telemetry`` /
+    ``trace_dir`` (env: ``ZOO_TPU_TELEMETRY`` / ``ZOO_TPU_TRACE_DIR``).
+    Only ever turns telemetry ON: an environment-enabled run is not
+    switched off by the default config."""
+    from ..utils import telemetry
+
+    if not (cfg.telemetry or telemetry.enabled()):
+        return
+    rank = os.environ.get("ZOO_TPU_PROCESS_ID", "0")
+    telemetry.configure(enabled=True, trace_dir=cfg.trace_dir,
+                        service=f"train-worker-{rank}")
 
 
 def init_nncontext(conf=None, cluster_mode: str = "local", device=None,

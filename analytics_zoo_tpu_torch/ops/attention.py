@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import kernel_flops
 from . import _kernels
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -219,12 +220,15 @@ def flash_forward_blhd(q, k, v, kbias, causal=False, sm_scale=None
     _check_kernel_args(q, k, v, kbias, causal)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[3])
-    if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, kbias, causal, sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash forward runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch_forward(q, k, v, kbias, causal, sm_scale)
+    b, lq, h, d = q.shape
+    # model FLOPs of the two products (utils/profiling.kernel_flops)
+    with kernel_flops(4 * b * h * lq * k.shape[1] * d):
+        if q.device.type == "cpu":
+            return flash_forward_reference(q, k, v, kbias, causal, sm_scale)
+        return _launch_forward(q, k, v, kbias, causal, sm_scale)
 
 
 def _launch_forward(q, k, v, kbias, causal, sm_scale):
@@ -337,12 +341,23 @@ def flash_backward_blhd(q, k, v, kbias, o, lse, do, causal=False,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, kbias, o, lse, do, causal,
-                                        sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash backward runs on cuda or cpu, not "
                          f"{q.device}")
+    # model FLOPs of dq, dk, dv and dp; the recomputed logits not counted
+    with kernel_flops(8 * b * h * lq * lk * d):
+        if q.device.type == "cpu":
+            return flash_backward_reference(q, k, v, kbias, o, lse, do,
+                                            causal, sm_scale)
+        return _launch_backward(q, k, v, kbias, o, lse, do, causal,
+                                sm_scale)
+
+
+def _launch_backward(q, k, v, kbias, o, lse, do, causal, sm_scale):
+    """The backward kernels' launches: operands aligned, delta and the
+    outputs allocated, dq then dkv on the current stream."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
     lib = _kernels.library()
     q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
     delta = _delta(o, do).contiguous()

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import kernel_flops
 from . import _kernels
 from .layernorm import layer_norm
 
@@ -136,8 +137,18 @@ def dln_forward(x2, r2, bits2, gamma, beta, keep, eps=1e-5):
     _check_rows("resid", r2, n, d, x2.dtype, x2.device)
     if beta.shape != (d,):
         raise ValueError(f"beta must be ({d},)")
-    if x2.device.type == "cpu":
-        return dln_forward_reference(x2, r2, bits2, gamma, beta, keep, eps)
+    # no matmul: 0 model FLOPs (utils/profiling.kernel_flops)
+    with kernel_flops(0):
+        if x2.device.type == "cpu":
+            return dln_forward_reference(x2, r2, bits2, gamma, beta, keep,
+                                         eps)
+        return _launch_forward(x2, r2, bits2, gamma, beta, keep, eps)
+
+
+def _launch_forward(x2, r2, bits2, gamma, beta, keep, eps):
+    """The forward kernel's launch: rows made contiguous, outputs
+    allocated, one launch."""
+    n, d = x2.shape
     lib = _kernels.library()
     x2, r2, bits2 = x2.contiguous(), r2.contiguous(), bits2.contiguous()
     g = gamma.float().contiguous()
@@ -173,9 +184,11 @@ def dln_backward(dy2, z2, bits2, gamma, mean, inv, keep):
     _check_rows("z", z2, n, d, dy2.dtype, dy2.device)
     for name, t in (("mean", mean), ("inv", inv)):
         _check_rows(name, t, n, 1, torch.float32, dy2.device)
-    if dy2.device.type == "cpu":
-        return dln_backward_reference(dy2, z2, bits2, gamma, mean, inv, keep)
-    return _launch_backward(dy2, z2, bits2, gamma, mean, inv, keep)
+    with kernel_flops(0):
+        if dy2.device.type == "cpu":
+            return dln_backward_reference(dy2, z2, bits2, gamma, mean, inv,
+                                          keep)
+        return _launch_backward(dy2, z2, bits2, gamma, mean, inv, keep)
 
 
 def _launch_backward(dy2, z2, bits2, gamma, mean, inv, keep):

@@ -68,13 +68,32 @@ snapshot is owned host memory (pinned and reused between saves on the
 GPU) and is complete before ``save_checkpoint`` returns, so the next
 step's in-place update cannot reach an async write.
 
+Observability (JAX's ``_epoch_loop`` :1260-1470): with
+``ZooConfig.health_monitor`` each step folds ``~isfinite(loss)`` (and of
+the grad norm where clipping computed it, or ``health_grad_sentinel``
+asks) into a device scalar holding the first bad step's index; the host
+reads it at each logging window, at epoch end and before every
+checkpoint save (the step is host-bound, so a read a step would
+serialize it), and a latched non-finite with ``health_halt`` refuses the
+save and raises :class:`TrainingHalted`, leaving ``latest`` at the last
+good step. The ``step:nan@N`` / ``grad:nan@N`` faults poison the step's
+floating inputs or the first floating parameter. The first step of
+``train`` (and of ``evaluate`` / ``predict``) runs inside the FLOP
+counter (when a TrainSummary is attached) and the memory accountant
+(``ZooConfig.memory_accounting``); each window times ``next()`` on the
+host pipeline into an ``InfeedMonitor``, steps the profiler hook, polls
+the card's allocator and writes ``HealthState``, ``HBM*MB``,
+``InfeedWaitMs``, ``InputBoundFraction`` and ``MFU`` beside the loss.
+Nothing on the training path reads the device every step.
+
 Not ported: the sharded checkpoint format (``ZOO_TPU_SHARDED_CHECKPOINT``
-raises, ROADMAP A12), the fused k-step dispatch (A2/A15), the health
-monitor and the HBM, infeed and MFU scalars (A11/A13), ZeRO (A12).
+raises, ROADMAP A12), the fused k-step dispatch (A2/A15), the infeed
+worker scalars (A11.2), ZeRO (A12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -90,11 +109,13 @@ from ..common.nncontext import ZooContext, get_nncontext
 from ..common.zoo_trigger import EveryEpoch, MaxEpoch, TrainRecord, \
     ZooTrigger
 from ..feature.feature_set import ArrayFeatureSet, FeatureSet, MiniBatch
-from ..utils import faults, file_io, serialization, telemetry
+from ..utils import faults, file_io, memory, serialization, telemetry
 from ..utils.crc32c import crc32c
 from ..utils.jax_weights import (check_optimizer_leaves, load_jax_params,
                                  load_optimizer_leaves, optimizer_leaves,
                                  param_order)
+from ..utils.profiling import (FlopCounter, InfeedMonitor, ProfilerHook,
+                               device_kind, inference_window, peak_flops)
 from ..utils.telemetry import span
 from .api.keras.optimizers import global_norm
 
@@ -110,8 +131,12 @@ class TrainingPreempted(RuntimeError):
 
 
 class TrainingHalted(TrainingPreempted):
-    """The JAX trainer's health-monitor halt; the port has no health
-    monitor yet (ROADMAP A13), so nothing raises it."""
+    """Raised out of ``train()`` when the health monitor escalated a
+    latched non-finite to halt (``ZooConfig.health_halt``). Subclasses
+    :class:`TrainingPreempted` so the failure-retry policy never restores
+    and retries a diverged run; unlike a preemption no final checkpoint
+    is written: the live parameters are poisoned, so ``latest`` keeps the
+    last good step."""
 
 
 class ChecksumError(RuntimeError):
@@ -286,6 +311,24 @@ class SPMDTrainer:
         self._losses: List[Tuple[int, torch.Tensor]] = []
         self._ckpt_future = None
         self._snapshot_buffers: List[torch.Tensor] = []
+        #: FLOPs of one training step (utils/profiling.FlopCounter),
+        #: counted on the first step of a ``train`` with a TrainSummary;
+        #: the MFU scalar reads it
+        self.flops_per_step: Optional[float] = None
+        #: the train program's memory breakdown (utils/memory.py), measured
+        #: on its first step
+        self.hbm_breakdown: Optional[Dict[str, Any]] = None
+        self._mem_accounted: set = set()
+        #: throughput and infeed scalars of the last evaluate / predict
+        self.last_eval_stats: Optional[Dict[str, float]] = None
+        self.last_predict_stats: Optional[Dict[str, float]] = None
+        # the training health monitor (pipeline/health.py), built per
+        # train() when ZooConfig.health_monitor is on, and its sentinel:
+        # a device int64 holding the first non-finite step's count, -1
+        self._health = None
+        self._first_bad: Optional[torch.Tensor] = None
+        # the profiler hook of the running train() (ZooConfig.profile_dir)
+        self._profiler: Optional[ProfilerHook] = None
 
     def set_frozen(self, names):
         self.frozen_names = frozenset(names or ())
@@ -412,6 +455,8 @@ class SPMDTrainer:
                      not self._frozen(k) else torch.zeros_like(p)
                      for k, p in params.items()}
             grads, self._last_gnorm = self.clipping.apply_with_norm(grads)
+            if getattr(self.ctx.config, "health_monitor", False):
+                self._update_sentinel(loss, grads)
             updates, self.opt_state = self.tx.update(grads, self.opt_state,
                                                      params)
             # frozen layers do not move at all: stateful transforms (Adam
@@ -422,6 +467,157 @@ class SPMDTrainer:
                     p.add_(updates[k].to(p.dtype))
         self.step += 1
         return loss
+
+    def _update_sentinel(self, loss, grads):
+        """Fold this step's non-finite check into the device sentinel:
+        ``~isfinite(loss)``, OR'd with the grad norm's where clipping
+        computed it (``health_grad_sentinel`` computes it otherwise). The
+        sentinel keeps the first bad step's 1-based count; nothing is read
+        on the host here."""
+        gnorm = self._last_gnorm
+        if gnorm is None and bool(getattr(self.ctx.config,
+                                          "health_grad_sentinel", False)):
+            gnorm = global_norm(grads)
+        bad = ~torch.isfinite(loss)
+        if gnorm is not None:
+            bad = bad | ~torch.isfinite(gnorm)
+        if self._first_bad is None:
+            self._first_bad = torch.full((), -1, dtype=torch.int64,
+                                         device=self.device)
+        self._first_bad = torch.where(bad & (self._first_bad < 0),
+                                      self.step + 1, self._first_bad)
+
+    def _read_sentinel(self) -> None:
+        """The host read of the sentinel: a latched non-finite goes up the
+        health monitor's ladder (event, flight dump, and with
+        ``health_halt`` the drain) as the step it happened at."""
+        if self._health is None or self._first_bad is None:
+            return
+        with span("train/health_sync", step=self.step):
+            first = int(self._first_bad)
+        if first >= 0:
+            self._first_bad.fill_(-1)
+            self._health.on_nonfinite(first, signal="sentinel")
+
+    def _ckpt_allowed(self) -> bool:
+        """Checkpoint writes are refused once the health monitor latched a
+        non-finite halt (the sentinel is read first): the live parameters
+        are poisoned and must never shadow the last good ``latest``."""
+        self._read_sentinel()
+        return self._health is None or not self._health.halted
+
+    def _raise_if_halted(self) -> None:
+        """Raise :class:`TrainingHalted` once the health monitor latched a
+        halt. The live parameters are poisoned: no final checkpoint, and
+        ``latest`` keeps the last good step."""
+        if self._health is not None and self._health.halted:
+            raise TrainingHalted(
+                f"health monitor halted training at step "
+                f"{self._health.halt_step}"
+                + ("" if self.checkpoint_dir is None
+                   else f"; restore the last good step from "
+                        f"{self.checkpoint_dir}"))
+
+    def _maybe_poison(self, batch):
+        """Apply armed ``step:nan@N`` / ``grad:nan@N`` faults
+        (utils/faults.py) to the upcoming step, JAX's
+        ``_maybe_poison_chunk``: NaN-fill the step's floating inputs, or
+        the first floating parameter in the JAX params tree's order. Two
+        cheap spec lookups when nothing is armed."""
+        if faults.poison_step(self.step, 1) is not None:
+            xs, y, w = batch
+            batch = ([torch.full_like(x, float("nan"))
+                      if x.is_floating_point() else x for x in xs], y, w)
+        if faults.poison_grad(self.step, 1):
+            params = self.params()
+            for k in param_order(self.model):
+                if params[k].is_floating_point():
+                    with torch.no_grad():
+                        params[k].fill_(float("nan"))
+                    break
+        return batch
+
+    @staticmethod
+    def _batch_bytes(batch) -> int:
+        """Bytes of a device batch's tensors (what ``put_batch`` moved)."""
+        out, stack = 0, [batch]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, torch.Tensor):
+                out += x.numel() * x.element_size()
+            elif isinstance(x, (list, tuple)):
+                stack.extend(x)
+        return out
+
+    def _wants_accounting(self, program: str) -> bool:
+        """Measure ``program``'s first step when the accountant is on and
+        its numbers have a reader (a TrainSummary for the train breakdown,
+        or the telemetry spine's gauges)."""
+        if program in self._mem_accounted or \
+                not getattr(self.ctx.config, "memory_accounting", True):
+            return False
+        return telemetry.enabled() or \
+            (program == "train" and self.train_summary is not None)
+
+    def _observed(self, program: str, fn, batch):
+        """``fn(batch)``; on the program's first call, inside the FLOP
+        counter (train with a TrainSummary) and the memory accountant.
+        Observability never fails the step: its own errors are logged."""
+        count = program == "train" and self.flops_per_step is None and \
+            self.train_summary is not None
+        account = self._wants_accounting(program)
+        if not (count or account):
+            return fn(batch)
+        if account:
+            self._mem_accounted.add(program)
+        with contextlib.ExitStack() as stack:
+            counter = None
+            if count:
+                try:
+                    counter = stack.enter_context(FlopCounter())
+                except Exception:  # noqa: BLE001 - counting is optional
+                    logger.debug("FLOP counter unavailable", exc_info=True)
+                    self.flops_per_step = 0.0
+            acc = stack.enter_context(memory.StepAccountant(
+                self.device, exclude=list(self.model.parameters())
+                + list(self.model.buffers()))) if account else None
+            out = fn(batch)
+        if counter is not None:
+            self.flops_per_step = float(counter.total)
+        if acc is not None:
+            self._record_breakdown(program, batch, acc)
+        return out
+
+    def _record_breakdown(self, program, batch, acc):
+        try:
+            order = param_order(self.model)
+            train = program == "train"
+            groups = memory.opt_state_groups(self.opt_state, order) \
+                if train else {}
+            bd = memory.program_breakdown(
+                memory.params_bytes(self.params()),
+                sum(g["bytes"] for g in groups.values()),
+                # evaluate and predict run without autograd: nothing is
+                # saved, their activations are not measured
+                acc.saved_bytes if train else None,
+                # the batch moved to the device; train and eval read the
+                # loss back (4 bytes), predict its outputs
+                self._batch_bytes(batch) + (4 if program != "predict"
+                                            else 0),
+                acc.step_peak_bytes, acc.allocated_before)
+            memory.account_program(program, bd, groups, device=self.device)
+            if train:
+                self.hbm_breakdown = bd
+                logger.info(
+                    "train step memory: total %.1f MiB (params %.1f, opt "
+                    "%.1f, saved activations %.1f, transfers %.1f)",
+                    bd["total_bytes"] / 2**20, bd["params_bytes"] / 2**20,
+                    bd["opt_state_bytes"] / 2**20,
+                    bd["activations_temp_bytes"] / 2**20,
+                    bd["transfers_bytes"] / 2**20)
+        except Exception:  # noqa: BLE001 - observability must not kill run
+            logger.debug("memory accounting failed for %s", program,
+                         exc_info=True)
 
     # ------------------------------------------------------------------
     # train / evaluate
@@ -455,10 +651,21 @@ class SPMDTrainer:
         validation_trigger = validation_trigger or (
             EveryEpoch() if validation_set is not None else None)
         self._maybe_auto_resume()
+        cfg = self.ctx.config
+        if getattr(cfg, "health_monitor", False):
+            from .health import HealthMonitor
+            self._health = HealthMonitor(
+                z_threshold=getattr(cfg, "health_z_threshold", 6.0),
+                warmup_windows=getattr(cfg, "health_warmup_windows", 5),
+                halt=getattr(cfg, "health_halt", False))
+            self._first_bad = None
+        self._profiler = ProfilerHook(cfg.profile_dir, cfg.profile_start_step,
+                                      cfg.profile_num_steps) \
+            if getattr(cfg, "profile_dir", None) else None
         record = TrainRecord(epoch=self.epoch, iteration=self.step)
         self._losses = []
         retries = 0
-        max_retries = int(getattr(self.ctx.config, "failure_retry_times", 0))
+        max_retries = int(getattr(cfg, "failure_retry_times", 0))
         _ACTIVE_TRAINERS.add(self)
         try:
             while not end_trigger(record):
@@ -466,12 +673,22 @@ class SPMDTrainer:
                     self._run_epoch(train_set, batch_size, record,
                                     checkpoint_trigger, validation_set,
                                     validation_trigger, end_trigger)
-                except TrainingPreempted:
+                except TrainingPreempted as e:
+                    # a health halt leaves `latest` at the last good step
+                    # (the drain's save is refused); clear the drain flag
+                    # so a restore-and-resume in this process is not
+                    # preempted at once
+                    if isinstance(e, TrainingHalted):
+                        clear_preemption()
                     self.wait_for_checkpoint()
                     telemetry.dump_flight(
                         f"TrainingPreempted @step {self.step}")
                     raise
                 except (RuntimeError, faults.FaultInjected) as e:
+                    # an allocation failure gets a memory post-mortem
+                    # before the retry policy decides anything
+                    memory.maybe_oom_forensics(
+                        e, out_dir=getattr(cfg, "trace_dir", None))
                     retries += 1
                     # an in-flight async write may be the checkpoint to
                     # restore: land it first
@@ -494,6 +711,8 @@ class SPMDTrainer:
                     record.epoch, record.iteration = self.epoch, self.step
         finally:
             _ACTIVE_TRAINERS.discard(self)
+            if self._profiler is not None:
+                self._profiler.close()
             self.step_losses = torch.stack(
                 [l for _, l in self._losses]).tolist() if self._losses \
                 else []
@@ -537,9 +756,11 @@ class SPMDTrainer:
             for _ in range(self.epoch_batches):
                 if next(it, None) is None:
                     break
-        log_every = max(1, int(getattr(self.ctx.config, "log_every_n_steps",
-                                       50)))
+        cfg = self.ctx.config
+        log_every = max(1, int(getattr(cfg, "log_every_n_steps", 50)))
         self._last_log_step = min(self._last_log_step, self.step)
+        monitor = InfeedMonitor(scope="train")
+        steps_ctr = telemetry.counter("zoo_train_steps_total")
         window_t0 = time.perf_counter()
         window_steps = 0
         n_batches = 0
@@ -548,6 +769,8 @@ class SPMDTrainer:
         while True:
             if preemption_requested():
                 telemetry.event("train/preempted", step=self.step)
+                self._read_sentinel()
+                self._raise_if_halted()
                 if self.checkpoint_dir is not None:
                     self.save_checkpoint(self.checkpoint_dir)
                     self.wait_for_checkpoint()
@@ -555,27 +778,38 @@ class SPMDTrainer:
                     f"preemption notice honoured at step {self.step}"
                     + ("" if self.checkpoint_dir is None
                        else f": checkpoint saved to {self.checkpoint_dir}"))
+            fetch_t0 = time.perf_counter()
             batch = next(it, None)
+            monitor.input_wait(time.perf_counter() - fetch_t0)
             if batch is None:
                 break
             with span("train/step", step=self.step):
-                last_loss = self.train_step(self.put_batch(batch))
+                # chaos harness: armed step:nan@N / grad:nan@N faults
+                # poison this step's inputs or a parameter, driving a real
+                # non-finite through the step for the sentinel
+                dev = self._maybe_poison(self.put_batch(batch))
+                last_loss = self._observed("train", self.train_step, dev)
             self._losses.append((self.step, last_loss))
             self.epoch_batches += 1
             n_batches += 1
             window_steps += 1
+            steps_ctr.inc()
             record.iteration = self.step
             record.epoch_finished = False
             # chaos harness: an armed step:raise@N / step:kill@N fires here
             faults.check("step", step=self.step)
+            if self._profiler is not None:
+                self._profiler.step(self.step)
             if self.step - self._last_log_step >= log_every:
                 self._last_log_step = self.step
                 now = time.perf_counter()
                 self._log_window(record, last_loss, window_steps,
-                                 max(now - window_t0, 1e-9), batch_size)
+                                 max(now - window_t0, 1e-9), batch_size,
+                                 monitor)
                 window_t0 = now
                 window_steps = 0
-            if checkpoint_trigger is not None and checkpoint_trigger(record):
+            if checkpoint_trigger is not None and checkpoint_trigger(record) \
+                    and self._ckpt_allowed():
                 self.save_checkpoint(self.checkpoint_dir)
             if validation_trigger is not None and validation_trigger(record):
                 self._run_validation(validation_set, batch_size, record)
@@ -583,6 +817,10 @@ class SPMDTrainer:
                 break  # per-iteration end check (parity: endWhen)
         if last_loss is not None:
             record.loss = float(last_loss)
+        # a halt latched here, or at a read after the epoch's last window
+        # or save, has no next iteration to honour it: raise now
+        self._read_sentinel()
+        self._raise_if_halted()
         self.epoch += 1
         self.epoch_batches = 0
         record.epoch = self.epoch
@@ -593,29 +831,82 @@ class SPMDTrainer:
                     n_batches * batch_size / max(dur, 1e-9))
         if validation_trigger is not None and validation_trigger(record):
             self._run_validation(validation_set, batch_size, record)
-        if checkpoint_trigger is not None and checkpoint_trigger(record):
+        if checkpoint_trigger is not None and checkpoint_trigger(record) \
+                and self._ckpt_allowed():
             self.save_checkpoint(self.checkpoint_dir)
 
-    def _log_window(self, record, last_loss, steps, wall, batch_size):
-        """The one host read of a logging window: the last step's loss,
-        and the TrainSummary scalars (JAX's ``_epoch_loop`` :1384-1459)."""
+    def _log_window(self, record, last_loss, steps, wall, batch_size,
+                    monitor):
+        """The host reads of a logging window — the last step's loss and
+        the health sentinel — and the TrainSummary scalars (JAX's
+        ``_epoch_loop`` :1384-1459)."""
+        cfg = self.ctx.config
         with span("train/device_sync", step=self.step):
             loss_v = float(last_loss)
+        self._read_sentinel()
         record.loss = loss_v
         lr = float(self.lr_schedule(self.step))
+        with span("train/metric_fetch", step=self.step):
+            infeed = monitor.window(steps, wall)
         telemetry.gauge("zoo_train_loss").set(loss_v)
         telemetry.gauge("zoo_train_learning_rate").set(lr)
+        gnorm_v = float(self._last_gnorm) if self._last_gnorm is not None \
+            and getattr(cfg, "log_grad_norm", False) else None
+        if self._health is not None and (
+                not self._health.halted
+                or self.step <= self._health.halt_step):
+            # EWMA z-score spike detection on the window scalars (and a
+            # host-side non-finite backstop). A window past a halted
+            # run's bad step ran only because the sentinel is read late:
+            # it is not observed (JAX stops at the bad step)
+            self._health.observe_window(
+                self.step, loss=loss_v, grad_norm=gnorm_v,
+                step_time_ms=infeed["step_time_ms"])
+        if getattr(cfg, "memory_accounting", True):
+            # the card's allocator statistics (None on the CPU); latches
+            # an OOM-forensics dump past hbm_watermark_fraction
+            memory.poll_device_memory(
+                [self.device],
+                watermark_fraction=getattr(cfg, "hbm_watermark_fraction",
+                                           0.0),
+                out_dir=getattr(cfg, "trace_dir", None))
         summary = self.train_summary
         if summary is not None:
             summary.add_scalar("Loss", loss_v, self.step)
             summary.add_scalar("LearningRate", lr, self.step)
-            if self._last_gnorm is not None and \
-                    getattr(self.ctx.config, "log_grad_norm", False):
-                summary.add_scalar("GradNorm", float(self._last_gnorm),
+            if gnorm_v is not None:
+                summary.add_scalar("GradNorm", gnorm_v, self.step)
+            if self._health is not None:
+                summary.add_scalar("HealthState", float(self._health.state),
                                    self.step)
+            if self.hbm_breakdown is not None:
+                bd = self.hbm_breakdown
+                mib = 1.0 / 2**20
+                summary.add_scalar("HBMTotalMB", bd["total_bytes"] * mib,
+                                   self.step)
+                summary.add_scalar("HBMParamsMB", bd["params_bytes"] * mib,
+                                   self.step)
+                summary.add_scalar("HBMOptStateMB",
+                                   bd["opt_state_bytes"] * mib, self.step)
+                summary.add_scalar("HBMActivationsMB",
+                                   bd["activations_temp_bytes"] * mib,
+                                   self.step)
+                summary.add_scalar("HBMTransfersMB",
+                                   bd["transfers_bytes"] * mib, self.step)
             summary.add_scalar("Throughput", steps * batch_size / wall,
                                self.step)
-            summary.add_scalar("StepTimeMs", 1e3 * wall / steps, self.step)
+            summary.add_scalar("StepTimeMs", infeed["step_time_ms"],
+                               self.step)
+            summary.add_scalar("InfeedWaitMs",
+                               infeed["input_wait_ms_per_step"], self.step)
+            summary.add_scalar("InputBoundFraction",
+                               infeed["input_bound_fraction"], self.step)
+            if self.flops_per_step:
+                peak = peak_flops(device_kind(self.device))
+                if peak:
+                    summary.add_scalar(
+                        "MFU", self.flops_per_step * steps / wall / peak,
+                        self.step)
         logger.info("epoch %d step %d loss %.5f", record.epoch, self.step,
                     loss_v)
 
@@ -628,25 +919,69 @@ class SPMDTrainer:
         logger.info("validation @%d: %s", self.step, results)
         return results
 
+    @staticmethod
+    def _timed_batches(batches, monitor):
+        """``batches`` with each host fetch timed into ``monitor``."""
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            monitor.input_wait(time.perf_counter() - t0)
+            if batch is None:
+                return
+            yield batch
+
+    def _emit_inference_stats(self, kind, monitor, n_batches, n_samples,
+                              wall_s):
+        """The Eval* / Predict* scalars of one run (no fused dispatch in
+        the port: ``FusedDispatches`` is 0); Eval* also into the
+        ValidationSummary."""
+        stats = inference_window(monitor, n_batches, n_samples, wall_s, 0,
+                                 kind)
+        if kind == "Eval" and self.val_summary is not None:
+            for name, value in stats.items():
+                self.val_summary.add_scalar(name, value, self.step)
+        logger.info("%s: %.1f samples/s (%d batches, input-bound %.3f)",
+                    kind.lower(), stats[f"{kind}Throughput"], n_batches,
+                    stats[f"{kind}InputBoundFraction"])
+        return stats
+
     def evaluate(self, data: FeatureSet, batch_size: int) -> Dict[str, float]:
         """Metric means over ``data``: each batch's (num, den) partial sums
         accumulate on the device and are fetched once. The last batch is
-        padded with zero-weight rows, as in the JAX trainer."""
+        padded with zero-weight rows, as in the JAX trainer. The run's
+        Eval* scalars land in :attr:`last_eval_stats`."""
         self.ensure_initialized()
         acc: Dict[str, Any] = {}
+        monitor = InfeedMonitor(scope="eval")
+        n_batches = 0
+        remaining = data.size()
+        n_samples = 0
+        t0 = time.perf_counter()
+
+        def batch_stats(dev):
+            _, y, w = dev
+            stats = {}
+            if y is not None:
+                loss, preds = self._loss_and_preds(dev, None, False)
+                for m in self.metrics:
+                    stats[m.name] = m.batch_stats(preds, y, w)
+                wsum = w.sum()
+                stats["loss"] = (loss * wsum, wsum)
+            return stats
+
         with torch.no_grad():
-            for batch in data.batches(batch_size, shuffle=False,
-                                      drop_remainder=False,
-                                      pad_remainder=True):
-                dev = self.put_batch(batch)
-                _, y, w = dev
-                stats = {}
-                if y is not None:
-                    loss, preds = self._loss_and_preds(dev, None, False)
-                    for m in self.metrics:
-                        stats[m.name] = m.batch_stats(preds, y, w)
-                    wsum = w.sum()
-                    stats["loss"] = (loss * wsum, wsum)
+            for batch in self._timed_batches(
+                    data.batches(batch_size, shuffle=False,
+                                 drop_remainder=False, pad_remainder=True),
+                    monitor):
+                with span("eval/dispatch"):
+                    stats = self._observed("eval", batch_stats,
+                                           self.put_batch(batch))
+                real = min(batch_size, remaining)
+                remaining -= real
+                n_samples += real
+                n_batches += 1
                 for name, (num, den) in stats.items():
                     if name in acc:
                         acc[name] = (acc[name][0] + num, acc[name][1] + den)
@@ -655,8 +990,11 @@ class SPMDTrainer:
         if not acc:
             raise ValueError("evaluate() got an empty dataset or one "
                              "without labels")
-        host = {k: (n.cpu().numpy(), d.cpu().numpy())
-                for k, (n, d) in acc.items()}
+        with span("eval/device_sync"):
+            host = {k: (n.cpu().numpy(), d.cpu().numpy())
+                    for k, (n, d) in acc.items()}
+        self.last_eval_stats = self._emit_inference_stats(
+            "Eval", monitor, n_batches, n_samples, time.perf_counter() - t0)
         out = {m.name: m.finalize(*host[m.name]) for m in self.metrics}
         num, den = host["loss"]
         out["loss"] = float(num / max(den, 1e-12))
@@ -667,29 +1005,45 @@ class SPMDTrainer:
         or list of arrays) as float32 numpy, in batches of
         ``batch_size``: the last batch padded to full size and the padding
         cut off on the device, one host transfer at the end (the JAX
-        trainer's ``predict``). None for an empty dataset."""
+        trainer's ``predict``). None for an empty dataset. The run's
+        Predict* scalars land in :attr:`last_predict_stats`."""
         if not isinstance(data, FeatureSet):
             data = ArrayFeatureSet(data)
         self.model.to(self.device)
         remaining = data.size()
         chunks: List[Any] = []
+        monitor = InfeedMonitor(scope="predict")
+        n_samples = 0
+        t0 = time.perf_counter()
+
+        def forward(xs):
+            return self._forward(xs, None, False)
+
         with torch.inference_mode():
-            for xs, _, _ in data.batches(batch_size, shuffle=False,
-                                         drop_remainder=False,
-                                         pad_remainder=True):
+            for xs, _, _ in self._timed_batches(
+                    data.batches(batch_size, shuffle=False,
+                                 drop_remainder=False, pad_remainder=True),
+                    monitor):
                 real = min(batch_size, remaining)
                 remaining -= real
+                n_samples += real
                 xs = [as_device_tensor(x, self.device) for x in xs]
-                out = self._forward(xs, None, False)
+                with span("predict/dispatch"):
+                    out = self._observed("predict", forward, xs)
                 chunks.append([o[:real] for o in out]
                               if isinstance(out, (list, tuple))
                               else out[:real])
         if not chunks:
             return None
         if isinstance(chunks[0], list):
-            return [torch.cat([c[i] for c in chunks]).cpu().numpy()
-                    for i in range(len(chunks[0]))]
-        return torch.cat(chunks).cpu().numpy()
+            result = [torch.cat([c[i] for c in chunks]).cpu().numpy()
+                      for i in range(len(chunks[0]))]
+        else:
+            result = torch.cat(chunks).cpu().numpy()
+        self.last_predict_stats = self._emit_inference_stats(
+            "Predict", monitor, len(chunks), n_samples,
+            time.perf_counter() - t0)
+        return result
 
     # ------------------------------------------------------------------
     # checkpoint store (flat v2)

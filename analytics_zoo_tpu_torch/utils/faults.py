@@ -3,8 +3,9 @@
 Counterpart of ``analytics_zoo_tpu/utils/faults.py``, copied: the same
 ``ZOO_TPU_FAULT`` specs and ``ZOO_TPU_FAULT_STATE`` markers, so one
 environment arms both packages. The port's trainer reads the ``step``
-and ``ckpt-write`` sites and :mod:`file_io` the ``file-io`` one; the
-``nan`` poison sites wait for the health monitor (ROADMAP A13).
+and ``ckpt-write`` sites and the ``step:nan`` / ``grad:nan`` poison sites
+(``SPMDTrainer._maybe_poison``, caught by the health monitor's
+sentinel), and :mod:`file_io` the ``file-io`` one.
 
 Faults are armed from the environment so the *production* code path is
 exercised unmodified — the hooks below are permanent, tiny, and inert

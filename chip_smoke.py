@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
-Serving, int8 inference and serving-fleet paths once on one NVIDIA GPU.
+Serving, int8 inference, serving-fleet and training-observability paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -235,6 +236,44 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               K1-K5 are launched 0 times in this process over the phase
               (``launches_fleet``). Its files, under
               ``build/chip_smoke_fleet``, are deleted at the end.
+15. observe -- the training side of observability on the ``train_bf16``
+              classifier (bench.py's widths, bf16, int32 ids, dropout
+              0.1, Adam; weights from ``--seed``) in a context with the
+              health monitor, the memory accountant, telemetry into a
+              trace dir and the profiler hook over steps 5-6. A: ``fit``
+              for 16 steps at 32 x 512 with a TensorBoard window every 4:
+              every TrainSummary tag (Loss, LearningRate, Throughput,
+              StepTimeMs, HealthState, HBM{Total,Params,OptState,
+              Activations,Transfers}MB, InfeedWaitMs, InputBoundFraction,
+              MFU) at every window, HealthState 0; K1-K5 12/12/12/24/24 a
+              step (``launches_observe``); the parameters' float32 bytes
+              and Adam's leaves' bytes exact; saved activations <= the
+              allocator's step peak, and the step's total <= the
+              fit's ``max_memory_allocated`` (the script's own window:
+              the accountant never resets it) <= the reserved bytes; the
+              counted FLOPs a step within 1% of bench.py's formula; MFU
+              within 5% of that count over StepTimeMs over the card's
+              peak; the profiler's Chrome trace naming the flash kernels;
+              ``trace_merge`` (the trainer's trace with the profiler's)
+              holding the 16 ``train/step`` spans; ``train_cli summary``
+              and ``top`` (processes) printing the MFU, HBM and health
+              lines. C: a poll past ``hbm_watermark_fraction`` 0.01
+              writes one forensics dump with the card's statistics, and
+              allocating twice the card's memory one more through
+              ``maybe_oom_forensics``. D: the step p50 with the monitor
+              and accountant off and on in alternating windows, and a
+              new model's first step with the FLOP counter and the
+              accountant and without. B (on
+              new models): ``step:nan@6`` with ``health_halt`` and a
+              checkpoint every 4 steps raises ``TrainingHalted`` (halt
+              step 6, a flight dump, ``latest`` = ckpt-4 with finite
+              parameters), and the trainer restored there trains on with
+              finite, falling losses; ``grad:nan@3`` without halt latches
+              state 2 once and ``fit`` completes; ``step:nan@3`` in an
+              epoch of 3 steps with a checkpoint every 2, latched by the
+              epoch end's read, raises ``TrainingHalted`` with ``latest``
+              = ckpt-2, finite, and the drain flag cleared. Its files, under
+              ``build/chip_smoke_observe``, are deleted at the end.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -270,6 +309,7 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common import init_nncontext
+from analytics_zoo_tpu_torch.common import nncontext as zoo_nncontext
 from analytics_zoo_tpu_torch.common.zoo_trigger import (SeveralIteration,
                                                         ZooTrigger)
 from analytics_zoo_tpu_torch.feature.common import Relation
@@ -298,8 +338,10 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     Adagrad, Adam, get_optimizer)
 from analytics_zoo_tpu_torch.pipeline.engine import (SPMDTrainer,
+                                                     TrainingHalted,
                                                      TrainingPreempted,
                                                      clear_preemption,
+                                                     preemption_requested,
                                                      request_preemption)
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 from analytics_zoo_tpu_torch.serving import (ClusterServing,
@@ -316,8 +358,11 @@ from analytics_zoo_tpu_torch.serving.shard_fabric import wait_broker_up
 from analytics_zoo_tpu_torch.serving.generation import (
     ContinuousBatchScheduler, GenRequest, PrefixCache,
     SpeculativeDecodeEngine, TransformerDecodeEngine)
-from analytics_zoo_tpu_torch.utils import faults
+from analytics_zoo_tpu_torch.utils import (faults, memory, profiling,
+                                           serialization, telemetry)
 from analytics_zoo_tpu_torch.utils.crc32c import crc32c
+from analytics_zoo_tpu_torch.utils.jax_weights import (optimizer_leaves,
+                                                       param_order)
 from analytics_zoo_tpu_torch.utils.layer_parity import (LayerRecorder,
                                                         compare_layers)
 from analytics_zoo_tpu_torch.utils.op_census import OpCensus
@@ -5052,6 +5097,504 @@ def fleet_phase(seed, device, smi):
     return report, report["launches"]
 
 
+# ---------------------------------------------------------------------------
+# 15. observe: the health monitor, the memory accountant, MFU, the profiler
+# hook, train_cli and trace_merge on the bf16 classifier
+# ---------------------------------------------------------------------------
+
+# the monitored run: 16 steps at TRAIN_BATCH x 512 (one epoch of 16
+# distinct batches), a window every 4 steps, the profiler over steps 5-6
+OBS_STEPS, OBS_LOG_EVERY = 16, 4
+OBS_PROFILE_START, OBS_PROFILE_STEPS = 4, 2
+# the drill: 8 batches an epoch, a checkpoint every 4 steps, step:nan@6
+# with health_halt (halted at the window of step 8: latest stays ckpt-4),
+# then grad:nan@3 without halt
+OBS_DRILL_BATCHES, OBS_NAN_AT, OBS_GRAD_NAN_AT = 8, 6, 3
+# the card's memory share at which the watermark leg's poll latches a dump
+OBS_WATERMARK = 0.01
+# the timing leg: the monitor and accountant off and on in alternating
+# windows of one epoch of OBS_DRILL_BATCHES steps each
+OBS_TIMED_PAIRS = 3
+# the FLOP count against bench.py's formula, and MFU against that count
+# over the StepTimeMs scalar over the card's peak
+OBS_FLOPS_TOL, OBS_MFU_TOL = 0.01, 0.05
+OBS_TAGS = ("Loss", "LearningRate", "Throughput", "StepTimeMs",
+            "HealthState", "HBMTotalMB", "HBMParamsMB", "HBMOptStateMB",
+            "HBMActivationsMB", "HBMTransfersMB", "InfeedWaitMs",
+            "InputBoundFraction", "MFU")
+OBS_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_observe")
+
+
+def bert_flops_per_step(batch, seq, hidden, blocks, n_classes):
+    """bench.py's ``_bert_flops_per_step`` (bench.py:357-367), copied:
+    matmul FLOPs of one forward and backward step (backward twice the
+    forward)."""
+    tokens = batch * seq
+    dense = 2 * hidden * (3 * hidden + hidden + 8 * hidden)
+    attn_flops = 4 * seq * hidden
+    fwd = tokens * blocks * (dense + attn_flops)
+    fwd += batch * 2 * hidden * hidden
+    fwd += batch * 2 * hidden * n_classes
+    return 3 * fwd
+
+
+def obs_files(directory, prefix):
+    try:
+        return sorted(f for f in os.listdir(directory)
+                      if f.startswith(prefix))
+    except FileNotFoundError:
+        return []
+
+
+def obs_summary(model):
+    """{tag: [(step, value)]} of the model's TrainSummary."""
+    out = {}
+    for step, _, tag, value in model.get_train_summary():
+        out.setdefault(tag, []).append((int(step), float(value)))
+    return out
+
+
+def obs_monitored_run(seed, dirs, smi):
+    """Leg A: the monitored ``fit``; returns the model, its report and
+    the launches of the run."""
+    model = ckpt_model(seed)
+    model.set_tensorboard(dirs["logs"], "observe")
+    x, y, _ = train_data(seed, OBS_STEPS * TRAIN_BATCH, ids=np.int32)
+    torch.cuda.synchronize()
+    # the script's own window of the allocator's peak: the accountant
+    # reads that counter and never resets it
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    t0_us = time.time() * 1e6
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1_us = time.time() * 1e6
+    launches = _kernels.LAUNCHES.snapshot()
+    peak_alloc = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    trainer = model.trainer
+    n_block = BERT_CONFIG["n_block"]
+    per_step = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
+                attn.DKV_KERNEL_NAME: n_block,
+                dln.FWD_KERNEL_NAME: 2 * n_block,
+                dln.BWD_KERNEL_NAME: 2 * n_block}
+    want = {k: OBS_STEPS * v for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"observe: launches {launches}, expected {want}")
+    losses = list(trainer.step_losses)
+    if len(losses) != OBS_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"observe: losses {losses}")
+
+    # every scalar at every window, the health state 0 throughout
+    scalars = obs_summary(model)
+    steps = list(range(OBS_LOG_EVERY, OBS_STEPS + 1, OBS_LOG_EVERY))
+    for tag in OBS_TAGS:
+        got = [s for s, _ in scalars.get(tag, [])]
+        if got != steps:
+            raise AssertionError(f"observe: {tag} at steps {got}, "
+                                 f"expected {steps}")
+        if not all(np.isfinite(v) for _, v in scalars[tag]):
+            raise AssertionError(f"observe: {tag} {scalars[tag]}")
+    if any(v != 0.0 for _, v in scalars["HealthState"]):
+        raise AssertionError(f"observe: HealthState {scalars['HealthState']}")
+
+    # the memory breakdown: parameters and Adam's leaves exactly
+    bd = trainer.hbm_breakdown
+    if bd is None:
+        raise AssertionError("observe: no memory breakdown")
+    mib = 1.0 / 2 ** 20
+    param_bytes = sum(p.numel() * 4 for p in model.parameters())
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError("observe: a parameter is not float32")
+    leaves = optimizer_leaves(trainer.opt_state, param_order(model))
+    adam_bytes = sum(l.numel() * l.element_size() if torch.is_tensor(l)
+                     else np.asarray(l).nbytes for l in leaves)
+    if bd["params_bytes"] != param_bytes or \
+            any(v != np.float32(param_bytes * mib)
+                for _, v in scalars["HBMParamsMB"]):
+        raise AssertionError(f"observe: params {bd['params_bytes']} bytes "
+                             f"/ {scalars['HBMParamsMB']} MB against "
+                             f"{param_bytes}")
+    if bd["opt_state_bytes"] != adam_bytes or \
+            any(v != np.float32(adam_bytes * mib)
+                for _, v in scalars["HBMOptStateMB"]):
+        raise AssertionError(f"observe: optimizer state "
+                             f"{bd['opt_state_bytes']} bytes against "
+                             f"Adam's leaves' {adam_bytes}")
+    # saved activations (saved-tensor hooks) <= the first step's peak
+    # above what was allocated before it (the allocator); that step's
+    # whole peak <= the fit's, read by the script, <= the reserved
+    # segments (a second counter of the allocator's)
+    saved, step_peak = bd["activations_temp_bytes"], bd["step_peak_bytes"]
+    if step_peak is None or not 0 < saved <= step_peak or \
+            not bd["total_bytes"] <= peak_alloc <= reserved:
+        raise AssertionError(f"observe: saved activations {saved}, the "
+                             f"allocator's step peak {step_peak}, the "
+                             f"step's total {bd['total_bytes']}, the fit's "
+                             f"max allocated {peak_alloc}, reserved "
+                             f"{reserved}")
+
+    # FLOPs and MFU
+    want_flops = bert_flops_per_step(TRAIN_BATCH, BERT_CONFIG["seq_len"],
+                                     BERT_CONFIG["hidden_size"], n_block,
+                                     N_CLASSES)
+    flops = trainer.flops_per_step
+    if not flops or abs(flops - want_flops) > OBS_FLOPS_TOL * want_flops:
+        raise AssertionError(f"observe: {flops} FLOPs a step counted, "
+                             f"bench.py's formula {want_flops}")
+    peak = profiling.peak_flops(torch.cuda.get_device_name(0))
+    if not peak:
+        raise AssertionError("observe: no peak FLOP/s for "
+                             f"{torch.cuda.get_device_name(0)}")
+    step_ms = dict(scalars["StepTimeMs"])
+    mfu_err = 0.0
+    for s, v in scalars["MFU"]:
+        want_mfu = flops / (step_ms[s] * 1e-3) / peak
+        mfu_err = max(mfu_err, abs(v - want_mfu) / want_mfu)
+    if mfu_err > OBS_MFU_TOL:
+        raise AssertionError(f"observe: MFU {scalars['MFU']} against "
+                             f"{flops} FLOPs over {step_ms} ms")
+
+    # the profiler's trace names the flash kernels' symbols
+    traces = obs_files(dirs["profile"], "trace-torch-profiler-")
+    if len(traces) != 1:
+        raise AssertionError(f"observe: profiler traces {traces}")
+    with open(os.path.join(dirs["profile"], traces[0])) as f:
+        prof_text = f.read()
+    for sym in TENSOR_CORE_KERNELS:
+        if sym not in prof_text:
+            raise AssertionError(f"observe: {sym} not in the profiler trace")
+
+    # the trainer's trace merged with the profiler's: 16 train/step spans
+    telemetry.write_trace()
+    merged_path = os.path.join(dirs["trace"], "merged.json")
+    out = subprocess.run(
+        [sys.executable, "-m", "analytics_zoo_tpu_torch.utils.trace_merge",
+         "merge", "--dir", dirs["trace"], "--extra", dirs["profile"], "-o",
+         merged_path], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"observe: trace_merge exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    with open(merged_path) as f:
+        merged = json.load(f)["traceEvents"]
+    step_spans = [e for e in merged if e.get("name") == "train/step"
+                  and e.get("ph") == "B" and e.get("pid") == os.getpid()
+                  and t0_us <= e.get("ts", 0) <= t1_us]
+    kernel_events = sum(1 for e in merged
+                        if TENSOR_CORE_KERNELS[0] in str(e.get("name", "")))
+    if len(step_spans) != OBS_STEPS or not kernel_events:
+        raise AssertionError(f"observe: the merged trace holds "
+                             f"{len(step_spans)} train/step spans and "
+                             f"{kernel_events} {TENSOR_CORE_KERNELS[0]} "
+                             f"events")
+
+    # train_cli over the log and trace dirs
+    logdir = os.path.join(dirs["logs"], "observe")
+    cli = [sys.executable, "-m", "analytics_zoo_tpu_torch.pipeline.train_cli"]
+    out = subprocess.run(cli + ["summary", "--logdir", logdir, "--trace-dir",
+                                dirs["trace"]],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"observe: train_cli summary exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    cli_summary = json.loads(out.stdout)
+    missing = [t for t in OBS_TAGS if t not in cli_summary["scalars"]]
+    if missing or "zoo_train_health_state" not in cli_summary["gauges"]:
+        raise AssertionError(f"observe: train_cli summary lacks {missing} "
+                             f"or the health gauge")
+    out = subprocess.run(cli + ["top", "--logdir", logdir, "--trace-dir",
+                                dirs["trace"], "--iterations", "1"],
+                         capture_output=True, text=True, timeout=300)
+    top = out.stdout.splitlines()
+    if out.returncode != 0 or not any("MFU" in l for l in top) or \
+            not any("HBM (train program)" in l for l in top) or \
+            not any("health: OK" in l for l in top):
+        raise AssertionError(f"observe: train_cli top gave {top}")
+
+    report = dict(
+        model="BERT-base classifier (bench.py:353-438)",
+        compute_dtype="bfloat16", ids="int32", batch=TRAIN_BATCH,
+        steps=OBS_STEPS, log_every=OBS_LOG_EVERY, card=smi,
+        launches=launches, launches_per_step=per_step, losses=losses,
+        fit_wall_s=wall, flops_per_step=flops,
+        bench_flops_per_step=want_flops, peak_flops=peak,
+        mfu=scalars["MFU"], step_time_ms=scalars["StepTimeMs"],
+        infeed_wait_ms=scalars["InfeedWaitMs"],
+        input_bound_fraction=scalars["InputBoundFraction"],
+        breakdown=bd, max_memory_allocated=peak_alloc,
+        memory_reserved=reserved,
+        adam_leaf_bytes=adam_bytes, profiler_trace_bytes=len(prof_text),
+        merged_events=len(merged), merged_kernel_events=kernel_events,
+        train_cli_top=top)
+    return model, x, y, report
+
+
+def obs_watermark_and_oom(model, x, y, dirs):
+    """Leg C: the watermark latch writes one dump holding the card's
+    statistics, and a deliberate over-allocation one more through
+    ``maybe_oom_forensics``."""
+    debug = os.path.join(dirs["trace"], "debug")
+    before = obs_files(debug, "oom-")
+    with _Config(hbm_watermark_fraction=OBS_WATERMARK):
+        model.fit([a[:OBS_LOG_EVERY * TRAIN_BATCH] for a in x],
+                  y[:OBS_LOG_EVERY * TRAIN_BATCH], batch_size=TRAIN_BATCH,
+                  nb_epoch=1)
+    new = [f for f in obs_files(debug, "oom-") if f not in before]
+    if len(new) != 1:
+        raise AssertionError(f"observe: the watermark wrote {new}")
+    with open(os.path.join(debug, new[0])) as f:
+        dump = json.load(f)
+    rows = dump["device_memory"].get("per_device", [])
+    if not rows or not rows[0]["bytes_limit"] or \
+            not rows[0]["bytes_in_use"] or "train" not in dump["programs"] \
+            or not any("cuda:0" in k for k in dump["hlo_tail"]):
+        raise AssertionError(f"observe: the watermark dump holds {dump}")
+    watermark = dict(file=new[0], reason=dump["reason"], device=rows[0])
+
+    before = obs_files(debug, "oom-")
+    total = torch.cuda.mem_get_info()[1]
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+    except torch.cuda.OutOfMemoryError as e:
+        path = memory.maybe_oom_forensics(e, out_dir=dirs["trace"])
+    else:
+        raise AssertionError("observe: allocating twice the card's memory "
+                             "succeeded")
+    new = [f for f in obs_files(debug, "oom-") if f not in before]
+    if path is None or len(new) != 1:
+        raise AssertionError(f"observe: the OOM wrote {path}, {new}")
+    with open(path) as f:
+        dump = json.load(f)
+    if dump["device_memory"]["per_device"][0]["num_ooms"] < 1:
+        raise AssertionError(f"observe: the OOM dump holds "
+                             f"{dump['device_memory']}")
+    return dict(watermark=watermark, oom=dict(
+        file=new[0], reason=dump["reason"][:200],
+        device=dump["device_memory"]["per_device"][0]))
+
+
+def obs_timing(model, x, y, dirs):
+    """Leg D: the step with the monitor and accountant off and on, in
+    alternating windows of one epoch (a synchronised step clock), after
+    one unkept window; the pairs alternate their order."""
+    xs = [a[:OBS_DRILL_BATCHES * TRAIN_BATCH] for a in x]
+    ys = y[:OBS_DRILL_BATCHES * TRAIN_BATCH]
+    model.trainer.checkpoint_dir = dirs["timed"]
+
+    def window(on):
+        clock = _StepClock()
+        with _Config(health_monitor=on, memory_accounting=on):
+            t0 = time.perf_counter()
+            model.fit(xs, ys, batch_size=TRAIN_BATCH, nb_epoch=1,
+                      checkpoint_trigger=clock)
+        return list(np.diff([t0] + clock.ticks)[1:] * 1e3)
+
+    window(True)
+    times = {"off": [], "on": []}
+    for i in range(OBS_TIMED_PAIRS):
+        for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            times[mode] += window(mode == "on")
+    return {mode: dict(p50_ms=percentile(t, 50), p95_ms=percentile(t, 95),
+                       steps=len(t)) for mode, t in times.items()}
+
+
+def obs_first_step(seed, x, y, dirs):
+    """The first step of a new model's ``fit`` with the FLOP counter and
+    the memory accountant (a TrainSummary attached) and without, each
+    synchronised, and the second step beside it."""
+    out = {}
+    for mode in ("off", "on", "off", "on"):
+        model = ckpt_model(seed + 3)
+        if mode == "on":
+            model.set_tensorboard(dirs["logs"], "first_step")
+        clock = _StepClock()
+        model.set_checkpoint(dirs["timed"], trigger=clock)
+        with _Config(health_monitor=mode == "on",
+                     memory_accounting=mode == "on"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.fit([a[:2 * TRAIN_BATCH] for a in x], y[:2 * TRAIN_BATCH],
+                      batch_size=TRAIN_BATCH, nb_epoch=1)
+        ms = list(np.diff([t0] + clock.ticks) * 1e3)
+        counted = model.trainer.flops_per_step is not None
+        if counted != (mode == "on"):
+            raise AssertionError(f"observe: first step {mode}: FLOPs "
+                                 f"{model.trainer.flops_per_step}")
+        out.setdefault(mode, []).append(dict(first_ms=ms[0],
+                                             second_ms=ms[1]))
+        del model
+        collect()
+    return out
+
+
+def obs_drill(seed, dirs):
+    """Leg B: ``step:nan@6`` with ``health_halt`` and a checkpoint every
+    4 steps (TrainingHalted, halt step 6, a flight dump, ``latest`` =
+    ckpt-4 with finite parameters, a resumed fit with finite, falling
+    losses), then ``grad:nan@3`` without halt (state 2 latched once, the
+    fit completes)."""
+    x, y, _ = train_data(seed + 7, OBS_DRILL_BATCHES * TRAIN_BATCH,
+                         ids=np.int32)
+    debug = os.path.join(dirs["trace"], "debug")
+    flights = obs_files(debug, "flight-")
+    model = ckpt_model(seed + 1)
+    model.set_checkpoint(dirs["drill"], trigger=SeveralIteration(CKPT_EVERY))
+    os.environ["ZOO_TPU_FAULT"] = f"step:nan@{OBS_NAN_AT}"
+    faults.reset()
+    try:
+        with _Config(health_halt=True, failure_retry_times=0):
+            try:
+                model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=2)
+            except TrainingHalted as e:
+                halted = str(e)
+            else:
+                raise AssertionError("observe: step:nan did not halt")
+    finally:
+        os.environ.pop("ZOO_TPU_FAULT", None)
+        faults.reset()
+    trainer = model.trainer
+    health = trainer._health.summary()
+    early = list(trainer.step_losses[:CKPT_EVERY])
+    new_flights = [f for f in obs_files(debug, "flight-")
+                   if f not in flights]
+    with open(os.path.join(dirs["drill"], "latest")) as f:
+        latest = f.read().strip()
+    blob = serialization.load_pytree(os.path.join(dirs["drill"], latest,
+                                                  "model.npz"))
+    finite = all(np.isfinite(np.asarray(a)).all()
+                 for a in _tree_leaves(blob["params"]))
+    if trainer._health.halt_step != OBS_NAN_AT or not new_flights or \
+            latest != f"ckpt-{CKPT_EVERY}" or not finite or \
+            preemption_requested():
+        raise AssertionError(f"observe: halt {health}, flights "
+                             f"{new_flights}, latest {latest}, finite "
+                             f"{finite}")
+    # resume from the last good step in the same trainer (its live
+    # parameters are NaN): 4 more steps of epoch 0, then epoch 1
+    trainer.load_checkpoint(dirs["drill"])
+    resumed_at = trainer.step
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=2)
+    resumed = list(trainer.step_losses)
+    # falling: the resumed run's last steps below the run's first ones
+    # (steps 1-4, before the poisoned step 6)
+    if resumed_at != CKPT_EVERY or \
+            len(resumed) != 2 * OBS_DRILL_BATCHES - CKPT_EVERY or \
+            not np.isfinite(resumed).all() or not np.isfinite(early).all() \
+            or not np.mean(resumed[-CKPT_EVERY:]) < np.mean(early):
+        raise AssertionError(f"observe: resumed at {resumed_at}: {resumed} "
+                             f"against the first steps' {early}")
+
+    # grad:nan@3 without halt on a fresh model
+    del model, trainer
+    collect()
+    model = ckpt_model(seed + 2)
+    model.set_tensorboard(dirs["logs"], "grad_nan")
+    os.environ["ZOO_TPU_FAULT"] = f"grad:nan@{OBS_GRAD_NAN_AT}"
+    faults.reset()
+    try:
+        with _Config(health_halt=False):
+            model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    finally:
+        os.environ.pop("ZOO_TPU_FAULT", None)
+        faults.reset()
+    g = model.trainer._health
+    sentinel_alerts = [a for a in g.alerts if a["signal"] == "sentinel"]
+    states = [v for _, v in obs_summary(model).get("HealthState", [])]
+    if g.state != 2 or g.halted or len(sentinel_alerts) != 1 or \
+            sentinel_alerts[0]["step"] != OBS_GRAD_NAN_AT or \
+            model.trainer.step != OBS_DRILL_BATCHES or states != [2.0, 2.0]:
+        raise AssertionError(f"observe: grad:nan gave {g.summary()}, step "
+                             f"{model.trainer.step}")
+    # a halt latched by the epoch end's read: step:nan@3 in one epoch of
+    # 3 steps, a checkpoint every 2 and no window (every 4): no window or
+    # save reads the sentinel after step 3
+    del model
+    collect()
+    model = ckpt_model(seed + 4)
+    model.set_checkpoint(dirs["drill_end"], trigger=SeveralIteration(2))
+    os.environ["ZOO_TPU_FAULT"] = "step:nan@3"
+    faults.reset()
+    try:
+        with _Config(health_halt=True, failure_retry_times=0):
+            try:
+                model.fit([a[:3 * TRAIN_BATCH] for a in x],
+                          y[:3 * TRAIN_BATCH], batch_size=TRAIN_BATCH,
+                          nb_epoch=1)
+            except TrainingHalted:
+                pass
+            else:
+                raise AssertionError("observe: step:nan@3 at the epoch's "
+                                     "end did not halt")
+    finally:
+        os.environ.pop("ZOO_TPU_FAULT", None)
+        faults.reset()
+    with open(os.path.join(dirs["drill_end"], "latest")) as f:
+        end_latest = f.read().strip()
+    blob = serialization.load_pytree(os.path.join(dirs["drill_end"],
+                                                  end_latest, "model.npz"))
+    end_finite = all(np.isfinite(np.asarray(a)).all()
+                     for a in _tree_leaves(blob["params"]))
+    end_halt = model.trainer._health.halt_step
+    if end_halt != 3 or end_latest != "ckpt-2" or not end_finite or \
+            preemption_requested():
+        raise AssertionError(f"observe: the epoch-end halt at {end_halt}, "
+                             f"latest {end_latest}, finite {end_finite}, "
+                             f"drain flag {preemption_requested()}")
+    return dict(step_nan=dict(at=OBS_NAN_AT, halted=halted,
+                              health=health, flight_dumps=new_flights,
+                              latest=latest, latest_finite=finite,
+                              first_losses=early, resumed_at=resumed_at,
+                              resumed_losses=resumed),
+                grad_nan=dict(at=OBS_GRAD_NAN_AT, health=g.summary(),
+                              health_state_scalars=states),
+                epoch_end_halt=dict(at=3, halt_step=end_halt,
+                                    latest=end_latest,
+                                    latest_finite=end_finite))
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def observe(seed, smi):
+    """The observe phase (see the module docstring): returns the report
+    and K1-K5's launches in the monitored run."""
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    dirs = {k: os.path.join(OBS_ROOT, k) for k in
+            ("logs", "trace", "profile", "drill", "drill_end", "timed")}
+    prior = init_nncontext()
+    zoo_nncontext.set_nncontext(None)
+    init_nncontext(zoo_nncontext.ZooConfig.from_env(
+        health_monitor=True, memory_accounting=True, telemetry=True,
+        trace_dir=dirs["trace"], profile_dir=dirs["profile"],
+        profile_start_step=OBS_PROFILE_START,
+        profile_num_steps=OBS_PROFILE_STEPS,
+        log_every_n_steps=OBS_LOG_EVERY, failure_retry_times=0))
+    t0 = time.perf_counter()
+    try:
+        model, x, y, report = obs_monitored_run(seed, dirs, smi)
+        report["memory_forensics"] = obs_watermark_and_oom(model, x, y, dirs)
+        report["timing"] = obs_timing(model, x, y, dirs)
+        del model
+        collect()
+        report["first_step"] = obs_first_step(seed, x, y, dirs)
+        report["drill"] = obs_drill(seed, dirs)
+        collect()
+    finally:
+        zoo_nncontext.set_nncontext(prior)
+    report["wall_s"] = time.perf_counter() - t0
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    return report, report["launches"]
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5216,6 +5759,11 @@ def main(argv=None):
              restarted_worker_start_s=fleet_report["leg_b"][
                  "restarted_worker_start_s"]))
 
+    # 15. observe: the health monitor, the memory accountant, MFU
+    collect()
+    obs_report, obs_launches = observe(args.seed, smi)
+    emit("observe", **obs_report)
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -5249,7 +5797,8 @@ def main(argv=None):
                      launches_sequence=seq_launches.get(name, 0),
                      launches_cluster_serving=cs_launches.get(name, 0),
                      launches_int8=int8_launches.get(name, 0),
-                     launches_fleet=fleet_launches.get(name, 0))
+                     launches_fleet=fleet_launches.get(name, 0),
+                     launches_observe=obs_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

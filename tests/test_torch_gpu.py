@@ -1226,3 +1226,164 @@ def test_chained_cnn_predict_on_the_card_equals_the_cpu(cuda):
         (4, 0, 1), s
     _close(torch.from_numpy(got), torch.from_numpy(cpu.predict(x)),
            (1e-6, 1e-6))
+
+
+# ---------------------------------------------------------------------------
+# training observability on the card: the health monitor, the memory
+# accountant, the FLOP count and OOM forensics
+# ---------------------------------------------------------------------------
+
+_OBS_L, _OBS_HID, _OBS_VOCAB, _OBS_BATCH = 32, 64, 100, 4
+_OBS_TAGS = {"Loss", "LearningRate", "Throughput", "StepTimeMs",
+             "HealthState", "HBMTotalMB", "HBMParamsMB", "HBMOptStateMB",
+             "HBMActivationsMB", "HBMTransfersMB", "InfeedWaitMs",
+             "InputBoundFraction", "MFU"}
+
+
+def _obs_context(device, **cfg):
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(tnn.ZooConfig(**cfg), device=device)
+
+
+def _obs_classifier():
+    """bench.py's classifier at 2 blocks of 64 (one head, d = 64), seq 32,
+    dropout 0.1 (so every kernel runs), bf16, Adam."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+    bert = tl.BERT(vocab=_OBS_VOCAB, hidden_size=_OBS_HID, n_block=2,
+                   n_head=1, seq_len=_OBS_L, intermediate_size=4 * _OBS_HID,
+                   hidden_p_drop=0.1, attn_p_drop=0.1,
+                   output_all_block=False, name="obs_bert")
+    ins = [tl.Input(shape=(_OBS_L,), name=n) for n in
+           ("tokens", "positions", "segments")] + \
+        [tl.Input(shape=(1, 1, _OBS_L), name="mask")]
+    _, pooled = bert(ins)
+    model = Model(ins, tl.Dense(2, activation="softmax",
+                                name="obs_head")(pooled), seed=5)
+    model.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    model.set_compute_dtype("bfloat16")
+    return model
+
+
+def _obs_data(n):
+    import numpy as np
+    rs = np.random.default_rng(0)
+    lengths = rs.integers(8, _OBS_L + 1, size=n)
+    pos = np.arange(_OBS_L)[None, :]
+    y = rs.integers(0, 2, size=n)
+    tokens = rs.integers(3, _OBS_VOCAB, size=(n, _OBS_L))
+    tokens[:, 0] = 1 + y
+    x = [tokens.astype(np.int32), np.repeat(pos.astype(np.int32), n, 0),
+         (pos >= lengths[:, None] // 2).astype(np.int32),
+         (pos < lengths[:, None]).astype(np.float32)[:, None, None, :]]
+    return x, y.astype(np.float32)
+
+
+def test_monitored_fit_on_the_card_writes_every_scalar(cuda, tmp_path,
+                                                       monkeypatch):
+    """8 monitored bf16 steps: every scalar at every window with the
+    health state 0, the kernels launched, the parameters' bytes exact,
+    saved activations <= the allocator's step peak <= its maximum, the
+    FLOP count bench.py's formula (the CPU's count), the card's
+    allocator read."""
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.utils import memory, telemetry
+    monkeypatch.setenv("ZOO_TPU_PEAK_FLOPS", "989.4e12")
+    try:
+        _obs_context(cuda, log_every_n_steps=2, health_monitor=True,
+                     memory_accounting=True)
+        model = _obs_classifier()
+        model.set_tensorboard(str(tmp_path), "obs")
+        x, y = _obs_data(8 * _OBS_BATCH)
+        # the accountant measures a step's peak only where the step raises
+        # the allocator's high-water mark, which it never resets itself
+        torch.cuda.reset_peak_memory_stats(cuda)
+        _kernels.LAUNCHES.reset()
+        model.fit(x, y, batch_size=_OBS_BATCH, nb_epoch=1)
+        launches = _kernels.LAUNCHES.snapshot()
+        assert launches[ta.KERNEL_NAME] == launches[ta.DQ_KERNEL_NAME] == \
+            16 and launches[tdln.FWD_KERNEL_NAME] == 32
+        tags = {}
+        for s, _, t, v in model.get_train_summary():
+            tags.setdefault(t, []).append((s, v))
+        assert _OBS_TAGS <= set(tags)
+        assert all([s for s, _ in tags[t]] == [2, 4, 6, 8]
+                   for t in _OBS_TAGS)
+        assert all(v == 0.0 for _, v in tags["HealthState"])
+        bd = model.trainer.hbm_breakdown
+        assert bd["params_bytes"] == sum(p.numel() * 4
+                                         for p in model.parameters())
+        assert 0 < bd["activations_temp_bytes"] <= bd["step_peak_bytes"]
+        assert bd["total_bytes"] <= torch.cuda.max_memory_allocated(cuda) \
+            <= torch.cuda.memory_reserved(cuda)
+        tokens = _OBS_BATCH * _OBS_L
+        h = _OBS_HID
+        fwd = tokens * 2 * (24 * h * h + 4 * _OBS_L * h) + \
+            _OBS_BATCH * 2 * h * h + _OBS_BATCH * 2 * h * 2
+        assert model.trainer.flops_per_step == 3 * fwd
+        snap = memory.poll_device_memory([cuda])
+        assert snap is not None and snap["per_device"][0]["bytes_limit"] > 0
+        assert telemetry.counter("zoo_train_steps_total").value >= 8
+    finally:
+        tnn.set_nncontext(None)
+
+
+def test_step_accountant_leaves_the_callers_peak(cuda):
+    """The accountant reads the allocator's peak and never resets it: a
+    step under the caller's earlier high-water mark leaves that mark and
+    reports its own peak as not measured; after the caller's reset the
+    step raises the mark and its peak is measured."""
+    from analytics_zoo_tpu_torch.utils import memory
+    w = torch.randn(256, 256, device=cuda, requires_grad=True)
+    big = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    del big
+    mark = torch.cuda.max_memory_allocated(cuda)
+    with memory.StepAccountant(cuda, exclude=[w]) as acc:
+        torch.tanh(torch.randn(128, 256, device=cuda) @ w).sum().backward()
+    assert torch.cuda.max_memory_allocated(cuda) == mark
+    assert acc.step_peak_bytes is None and acc.saved_bytes > 0
+    torch.cuda.reset_peak_memory_stats(cuda)
+    with memory.StepAccountant(cuda, exclude=[w]) as acc:
+        torch.tanh(torch.randn(128, 256, device=cuda) @ w).sum().backward()
+    assert 0 < acc.saved_bytes <= acc.step_peak_bytes
+
+
+def test_step_nan_on_the_card_halts_at_the_last_good_checkpoint(
+        cuda, tmp_path, monkeypatch):
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.common.zoo_trigger import SeveralIteration
+    from analytics_zoo_tpu_torch.pipeline import engine
+    from analytics_zoo_tpu_torch.utils import faults
+    monkeypatch.setenv("ZOO_TPU_FAULT", "step:nan@3")
+    faults.reset()
+    try:
+        _obs_context(cuda, log_every_n_steps=2, health_monitor=True,
+                     health_halt=True, failure_retry_times=0)
+        model = _obs_classifier()
+        model.set_checkpoint(str(tmp_path), trigger=SeveralIteration(2))
+        x, y = _obs_data(8 * _OBS_BATCH)
+        with pytest.raises(engine.TrainingHalted):
+            model.fit(x, y, batch_size=_OBS_BATCH, nb_epoch=1)
+        assert model.trainer._health.halt_step == 3
+        assert (tmp_path / "latest").read_text().strip() == "ckpt-2"
+        assert not engine.preemption_requested()
+    finally:
+        faults.reset()
+        tnn.set_nncontext(None)
+
+
+def test_an_allocation_failure_on_the_card_writes_oom_forensics(cuda,
+                                                                 tmp_path):
+    import json
+    from analytics_zoo_tpu_torch.utils import memory
+    total = torch.cuda.mem_get_info(cuda)[1]
+    with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+    path = memory.maybe_oom_forensics(err.value, out_dir=str(tmp_path))
+    with open(path) as f:
+        dump = json.load(f)
+    assert set(dump) == {"reason", "ts", "programs", "device_memory",
+                         "hlo_tail"}
+    assert dump["device_memory"]["per_device"][0]["num_ooms"] >= 1
+    assert "cuda:0" in dump["hlo_tail"]

@@ -84,6 +84,10 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.utils.yaml_subset, "
             "analytics_zoo_tpu_torch.utils.telemetry, "
             "analytics_zoo_tpu_torch.utils.profiling, "
+            "analytics_zoo_tpu_torch.utils.memory, "
+            "analytics_zoo_tpu_torch.utils.trace_merge, "
+            "analytics_zoo_tpu_torch.pipeline.health, "
+            "analytics_zoo_tpu_torch.pipeline.train_cli, "
             "analytics_zoo_tpu_torch.utils.layer_parity, "
             "analytics_zoo_tpu_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
