@@ -37,6 +37,28 @@ class ZooConfig:
     pipeline_parallel: int = 1
     # seed for weights a model draws when it is built
     seed: int = 42
+    # host data pipeline (feature/host_pipeline.py): transformed batches
+    # the prefetch thread keeps queued on the host
+    prefetch_depth: int = 2
+    # ordered transform-pool workers running the Preprocessing chain for
+    # several batches concurrently (MTSampleToMiniBatch parity). 0 = serial
+    # in the prefetch thread; -1 (default) auto-sizes the pool from the
+    # host core count (feature.host_pipeline.resolve_transform_workers;
+    # env ZOO_TPU_TRANSFORM_WORKERS)
+    transform_workers: int = -1
+    # infeed transform backend: "thread" | "process" | "auto" (env:
+    # ZOO_TPU_INFEED_BACKEND). "process" ships the Preprocessing chain to
+    # a spawn pool returning batches through shared-memory rings
+    # (ZOO_TPU_INFEED_SLOT_BYTES a slot, ZOO_TPU_INFEED_SLOTS slots a
+    # worker); "auto" picks process only for chains declaring
+    # cpu_bound=True on a multi-core host
+    # (feature.host_pipeline.resolve_infeed_backend)
+    infeed_backend: str = "auto"
+    # batches kept already staged on the device ahead of the step: on the
+    # card each is copied from a pinned buffer on a side stream (a ring of
+    # device_ahead + 1 pinned buffers per batch leaf), so the copy of
+    # batch N+1 overlaps the compute of batch N
+    device_ahead: int = 2
     # microbatches per optimizer step: each batch is split into this many
     # equal microbatches, their gradients summed weighted by each one's
     # sample-weight mass before the one update (peak activation memory is

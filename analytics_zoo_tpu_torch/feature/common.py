@@ -32,7 +32,8 @@ class Preprocessing:
 
     #: Declares the chain dominated by GIL-holding Python compute (pure-
     #: Python loops, PIL decode, ...) rather than GIL-releasing numpy
-    #: kernels; kept for the JAX package's surface (its infeed reads it).
+    #: kernels: the infeed's "auto" backend then runs it on processes
+    #: (``host_pipeline.resolve_infeed_backend``).
     cpu_bound = False
 
     def apply(self, x):

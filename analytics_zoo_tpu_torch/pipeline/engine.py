@@ -80,15 +80,27 @@ good step. The ``step:nan@N`` / ``grad:nan@N`` faults poison the step's
 floating inputs or the first floating parameter. The first step of
 ``train`` (and of ``evaluate`` / ``predict``) runs inside the FLOP
 counter (when a TrainSummary is attached) and the memory accountant
-(``ZooConfig.memory_accounting``); each window times ``next()`` on the
-host pipeline into an ``InfeedMonitor``, steps the profiler hook, polls
-the card's allocator and writes ``HealthState``, ``HBM*MB``,
-``InfeedWaitMs``, ``InputBoundFraction`` and ``MFU`` beside the loss.
-Nothing on the training path reads the device every step.
+(``ZooConfig.memory_accounting``); each window times the host pipeline's
+fetches into an ``InfeedMonitor``, steps the profiler hook, polls the
+card's allocator and writes ``HealthState``, ``HBM*MB``,
+``InfeedWaitMs``, ``InputBoundFraction``, ``InfeedWorkers`` /
+``InfeedWorkerUtilization`` (a transform pool's) and ``MFU`` beside the
+loss. Nothing on the training path reads the device every step.
+
+Input (JAX's ``_run_epoch`` / ``_inference_pipeline``): ``train``,
+``evaluate`` and ``predict`` read their data through
+``feature.host_pipeline.build_host_pipeline`` (a ``TransformedFeatureSet``'s
+thread or process pool, the prefetch thread) wrapped in a
+``DeviceStagingIterator`` that keeps ``ZooConfig.device_ahead`` batches
+staged ahead of the step (k = 1: the fused dispatch is not ported). On a
+CUDA device the staging is :class:`PinnedStager`'s: each batch is written
+into pinned host buffers and copied with ``non_blocking=True`` on a side
+stream, and the step's stream waits on the copy's event before it reads
+the batch; on the CPU it is ``put_batch``. ``put_batch`` and
+:func:`as_device_tensor` stay for callers outside the engine (serving).
 
 Not ported: the sharded checkpoint format (``ZOO_TPU_SHARDED_CHECKPOINT``
-raises, ROADMAP A12), the fused k-step dispatch (A2/A15), the infeed
-worker scalars (A11.2), ZeRO (A12).
+raises, ROADMAP A12), the fused k-step dispatch (A2/A15), ZeRO (A12).
 """
 
 from __future__ import annotations
@@ -109,6 +121,8 @@ from ..common.nncontext import ZooContext, get_nncontext
 from ..common.zoo_trigger import EveryEpoch, MaxEpoch, TrainRecord, \
     ZooTrigger
 from ..feature.feature_set import ArrayFeatureSet, FeatureSet, MiniBatch
+from ..feature.host_pipeline import (DeviceStagingIterator,
+                                     build_host_pipeline)
 from ..utils import faults, file_io, memory, serialization, telemetry
 from ..utils.crc32c import crc32c
 from ..utils.jax_weights import (check_optimizer_leaves, load_jax_params,
@@ -208,6 +222,155 @@ def as_device_tensor(a, device) -> torch.Tensor:
     if t.dtype == torch.float64:
         t = t.float()
     return t.to(device)
+
+
+def _batch_leaves(batch) -> list:
+    """A host (inputs, targets, weights) batch's arrays in order: the
+    inputs, the target (or each target), the weights (None kept)."""
+    xs, y, w = batch
+    ys = list(y) if isinstance(y, (list, tuple)) else [y]
+    return list(xs) + ys + [w]
+
+
+def _batch_of(batch, leaves) -> tuple:
+    """``leaves`` (one per :func:`_batch_leaves` leaf of ``batch``) back in
+    the batch's structure, as ``put_batch`` returns it."""
+    xs, y, _ = batch
+    nx = len(xs)
+    ny = len(y) if isinstance(y, (list, tuple)) else 1
+    ys = list(leaves[nx:nx + ny]) if isinstance(y, (list, tuple)) \
+        else leaves[nx]
+    return list(leaves[:nx]), ys, leaves[nx + ny]
+
+
+def stack_host_batches(hosts) -> tuple:
+    """k host batches of one structure as one (k, batch, ...) batch."""
+    cols = zip(*(_batch_leaves(h) for h in hosts))
+    return _batch_of(hosts[0], [None if c[0] is None else np.stack(c)
+                                for c in cols])
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    """The tensor dtype a host array of ``np_dtype`` is staged as: its
+    own, float64 narrowed to float32 (``as_device_tensor``'s rule)."""
+    if np_dtype == np.float64:
+        return torch.float32
+    return torch.from_numpy(np.empty(0, np_dtype)).dtype
+
+
+def _fill_pinned(buf: torch.Tensor, host: np.ndarray) -> None:
+    """Copy ``host`` into the pinned ``buf`` (casting float64 down): a
+    multithreaded torch copy where numpy lets torch view the array, else
+    numpy's (read-only views: arena and mmap pages)."""
+    if host.flags.writeable and min(host.strides, default=0) >= 0:
+        buf.copy_(torch.from_numpy(host))
+    else:
+        np.copyto(buf.numpy(), host, casting="same_kind")
+
+
+class PinnedStager:
+    """Host batches onto a CUDA device through pinned buffers on a side
+    stream (the device half of ``DeviceStagingIterator`` on the card).
+
+    Each leaf position of a batch (inputs, targets, weights, in order)
+    owns a ring of ``depth + 1`` page-locked host buffers. :meth:`put`
+    writes every leaf into its ring's next buffer, then on the stager's
+    own ``torch.cuda.Stream`` allocates the device tensors, enqueues the
+    copies with ``non_blocking=True`` and records one event after them.
+    It returns the device batch and that event: the step's stream must
+    ``wait_event`` it before reading the batch (:meth:`SPMDTrainer.
+    _staged`). Two hazards are closed here:
+
+    - the device tensors are allocated on the side stream and read on
+      the compute stream, so each gets ``record_stream(compute)``: the
+      caching allocator then does not hand their memory out again until
+      the compute stream's work queued so far has finished;
+    - a pinned buffer is refilled only after the event of the copy that
+      last read it has completed (``Event.synchronize``), so the next
+      batch never overwrites bytes still in flight.
+
+    There is no pageable or synchronous path: a CPU device never builds
+    a stager (the trainer's ``put_batch`` serves it)."""
+
+    def __init__(self, device, depth: int):
+        self.device = torch.device(device)
+        self.slots = max(1, int(depth)) + 1
+        self.stream = torch.cuda.Stream(device=self.device)
+        # position -> [[pinned buffer, event of its last copy], ...]
+        self._rings: Dict[int, List[list]] = {}
+        self._turn: Dict[int, int] = {}
+        #: batches staged so far
+        self.batches = 0
+
+    def __deepcopy__(self, memo):
+        # the stream, its events and the pinned buffers are this stager's
+        # own resources (none can be copied): a copy of a trainer (a
+        # deep-copied model) starts with an empty stager of its own
+        return PinnedStager(self.device, self.slots - 1)
+
+    def _slot(self, pos: int, shape, dtype) -> list:
+        ring = self._rings.setdefault(pos, [])
+        i = self._turn.get(pos, 0)
+        self._turn[pos] = (i + 1) % self.slots
+        if i == len(ring):
+            ring.append([None, None])
+        slot = ring[i]
+        if slot[1] is not None:
+            # the copy that last read this buffer must have landed
+            slot[1].synchronize()
+        if slot[0] is None or tuple(slot[0].shape) != tuple(shape) or \
+                slot[0].dtype != dtype:
+            slot[0] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        return slot
+
+    def _stage(self, template, columns):
+        """``columns[i]`` holds leaf i of each batch to stage (one batch,
+        or the k batches of a stacked chunk)."""
+        compute = torch.cuda.current_stream(self.device)
+        slots, bufs = [], []
+        for pos, col in enumerate(columns):
+            if col[0] is None:
+                bufs.append(None)
+                continue
+            hosts = [np.asarray(a) for a in col]
+            shape = hosts[0].shape if len(hosts) == 1 else \
+                (len(hosts),) + hosts[0].shape
+            slot = self._slot(pos, shape, _torch_dtype(hosts[0].dtype))
+            if len(hosts) == 1:
+                _fill_pinned(slot[0], hosts[0])
+            else:
+                for j, h in enumerate(hosts):
+                    _fill_pinned(slot[0][j], h)
+            slots.append(slot)
+            bufs.append(slot[0])
+        leaves = []
+        with torch.cuda.stream(self.stream):
+            for buf in bufs:
+                if buf is None:
+                    leaves.append(None)
+                    continue
+                dev = torch.empty(buf.shape, dtype=buf.dtype,
+                                  device=self.device)
+                dev.copy_(buf, non_blocking=True)
+                dev.record_stream(compute)
+                leaves.append(dev)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        for slot in slots:
+            slot[1] = event
+        self.batches += 1
+        return _batch_of(template, leaves), event
+
+    def put(self, batch):
+        """(device batch, copy event) of one host batch."""
+        return self._stage(batch, [[a] for a in _batch_leaves(batch)])
+
+    def put_stacked(self, hosts):
+        """(device (k, batch, ...) batch, copy event) of k host batches,
+        each leaf stacked straight into one pinned buffer and copied
+        once."""
+        return self._stage(hosts[0], [list(c) for c in zip(
+            *(_batch_leaves(h) for h in hosts))])
 
 
 def _tree_float(x):
@@ -329,6 +492,8 @@ class SPMDTrainer:
         self._first_bad: Optional[torch.Tensor] = None
         # the profiler hook of the running train() (ZooConfig.profile_dir)
         self._profiler: Optional[ProfilerHook] = None
+        # the pinned side-stream stager (CUDA devices), built on first use
+        self._pinned: Optional[PinnedStager] = None
 
     def set_frozen(self, names):
         self.frozen_names = frozenset(names or ())
@@ -355,6 +520,42 @@ class SPMDTrainer:
         put = lambda a: None if a is None else as_device_tensor(a, self.device)
         ys = [put(t) for t in y] if isinstance(y, (list, tuple)) else put(y)
         return [put(x) for x in xs], ys, put(w)
+
+    def _stager(self) -> Optional[PinnedStager]:
+        """The pinned side-stream stager on a CUDA device (rebuilt when
+        ``device_ahead`` changes), None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        depth = max(1, int(getattr(self.ctx.config, "device_ahead", 2)))
+        if self._pinned is None or self._pinned.slots != depth + 1:
+            self._pinned = PinnedStager(self.device, depth)
+        return self._pinned
+
+    def _put_one(self, batch):
+        """``DeviceStagingIterator``'s ``put_one``: (device batch, the
+        copy's event or None). On the card the pinned side-stream copy;
+        on the CPU ``put_batch``."""
+        stager = self._stager()
+        if stager is None:
+            return self.put_batch(batch), None
+        return stager.put(batch)
+
+    def _put_stacked(self, hosts):
+        """``put_stacked``: k host batches as one (k, batch, ...) device
+        batch and its event (the port's loops ask for k = 1, so only the
+        staging contract's tests reach it)."""
+        stager = self._stager()
+        if stager is None:
+            return self.put_batch(stack_host_batches(hosts)), None
+        return stager.put_stacked(hosts)
+
+    def _staged(self, put):
+        """The device batch of a ``_put_one`` result, once the step's
+        stream waits for its copy."""
+        dev, event = put
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+        return dev
 
     def _grad_accum_steps(self) -> int:
         return max(1, int(getattr(self.ctx.config, "grad_accum_steps", 1)
@@ -743,23 +944,54 @@ class SPMDTrainer:
 
     def _run_epoch(self, train_set, batch_size, record, checkpoint_trigger,
                    validation_set, validation_trigger, end_trigger):
-        it = iter(train_set.batches(batch_size, shuffle=True,
-                                    drop_remainder=True,
-                                    seed=self.seed + record.epoch))
-        # mid-epoch resume: the epoch order is a function of (seed,
-        # epoch), so skipping the batches the checkpoint had consumed
-        # replays the remaining order exactly
-        if self.epoch_batches > 0:
-            logger.info("resuming epoch %d mid-stream: skipping %d "
-                        "consumed batch(es)", record.epoch,
-                        self.epoch_batches)
-            for _ in range(self.epoch_batches):
-                if next(it, None) is None:
-                    break
+        """One epoch through the staged pipeline (JAX's ``_run_epoch``):
+        ``build_host_pipeline`` seeded ``seed + epoch`` and a
+        ``DeviceStagingIterator`` over it, both closed when the epoch
+        ends, however it ends."""
+        stats_fn = getattr(train_set, "stats", None)
+        monitor = InfeedMonitor(
+            worker_provider=stats_fn().worker_busy_snapshot
+            if callable(stats_fn) else None, scope="train")
+        it = staging = None
+        try:
+            it = build_host_pipeline(
+                train_set, batch_size, shuffle=True, drop_remainder=True,
+                seed=self.seed + record.epoch,
+                transform_workers=getattr(self.ctx.config,
+                                          "transform_workers", -1),
+                prefetch_depth=getattr(self.ctx.config, "prefetch_depth", 2),
+                infeed_backend=getattr(self.ctx.config, "infeed_backend",
+                                       None))
+            # mid-epoch resume: the epoch order is a function of (seed,
+            # epoch), so skipping the batches the checkpoint had consumed
+            # on the host iterator, before anything is staged, replays
+            # the remaining order exactly
+            if self.epoch_batches > 0:
+                logger.info("resuming epoch %d mid-stream: skipping %d "
+                            "consumed batch(es)", record.epoch,
+                            self.epoch_batches)
+                for _ in range(self.epoch_batches):
+                    if next(it, None) is None:
+                        break
+            staging = DeviceStagingIterator(
+                it, self._put_one, self._put_stacked,
+                depth=getattr(self.ctx.config, "device_ahead", 2),
+                monitor=monitor)
+            self._epoch_loop(staging, monitor, batch_size, record,
+                             checkpoint_trigger, validation_set,
+                             validation_trigger, end_trigger)
+        finally:
+            if staging is not None:
+                staging.close()
+            if it is not None:
+                it.close()
+
+    def _epoch_loop(self, staging, monitor, batch_size, record,
+                    checkpoint_trigger, validation_set, validation_trigger,
+                    end_trigger):
         cfg = self.ctx.config
         log_every = max(1, int(getattr(cfg, "log_every_n_steps", 50)))
         self._last_log_step = min(self._last_log_step, self.step)
-        monitor = InfeedMonitor(scope="train")
         steps_ctr = telemetry.counter("zoo_train_steps_total")
         window_t0 = time.perf_counter()
         window_steps = 0
@@ -778,16 +1010,16 @@ class SPMDTrainer:
                     f"preemption notice honoured at step {self.step}"
                     + ("" if self.checkpoint_dir is None
                        else f": checkpoint saved to {self.checkpoint_dir}"))
-            fetch_t0 = time.perf_counter()
-            batch = next(it, None)
-            monitor.input_wait(time.perf_counter() - fetch_t0)
-            if batch is None:
+            # the batch was staged while the previous step computed (the
+            # host wait is timed into the monitor)
+            chunk = staging.next_chunk(1)
+            if chunk is None:
                 break
             with span("train/step", step=self.step):
                 # chaos harness: armed step:nan@N / grad:nan@N faults
-                # poison this step's inputs or a parameter, driving a real
-                # non-finite through the step for the sentinel
-                dev = self._maybe_poison(self.put_batch(batch))
+                # poison this step's staged inputs or a parameter, driving
+                # a real non-finite through the step for the sentinel
+                dev = self._maybe_poison(self._staged(chunk.singles[0]))
                 last_loss = self._observed("train", self.train_step, dev)
             self._losses.append((self.step, last_loss))
             self.epoch_batches += 1
@@ -901,6 +1133,12 @@ class SPMDTrainer:
                                infeed["input_wait_ms_per_step"], self.step)
             summary.add_scalar("InputBoundFraction",
                                infeed["input_bound_fraction"], self.step)
+            if "infeed_workers" in infeed:
+                summary.add_scalar("InfeedWorkers", infeed["infeed_workers"],
+                                   self.step)
+                summary.add_scalar("InfeedWorkerUtilization",
+                                   infeed["infeed_worker_utilization"],
+                                   self.step)
             if self.flops_per_step:
                 peak = peak_flops(device_kind(self.device))
                 if peak:
@@ -919,17 +1157,19 @@ class SPMDTrainer:
         logger.info("validation @%d: %s", self.step, results)
         return results
 
-    @staticmethod
-    def _timed_batches(batches, monitor):
-        """``batches`` with each host fetch timed into ``monitor``."""
-        it = iter(batches)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            monitor.input_wait(time.perf_counter() - t0)
-            if batch is None:
-                return
-            yield batch
+    def _inference_pipeline(self, data, batch_size, monitor):
+        """The staged pipeline of ``evaluate``/``predict`` (JAX's
+        ``_inference_pipeline``): in order, the last batch padded with
+        zero-weight rows (each chunk's ``real_counts`` unpads it)."""
+        cfg = self.ctx.config
+        it = build_host_pipeline(
+            data, batch_size, shuffle=False, drop_remainder=False,
+            pad_remainder=True,
+            transform_workers=getattr(cfg, "transform_workers", -1),
+            prefetch_depth=getattr(cfg, "prefetch_depth", 2))
+        return it, DeviceStagingIterator(
+            it, self._put_one, self._put_stacked,
+            depth=getattr(cfg, "device_ahead", 2), monitor=monitor)
 
     def _emit_inference_stats(self, kind, monitor, n_batches, n_samples,
                               wall_s):
@@ -954,9 +1194,7 @@ class SPMDTrainer:
         self.ensure_initialized()
         acc: Dict[str, Any] = {}
         monitor = InfeedMonitor(scope="eval")
-        n_batches = 0
-        remaining = data.size()
-        n_samples = 0
+        n_batches = n_samples = 0
         t0 = time.perf_counter()
 
         def batch_stats(dev):
@@ -970,23 +1208,28 @@ class SPMDTrainer:
                 stats["loss"] = (loss * wsum, wsum)
             return stats
 
-        with torch.no_grad():
-            for batch in self._timed_batches(
-                    data.batches(batch_size, shuffle=False,
-                                 drop_remainder=False, pad_remainder=True),
-                    monitor):
-                with span("eval/dispatch"):
-                    stats = self._observed("eval", batch_stats,
-                                           self.put_batch(batch))
-                real = min(batch_size, remaining)
-                remaining -= real
-                n_samples += real
-                n_batches += 1
-                for name, (num, den) in stats.items():
-                    if name in acc:
-                        acc[name] = (acc[name][0] + num, acc[name][1] + den)
-                    else:
-                        acc[name] = (num, den)
+        it, staging = self._inference_pipeline(data, batch_size, monitor)
+        try:
+            with torch.no_grad():
+                while True:
+                    chunk = staging.next_chunk(1)
+                    if chunk is None:
+                        break
+                    with span("eval/dispatch"):
+                        stats = self._observed(
+                            "eval", batch_stats,
+                            self._staged(chunk.singles[0]))
+                    n_samples += chunk.real_counts[0]
+                    n_batches += 1
+                    for name, (num, den) in stats.items():
+                        if name in acc:
+                            acc[name] = (acc[name][0] + num,
+                                         acc[name][1] + den)
+                        else:
+                            acc[name] = (num, den)
+        finally:
+            staging.close()
+            it.close()
         if not acc:
             raise ValueError("evaluate() got an empty dataset or one "
                              "without labels")
@@ -1010,7 +1253,6 @@ class SPMDTrainer:
         if not isinstance(data, FeatureSet):
             data = ArrayFeatureSet(data)
         self.model.to(self.device)
-        remaining = data.size()
         chunks: List[Any] = []
         monitor = InfeedMonitor(scope="predict")
         n_samples = 0
@@ -1019,20 +1261,24 @@ class SPMDTrainer:
         def forward(xs):
             return self._forward(xs, None, False)
 
-        with torch.inference_mode():
-            for xs, _, _ in self._timed_batches(
-                    data.batches(batch_size, shuffle=False,
-                                 drop_remainder=False, pad_remainder=True),
-                    monitor):
-                real = min(batch_size, remaining)
-                remaining -= real
-                n_samples += real
-                xs = [as_device_tensor(x, self.device) for x in xs]
-                with span("predict/dispatch"):
-                    out = self._observed("predict", forward, xs)
-                chunks.append([o[:real] for o in out]
-                              if isinstance(out, (list, tuple))
-                              else out[:real])
+        it, staging = self._inference_pipeline(data, batch_size, monitor)
+        try:
+            with torch.inference_mode():
+                while True:
+                    chunk = staging.next_chunk(1)
+                    if chunk is None:
+                        break
+                    xs, _, _ = self._staged(chunk.singles[0])
+                    real = chunk.real_counts[0]
+                    n_samples += real
+                    with span("predict/dispatch"):
+                        out = self._observed("predict", forward, xs)
+                    chunks.append([o[:real] for o in out]
+                                  if isinstance(out, (list, tuple))
+                                  else out[:real])
+        finally:
+            staging.close()
+            it.close()
         if not chunks:
             return None
         if isinstance(chunks[0], list):

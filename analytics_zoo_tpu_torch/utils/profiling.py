@@ -171,6 +171,14 @@ class InfeedMonitor:
     means the accelerator is starved and more transform workers / a cache
     tier / a wider prefetch would pay off.
 
+    ``worker_provider`` (optional) is a zero-arg callable returning
+    cumulative busy seconds per transform worker (the transform pool's
+    ``TransformStats.worker_busy_snapshot``); :meth:`window` diffs
+    consecutive snapshots so the scalars also say *how hard the
+    decode pool itself is working* — a starved step loop with idle
+    workers means the bottleneck is upstream (disk, hand-off), while
+    saturated workers mean the pool needs more processes.
+
     The wait time itself lives in the telemetry registry
     (``zoo_infeed_wait_seconds_total{scope=...}`` plus a latency
     histogram) — this class is a *windowing view* over that counter,
@@ -178,7 +186,7 @@ class InfeedMonitor:
     exactly once.
     """
 
-    def __init__(self, scope: str = "default"):
+    def __init__(self, worker_provider=None, scope: str = "default"):
         self._lock = threading.Lock()
         self.scope = scope
         self._ctr = telemetry.counter("zoo_infeed_wait_seconds_total",
@@ -187,6 +195,8 @@ class InfeedMonitor:
                                          scope=scope)
         self._base = self._ctr.value   # counter survives across monitors
         self._last = self._base
+        self._worker_provider = worker_provider
+        self._worker_prev: dict = {}
 
     def input_wait(self, seconds: float):
         self._ctr.inc(seconds)
@@ -210,10 +220,26 @@ class InfeedMonitor:
             "step_time_ms": wall_s / steps * 1e3,
             "input_bound_fraction": min(1.0, wait / wall_s),
         }
+        if self._worker_provider is not None:
+            try:
+                snap = dict(self._worker_provider())
+            except Exception:  # noqa: BLE001 - telemetry must not kill train
+                logger.debug("infeed worker snapshot failed", exc_info=True)
+                snap = {}
+            if snap:
+                busy = [max(0.0, snap[w] - self._worker_prev.get(w, 0.0))
+                        for w in snap]
+                self._worker_prev = snap
+                out["infeed_workers"] = float(len(snap))
+                out["infeed_worker_utilization"] = min(
+                    1.0, sum(busy) / (len(busy) * wall_s))
         for key, metric in (
                 ("input_bound_fraction", "zoo_input_bound_fraction"),
-                ("step_time_ms", "zoo_step_time_ms")):
-            telemetry.gauge(metric, scope=self.scope).set(out[key])
+                ("step_time_ms", "zoo_step_time_ms"),
+                ("infeed_worker_utilization",
+                 "zoo_infeed_worker_utilization")):
+            if key in out:
+                telemetry.gauge(metric, scope=self.scope).set(out[key])
         return out
 
 

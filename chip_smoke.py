@@ -274,6 +274,37 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               epoch end's read, raises ``TrainingHalted`` with ``latest``
               = ckpt-2, finite, and the drain flag cleared. Its files, under
               ``build/chip_smoke_observe``, are deleted at the end.
+16. data -- (last) the host data layer in a context of its own.
+              A: 8 batches of bench.py's BERT inputs at 32 x 512 (int32
+              ids, the float32 mask and label) written as 256 TFRecord
+              records and read back by the native reader with every
+              checksum verified (equal to what was written); the bf16
+              classifier ``fit`` 2 epochs through
+              ``FeatureSet.rdd(FeatureSet.array(records).transform(
+              DecodeBertRecords), "DRAM")`` on 4 threads: epoch 1's
+              losses equal bit for bit a ``fit`` from the same weights on
+              the decoded arrays in memory, epoch 2 replays the cache (8
+              hits, 8 transforms), K1-K5 12/12/12/24/24 a step
+              (``launches_data``), ``InfeedWaitMs`` and
+              ``InputBoundFraction`` reported. B: 2,048 uint8 3 x 256 x
+              256 images in 8 npz shards; ``AugmentImages`` (a seeded 224
+              crop and flip, float32, channel normalisation, cpu_bound)
+              on a process pool of min(8, cpu_count) spawned workers,
+              its shared-memory slots sized from ``/dev/shm``: over
+              three epochs' batches in one pool, the first epoch's
+              equal the serial transform's (a crc32c a batch), some
+              through shared memory, and the rate once every worker has
+              started is reported; the pageable against
+              the pinned copy of one transformed batch; ResNet-50 bf16
+              at batch 256 in alternating windows, the rows
+              pre-transformed in memory against ``FeatureSet.files(
+              shards).transform(AugmentImages)``: step p50, images/s,
+              ``InputBoundFraction``, ``InfeedWorkers``,
+              ``InfeedWorkerUtilization``, the pool's start. C: the
+              pool's epoch again on 2 workers under
+              ``infeed-worker:kill@3``: the worker respawns and the checksums equal the clean run's,
+              complete, in order, no duplicates. Its files, under
+              ``build/chip_smoke_data``, are deleted at the end.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -289,6 +320,7 @@ import contextlib
 import copy
 import gc
 import io
+import itertools
 import json
 import logging
 import math
@@ -312,9 +344,18 @@ from analytics_zoo_tpu_torch.common import init_nncontext
 from analytics_zoo_tpu_torch.common import nncontext as zoo_nncontext
 from analytics_zoo_tpu_torch.common.zoo_trigger import (SeveralIteration,
                                                         ZooTrigger)
-from analytics_zoo_tpu_torch.feature.common import Relation
+from analytics_zoo_tpu_torch.feature.common import Preprocessing, Relation
 from analytics_zoo_tpu_torch.feature.feature_set import (ArrayFeatureSet,
-                                                         Sample)
+                                                         DiskFeatureSet,
+                                                         FeatureSet,
+                                                         MiniBatch, Sample,
+                                                         TransformStats)
+from analytics_zoo_tpu_torch.feature.host_pipeline import \
+    ProcessTransformPool
+from analytics_zoo_tpu_torch.feature.infeed_worker import (flatten_batch,
+                                                           slot_nbytes)
+from analytics_zoo_tpu_torch.feature.tfrecord import (read_tfrecord,
+                                                      write_tfrecord)
 from analytics_zoo_tpu_torch.feature.text import TextFeature, TextSet
 from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.image.imageclassification import \
@@ -337,9 +378,11 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.models import (Model,
 from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     Adagrad, Adam, get_optimizer)
-from analytics_zoo_tpu_torch.pipeline.engine import (SPMDTrainer,
+from analytics_zoo_tpu_torch.pipeline.engine import (PinnedStager,
+                                                     SPMDTrainer,
                                                      TrainingHalted,
                                                      TrainingPreempted,
+                                                     as_device_tensor,
                                                      clear_preemption,
                                                      preemption_requested,
                                                      request_preemption)
@@ -5594,6 +5637,395 @@ def observe(seed, smi):
     return report, report["launches"]
 
 
+# ---------------------------------------------------------------------------
+# data: the host data layer feeding BERT-base and ResNet-50
+# ---------------------------------------------------------------------------
+
+DATA_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_data")
+# leg A: 8 batches of bench.py's BERT inputs as TFRecord records
+DATA_BERT_BATCHES, DATA_BERT_EPOCHS, DATA_LOG_EVERY = 8, 2, 4
+DATA_BERT_WORKERS = 4
+# leg B: 2,048 uint8 3 x 256 x 256 images in 8 npz shards, cropped to
+# bench.py's 3 x 224 x 224; ImageNet's channel statistics (0-255 scale)
+DATA_IMAGES, DATA_SHARDS, DATA_SIDE, DATA_CROP = 2048, 8, 256, 224
+DATA_MEAN = (123.675, 116.28, 103.53)
+DATA_STD = (58.395, 57.12, 57.375)
+# the ring's share of /dev/shm's free bytes, and the most slots a worker
+DATA_SHM_SHARE, DATA_MAX_SLOTS = 0.25, 3
+DATA_CHAOS_AT, DATA_CHAOS_WORKERS = 3, 2
+
+
+class DecodeBertRecords(Preprocessing):
+    """TFRecord payloads as uint8 rows -> bench.py's four BERT inputs
+    (tokens, positions, segments as int32; the mask float32) and the
+    float32 label. Each record is the row's bytes in that order."""
+
+    def __init__(self, seq_len):
+        self.seq_len = seq_len
+
+    def apply(self, batch):
+        raw = np.ascontiguousarray(batch.inputs[0])
+        l, n = self.seq_len, raw.shape[0]
+        ints = raw[:, :12 * l].copy().view(np.int32).reshape(n, 3, l)
+        mask = raw[:, 12 * l:16 * l].copy().view(np.float32)
+        label = raw[:, 16 * l:].copy().view(np.float32).reshape(n)
+        return MiniBatch((ints[:, 0].copy(), ints[:, 1].copy(),
+                          ints[:, 2].copy(), mask.reshape(n, 1, 1, l)),
+                         label, batch.weights)
+
+
+class AugmentImages(Preprocessing):
+    """A seeded random 224 crop and horizontal flip of each uint8 image,
+    to float32, minus the channel mean over the channel std. The crops
+    and flips are drawn from a generator seeded by the batch's labels, so
+    any worker (or the serial run) transforms a batch the same way.
+    ``cpu_bound``: per-image Python slicing that threads serialise."""
+
+    cpu_bound = True
+
+    def __init__(self, seed, crop=DATA_CROP):
+        self.seed, self.crop = seed, crop
+        self.mean = np.asarray(DATA_MEAN, np.float32).reshape(1, 3, 1, 1)
+        self.inv_std = 1.0 / np.asarray(DATA_STD,
+                                        np.float32).reshape(1, 3, 1, 1)
+
+    def apply(self, batch):
+        x = np.asarray(batch.inputs[0])
+        n, _, h, w = x.shape
+        rs = np.random.default_rng(
+            [self.seed, zlib.crc32(np.ascontiguousarray(
+                batch.targets).tobytes())])
+        oy = rs.integers(0, h - self.crop + 1, n)
+        ox = rs.integers(0, w - self.crop + 1, n)
+        flip = rs.random(n) < 0.5
+        out = np.empty((n, x.shape[1], self.crop, self.crop), np.float32)
+        for i in range(n):
+            img = x[i, :, oy[i]:oy[i] + self.crop, ox[i]:ox[i] + self.crop]
+            out[i] = img[:, :, ::-1] if flip[i] else img
+        out -= self.mean
+        out *= self.inv_std
+        return MiniBatch((out,), batch.targets, batch.weights)
+
+
+def batch_crc(batch):
+    """The native crc32c of a batch's arrays, in order."""
+    crc = 0
+    for a in list(batch.inputs) + [batch.targets, batch.weights]:
+        crc = crc32c(np.ascontiguousarray(a), crc)
+    return crc
+
+
+def data_window(model, fs, batch, root):
+    """One epoch of ``fit`` with a synchronised clock after each step:
+    (step ms, the TrainSummary's new (tag, value) pairs)."""
+    clock = _StepClock()
+    model._ensure_trainer().checkpoint_dir = root
+    before = len(model.get_train_summary())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(fs, batch_size=batch, nb_epoch=1, checkpoint_trigger=clock)
+    steps = list(np.diff([t0] + clock.ticks) * 1e3)
+    new = [(tag, float(v)) for _, _, tag, v in
+           model.get_train_summary()[before:]]
+    return steps, new
+
+
+def scalars_of(pairs, tag):
+    return [v for t, v in pairs if t == tag]
+
+
+def data_leg_a(seed, root):
+    """BERT-base bf16 from a TFRecord file through a DRAM-cached
+    TransformedFeatureSet on 4 threads (see the module docstring)."""
+    l = BERT_CONFIG["seq_len"]
+    n = DATA_BERT_BATCHES * TRAIN_BATCH
+    x, y, _ = train_data(seed + 31, n, ids=np.int32)
+    raw = np.concatenate(
+        [a.reshape(n, -1).view(np.uint8) for a in x[:3]]
+        + [x[3].reshape(n, l).view(np.uint8), y.reshape(n, 1).view(np.uint8)],
+        axis=1)
+    path = os.path.join(root, "bert.tfrecord")
+    t0 = time.perf_counter()
+    write_tfrecord(path, (row.tobytes() for row in raw))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = list(read_tfrecord(path, verify_crc=True))
+    read_s = time.perf_counter() - t0
+    got = np.stack([np.frombuffer(r, np.uint8) for r in records])
+    if not np.array_equal(got, raw):
+        raise AssertionError("data: the TFRecord file read back differs")
+    file_bytes = os.path.getsize(path)
+
+    fs = FeatureSet.rdd(FeatureSet.array(got).transform(
+        DecodeBertRecords(l)), "DRAM")
+    model = ckpt_model(seed)
+    model.set_tensorboard(os.path.join(root, "logs"), "leg_a")
+    clock = _StepClock()
+    model._ensure_trainer().checkpoint_dir = os.path.join(root, "none")
+    _kernels.LAUNCHES.reset()
+    model.fit(fs, batch_size=TRAIN_BATCH, nb_epoch=DATA_BERT_EPOCHS,
+              checkpoint_trigger=clock)
+    torch.cuda.synchronize()
+    launches = _kernels.LAUNCHES.snapshot()
+    losses = list(model.trainer.step_losses)
+    stats = fs.stats().as_dict()
+    summary = [(tag, float(v)) for _, _, tag, v in model.get_train_summary()]
+    del model
+    collect()
+
+    steps = DATA_BERT_BATCHES * DATA_BERT_EPOCHS
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = {attn.KERNEL_NAME: 12, attn.DQ_KERNEL_NAME: 12,
+            attn.DKV_KERNEL_NAME: 12, dln.FWD_KERNEL_NAME: 24,
+            dln.BWD_KERNEL_NAME: 24}
+    if per_step != want:
+        raise AssertionError(f"data: leg A launched {per_step} a step")
+    if stats["cache_hits"] != DATA_BERT_BATCHES or \
+            stats["batches_transformed"] != DATA_BERT_BATCHES:
+        raise AssertionError(f"data: the DRAM cache gave {stats}")
+
+    # the same weights fed the decoded arrays from memory: epoch 1's
+    # losses equal bit for bit
+    ref = ckpt_model(seed)
+    ref.fit(ArrayFeatureSet(x, y), batch_size=TRAIN_BATCH, nb_epoch=1)
+    ref_losses = list(ref.trainer.step_losses)
+    del ref
+    collect()
+    if losses[:DATA_BERT_BATCHES] != ref_losses or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"data: leg A's epoch 1 {losses} against the "
+                             f"in-memory fit's {ref_losses}")
+    step_ms = list(np.diff(clock.ticks) * 1e3)
+    return launches, dict(
+        records=n, record_bytes=int(raw.shape[1]), file_bytes=file_bytes,
+        write_s=write_s, read_s=read_s,
+        read_mb_per_s=file_bytes / read_s / 1e6, read_equal=True,
+        transform_workers=DATA_BERT_WORKERS, backend="thread",
+        cache=stats, launches=launches, launches_per_step=per_step,
+        losses=losses, epoch1_equal_in_memory_fit=True,
+        step_p50_ms=percentile(step_ms, 50),
+        infeed_wait_ms=scalars_of(summary, "InfeedWaitMs"),
+        input_bound_fraction=scalars_of(summary, "InputBoundFraction"))
+
+
+def data_shards(seed, root):
+    """Leg B's npz shards of uint8 images and int32 labels."""
+    rs = np.random.default_rng(seed + 41)
+    per = DATA_IMAGES // DATA_SHARDS
+    paths = []
+    t0 = time.perf_counter()
+    for s in range(DATA_SHARDS):
+        p = os.path.join(root, f"images-{s:02d}.npz")
+        DiskFeatureSet.write_shard(
+            p, rs.integers(0, 256, (per, 3, DATA_SIDE, DATA_SIDE),
+                           dtype=np.uint8),
+            rs.integers(0, RESNET_CLASSES, per).astype(np.int32))
+        paths.append(p)
+    return paths, time.perf_counter() - t0
+
+
+def data_pool_pass(base, chain, workers, stats=None, steady_after=None):
+    """``base`` through a ProcessTransformPool: the batches' checksums,
+    the first batch's latency (the pool's start), the pool's counts, and
+    with ``steady_after`` the batches a second after that many (the
+    pool's rate once every worker has started)."""
+    t0 = time.perf_counter()
+    pool = ProcessTransformPool(base, chain, num_workers=workers,
+                                stats=stats)
+    crcs, arrived = [], []
+    try:
+        for b in pool:
+            arrived.append(time.perf_counter() - t0)
+            crcs.append(batch_crc(b))
+            del b
+    finally:
+        pool.close()
+    out = dict(first_batch_s=arrived[0], wall_s=time.perf_counter() - t0,
+               batches=len(crcs), **pool.pool_stats())
+    if steady_after is not None:
+        tail = arrived[steady_after - 1:]
+        out["steady_batches_per_s"] = (len(tail) - 1) / (tail[-1] - tail[0])
+    return crcs, out
+
+
+def data_copy_ms(host, device):
+    """The host-to-card copy of one transformed ResNet batch: pageable
+    (``as_device_tensor``) against the pinned side-stream stager (the
+    buffer's fill and the copy), synchronised, 5 of each in turns."""
+    stager = PinnedStager(device, depth=2)
+    for _ in range(stager.slots):   # allocate every pinned buffer first
+        stager.put(host)
+    times = {"pageable": [], "pinned": []}
+    for i in range(6):
+        for mode in (("pageable", "pinned") if i % 2 else
+                     ("pinned", "pageable")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "pinned":
+                dev, event = stager.put(host)
+                torch.cuda.current_stream().wait_event(event)
+            else:
+                dev = [as_device_tensor(a, device) for a in
+                       (host.inputs[0], host.targets, host.weights)]
+            torch.cuda.synchronize()
+            if i:
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+            del dev
+    return {k: percentile(v, 50) for k, v in times.items()}
+
+
+def data_leg_b(seed, root, smi):
+    """ResNet-50 bf16 at batch 256 from npz shards through a process
+    pool, against the same rows pre-transformed in memory; then the
+    chaos leg (C). See the module docstring."""
+    paths, write_s = data_shards(seed, root)
+    workers = min(8, os.cpu_count() or 1)
+    chain = AugmentImages(seed)
+    files = FeatureSet.files(paths)
+    epoch_seed = seed + 5
+
+    # the serial transform: checksums, and the rows pre-transformed
+    t0 = time.perf_counter()
+    serial = [chain(b) for b in files.batches(RESNET_BATCH, shuffle=True,
+                                              seed=epoch_seed)]
+    serial_s = time.perf_counter() - t0
+    want = [batch_crc(b) for b in serial]
+    arrays, _ = flatten_batch(serial[0])
+    slot = slot_nbytes(arrays)
+    shm_free = shutil.disk_usage("/dev/shm").free
+    slots = min(DATA_MAX_SLOTS,
+                int(DATA_SHM_SHARE * shm_free // (workers * slot)))
+    if slots < 1:
+        raise AssertionError(f"data: /dev/shm has {shm_free} bytes free, "
+                             f"too few for one {slot}-byte slot a worker")
+    x_mem = np.concatenate([b.inputs[0] for b in serial])
+    y_mem = np.concatenate([b.targets for b in serial])
+    copy_ms = data_copy_ms(serial[0], torch.device("cuda", 0))
+    del serial, arrays
+    env = {"ZOO_TPU_INFEED_SLOT_BYTES": str(slot),
+           "ZOO_TPU_INFEED_SLOTS": str(slots)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        # three epochs' batches through one pool: the first against the
+        # serial transform, the rest for the pool's rate once started
+        stats = TransformStats()
+        got, pool = data_pool_pass(
+            itertools.chain(*(files.batches(RESNET_BATCH, shuffle=True,
+                                            seed=epoch_seed + e)
+                              for e in range(3))),
+            chain, workers, stats, steady_after=len(want) + 1)
+        got = got[:len(want)]
+        if got != want or pool["shm_batches"] < 1:
+            raise AssertionError(f"data: the pool's checksums {got} against "
+                                 f"the serial {want}; {pool}")
+        # C: a worker killed after its 3rd batch, respawned; on
+        # DATA_CHAOS_WORKERS workers, so that each transforms more than 3
+        # of the epoch's 8 batches
+        state = os.path.join(root, "faults")
+        os.makedirs(state, exist_ok=True)
+        os.environ["ZOO_TPU_FAULT"] = f"infeed-worker:kill@{DATA_CHAOS_AT}"
+        os.environ["ZOO_TPU_FAULT_STATE"] = state
+        faults.reset()
+        try:
+            chaos, chaos_pool = data_pool_pass(
+                files.batches(RESNET_BATCH, shuffle=True, seed=epoch_seed),
+                chain, DATA_CHAOS_WORKERS)
+        finally:
+            os.environ.pop("ZOO_TPU_FAULT", None)
+            os.environ.pop("ZOO_TPU_FAULT_STATE", None)
+            faults.reset()
+        fired = os.listdir(state)
+        if chaos != want or chaos_pool["respawns"] < 1 or not fired:
+            raise AssertionError(f"data: after the kill {chaos} against "
+                                 f"{want}; {chaos_pool}, markers {fired}")
+
+        # the fit: in memory against the shards, alternating windows
+        clf = build_resnet(seed + 43)
+        clf.compile(optimizer="sgd", loss="sparse_categorical_crossentropy")
+        clf.model.set_compute_dtype("bfloat16")
+        clf.model.set_tensorboard(os.path.join(root, "logs"), "leg_b")
+        mem = ArrayFeatureSet(x_mem, y_mem)
+        disk = FeatureSet.files(paths).transform(chain)
+        sources = {"memory": mem, "disk": disk}
+        with _Config(transform_workers=workers, infeed_backend="process"):
+            _kernels.LAUNCHES.reset()
+            data_window(clf.model, mem, RESNET_BATCH, root)   # warm-up
+            windows = {"memory": [], "disk": []}
+            for mode in ("memory", "disk", "disk", "memory"):
+                windows[mode].append(data_window(
+                    clf.model, sources[mode], RESNET_BATCH, root))
+            torch.cuda.synchronize()
+            launches = _kernels.LAUNCHES.snapshot()
+        losses = list(clf.model.trainer.step_losses)
+        del clf
+        collect()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if launches or not np.isfinite(losses).all():
+        raise AssertionError(f"data: the ResNet-50 fit launched {launches}, "
+                             f"losses {losses}")
+    timing = {}
+    for mode, ws in windows.items():
+        steady = [t for steps, _ in ws for t in steps[1:]]
+        pairs = [p for _, new in ws for p in new]
+        timing[mode] = dict(
+            step_p50_ms=percentile(steady, 50),
+            first_step_ms=[steps[0] for steps, _ in ws],
+            steady_images_per_s=RESNET_BATCH * len(steady) / sum(steady)
+            * 1e3,
+            epoch_images_per_s=[RESNET_BATCH * len(steps) / sum(steps) * 1e3
+                                for steps, _ in ws],
+            input_bound_fraction=scalars_of(pairs, "InputBoundFraction"),
+            infeed_wait_ms=scalars_of(pairs, "InfeedWaitMs"),
+            infeed_workers=scalars_of(pairs, "InfeedWorkers"),
+            infeed_worker_utilization=scalars_of(
+                pairs, "InfeedWorkerUtilization"))
+    if timing["disk"]["infeed_workers"] != \
+            [float(workers)] * len(timing["disk"]["infeed_workers"]) or \
+            not timing["disk"]["infeed_workers"]:
+        raise AssertionError(f"data: InfeedWorkers {timing['disk']}")
+    return dict(
+        images=DATA_IMAGES, shards=DATA_SHARDS, image_shape=(3, DATA_SIDE,
+                                                             DATA_SIDE),
+        shard_bytes=sum(os.path.getsize(p) for p in paths),
+        write_s=write_s, crop=DATA_CROP, batch=RESNET_BATCH,
+        cpu_count=os.cpu_count(), workers=workers, backend="process",
+        slot_bytes=slot, slots_per_worker=slots, shm_free_bytes=shm_free,
+        serial_transform_s=serial_s, checksums_equal=True, pool=pool,
+        transform_stats=stats.as_dict(), copy_ms=copy_ms, card=smi,
+        timing=timing, k1_k5_launches=launches, losses=losses,
+        chaos=dict(fault=f"infeed-worker:kill@{DATA_CHAOS_AT}",
+                   workers=DATA_CHAOS_WORKERS, markers=fired,
+                   checksums_equal=True, **chaos_pool))
+
+
+def data(seed, smi):
+    """The data phase (see the module docstring): returns the report and
+    K1-K5's launches in leg A's fit."""
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    os.makedirs(DATA_ROOT)
+    prior = init_nncontext()
+    zoo_nncontext.set_nncontext(None)
+    init_nncontext(zoo_nncontext.ZooConfig.from_env(
+        transform_workers=DATA_BERT_WORKERS, log_every_n_steps=DATA_LOG_EVERY,
+        failure_retry_times=0))
+    t0 = time.perf_counter()
+    try:
+        launches, leg_a = data_leg_a(seed, DATA_ROOT)
+        leg_b = data_leg_b(seed, DATA_ROOT, smi)
+    finally:
+        zoo_nncontext.set_nncontext(prior)
+        shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    chaos = leg_b.pop("chaos")
+    return dict(card=smi, leg_a=leg_a, leg_b=leg_b, leg_c=chaos,
+                wall_s=time.perf_counter() - t0), launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5764,6 +6196,11 @@ def main(argv=None):
     obs_report, obs_launches = observe(args.seed, smi)
     emit("observe", **obs_report)
 
+    # 16. data: the host data layer feeding BERT-base and ResNet-50
+    collect()
+    data_report, data_launches = data(args.seed, smi)
+    emit("data", **data_report)
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -5798,7 +6235,8 @@ def main(argv=None):
                      launches_cluster_serving=cs_launches.get(name, 0),
                      launches_int8=int8_launches.get(name, 0),
                      launches_fleet=fleet_launches.get(name, 0),
-                     launches_observe=obs_launches.get(name, 0))
+                     launches_observe=obs_launches.get(name, 0),
+                     launches_data=data_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

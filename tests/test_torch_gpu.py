@@ -26,6 +26,7 @@ rounding. The key-bias gradient and the row statistics are float32 in
 both dtypes.
 """
 
+import copy
 import math
 
 import pytest
@@ -58,6 +59,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode; its "
                     "plain version is tested against JAX on the CPU)")
+    # the allocator's statistics calls (reset_peak_memory_stats) do not
+    # initialise CUDA themselves: a test that starts a run with one fails
+    torch.cuda.init()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
@@ -1387,3 +1391,129 @@ def test_an_allocation_failure_on_the_card_writes_oom_forensics(cuda,
                          "hlo_tail"}
     assert dump["device_memory"]["per_device"][0]["num_ooms"] >= 1
     assert "cuda:0" in dump["hlo_tail"]
+
+
+# ---------------------------------------------------------------------------
+# the training path's pinned side-stream staging (pipeline/engine.py)
+# ---------------------------------------------------------------------------
+
+def _host_batch(rs, i, rows=64):
+    """A host batch with float64 (staged as float32), int32 and uint8
+    inputs, a list of targets and weights."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.feature.feature_set import MiniBatch
+    return MiniBatch(
+        (rs.standard_normal((rows, 3, 5)) + i,
+         rs.integers(0, 1000, (rows, 7)).astype(np.int32),
+         rs.integers(0, 256, (rows, 2, 2)).astype(np.uint8)),
+        [np.full(rows, i, np.float32), np.arange(rows, dtype=np.int64)],
+        np.ones(rows, np.float32))
+
+
+def _assert_staged(dev, host):
+    import numpy as np
+    from analytics_zoo_tpu_torch.pipeline.engine import _batch_leaves
+    for d, h in zip(_batch_leaves(dev), _batch_leaves(host), strict=True):
+        h = np.asarray(h)
+        want = h.astype(np.float32) if h.dtype == np.float64 else h
+        assert d.device.type == "cuda"
+        assert d.cpu().numpy().dtype == want.dtype
+        np.testing.assert_array_equal(d.cpu().numpy(), want)
+
+
+def test_pinned_staging_on_the_card_equals_the_host_arrays(cuda):
+    import numpy as np
+    from analytics_zoo_tpu_torch.pipeline.engine import (PinnedStager,
+                                                         stack_host_batches)
+    rs = np.random.default_rng(0)
+    stager = PinnedStager(cuda, depth=2)
+    hosts = [_host_batch(rs, i) for i in range(7)]
+    staged = []
+    for h in hosts:
+        dev, event = stager.put(h)
+        torch.cuda.current_stream(cuda).wait_event(event)
+        staged.append(dev)
+    dev, event = stager.put_stacked(hosts[:3])
+    torch.cuda.current_stream(cuda).wait_event(event)
+    torch.cuda.synchronize(cuda)
+    for dev_b, h in zip(staged, hosts):
+        _assert_staged(dev_b, h)
+    _assert_staged(dev, stack_host_batches(hosts[:3]))
+    # a ring of depth + 1 pinned buffers per leaf position (7 leaves),
+    # plus the stacked chunk's reallocations
+    assert stager.slots == 3
+    assert all(b[0].is_pinned() for ring in stager._rings.values()
+               for b in ring)
+    assert stager.batches == 8
+
+
+def test_a_pinned_buffer_is_refilled_only_after_its_copy(cuda):
+    """The side stream is held behind a long sleep, so every copy is
+    still queued when the next batches are staged. Without the wait on
+    a buffer's last event, batch i + slots would overwrite batch i's
+    pinned bytes before its copy ran, and batch i would arrive on the
+    card holding batch i + slots's values."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.feature.feature_set import MiniBatch
+    from analytics_zoo_tpu_torch.pipeline.engine import PinnedStager
+    stager = PinnedStager(cuda, depth=1)            # 2 buffers a leaf
+    with torch.cuda.stream(stager.stream):
+        torch.cuda._sleep(int(2e8))                 # ~0.1 s of cycles
+    hosts = [MiniBatch((np.full((256, 1024), i, np.float32),), None,
+                       np.full(256, i, np.float32)) for i in range(6)]
+    staged = [stager.put(h) for h in hosts]
+    for (dev, event), i in zip(staged, range(6)):
+        torch.cuda.current_stream(cuda).wait_event(event)
+        assert torch.equal(dev[0][0], torch.full_like(dev[0][0], i)), i
+        assert torch.equal(dev[2], torch.full_like(dev[2], i)), i
+
+
+def test_fit_through_staging_equals_fit_from_device_tensors(cuda):
+    """``fit`` (the host pipeline, pinned side-stream staging and the
+    event wait) trains a float32 MLP to the same parameters, bit for bit,
+    as ``train_step`` fed ``put_batch``'s plain copies of the same
+    batches."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+
+    def mlp():
+        m = Sequential()
+        m.add(Dense(256, activation="relu", input_shape=(64,)))
+        m.add(Dense(1))
+        m.compile(optimizer="sgd", loss="mse")
+        return m
+
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(tnn.ZooConfig(transform_workers=2), device=cuda)
+    try:
+        rs = np.random.default_rng(1)
+        x = rs.standard_normal((512, 64)).astype(np.float32)
+        y = rs.standard_normal((512, 1)).astype(np.float32)
+        fs = FeatureSet.array(x, y)
+        a, b = mlp(), mlp()
+        with torch.no_grad():
+            for p, q in zip(a.parameters(), b.parameters()):
+                q.copy_(p)
+        a.fit(fs, batch_size=32, nb_epoch=2)
+        assert a.trainer._pinned is not None and \
+            a.trainer._pinned.batches == 32
+        tb = b._ensure_trainer()
+        tb.ensure_initialized()
+        for epoch in range(2):
+            for batch in fs.batches(32, shuffle=True, seed=tb.seed + epoch):
+                tb.train_step(tb.put_batch(batch))
+        for p, q in zip(a.parameters(), b.parameters()):
+            assert torch.equal(p, q)
+        np.testing.assert_array_equal(a.predict(x, batch_size=96),
+                                      b.predict(x, batch_size=96))
+        # a trained model (its trainer and stager with it) deep-copies;
+        # the copy stages through a stager of its own
+        twin = copy.deepcopy(a)
+        assert twin.trainer._pinned is not a.trainer._pinned
+        np.testing.assert_array_equal(twin.predict(x, batch_size=96),
+                                      a.predict(x, batch_size=96))
+    finally:
+        tnn.set_nncontext(None)

@@ -58,6 +58,12 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.pipeline.api.keras.optimizers, "
             "analytics_zoo_tpu_torch.pipeline.engine, "
             "analytics_zoo_tpu_torch.feature, "
+            "analytics_zoo_tpu_torch.feature.host_pipeline, "
+            "analytics_zoo_tpu_torch.feature.infeed_worker, "
+            "analytics_zoo_tpu_torch.feature.dataset, "
+            "analytics_zoo_tpu_torch.feature.tfrecord, "
+            "analytics_zoo_tpu_torch.utils.native_loader, "
+            "analytics_zoo_tpu_torch.pipeline.api.keras.datasets, "
             "analytics_zoo_tpu_torch.models.recommendation, "
             "analytics_zoo_tpu_torch.models.image, "
             "analytics_zoo_tpu_torch.models.image.imageclassification, "
@@ -128,3 +134,47 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                                   "PATH": "/usr/bin:/bin"})
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def test_the_data_layer_works_without_pyarrow(tmp_path, monkeypatch):
+    """The card's machine has no pyarrow: with it hidden (an import of it
+    raises), the feature package imports, npz shards stream through the
+    staged pipeline into ``fit``, and a parquet shard raises an
+    ``ImportError`` that names pyarrow."""
+    import numpy as np
+
+    for name in [m for m in sys.modules if m.split(".")[0] == "pyarrow"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    with pytest.raises(ImportError):
+        import pyarrow as _hidden  # noqa: F401
+    from analytics_zoo_tpu_torch.feature import (FeatureSet,
+                                                 build_host_pipeline)
+    from analytics_zoo_tpu_torch.feature.dataset import write_parquet_shards
+    from analytics_zoo_tpu_torch.feature.feature_set import DiskFeatureSet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+
+    rng = np.random.default_rng(0)
+    d = tmp_path / "npz"
+    d.mkdir()
+    for i in range(3):
+        DiskFeatureSet.write_shard(
+            str(d / f"part-{i}.npz"),
+            rng.standard_normal((8, 4)).astype(np.float32),
+            rng.standard_normal((8, 1)).astype(np.float32))
+    fs = FeatureSet.from_dataset(str(d), process_index=0, num_processes=1)
+    assert sum(1 for _ in build_host_pipeline(fs, 4)) == 6
+    tnn.init_nncontext(device="cpu")
+    m = Sequential()
+    m.add(Dense(1, input_shape=(4,)))
+    m.compile(optimizer="sgd", loss="mse")
+    m.fit(fs, batch_size=4, nb_epoch=1)
+    assert len(m.trainer.step_losses) == 6
+    (tmp_path / "p").mkdir()
+    (tmp_path / "p" / "part-0.parquet").write_bytes(b"PAR1")
+    with pytest.raises(ImportError, match="pyarrow"):
+        list(FeatureSet.from_dataset(str(tmp_path / "p"), process_index=0,
+                                     num_processes=1).batches(4))
+    with pytest.raises(ImportError, match="pyarrow"):
+        write_parquet_shards(str(tmp_path / "w"), np.zeros((4, 2)))
