@@ -6,8 +6,8 @@ Counterpart of ``analytics_zoo_tpu/models``; so far ``ZooModel`` and
 (``models.image.imageclassification.ImageClassifier``),
 ``textclassification.TextClassifier``,
 ``anomalydetection.AnomalyDetector``, ``textmatching.KNRM`` and
-``seq2seq.Seq2seq``. ``image.objectdetection`` (SSD) is not ported yet
-(ROADMAP A9).
+``seq2seq.Seq2seq`` and the SSD detector
+(``models.image.objectdetection.ObjectDetector``).
 """
 
 from .common import KerasZooModel, ZooModel

@@ -1,7 +1,8 @@
 """Image model zoo (reference: ``zoo/.../models/image/``).
 
-Counterpart of ``analytics_zoo_tpu/models/image``; so far the image
-classifiers. ``ObjectDetector`` (SSD) waits (ROADMAP A9).
+Counterpart of ``analytics_zoo_tpu/models/image``: the image
+classifiers (``imageclassification``) and the SSD object detector
+(``objectdetection``).
 """
 
 from .common import (ImageConfigure, ImageModel, LabelOutput,

@@ -2,11 +2,11 @@
 
 Counterpart of ``analytics_zoo_tpu/models/image/common.py`` (parity:
 ``zoo/.../models/image/common/``): ``ImageConfigure`` (the per-model
-pre/post-processing registry), ``LabelOutput`` (the classifiers'
-label post-processing) and ``ImageModel``. The image pipeline the
-pre-processing and ``predict_image_set`` run on (``feature/image``,
-decoding and resizing with OpenCV on the host) is not ported yet: those
-two raise until it is (ROADMAP A11). ``predict`` on arrays works.
+pre/post-processing registry), ``imagenet_preprocess`` (the classifiers'
+default chain), ``LabelOutput`` (their label post-processing) and
+``ImageModel``, whose ``predict_image_set`` runs an ``ImageSet`` through
+the pre-processing on the host, the model on the context's device, and
+the post-processing per feature.
 """
 
 from __future__ import annotations
@@ -15,11 +15,13 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from ...feature.common import ChainedPreprocessing, Preprocessing
+from ...feature.image.image_feature import ImageFeature
+from ...feature.image.preprocessing import (ImageCenterCrop,
+                                            ImageChannelNormalize,
+                                            ImageMatToTensor, ImageResize,
+                                            ImageSetToSample)
 from ..common import ZooModel
-
-_IMAGE_PIPELINE = ("the image pipeline (feature/image: ImageSet and its "
-                   "OpenCV preprocessing) is not ported yet; it arrives "
-                   "with ROADMAP A11. Feed predict() arrays instead")
 
 
 class ImageConfigure:
@@ -51,10 +53,21 @@ class ImageConfigure:
 
 def imagenet_preprocess(size: int = 224,
                         mean=(123.68, 116.779, 103.939),
-                        format: str = "NCHW"):
-    """The imagenet eval chain (resize, center-crop, normalize, to a
-    tensor): not ported yet (ROADMAP A11)."""
-    raise NotImplementedError(_IMAGE_PIPELINE)
+                        format: str = "NCHW") -> Preprocessing:
+    """Standard imagenet eval chain: resize-256 -> center-crop ->
+    normalize -> NCHW (or NHWC) tensor (the reference's default
+    classifier preprocessing).
+
+    The resize edge scales with the crop (256/224 ratio) so crops larger
+    than 256 still fit inside the resized image."""
+    edge = max(256, int(round(size * 256 / 224)))
+    return ChainedPreprocessing([
+        ImageResize(edge, edge),
+        ImageCenterCrop(size, size),
+        ImageChannelNormalize(*mean),
+        ImageMatToTensor(format=format),
+        ImageSetToSample(),
+    ])
 
 
 class LabelOutput:
@@ -79,10 +92,23 @@ class LabelOutput:
 
 
 class ImageModel(ZooModel):
-    """Base for image models (ImageModel.scala parity)."""
+    """Base for image models (ImageModel.scala parity):
+    ``predict_image_set`` runs preprocessing -> batched device predict ->
+    per-feature postprocessing."""
 
     def predict_image_set(self, image_set, configure=None,
                           batch_size: int = 16):
-        raise NotImplementedError(_IMAGE_PIPELINE)
+        cfg = configure or getattr(self, "config", None)
+        data = image_set
+        if cfg is not None and cfg.pre_processor is not None:
+            data = data.transform(cfg.pre_processor)
+        feats = data.to_local().features
+        arrays = np.stack([f.get_sample().features[0] for f in feats])
+        preds = np.asarray(self.predict(arrays, batch_size=batch_size))
+        for feat, pred in zip(feats, preds):
+            feat[ImageFeature.predict] = pred
+            if cfg is not None and cfg.post_processor is not None:
+                cfg.post_processor(feat, pred)
+        return data
 
     predictImageSet = predict_image_set

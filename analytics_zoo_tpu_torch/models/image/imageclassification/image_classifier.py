@@ -7,9 +7,8 @@ by tag; like the JAX package, the port builds the architectures natively
 (NCHW, and NHWC for resnet-50) with random weights from the context's
 seed, which train from scratch or copy from the JAX package
 (``utils.load_jax_params`` with ``state=`` for the moving statistics).
-The default pre-processing waits for the image pipeline (ROADMAP A11),
-so ``config.pre_processor`` is None; the label post-processing comes
-over.
+The default configure is the JAX package's: ``imagenet_preprocess``
+at the graph's input size (none for lenet) and ``LabelOutput``.
 """
 
 from __future__ import annotations
@@ -24,7 +23,8 @@ from ....pipeline.api.keras.layers import (Activation, Add,
                                            SeparableConvolution2D,
                                            ZeroPadding2D)
 from ....pipeline.api.keras.models import Model, Sequential
-from ..common import ImageConfigure, ImageModel, LabelOutput
+from ..common import (ImageConfigure, ImageModel, LabelOutput,
+                      imagenet_preprocess)
 
 backbones: Dict[str, Callable] = {}
 
@@ -200,7 +200,19 @@ class ImageClassifier(ImageModel):
         if fmt == "tf":
             kwargs["data_format"] = "tf"
         self.model = backbones[key](class_num, **kwargs)
-        self.config = ImageConfigure(post_processor=LabelOutput(label_map))
+        self.config = ImageConfigure(
+            pre_processor=_default_preprocess(key, input_shape, fmt),
+            post_processor=LabelOutput(label_map))
+
+    @classmethod
+    def load_model(cls, path, weight_path=None):
+        obj = super().load_model(path, weight_path)
+        obj.config = ImageConfigure(
+            pre_processor=_default_preprocess(
+                obj.model_name, obj.input_shape,
+                getattr(obj, "data_format", "th")),
+            post_processor=LabelOutput(None))
+        return obj
 
 
 def _norm_format(data_format: str) -> str:
@@ -211,3 +223,17 @@ def _norm_format(data_format: str) -> str:
         return "tf"
     raise ValueError(f"unknown data_format {data_format!r}; "
                      "use 'th'/'NCHW' or 'tf'/'NHWC'")
+
+
+def _default_preprocess(key: str, input_shape, fmt: str = "th"):
+    """Crop size follows the graph's actual input, not a fixed 224; the
+    emitted tensor layout follows the graph's data format."""
+    if key == "lenet":
+        return None
+    if input_shape is None:
+        size = 224
+    else:
+        # crop is square; take the spatial edge for either layout
+        size = int(input_shape[-1] if fmt == "th" else input_shape[0])
+    return imagenet_preprocess(
+        size, format="NCHW" if fmt == "th" else "NHWC")

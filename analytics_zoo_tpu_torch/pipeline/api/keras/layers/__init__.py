@@ -3,7 +3,15 @@ from .convolutional import (AtrousConvolution1D, AtrousConvolution2D,
                             Convolution1D, Convolution2D, Cropping1D,
                             Cropping2D, SeparableConvolution2D, UpSampling1D,
                             UpSampling2D, ZeroPadding1D, ZeroPadding2D)
-from .core import Activation, Dense, Dropout, Flatten, Select
+from .core import (AddConstant, Activation, BinaryThreshold, CAdd, CMul,
+                   Dense, Dropout, Exp, Expand, ExpandDim, Flatten,
+                   GaussianDropout, GaussianNoise, GaussianSampler, GetShape,
+                   HardShrink, HardTanh, Highway, Identity, Log, Masking, Max,
+                   MaxoutDense, Mul, MulConstant, Narrow, Negative, Permute,
+                   Power, RepeatVector, Reshape, ResizeBilinear, Scale,
+                   Select, SelectTable, SoftShrink, SparseDense,
+                   SpatialDropout1D, SpatialDropout2D, SpatialDropout3D,
+                   SplitTensor, Sqrt, Square, Squeeze, Threshold)
 from .embeddings import Embedding, SparseEmbedding, WordEmbedding
 from .merge import (Add, Average, Concatenate, Maximum, Merge, Multiply,
                     merge)
@@ -34,4 +42,13 @@ __all__ = ["Input", "InputLayer", "KerasLayer", "Activation", "Dense",
            "GlobalAveragePooling1D", "GlobalAveragePooling2D",
            "GlobalAveragePooling3D", "BatchNormalization", "LayerNorm",
            "LRN2D", "WithinChannelLRN2D", "SimpleRNN", "LSTM", "GRU",
-           "TimeDistributed", "Bidirectional", "WordEmbedding"]
+           "TimeDistributed", "Bidirectional", "WordEmbedding",
+           "SpatialDropout1D", "SpatialDropout2D", "SpatialDropout3D",
+           "Reshape", "Permute", "RepeatVector", "Masking", "Highway",
+           "MaxoutDense", "Narrow", "Squeeze", "ExpandDim", "Identity",
+           "Max", "SplitTensor", "Exp", "Log", "Sqrt", "Square",
+           "Negative", "Power", "AddConstant", "MulConstant", "CAdd",
+           "CMul", "Mul", "Scale", "BinaryThreshold", "Threshold",
+           "HardTanh", "HardShrink", "SoftShrink", "GaussianNoise",
+           "GaussianDropout", "GaussianSampler", "ResizeBilinear",
+           "SparseDense", "SelectTable", "Expand", "GetShape"]

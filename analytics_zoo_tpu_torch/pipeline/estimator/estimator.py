@@ -12,8 +12,9 @@ name: :class:`MultiOptimizer`, the counterpart of
 checkpoint's layer names with the model's (user names by name, auto
 names by class and creation order, ``utils/jax_weights.py``): the JAX
 Estimator's ``_remap_param_names`` step is part of that pairing here.
-``train_minibatch`` and ``train_imagefeature`` wait for the data layer
-(ROADMAP A11), ``LocalEstimator`` for A10.
+``train_minibatch`` trains on a pre-batched feature set and
+``train_imagefeature`` on an ``ImageSet`` (through its
+``to_feature_set``). ``LocalEstimator`` waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -171,6 +172,34 @@ class Estimator(AbstractEstimator):
                                           if validation_set is not None
                                           else None))
         return self
+
+    def train_minibatch(self, train_set, criterion=None, end_trigger=None,
+                        checkpoint_trigger=None, validation_set=None,
+                        validation_method=None):
+        """Pre-batched variant (estimatorTrainMiniBatch parity): the
+        batch size is the feature set's ``batch_size``, else the size of
+        its first batch."""
+        first = next(iter(train_set.batches(1)), None) \
+            if not hasattr(train_set, "batch_size") else None
+        bs = getattr(train_set, "batch_size", None) or (
+            len(first.weights) if first is not None else 32)
+        return self.train(train_set, criterion, end_trigger,
+                          checkpoint_trigger, validation_set,
+                          validation_method, batch_size=bs)
+
+    def train_imagefeature(self, train_set, criterion=None, end_trigger=None,
+                           checkpoint_trigger=None, validation_set=None,
+                           validation_method=None, batch_size=32):
+        """ImageSet variant (estimatorTrainImageFeature parity): the
+        transformed images (their samples, else their tensors and
+        labels) as a feature set."""
+        to_fs = getattr(train_set, "to_feature_set", None)
+        fs = to_fs() if to_fs else train_set
+        val = validation_set.to_feature_set() if (
+            validation_set is not None and
+            hasattr(validation_set, "to_feature_set")) else validation_set
+        return self.train(fs, criterion, end_trigger, checkpoint_trigger,
+                          val, validation_method, batch_size)
 
     def evaluate(self, validation_set, validation_method=None,
                  batch_size=32):

@@ -200,13 +200,12 @@ class QuantizedModel(FloatModel):
     def _compute_eligible_paths(self) -> frozenset:
         """Kernels whose layer routes its product through
         ``quant.matmul``/``quant.conv2d``: exact types only (a subclass
-        that overrides ``forward`` may not). ``SparseDense`` and
-        ``ShareConvolution2D`` join when the port has them (ROADMAP
-        A8)."""
+        that overrides ``forward`` may not). ``ShareConvolution2D`` joins
+        when the port has it (ROADMAP A8)."""
         from ..api.keras.layers import (AtrousConvolution2D, Convolution2D,
-                                        Dense)
+                                        Dense, SparseDense)
 
-        ok_types = (Dense, Convolution2D, AtrousConvolution2D)
+        ok_types = (Dense, SparseDense, Convolution2D, AtrousConvolution2D)
         eligible = set()
         for layer in getattr(self._graph, "layers", ()):
             if type(layer) in ok_types:
@@ -326,10 +325,10 @@ class QuantizedModel(FloatModel):
         (selects, never mixes). Exact types only -- AveragePooling2D
         subclasses MaxPooling2D but averages."""
         from ..api.keras.layers import (Activation, Dropout, Flatten,
-                                        MaxPooling2D)
+                                        MaxPooling2D, Permute, Reshape)
 
-        # Reshape and Permute join when the port has them (ROADMAP A8)
-        if type(layer) in (Flatten, Dropout, MaxPooling2D):
+        if type(layer) in (Flatten, Reshape, Permute, Dropout,
+                           MaxPooling2D):
             return True
         if type(layer) is Activation:
             return getattr(layer.fn, "name", None) == "relu"

@@ -29,8 +29,8 @@ by bounded queues (backpressure propagates to the stream read):
 
 1. **decode** — a pool of ``decode_workers`` threads pulls records off
    the :class:`StreamQueue` and produces ready tensors concurrently with
-   compute (base64/cv2 decode is host work the accelerator should never
-   wait on);
+   compute (base64 and image decode is host work the accelerator should
+   never wait on);
 2. **compute** — a single thread assembles ready tensors into
    power-of-two **padding buckets** (a small fixed set of batch shapes,
    each run once by :meth:`ClusterServing.warmup` so the kernels and
@@ -76,6 +76,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
+from ..feature.image import codec
+from ..feature.image.resize import resize as resize_image
 from ..pipeline.inference import InferenceModel
 from ..pipeline.inference.inference_model import AbstractModel, HostCopy
 from ..pipeline.inference.inference_summary import InferenceSummary
@@ -425,15 +427,15 @@ class ClusterServing:
     # -- record decode (the foreachBatch mapPartitions body) -----------
     def _decode_record(self, rec: dict) -> np.ndarray:
         if "image" in rec:
-            import cv2
-
             raw = base64.b64decode(rec["image"])
-            img = cv2.imdecode(np.frombuffer(raw, np.uint8),
-                               cv2.IMREAD_COLOR)
-            if img is None:
-                raise ValueError(f"undecodable image for {rec.get('uri')}")
+            try:
+                img = codec.decode(raw, rec.get("uri"))
+            except ValueError as e:
+                raise ValueError(f"undecodable image for {rec.get('uri')}: "
+                                 f"{e}") from None
             c, h, w = self.helper.image_shape
-            img = cv2.resize(img, (w, h)).astype(np.float32)
+            # uint8 LINEAR, OpenCV's default resize
+            img = resize_image(img, (w, h)).astype(np.float32)
             if self.preprocessing is not None:
                 img = self.preprocessing(img)
             return np.transpose(img, (2, 0, 1))  # NCHW like the reference

@@ -1,7 +1,8 @@
 """ctypes loader for the port's native host-side libraries.
 
 Counterpart of ``analytics_zoo_tpu/utils/native_loader.py``. Each C++
-source under ``utils/csrc/`` (``crc32c.cpp``, ``zoo_data.cpp``) is
+source under ``utils/csrc/`` (``crc32c.cpp``, ``zoo_data.cpp``,
+``zoo_image.cpp``) is
 compiled with ``g++ -O3`` at first use into ``build/torch_native/`` at
 the root of the checkout, under a name that holds a hash of the source
 and the flags (an edited source rebuilds), and loaded over its plain C
@@ -12,7 +13,9 @@ quietly to a slower path.
 
 :func:`load_zoo_data` wraps ``zoo_data.cpp``: the TFRecord reader
 (``read_tfrecord``) and the host arena (:class:`HostArena`, the
-PMEM/DIRECT memory tier's staging slab).
+PMEM/DIRECT memory tier's staging slab); :func:`load_zoo_image` wraps
+``zoo_image.cpp``: the JPEG decoder and encoder and the PNG unfilter of
+``feature/image/codec.py``.
 """
 
 from __future__ import annotations
@@ -206,3 +209,35 @@ def load_zoo_data() -> ZooDataLib:
         _zoo_data = ZooDataLib(build_library(CSRC / "zoo_data.cpp",
                                              "libzoo_torch_data"))
     return _zoo_data
+
+
+_zoo_image: Optional[ctypes.CDLL] = None
+
+
+def load_zoo_image() -> ctypes.CDLL:
+    """The image codec's native library (``zoo_image.cpp``) with its
+    argument types set, built on first use; raises
+    :class:`NativeCompileError` when the build fails."""
+    global _zoo_image
+    if _zoo_image is None:
+        lib = build_library(CSRC / "zoo_image.cpp", "libzoo_torch_image")
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.zoo_image_free.restype = None
+        lib.zoo_image_free.argtypes = [ctypes.c_void_p]
+        lib.zoo_jpeg_decode.restype = ctypes.c_void_p
+        lib.zoo_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                                        ip, ip, ctypes.c_char_p,
+                                        ctypes.c_int]
+        lib.zoo_jpeg_encode.restype = ctypes.c_void_p
+        lib.zoo_jpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_uint64),
+                                        ctypes.c_char_p, ctypes.c_int]
+        lib.zoo_png_unfilter.restype = ctypes.c_int
+        lib.zoo_png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                                         ctypes.c_int, ctypes.c_uint64,
+                                         ctypes.c_int, u8p, ctypes.c_char_p,
+                                         ctypes.c_int]
+        _zoo_image = lib
+    return _zoo_image

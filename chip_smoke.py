@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
-Serving, int8 inference, serving-fleet and training-observability paths
-once on one NVIDIA GPU.
+Serving, int8 inference, serving-fleet, training-observability, host
+data and object-detection paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -274,7 +274,7 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               epoch end's read, raises ``TrainingHalted`` with ``latest``
               = ckpt-2, finite, and the drain flag cleared. Its files, under
               ``build/chip_smoke_observe``, are deleted at the end.
-16. data -- (last) the host data layer in a context of its own.
+16. data -- the host data layer in a context of its own.
               A: 8 batches of bench.py's BERT inputs at 32 x 512 (int32
               ids, the float32 mask and label) written as 256 TFRecord
               records and read back by the native reader with every
@@ -305,6 +305,36 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``infeed-worker:kill@3``: the worker respawns and the checksums equal the clean run's,
               complete, in order, no duplicates. Its files, under
               ``build/chip_smoke_data``, are deleted at the end.
+17. detect -- (last) image features without OpenCV and SSD object
+              detection, float32, TF32 off, weights from ``--seed``. 32
+              seeded images (gradients with filled rectangles, 375 x 500
+              and 480 x 640) in two class folders, half baseline JPEG from
+              the port's encoder, half PNG. A: ``ImageSet.read(...,
+              with_label=True)`` then ``ObjectDetector(class_num=21)``
+              (SSD-300, base 32, six scales, 8,744 priors; BatchNorm in
+              inference) ``.predict_image_set(batch_size=8)`` on the card:
+              the (8, 8744, 25) head output against the port's CPU forward
+              of the same weights on the same batch, every image's (k, 6)
+              rows inside its own pixels, every detection clear of its
+              neighbours by 1e-4 equal to the CPU's class for class;
+              images/s and the time split (decode, preprocess, forward,
+              ``detection_output``), one batch's device time by kernel
+              group, launches and idle share. B: ``MultiBoxLoss`` on
+              ``encode_targets`` of 1-3 seeded boxes an image: the first
+              step's loss and every head's gradient on the batch of 16
+              against the CPU's, then ``fit`` for 4 steps at batch 16
+              (the first loss the card step's, every loss finite, every
+              gradient finite after step 1; the step p50 and the leg's
+              own peak memory). C: ``ImageClassifier(
+              "resnet-50", 10).predict_image_set`` through
+              ``imagenet_preprocess``: ``clses``/``probs`` on every image,
+              one image's pre-softmax logits (within 1e-4 of their scale)
+              and probabilities against the CPU. D: every file
+              decoded again from disk equal to what was written (PNG) or
+              to the in-memory decode of its bytes (JPEG); whether ``cv2``
+              is importable there is printed, it is never imported. K1-K5
+              are launched 0 times in the phase. Its files, under
+              ``build/chip_smoke_detect``, are deleted at the end.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -319,6 +349,7 @@ import concurrent.futures
 import contextlib
 import copy
 import gc
+import importlib.util
 import io
 import itertools
 import json
@@ -352,6 +383,7 @@ from analytics_zoo_tpu_torch.feature.feature_set import (ArrayFeatureSet,
                                                          TransformStats)
 from analytics_zoo_tpu_torch.feature.host_pipeline import \
     ProcessTransformPool
+from analytics_zoo_tpu_torch.feature.image import ImageSet, codec
 from analytics_zoo_tpu_torch.feature.infeed_worker import (flatten_batch,
                                                            slot_nbytes)
 from analytics_zoo_tpu_torch.feature.tfrecord import (read_tfrecord,
@@ -360,6 +392,10 @@ from analytics_zoo_tpu_torch.feature.text import TextFeature, TextSet
 from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.image.imageclassification import \
     ImageClassifier
+from analytics_zoo_tpu_torch.models.image.objectdetection import \
+    ObjectDetector
+from analytics_zoo_tpu_torch.models.image.objectdetection import \
+    ssd as tssd
 from analytics_zoo_tpu_torch.models.recommendation import (
     NeuralCF, SessionRecommender, UserItemFeature)
 from analytics_zoo_tpu_torch.models.seq2seq import (Bridge, RNNDecoder,
@@ -6027,6 +6063,447 @@ def data(seed, smi):
                 wall_s=time.perf_counter() - t0), launches
 
 
+# ---------------------------------------------------------------------------
+# 17. detect: image features without OpenCV, SSD-300 on the card
+# ---------------------------------------------------------------------------
+
+DETECT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_detect")
+# the reference's object-detection flow at the repo's full detector width
+# (ObjectDetector's defaults: 21 classes, SSD-300, base 32 channels, six
+# scales, 8,744 priors)
+DETECT_CLASSES, DETECT_IMAGES, DETECT_BATCH = 21, 32, 8
+DETECT_SIZES = ((375, 500), (480, 640))
+DETECT_TRAIN_BATCH, DETECT_TRAIN_STEPS = 16, 4
+DETECT_JPEG_QUALITY = 90
+# the head output, card against the port's CPU forward of the same
+# weights on the same batch (float32, TF32 off): 14 convolutions summed in
+# another order, 1e-4 of the output's largest magnitude
+DETECT_HEAD_TOL = 1e-4
+# detections whose score is this far from every other detection's score
+# (and from the threshold) are held to the CPU's, class for class, with
+# the score within the same gap and the box within 1e-3 pixels per pixel
+# of image edge
+DETECT_SCORE_GAP = 1e-4
+DETECT_BOX_TOL = 1e-3
+# the first training step, card against CPU from the same weights: the
+# loss within 1e-4 relative; every head's gradient within 1e-3 of its
+# norm; fit's first loss within 1e-5 relative of the card's step
+DETECT_LOSS_TOL = 1e-4
+DETECT_FIT_LOSS_TOL = 1e-5
+# hard-negative mining ranks background priors by cross-entropy: where
+# two lie within rounding (1e-4 relative) the card and the CPU may pick
+# either; the gradients are then compared under the card's picks
+DETECT_MINING_TIE = 1e-4
+DETECT_GRAD_TOL = 1e-3
+# the classifier leg against the CPU: its pre-softmax logits (the last
+# Dense's matmul + bias; random weights saturate the softmax, which would
+# hide a wrong forward) within 1e-4 of their largest magnitude: ResNet-50's
+# 53 float32 convolutions summed in another order (TF32 off); and the
+# probabilities within 1e-4
+DETECT_LOGIT_TOL = 1e-4
+DETECT_PROB_TOL = 1e-4
+
+
+def detect_scene(rs, h, w, k):
+    """A smooth colour gradient with a few filled rectangles."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([xx * 255.0 / w, yy * 255.0 / h,
+                    (np.sin(xx / 37.0 + k) + np.cos(yy / 23.0)) * 60 + 128],
+                   -1)
+    for _ in range(3):
+        y0, x0 = int(rs.integers(0, h * 3 // 4)), int(rs.integers(0, w * 3 //
+                                                                 4))
+        img[y0:y0 + int(rs.integers(h // 8, h // 3)),
+            x0:x0 + int(rs.integers(w // 8, w // 3))] = rs.integers(0, 256, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_detect_images(seed, root):
+    """DETECT_IMAGES seeded images in two class folders, half baseline
+    JPEG from the port's encoder and half PNG, at 375 x 500 and 480 x 640.
+    Returns {path: (original pixels, the in-memory decode of the bytes)}."""
+    rs = np.random.default_rng(seed)
+    written = {}
+    for i in range(DETECT_IMAGES):
+        h, w = DETECT_SIZES[i % 2]
+        img = detect_scene(rs, h, w, i)
+        folder = os.path.join(root, "cls_a" if i < DETECT_IMAGES // 2
+                              else "cls_b")
+        os.makedirs(folder, exist_ok=True)
+        if (i // 2) % 2:
+            path = os.path.join(folder, f"img{i:02d}.png")
+            data = codec.encode_png(img)
+        else:
+            path = os.path.join(folder, f"img{i:02d}.jpg")
+            data = codec.encode_jpeg(img, DETECT_JPEG_QUALITY)
+        with open(path, "wb") as f:
+            f.write(data)
+        written[path] = (img, codec.decode(data, path))
+    return written
+
+
+def detect_codec_leg(written):
+    """Leg D: every written file decoded again from disk equals what was
+    encoded (PNG) or the in-memory decode of the same bytes (JPEG, the
+    same C++ code; its distance from the drawn pixels is reported)."""
+    t0 = time.perf_counter()
+    jpeg_err = 0
+    for path, (img, first) in written.items():
+        got = codec.imread(path)
+        want = img if path.endswith(".png") else first
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{path}: decoded again it is not what was "
+                                 "written")
+        if path.endswith(".jpg"):
+            jpeg_err = max(jpeg_err, int(np.abs(got.astype(int) - img).max()))
+    return dict(files=len(written), decode_wall_s=time.perf_counter() - t0,
+                png_bit_equal=True, jpeg_equal_to_in_memory_decode=True,
+                jpeg_max_abs_err_vs_drawn=jpeg_err,
+                jpeg_quality=DETECT_JPEG_QUALITY,
+                cv2_importable=importlib.util.find_spec("cv2") is not None)
+
+
+def detect_group(name: str) -> str:
+    """Kernel groups of the detector's profile."""
+    low = name.lower()
+    if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad",
+                              "implicit", "cudnn")):
+        return "convolution (cuDNN)"
+    if "norm" in low:
+        return "batch norm"
+    if "softmax" in low:
+        return "softmax"
+    if "sort" in low or "radix" in low:
+        return "sort (argsort)"
+    return kernel_group(name)
+
+
+def match_detections(card, cpu, threshold):
+    """The card's detection rows against the CPU's: every card row whose
+    score is DETECT_SCORE_GAP clear of the other rows' scores and of the
+    threshold has a CPU row of the same class, score and box. Returns the
+    number of rows held."""
+    held = 0
+    scores = card[:, 1]
+    for i, row in enumerate(card):
+        others = np.delete(scores, i)
+        if abs(row[1] - threshold) <= DETECT_SCORE_GAP or (
+                len(others) and np.abs(others - row[1]).min() <=
+                DETECT_SCORE_GAP):
+            continue
+        near = cpu[(cpu[:, 0] == row[0]) &
+                   (np.abs(cpu[:, 1] - row[1]) <= DETECT_SCORE_GAP)]
+        if not len(near) or np.abs(near[:, 2:] - row[2:]).max(axis=1).min() \
+                > DETECT_BOX_TOL * DETECT_SIZES[1][1]:
+            raise AssertionError(f"card detection {row.tolist()} has no "
+                                 "CPU twin")
+        held += 1
+    return held
+
+
+def detect_serve_leg(det, cpu_det, root, smi):
+    """Leg A: ImageSet.read -> ObjectDetector.predict_image_set on the
+    card, against the CPU twin; the time split and a profile."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iset = ImageSet.read(root, with_label=True)
+    read_s = time.perf_counter() - t0
+    if len(iset) != DETECT_IMAGES or sorted(iset.label_map.values()) != \
+            [1, 2]:
+        raise AssertionError(f"read {len(iset)} images, labels "
+                             f"{iset.label_map}")
+    t1 = time.perf_counter()
+    out = det.predict_image_set(iset, batch_size=DETECT_BATCH)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t1
+    feats = out.features
+    arrays = np.stack([f.get_sample().features[0] for f in feats])
+    if arrays.shape != (DETECT_IMAGES, 3, 300, 300):
+        raise AssertionError(f"preprocessed batch {arrays.shape}")
+    # the gates: the head output and every image's rows against the CPU
+    head = det.forward_device(arrays[:DETECT_BATCH])
+    cpu_head = cpu_det.forward_device(arrays[:DETECT_BATCH])
+    scale = float(cpu_head.abs().max())
+    head_err = float((head.float().cpu() - cpu_head).abs().max())
+    if tuple(head.shape) != (DETECT_BATCH, 8744, 4 + DETECT_CLASSES) or \
+            not torch.isfinite(head).all() or \
+            head_err > DETECT_HEAD_TOL * max(1.0, scale):
+        raise AssertionError(f"head output {tuple(head.shape)} off the "
+                             f"CPU's by {head_err} (scale {scale})")
+    cpu_rows = cpu_det.detect(arrays, DETECT_BATCH)
+    n_rows = held = 0
+    for f, crow in zip(feats, cpu_rows):
+        rows = f["detection"]
+        h, w = f["original_height"], f["original_width"]
+        if rows.ndim != 2 or rows.shape[1] != 6 or not np.isfinite(
+                rows).all():
+            raise AssertionError(f"{f['uri']}: rows {rows.shape}")
+        if (rows[:, [2, 4]] > w + 1e-3).any() or \
+                (rows[:, [3, 5]] > h + 1e-3).any():
+            raise AssertionError(f"{f['uri']}: a box outside {w} x {h}")
+        keep = crow[:, 1] > 0
+        cpu_scaled = crow[keep].copy()
+        cpu_scaled[:, [2, 4]] *= w
+        cpu_scaled[:, [3, 5]] *= h
+        held += match_detections(rows, cpu_scaled, det.conf_threshold)
+        n_rows += len(rows)
+    # a second pass, warm, for images/s; then the time split: decode,
+    # preprocess, forward, detection_output
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    det.predict_image_set(ImageSet.read(root, with_label=True),
+                          batch_size=DETECT_BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - tw
+    t2 = time.perf_counter()
+    again = ImageSet.read(root, with_label=True)
+    decode_s = time.perf_counter() - t2
+    t3 = time.perf_counter()
+    again.transform(det.config.pre_processor)
+    preprocess_s = time.perf_counter() - t3
+    forward_s = post_s = 0.0
+    for i in range(0, DETECT_IMAGES, DETECT_BATCH):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        preds = det.forward_device(arrays[i:i + DETECT_BATCH])
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        det.postprocess(preds)
+        torch.cuda.synchronize()
+        forward_s += tb - ta
+        post_s += time.perf_counter() - tb
+    batch = arrays[:DETECT_BATCH]
+    prof = profile_device(lambda: det.postprocess(det.forward_device(batch)),
+                          group_of=detect_group)
+    launches = sum(g["launches"] for g in (prof["groups"] or {}).values())
+    return dict(
+        images=DETECT_IMAGES, batch=DETECT_BATCH, sizes=DETECT_SIZES,
+        rows=n_rows, rows_held_to_cpu=held,
+        conf_threshold=det.conf_threshold,
+        head_max_abs_err=head_err, head_scale=scale,
+        head_tol=DETECT_HEAD_TOL,
+        first_pass_s=dict(read=read_s, predict_image_set=predict_s),
+        images_per_s=DETECT_IMAGES / warm_s, warm_pass_s=warm_s,
+        split_s=dict(decode=decode_s, preprocess=preprocess_s,
+                     forward=forward_s, detection_output=post_s),
+        launches_per_batch=launches, profile_one_batch=prof,
+        card=smi), arrays
+
+
+def detect_mining_flips(card_keep, cpu_keep, cpu_pred, cpu_y):
+    """The priors the card's hard-negative mining chose and the CPU's did
+    not, and back: each image's two sets are as large, and the CPU's
+    cross-entropy of every swapped prior within DETECT_MINING_TIE of the
+    others (a near tie broken the other way, not a wrong selection).
+    Returns the count of swapped pairs."""
+    ce = tssd.MultiBoxLoss._cross_entropy(cpu_pred.detach(),
+                                          cpu_y[..., 4].long())
+    swapped = 0
+    for b in range(card_keep.shape[0]):
+        only_card = ce[b][card_keep[b] & ~cpu_keep[b]]
+        only_cpu = ce[b][cpu_keep[b] & ~card_keep[b]]
+        if len(only_card) != len(only_cpu):
+            raise AssertionError(f"image {b}: the card mined "
+                                 f"{int(card_keep[b].sum())} priors, the "
+                                 f"CPU {int(cpu_keep[b].sum())}")
+        if len(only_card):
+            gap = float(only_cpu.max() - only_card.min())
+            if gap > DETECT_MINING_TIE * float(only_cpu.max()):
+                raise AssertionError(f"image {b}: mined priors differ by "
+                                     f"a cross-entropy gap of {gap}")
+            swapped += len(only_card)
+    return swapped
+
+
+def detect_train_leg(det, cpu_det, arrays, seed):
+    """Leg B: MultiBoxLoss on encode_targets of seeded boxes; the first
+    step's loss and gradients on the fit batch against the CPU's; four
+    fit steps at batch 16, the first's loss the card step's; every loss
+    finite, every gradient finite after step 1; the step times and the
+    leg's own peak memory."""
+    rs = np.random.default_rng(seed)
+    boxes, labels = [], []
+    for _ in range(DETECT_TRAIN_BATCH):
+        k = int(rs.integers(1, 4))
+        xy = rs.uniform(0.0, 0.6, (k, 2))
+        boxes.append(np.concatenate(
+            [xy, xy + rs.uniform(0.1, 0.4, (k, 2))], 1).astype(np.float32))
+        labels.append(rs.integers(1, DETECT_CLASSES, k))
+    y = det.encode_targets(boxes, labels)
+    x = arrays[:DETECT_TRAIN_BATCH]
+    if y.shape != (DETECT_TRAIN_BATCH, 8744, 5) or not (y[..., 4] > 0).any():
+        raise AssertionError(f"targets {y.shape}")
+    # the first step on the fit batch, card against CPU: the loss with
+    # each side's own hard negatives; the gradients with the card's
+    loss_fn = tssd.MultiBoxLoss(DETECT_CLASSES)
+    runs = {}
+    for name, model, dev in (("card", det.model, init_nncontext().device),
+                             ("cpu", cpu_det.model, torch.device("cpu"))):
+        model.to(dev)
+        model.zero_grad(set_to_none=True)
+        xs, ys = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+        pred = model([xs], training=True)
+        runs[name] = (pred, ys, loss_fn.selection(pred, ys))
+    card_pred, card_y, card_keep = runs["card"]
+    cpu_pred, cpu_y, cpu_keep = runs["cpu"]
+    card_loss = loss_fn.masked_loss(card_pred, card_y, card_keep).mean()
+    cpu_loss = loss_fn.masked_loss(cpu_pred, cpu_y, cpu_keep).mean().item()
+    flips = detect_mining_flips(card_keep.cpu(), cpu_keep, cpu_pred, cpu_y)
+    card_loss.backward()
+    loss_fn.masked_loss(cpu_pred, cpu_y, card_keep.cpu()).mean().backward()
+    card_loss = card_loss.item()
+    cpu_params = dict(cpu_det.model.named_parameters())
+    worst, worst_name = 0.0, None
+    for name, p in det.model.named_parameters():
+        if name.startswith("head"):
+            g, w = p.grad.cpu(), cpu_params[name].grad
+            rel = float((g - w).norm() / max(float(w.norm()), 1e-12))
+            if rel > worst:
+                worst, worst_name = rel, name
+    loss_err = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
+    if loss_err > DETECT_LOSS_TOL or worst > DETECT_GRAD_TOL:
+        raise AssertionError(f"first step off the CPU's: loss {loss_err}, "
+                             f"gradient {worst} ({worst_name})")
+    det.model.zero_grad(set_to_none=True)
+    # fit, one step a call, timed
+    det.compile(optimizer="sgd")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold is not this leg's
+    base = torch.cuda.memory_allocated()
+    losses, walls = [], []
+    for step in range(DETECT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.model.fit(x, y, batch_size=DETECT_TRAIN_BATCH, nb_epoch=1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.extend(det.model.trainer.step_losses)
+        if step == 0:
+            for name, p in det.model.named_parameters():
+                if p.grad is None or not torch.isfinite(p.grad).all():
+                    raise AssertionError(f"{name}: no finite gradient "
+                                         "after step 1")
+    peak = torch.cuda.max_memory_allocated() - base
+    fit_err = abs(losses[0] - card_loss) / max(abs(card_loss), 1e-12)
+    if len(losses) != DETECT_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or fit_err > DETECT_FIT_LOSS_TOL:
+        raise AssertionError(f"detector losses {losses}, the first "
+                             f"{fit_err} off the card step's")
+    return dict(batch=DETECT_TRAIN_BATCH, steps=DETECT_TRAIN_STEPS,
+                losses=losses, card_loss=card_loss,
+                cpu_loss=cpu_loss, loss_rel_err=loss_err,
+                fit_first_loss_rel_err=fit_err, mining_flips=flips,
+                loss_tol=DETECT_LOSS_TOL, head_grad_rel_err=worst,
+                head_grad_rel_err_param=worst_name,
+                grad_tol=DETECT_GRAD_TOL, fit_step_walls_s=walls,
+                fit_step_p50_ms=1e3 * percentile(walls[1:], 50),
+                peak_memory_bytes=peak, allocated_before_bytes=base)
+
+
+def output_dense_inputs(model):
+    """A forward hook on ``model``'s output Dense (matmul + bias +
+    softmax) that keeps each call's input, and the layer: the logits are
+    ``x @ kernel + bias`` of what it kept."""
+    dense = model.graph_function().layers[-1]
+    if type(dense).__name__ != "Dense":
+        raise AssertionError(f"the classifier ends in {dense!r}")
+    kept = []
+    handle = dense.register_forward_hook(
+        lambda layer, args, out: kept.append(args[0].detach()))
+    return dense, kept, handle
+
+
+def detect_classifier_leg(seed, root):
+    """Leg C: ImageClassifier("resnet-50", 10).predict_image_set through
+    its default chain (imagenet_preprocess); one image's logits and
+    probabilities against the CPU."""
+    def make():
+        return ImageClassifier(class_num=10, model_name="resnet-50")
+    clf = seeded_zoo_model(make, seed)
+    twin = seeded_zoo_model(make, seed)
+    twin.model.trainer = SPMDTrainer(twin.model, get_loss("mse"),
+                                     get_optimizer("sgd"), device="cpu")
+    dense, kept, handle = output_dense_inputs(clf.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = clf.predict_image_set(ImageSet.read(root),
+                                    batch_size=DETECT_BATCH)
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    wall = time.perf_counter() - t0
+    feats = out.features
+    for f in feats:
+        if len(f["clses"]) != 5 or len(f["probs"]) != 5 or \
+                not np.isfinite(f["probs"]).all():
+            raise AssertionError(f"{f['uri']}: clses {f['clses']}")
+    x = feats[0].get_sample().features[0][None]
+    cpu_dense, cpu_kept, cpu_handle = output_dense_inputs(twin.model)
+    try:
+        want = twin.model.trainer.predict(x, batch_size=1)[0]
+    finally:
+        cpu_handle.remove()
+    err = float(np.abs(feats[0]["predict"] - want).max())
+    with torch.no_grad():
+        logits = (kept[0][:1].float() @ dense.kernel.float() +
+                  dense.bias.float()).cpu()
+        cpu_logits = cpu_kept[0][:1] @ cpu_dense.kernel + cpu_dense.bias
+    scale = float(cpu_logits.abs().max())
+    logit_err = float((logits - cpu_logits).abs().max())
+    if x.shape != (1, 3, 224, 224) or tuple(logits.shape) != (1, 10) or \
+            not torch.isfinite(logits).all() or \
+            logit_err > DETECT_LOGIT_TOL * max(1.0, scale) or \
+            err > DETECT_PROB_TOL:
+        raise AssertionError(f"classifier logits off the CPU's by "
+                             f"{logit_err} (scale {scale}), "
+                             f"probabilities by {err}")
+    return dict(model="resnet-50", classes=10, images=len(feats),
+                wall_s=wall, images_per_s=len(feats) / wall,
+                cpu_logit_max_abs_err=logit_err, logit_scale=scale,
+                logit_tol=DETECT_LOGIT_TOL,
+                cpu_prob_max_abs_err=err, prob_tol=DETECT_PROB_TOL)
+
+
+def detect_phase(seed, smi):
+    """The detect phase (see the module docstring): returns the report
+    and K1-K5's launches over the phase."""
+    shutil.rmtree(DETECT_ROOT, ignore_errors=True)
+    os.makedirs(DETECT_ROOT)
+    t0 = time.perf_counter()
+    _kernels.LAUNCHES.reset()
+    try:
+        written = write_detect_images(seed + 70, DETECT_ROOT)
+        write_s = time.perf_counter() - t0
+
+        def make():
+            return ObjectDetector(class_num=DETECT_CLASSES)
+        det = seeded_zoo_model(make, seed + 71)
+        cpu_det = seeded_zoo_model(make, seed + 71)
+        cpu_det.model.trainer = SPMDTrainer(
+            cpu_det.model, get_loss("mse"), get_optimizer("sgd"),
+            device="cpu")
+        serve_a, arrays = detect_serve_leg(det, cpu_det, DETECT_ROOT, smi)
+        train_b = detect_train_leg(det, cpu_det, arrays, seed + 72)
+        del det, cpu_det
+        collect()
+        classify_c = detect_classifier_leg(seed + 73, DETECT_ROOT)
+        codec_d = detect_codec_leg(written)
+    finally:
+        shutil.rmtree(DETECT_ROOT, ignore_errors=True)
+    launches = _kernels.LAUNCHES.snapshot()
+    if launches:
+        raise AssertionError(f"the detect phase launched hand-written "
+                             f"kernels {launches}")
+    return dict(card=smi, detector=dict(
+        model="ObjectDetector(class_num=21, ssd-300, base_channels=32)",
+        priors=8744), write_s=write_s, leg_a=serve_a, leg_b=train_b,
+        leg_c=classify_c, leg_d=codec_d, k1_k5_launches=launches,
+        wall_s=time.perf_counter() - t0), launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -6201,6 +6678,11 @@ def main(argv=None):
     data_report, data_launches = data(args.seed, smi)
     emit("data", **data_report)
 
+    # 17. detect: image features without OpenCV and SSD-300
+    collect()
+    detect_report, detect_launches = detect_phase(args.seed, smi)
+    emit("detect", **detect_report)
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -6236,7 +6718,8 @@ def main(argv=None):
                      launches_int8=int8_launches.get(name, 0),
                      launches_fleet=fleet_launches.get(name, 0),
                      launches_observe=obs_launches.get(name, 0),
-                     launches_data=data_launches.get(name, 0))
+                     launches_data=data_launches.get(name, 0),
+                     launches_detect=detect_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

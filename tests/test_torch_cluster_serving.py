@@ -309,6 +309,32 @@ def test_bad_records_are_dropped_as_jax_drops_them(cnn, pipelined):
     assert counters["torch"]["results_out"] == 1
 
 
+def test_cut_image_records_are_dropped_as_jax_drops_them(cnn):
+    """An image record whose JPEG was cut inside its data: OpenCV refuses
+    it (JAX's server drops the record) and so does the port's codec,
+    with a ``ValueError`` the server counts as a dropped record."""
+    import cv2
+
+    img = np.random.default_rng(6).integers(0, 255, (30, 41, 3)).astype(
+        np.uint8)
+    cut = cv2.imencode(".jpg", img)[1].tobytes()[:-40]
+    assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR) \
+        is None
+    counters = {}
+    for pkg in ("jax", "torch"):
+        backend = MOD[pkg].InProcessStreamQueue()
+        iq = MOD[pkg].InputQueue(backend=backend)
+        backend.enqueue({"uri": "cut", "image": iq.base64_encode_image(cut)})
+        server, backend = _serve_stream(
+            pkg, cnn[pkg], [("image", "good", img)], backend=backend,
+            pipelined=False)
+        got = _run(server, backend, pkg, ["good"])
+        assert sorted(got) == ["good"]
+        counters[pkg] = _counters(server)
+    assert counters["torch"]["dropped"] == counters["jax"]["dropped"] == 1
+    assert counters["torch"]["results_out"] == 1
+
+
 @pytest.mark.parametrize("batch_size", [1, 4, 6, 16])
 def test_buckets_match_jax(batch_size):
     assert ts.power_of_two_buckets(batch_size) == \
@@ -404,6 +430,43 @@ def test_image_records_through_cv2_match_jax(cnn):
             pipelined=False)
         got[pkg] = _run(server, backend, pkg, list(imgs))
     _assert_rows_equal(got["torch"], got["jax"])
+
+
+def test_image_records_decode_without_cv2(cnn, monkeypatch):
+    """The card's machine is not promised OpenCV: with ``cv2`` hidden
+    (an import of it raises), the port's client encodes and its server
+    decodes and resizes image records through the port's own codec, and
+    the record's tensor equals the one OpenCV's decode and resize give
+    for the same bytes; the served rows equal JAX's."""
+    import sys
+
+    import cv2
+
+    img = np.random.default_rng(5).integers(0, 255, (30, 41, 3)).astype(
+        np.uint8)
+    blobs = {"jpg": cv2.imencode(".jpg", img)[1].tobytes(),
+             "png": cv2.imencode(".png", img)[1].tobytes()}
+    want = {k: np.transpose(cv2.resize(
+        cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR),
+        (SHAPE[2], SHAPE[1])).astype(np.float32), (2, 0, 1))
+        for k, b in blobs.items()}
+    jserver, jbackend = _serve_stream(
+        "jax", cnn["jax"], [("image", "a", img), ("image", "b", img[::-1])],
+        pipelined=False)
+    jrows = _run(jserver, jbackend, "jax", ["a", "b"])
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError):
+        import cv2 as _hidden  # noqa: F401
+    backend = ts.InProcessStreamQueue()
+    server = _server("torch", cnn["torch"], backend)
+    client = ts.InputQueue(backend=backend)
+    for k, b in blobs.items():
+        rec = {"uri": k, "image": client.base64_encode_image(b)}
+        np.testing.assert_array_equal(server._decode_record(rec), want[k])
+    records = [("image", "a", img), ("image", "b", img[::-1])]
+    tserver, tbackend = _serve_stream("torch", cnn["torch"], records,
+                                      pipelined=False)
+    _assert_rows_equal(_run(tserver, tbackend, "torch", ["a", "b"]), jrows)
 
 
 def test_echo_stub_and_host_copy_on_the_cpu():

@@ -1517,3 +1517,103 @@ def test_fit_through_staging_equals_fit_from_device_tensors(cuda):
                                       a.predict(x, batch_size=96))
     finally:
         tnn.set_nncontext(None)
+
+
+# -- object detection (SSD) on the card ---------------------------------------
+
+def _ssd_preds(seed, b, n, c, device):
+    """Head outputs without tied scores (the tie-breaking is held against
+    JAX on the CPU: PyTorch's CPU softmax can round equal inputs apart by
+    their vector lane) and one class below the threshold."""
+    gen = torch.Generator().manual_seed(seed)
+    loc = torch.randn((b, n, 4), generator=gen) * 0.5
+    logits = torch.randn((b, n, c), generator=gen) * 2.0
+    logits[..., c - 1] = -30.0
+    return torch.cat([loc, logits], -1).to(device)
+
+
+@pytest.mark.parametrize("num_classes,top_k", [(21, 100), (4, 12)])
+def test_detection_output_on_the_card_equals_the_cpu(cuda, num_classes,
+                                                     top_k):
+    """``detection_output`` (softmax, decode, batched NMS, stable top-k)
+    on the card: the labels equal the CPU's, scores and boxes within
+    1e-5 (the card's exp and softmax round differently)."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import ssd
+    priors = torch.from_numpy(ssd.generate_priors())
+    preds = _ssd_preds(3, 4, len(priors), num_classes, "cpu")
+    want = ssd.detection_output(preds, priors, num_classes, 0.05, 0.45,
+                                top_k)
+    got = ssd.detection_output(preds.cuda(), priors.cuda(), num_classes,
+                               0.05, 0.45, top_k).cpu()
+    assert got.shape == want.shape == (4, top_k, 6)
+    assert torch.equal(got[..., 0], want[..., 0])
+    real = torch.isfinite(want[..., 1])
+    assert torch.equal(torch.isfinite(got[..., 1]), real)
+    assert (got[..., 1:][real] - want[..., 1:][real]).abs().max() <= 1e-5
+
+
+def test_multibox_loss_on_the_card_equals_the_cpu(cuda):
+    from analytics_zoo_tpu_torch.models.image.objectdetection import ssd
+    gen = torch.Generator().manual_seed(5)
+    y_pred = torch.randn((3, 500, 25), generator=gen)
+    y_true = torch.zeros((3, 500, 5))
+    y_true[..., :4] = torch.randn((3, 500, 4), generator=gen)
+    y_true[0, :10, 4] = torch.randint(1, 21, (10,), generator=gen).float()
+    y_true[1, 100:160, 4] = 3.0
+    loss = ssd.MultiBoxLoss(21)
+    xc = y_pred.clone().requires_grad_(True)
+    want = loss(xc, y_true)
+    want.backward()
+    xg = y_pred.cuda().requires_grad_(True)
+    got = loss(xg, y_true.cuda())
+    got.backward()
+    assert abs(got.item() - want.item()) <= 1e-5 * abs(want.item())
+    err = (xg.grad.cpu() - xc.grad).abs().max()
+    assert err <= 1e-5 * xc.grad.abs().max()
+
+
+def test_object_detector_on_the_card_equals_the_cpu(cuda):
+    """A small ``ObjectDetector``'s head output on the card against a CPU
+    twin of the same weights (TF32 off), within 1e-4 of its scale; its
+    rows: every row whose score is 1e-4 clear of the others' carries the
+    CPU row's label."""
+    from analytics_zoo_tpu_torch.common import nncontext
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import \
+        get_loss
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
+        get_optimizer
+    from analytics_zoo_tpu_torch.pipeline.engine import SPMDTrainer
+    nncontext.set_nncontext(None)
+    try:
+        nncontext.init_nncontext()
+        det = ObjectDetector(class_num=5, image_size=96, base_channels=8)
+        twin = ObjectDetector(class_num=5, image_size=96, base_channels=8)
+        with torch.no_grad():   # the same graph: copy in order
+            for a, b in zip(twin.model.parameters(), det.model.parameters()):
+                a.copy_(b)
+            for a, b in zip(twin.model.buffers(), det.model.buffers()):
+                a.copy_(b)
+        twin.model.trainer = SPMDTrainer(twin.model, get_loss("mse"),
+                                         get_optimizer("sgd"), device="cpu")
+        x = torch.randn((3, 3, 96, 96),
+                        generator=torch.Generator().manual_seed(2)).numpy()
+        head = det.forward_device(x)
+        assert head.is_cuda
+        want = twin.forward_device(x)
+        assert (head.cpu() - want).abs().max() <= 1e-4 * max(
+            1.0, want.abs().max().item())
+        rows, wrows = det.detect(x), twin.detect(x)
+        assert rows.shape == wrows.shape == (3, 100, 6)
+        for r, w in zip(rows, wrows):
+            for i, row in enumerate(r):
+                if not row[1] > 0:
+                    continue
+                gap = abs(r[:, 1] - row[1])
+                gap[i] = 1.0
+                if gap.min() > 1e-4:
+                    assert row[0] == w[i, 0] and abs(row[1] - w[i, 1]) <= \
+                        1e-4
+    finally:
+        nncontext.set_nncontext(None)

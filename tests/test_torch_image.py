@@ -447,9 +447,18 @@ def test_image_classifier_surface():
     got = LabelOutput({0: "cat", 1: "dog", 2: "frog"}, top_n=2)(
         {}, np.array([0.2, 0.7, 0.1]))
     assert got["clses"] == want["clses"]
-    for fn in (lambda: clf.predict_image_set(None), imagenet_preprocess):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn()
+    # the default chain is the JAX package's, class for class
+    from analytics_zoo_tpu.models.image.common import \
+        imagenet_preprocess as jimagenet_preprocess
+    got = imagenet_preprocess(96)
+    want = jimagenet_preprocess(96)
+    assert [type(p).__name__ for p in got.transformers] == \
+        [type(p).__name__ for p in want.transformers]
+    assert (got.transformers[0].h, got.transformers[1].cw) == \
+        (want.transformers[0].h, want.transformers[1].cw) == (256, 96)
+    sq = tic.ImageClassifier(class_num=3, model_name="squeezenet",
+                              input_shape=(3, 96, 96))
+    assert sq.config.pre_processor.transformers[1].cw == 96
 
 
 # ---------------------------------------------------------------------------

@@ -171,7 +171,7 @@ def test_what_cannot_be_saved_or_loaded_names_its_roadmap_item(tmp_path):
     with pytest.raises(model_io.UnserializableConfig, match="A8"):
         model.save_model(str(tmp_path / "callable"))
     jmodel = JSequential()
-    jmodel.add(jl.SpatialDropout1D(0.5, input_shape=(3, 2)))
+    jmodel.add(jl.ELU(input_shape=(3, 2)))
     jmodel.save_model(str(tmp_path / "lstm"))
     with pytest.raises(NotImplementedError, match="A8"):
         KerasNet.load_model(str(tmp_path / "lstm"))
@@ -225,6 +225,50 @@ CONFIG_CASES = {
 }
 for _case, (_make, _) in IMAGE_LAYER_CASES.items():
     CONFIG_CASES[_case] = _make
+CONFIG_CASES.update({   # the rest of core.py
+    "Reshape": lambda m: m.Reshape((4, -1)),
+    "Permute": lambda m: m.Permute((2, 3, 1)),
+    "RepeatVector": lambda m: m.RepeatVector(3),
+    "Masking": lambda m: m.Masking(0.5),
+    "Highway": lambda m: m.Highway(activation="relu"),
+    "MaxoutDense": lambda m: m.MaxoutDense(5, nb_feature=3),
+    "Narrow": lambda m: m.Narrow(1, 1, 2),
+    "Squeeze": lambda m: m.Squeeze(2),
+    "ExpandDim": lambda m: m.ExpandDim(1),
+    "Identity": lambda m: m.Identity(),
+    "Max": lambda m: m.Max(1, return_value=False),
+    "SplitTensor": lambda m: m.SplitTensor(1, 2),
+    "Exp": lambda m: m.Exp(),
+    "Log": lambda m: m.Log(),
+    "Sqrt": lambda m: m.Sqrt(),
+    "Square": lambda m: m.Square(),
+    "Negative": lambda m: m.Negative(),
+    "Power": lambda m: m.Power(2, 0.5, 1.0),
+    "AddConstant": lambda m: m.AddConstant(2.5),
+    "MulConstant": lambda m: m.MulConstant(-1.5),
+    "CAdd": lambda m: m.CAdd((1, 4)),
+    "CMul": lambda m: m.CMul((3, 1)),
+    "Mul": lambda m: m.Mul(),
+    "Scale": lambda m: m.Scale((3, 4)),
+    "BinaryThreshold": lambda m: m.BinaryThreshold(0.1),
+    "Threshold": lambda m: m.Threshold(0.2, -1.0),
+    "HardTanh": lambda m: m.HardTanh(-0.5, 0.7),
+    "HardShrink": lambda m: m.HardShrink(0.4),
+    "SoftShrink": lambda m: m.SoftShrink(0.3),
+    "GaussianNoise": lambda m: m.GaussianNoise(0.5),
+    "GaussianDropout": lambda m: m.GaussianDropout(0.3),
+    "GaussianSampler": lambda m: m.GaussianSampler(),
+    "SpatialDropout1D": lambda m: m.SpatialDropout1D(0.4),
+    "SpatialDropout2D": lambda m: m.SpatialDropout2D(0.5,
+                                                     dim_ordering="tf"),
+    "SpatialDropout3D": lambda m: m.SpatialDropout3D(0.5),
+    "ResizeBilinear": lambda m: m.ResizeBilinear(6, 10),
+    "SparseDense": lambda m: m.SparseDense(4, backward_start=2,
+                                           backward_length=3),
+    "SelectTable": lambda m: m.SelectTable(1),
+    "Expand": lambda m: m.Expand((-1, 3, 4)),
+    "GetShape": lambda m: m.GetShape(),
+})
 
 
 def _bert_case(pkg):

@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu", "yaml",
-             "msgpack")
+             "msgpack", "cv2", "PIL")
 
 
 @pytest.fixture(autouse=True)
@@ -67,6 +67,11 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.models.recommendation, "
             "analytics_zoo_tpu_torch.models.image, "
             "analytics_zoo_tpu_torch.models.image.imageclassification, "
+            "analytics_zoo_tpu_torch.models.image.objectdetection, "
+            "analytics_zoo_tpu_torch.feature.image, "
+            "analytics_zoo_tpu_torch.feature.image.codec, "
+            "analytics_zoo_tpu_torch.feature.image.resize, "
+            "analytics_zoo_tpu_torch.feature.image3d, "
             "analytics_zoo_tpu_torch.models.textclassification, "
             "analytics_zoo_tpu_torch.models.anomalydetection, "
             "analytics_zoo_tpu_torch.models.textmatching, "

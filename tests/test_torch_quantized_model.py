@@ -129,7 +129,24 @@ def _relu_layer_cnn(L, Seq):
     return m
 
 
+def _reshape_permute_sparse(L, Seq):
+    """A convolution whose int8 output flows through ``Reshape`` and
+    ``Permute`` (int8-transparent) into a ``SparseDense`` (an int8
+    kernel) and a ``Dense``."""
+    m = Seq()
+    m.add(L.Convolution2D(6, 3, 3, activation="relu", input_shape=(2, 8, 8),
+                          name="rpc1"))
+    m.add(L.Reshape((6, 36), name="rprs"))
+    m.add(L.Permute((2, 1), name="rppm"))
+    m.add(L.Flatten(name="rpfl"))
+    m.add(L.SparseDense(12, activation="relu", name="rpsd"))
+    m.add(L.Dense(4, name="rpout"))
+    return m
+
+
 GRAPHS = {   # case -> (builder, package args, input shape, chains)
+    "reshape_permute_sparse": (_reshape_permute_sparse, "seq", (2, 8, 8),
+                               [("rpc1", "rpsd"), ("rpsd", "rpout")]),
     "chained_cnn": (_chained_cnn, "seq", (3, 16, 16),
                     [("c1", "c2"), ("c2", "d1"), ("d1", "out")]),
     "fanout": (_fanout, "model", (8,), []),
