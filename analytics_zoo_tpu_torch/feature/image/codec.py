@@ -11,6 +11,8 @@ lists (jpg, jpeg, png, bmp), chosen by the file's signature:
   libjpeg's islow IDCT, fancy upsampling and fixed-point colour tables,
   so its pixels are libjpeg's. Progressive, arithmetic-coded, lossless
   and 12-bit files raise ``ValueError`` naming the file and the mode.
+  An APP1 Exif block's Orientation (1-8) turns the pixels as OpenCV's
+  ``applyExifOrientation`` does (:func:`jpeg_exif_orientation`).
 - PNG: ``zlib`` inflates, the five row filters are reversed in the same
   C++ library; 1/2/4/8/16-bit grey, grey+alpha, RGB, RGBA and palette.
   Alpha is dropped and 16-bit samples keep their high byte, as
@@ -54,7 +56,8 @@ def decode(data, uri: Optional[str] = None) -> np.ndarray:
     raw = _as_bytes(data)
     what = uri if uri is not None else "<bytes>"
     if raw[:2] == b"\xff\xd8":
-        return decode_jpeg(raw, what)
+        return apply_orientation(decode_jpeg(raw, what),
+                                 jpeg_exif_orientation(raw))
     if raw[:8] == PNG_SIGNATURE:
         return decode_png(raw, what)
     if raw[:2] == b"BM":
@@ -92,6 +95,60 @@ def decode_jpeg(raw: bytes, what: str = "<bytes>") -> np.ndarray:
     finally:
         lib.zoo_image_free(ptr)
     return out.reshape(h.value, w.value, 3).copy()
+
+
+def jpeg_exif_orientation(raw: bytes) -> int:
+    """The Orientation tag (0x0112) of IFD0 in the first APP1 Exif block
+    before the scan, 1 (as stored) where there is none or it is out of
+    range or cut."""
+    pos = 2
+    while pos + 4 <= len(raw) and raw[pos] == 0xFF:
+        marker = raw[pos + 1]
+        if marker == 0xFF:              # fill byte
+            pos += 1
+            continue
+        if marker in (0xD9, 0xDA):      # EOI, SOS: no Exif before the scan
+            break
+        seg_len = struct.unpack(">H", raw[pos + 2:pos + 4])[0]
+        seg = raw[pos + 4:pos + 2 + seg_len]
+        if marker == 0xE1 and seg[:6] == b"Exif\0\0":
+            return _tiff_orientation(seg[6:])
+        pos += 2 + seg_len
+    return 1
+
+
+def _tiff_orientation(tiff: bytes) -> int:
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    end = "<" if tiff[:2] == b"II" else ">"
+    ifd = struct.unpack(end + "I", tiff[4:8])[0]
+    if ifd + 2 > len(tiff):
+        return 1
+    count = struct.unpack(end + "H", tiff[ifd:ifd + 2])[0]
+    for i in range(count):
+        entry = tiff[ifd + 2 + 12 * i:ifd + 14 + 12 * i]
+        if len(entry) < 12:
+            break
+        tag, kind = struct.unpack(end + "HH", entry[:4])
+        if tag == 0x0112 and kind == 3:          # SHORT
+            value = struct.unpack(end + "H", entry[8:10])[0]
+            return value if 1 <= value <= 8 else 1
+    return 1
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """``img`` turned upright for Exif ``orientation``: OpenCV's
+    transpose and flips (2 mirrors the columns, 3 turns by 180, 4
+    mirrors the rows, 5-8 transpose first)."""
+    if orientation <= 1 or orientation > 8:
+        return img
+    if orientation >= 5:
+        img = img.transpose(1, 0, 2)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
 
 
 def _to_bgr_u8(img) -> np.ndarray:

@@ -86,6 +86,9 @@ class ZooModel:
     def set_weights(self, weights):
         self.model.set_weights(weights)
 
+    def summary(self):
+        return self.model.summary()
+
     # -- persistence ---------------------------------------------------
     def save_model(self, path, weight_path=None, over_write=False):
         """Save the wrapper's config and the internal Keras model."""

@@ -7,7 +7,8 @@ params pytree; here a layer is an ``nn.Module`` that keeps its parameters.
 tensors, nested one level for grouped parameters — and
 :meth:`KerasLayer.build_params` registers it on the module under the JAX
 names and layouts: top-level leaves as parameters, nested dicts as
-``nn.ParameterDict``s (``block0.qkv_w``; a Dense ``kernel`` is (in, out)).
+``nn.ParameterDict``s, nested as deep as the tree (``block0.qkv_w``,
+``block0.moe.w_in``; a Dense ``kernel`` is (in, out)).
 A layer that wraps others (``TimeDistributed``, ``Bidirectional``,
 Seq2seq's coders) holds them as submodules under the JAX tree's keys and
 builds them in its own ``build_params``. So a model's ``state_dict()``
@@ -137,11 +138,7 @@ class KerasLayer(nn.Module):
         self.built = True
         for key, val in self.build(generator, input_shape).items():
             if isinstance(val, dict):
-                if any(isinstance(v, dict) for v in val.values()):
-                    raise NotImplementedError(
-                        f"{self.name}: params nested deeper than one level")
-                self.add_module(key, nn.ParameterDict(
-                    {k: nn.Parameter(v) for k, v in val.items()}))
+                self.add_module(key, _parameter_dict(val))
             else:
                 self.register_parameter(key, nn.Parameter(val))
         for key, val in self.init_state(input_shape).items():
@@ -198,6 +195,16 @@ class KerasLayer(nn.Module):
 
     def extra_repr(self):
         return f"name={self.name}"
+
+
+def _parameter_dict(tree) -> nn.ParameterDict:
+    """A nested dict of tensors as nested ``nn.ParameterDict``s (a MoE
+    block's ``block0.moe.w_in``)."""
+    out = nn.ParameterDict()
+    for k, v in tree.items():
+        out[k] = _parameter_dict(v) if isinstance(v, dict) \
+            else nn.Parameter(v)
+    return out
 
 
 class InputLayer(KerasLayer):

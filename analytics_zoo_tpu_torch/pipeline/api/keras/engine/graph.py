@@ -7,7 +7,8 @@ into a :class:`GraphFunction` that builds every distinct layer once and
 evaluates the nodes in topological order. PyTorch runs eagerly, so
 ``apply`` is a plain Python walk over the nodes, and a layer owns its
 parameters (it is an ``nn.Module``) instead of receiving a params pytree.
-The autograd operator sugar on Variables arrives with the autograd port.
+A Variable's operators (``+ - * / **``, ``[...]``, ``slice``, ...) record
+autograd op layers (``pipeline/api/autograd.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,61 @@ class Variable:
 
     def __repr__(self):
         return f"Variable(name={self.name}, shape={self.shape})"
+
+    # ---- autograd operator sugar (Variable.scala:365-378) --------------
+    def _binop(self, other, mode, reverse=False):
+        from ... import autograd
+        a, b = (other, self) if reverse else (self, other)
+        return autograd._binary_op(a, b, mode)
+
+    def __add__(self, other):
+        return self._binop(other, "add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "sub")
+
+    def __rsub__(self, other):
+        return self._binop(other, "sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binop(other, "mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "div")
+
+    def __rtruediv__(self, other):
+        return self._binop(other, "div", reverse=True)
+
+    def __pow__(self, other):
+        return self._binop(other, "pow")
+
+    def __neg__(self):
+        from ... import autograd
+        return autograd.neg(self)
+
+    def __getitem__(self, key):
+        from ... import autograd
+        return autograd._slice_variable(self, key)
+
+    def slice(self, dim, start_index, length):
+        from ... import autograd
+        return autograd._slice_dim(self, dim, start_index, length)
+
+    def index_select(self, dim, index):
+        from ... import autograd
+        return autograd.index_select(self, dim, index)
+
+    def squeeze(self, dim):
+        from ... import autograd
+        return autograd.squeeze(self, dim)
+
+    def expand_dims(self, axis):
+        from ... import autograd
+        return autograd.expand_dims(self, axis)
 
 
 def topological_nodes(outputs: Sequence[Variable]) -> List[Node]:

@@ -17,15 +17,23 @@ refused, and a JAX class the port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 
 Layers whose configs hold arbitrary callables (``Lambda``, a callable
-activation) cannot be saved by definition. The JAX package falls back to
-pickle for those graphs; here ``UnserializableConfig`` is raised (the
-pickle fallback waits with ``CustomLoss``, ROADMAP A8 and A10).
+activation) cannot be saved by definition. The JAX package pickles such
+a model object whole (``architecture.pkl``); the port pickles its own
+format there instead (:data:`PICKLE_FORMAT`): the same spec, with each
+callable kept as the object pickle stores by reference. The loader reads
+it through a restricted ``Unpickler`` (:func:`load_pickled_spec`) that
+refuses, before importing anything, every class of JAX, optax, flax and
+the JAX package (so a JAX package's pickle is refused with a clear
+error) and the modules that reach the operating system.
 """
 
 from __future__ import annotations
 
 import importlib
+import io
 import logging
+import pickle
+import types
 from typing import Any, Dict, List
 
 import numpy as np
@@ -35,6 +43,7 @@ from .....utils.serialization import to_numpy
 logger = logging.getLogger("analytics_zoo_tpu_torch.model_io")
 
 FORMAT = "zoo-tpu-graph-v1"
+PICKLE_FORMAT = "zoo-tpu-torch-graph-pickle-v1"
 FILE_PREFIX = "analytics_zoo_tpu."
 PORT_PREFIX = "analytics_zoo_tpu_torch."
 
@@ -51,11 +60,18 @@ def file_module(module: str) -> str:
     return FILE_PREFIX + module[len(PORT_PREFIX):]
 
 
+_INTEROP = (".keras.layers.wrappers.KerasLayerWrapper", ".api.net.",
+            ".api.onnx.", ".api.caffe.", ".tfpark.", ".nnframes.", ".ray.",
+            ".automl.")
+
+
 def _roadmap_item(path: str) -> str:
+    if any(part in path for part in _INTEROP):
+        return "A14.5"
+    if ".parallel." in path:
+        return "A12"
     if ".models." in path:
         return "A9"
-    if ".keras.layers." in path or ".autograd" in path or ".keras2." in path:
-        return "A8"
     return "A10"
 
 
@@ -85,8 +101,12 @@ def _class_path(obj) -> str:
     return f"{file_module(cls.__module__)}.{cls.__qualname__}"
 
 
-def _encode(value, arrays: Dict[str, np.ndarray], path: str):
+def _encode(value, arrays: Dict[str, np.ndarray], path: str,
+            pickled: bool = False):
     from .base import KerasLayer
+
+    def enc(v, p):
+        return _encode(v, arrays, p, pickled)
 
     if value is None or isinstance(value, (bool, int, float, str)):
         return value
@@ -95,23 +115,23 @@ def _encode(value, arrays: Dict[str, np.ndarray], path: str):
     if isinstance(value, np.floating):
         return float(value)
     if isinstance(value, KerasLayer):
-        return {"__layer__": _layer_spec(value, arrays)}
+        return {"__layer__": _layer_spec(value, arrays, pickled)}
     if isinstance(value, np.ndarray) or hasattr(value, "__array__") and \
             not isinstance(value, (list, tuple, dict)):
         key = f"{path}_{len(arrays)}"
         arrays[key] = to_numpy(value)
         return {"__ndarray__": key}
     if isinstance(value, tuple):
-        return {"__tuple__": [_encode(v, arrays, path) for v in value]}
+        return {"__tuple__": [enc(v, path) for v in value]}
     if isinstance(value, list):
-        return [_encode(v, arrays, path) for v in value]
+        return [enc(v, path) for v in value]
     if isinstance(value, dict):
-        return {str(k): _encode(v, arrays, f"{path}.{k}")
-                for k, v in value.items()}
+        return {str(k): enc(v, f"{path}.{k}") for k, v in value.items()}
+    if pickled:
+        return {"__object__": value}
     raise UnserializableConfig(
         f"config entry {path!r} of type {type(value).__name__} cannot be "
-        "serialized definition-wise; the JAX package pickles such graphs "
-        "(Lambda/CustomLoss), which the port does not yet (ROADMAP A8)")
+        "serialized definition-wise (the graph is saved by pickle)")
 
 
 def _decode(value, arrays: Dict[str, np.ndarray]):
@@ -122,16 +142,18 @@ def _decode(value, arrays: Dict[str, np.ndarray]):
             return tuple(_decode(v, arrays) for v in value["__tuple__"])
         if "__layer__" in value:
             return _build_layer(value["__layer__"], arrays)
+        if "__object__" in value:
+            return value["__object__"]
         return {k: _decode(v, arrays) for k, v in value.items()}
     if isinstance(value, list):
         return [_decode(v, arrays) for v in value]
     return value
 
 
-def _layer_spec(layer, arrays) -> Dict[str, Any]:
+def _layer_spec(layer, arrays, pickled=False) -> Dict[str, Any]:
     cfg = layer.get_config()
     return {"class": _class_path(layer), "name": layer.name,
-            "config": {k: _encode(v, arrays, f"{layer.name}.{k}")
+            "config": {k: _encode(v, arrays, f"{layer.name}.{k}", pickled)
                        for k, v in cfg.items()}}
 
 
@@ -142,8 +164,10 @@ def _build_layer(spec: Dict[str, Any], arrays):
     return cls.from_config(config)
 
 
-def graph_to_spec(graph, name: str):
-    """GraphFunction -> (json-able spec, sidecar arrays)."""
+def graph_to_spec(graph, name: str, pickled: bool = False):
+    """GraphFunction -> (json-able spec, sidecar arrays); with ``pickled``
+    a config entry JSON cannot hold stays the object itself, for
+    :func:`dump_pickled_spec`."""
     arrays: Dict[str, np.ndarray] = {}
     var_ids: Dict[int, List] = {}
     spec_inputs = []
@@ -169,7 +193,8 @@ def graph_to_spec(graph, name: str):
         "format": FORMAT,
         "name": name,
         "inputs": spec_inputs,
-        "layers": [_layer_spec(layer, arrays) for layer in graph.layers],
+        "layers": [_layer_spec(layer, arrays, pickled)
+                   for layer in graph.layers],
         "nodes": spec_nodes,
         "outputs": [var_ids[v.id] for v in graph.outputs],
     }
@@ -202,3 +227,83 @@ def spec_to_model(spec: Dict[str, Any], arrays: Dict[str, np.ndarray]):
     outputs = [resolve(r) for r in spec["outputs"]]
     return Model(inputs, outputs if len(outputs) > 1 else outputs[0],
                  name=spec.get("name"))
+
+
+# -- the pickled architecture ------------------------------------------------
+
+#: top-level packages a port pickle never names: JAX's, and the JAX
+#: package's (``analytics_zoo_tpu``, not ``analytics_zoo_tpu_torch``)
+_JAX_PACKAGES = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu")
+#: modules that reach the operating system or evaluate code
+_REFUSED_MODULES = ("os", "posix", "nt", "subprocess", "sys", "shutil",
+                    "socket", "importlib", "runpy", "pty", "code",
+                    "multiprocessing", "ctypes", "pickle", "marshal")
+_REFUSED_BUILTINS = ("eval", "exec", "compile", "__import__", "open",
+                     "getattr", "setattr", "delattr", "globals", "locals",
+                     "vars", "input", "breakpoint", "exit", "quit")
+
+
+class PortUnpickler(pickle.Unpickler):
+    """Resolves a class only after checking its module: a JAX or JAX
+    package class raises ``pickle.UnpicklingError`` naming it, before its
+    module is imported."""
+
+    def __init__(self, file, what: str):
+        super().__init__(file)
+        self.what = what
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in _JAX_PACKAGES:
+            raise pickle.UnpicklingError(
+                f"{self.what} was pickled by the JAX package (it names "
+                f"{module}.{name}); the port reads only its own pickled "
+                "architectures: rebuild the model in the port, or save it "
+                "from the JAX package by definition (architecture.json)")
+        self._check(module, name)
+        obj = super().find_class(module, name)
+        # a dotted name can reach through an allowed module to another
+        # one's object: check where the object itself lives
+        if isinstance(obj, types.ModuleType):
+            raise pickle.UnpicklingError(
+                f"{self.what}: refusing to load the module {module}.{name}")
+        self._check(getattr(obj, "__module__", None) or "",
+                    getattr(obj, "__name__", name))
+        return obj
+
+    def _check(self, module, name):
+        top = module.split(".")[0]
+        if top in _JAX_PACKAGES or top in _REFUSED_MODULES or (
+                top == "builtins" and name in _REFUSED_BUILTINS):
+            raise pickle.UnpicklingError(
+                f"{self.what}: refusing to load {module}.{name}")
+
+
+def dump_pickled_spec(graph, name: str) -> bytes:
+    """The port's pickled architecture of ``graph``; raises
+    ``UnserializableConfig`` when a config entry cannot be pickled (a
+    lambda, a closure) or :class:`PortUnpickler` would refuse what was
+    pickled (a builtin reached through ``getattr``), so what saves
+    loads."""
+    spec, arrays = graph_to_spec(graph, name, pickled=True)
+    hint = "pass module-level functions to Lambda and the activations"
+    try:
+        raw = pickle.dumps({"format": PICKLE_FORMAT, "spec": spec,
+                            "arrays": arrays})
+    except (pickle.PicklingError, AttributeError, TypeError) as e:
+        raise UnserializableConfig(
+            f"model {name!r} holds a config entry that cannot be pickled "
+            f"({e}); {hint}") from e
+    try:
+        load_pickled_spec(raw, f"model {name!r}")
+    except pickle.UnpicklingError as e:
+        raise UnserializableConfig(f"{e}; {hint}") from e
+    return raw
+
+
+def load_pickled_spec(raw: bytes, what: str):
+    """(spec, arrays) of a :func:`dump_pickled_spec` file."""
+    blob = PortUnpickler(io.BytesIO(raw), what).load()
+    if not isinstance(blob, dict) or blob.get("format") != PICKLE_FORMAT:
+        raise ValueError(f"{what} is not a pickled architecture of the "
+                         "port")
+    return blob["spec"], blob["arrays"]

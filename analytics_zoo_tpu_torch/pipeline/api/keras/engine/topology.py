@@ -31,13 +31,16 @@ ValidationSummary scalars (``get_train_summary`` /
 ``load_model`` keep a model as the JAX package does: ``architecture.json``
 (``engine/model_io.py``) and ``weights.npz`` (the parameters and state
 trees, ``utils/serialization.py``), so a directory either package saved
-loads in the other. A graph whose configs hold a callable raises
-``UnserializableConfig`` (the JAX package pickles those; ROADMAP A8).
+loads in the other. A graph whose configs hold a callable (a
+``Lambda``, a callable activation) is saved as the port's pickled
+architecture (``architecture.pkl``, ``model_io.dump_pickled_spec``),
+which only the port reads; the port refuses the JAX package's pickles.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -54,6 +57,8 @@ from ..objectives import get_loss
 from ..optimizers import get_optimizer
 from .base import InputLayer, KerasLayer
 from .graph import GraphFunction, Node, Variable
+
+logger = logging.getLogger("analytics_zoo_tpu_torch.topology")
 
 
 def to_feature_set(x, y=None) -> FeatureSet:
@@ -300,6 +305,27 @@ class KerasNet(KerasLayer):
         return [p.detach().cpu().numpy()
                 for p in _flatten_sorted(self.param_tree(), [])]
 
+    def get_params(self) -> Dict[str, Any]:
+        """The parameters as the JAX params pytree (``{layer name:
+        {...}}``), the live tensors."""
+        return self.param_tree()
+
+    def summary(self, line_length=100) -> str:
+        """Each layer's parameter count and the total, printed and
+        returned; the JAX package's text for the same model."""
+        lines = [f'Model: "{self.name}"', "_" * line_length,
+                 f"{'Layer (type)':40s}{'Param #':>12s}", "=" * line_length]
+        total = 0
+        for layer in self.graph_function().layers:
+            n = sum(p.numel() for p in layer.parameters())
+            total += n
+            lines.append(f"{layer.name + ' (' + type(layer).__name__ + ')':40s}"
+                         f"{n:>12,d}")
+        lines += ["=" * line_length, f"Total params: {total:,d}"]
+        text = "\n".join(lines)
+        print(text)
+        return text
+
     def set_weights(self, weights: Sequence[np.ndarray]):
         leaves = _flatten_sorted(self.param_tree(), [])
         if len(leaves) != len(weights):
@@ -324,18 +350,29 @@ class KerasNet(KerasLayer):
 
         if os.path.exists(path) and not over_write:
             raise IOError(f"{path} exists; pass over_write=True")
-        spec, arrays = model_io.graph_to_spec(self.graph_function(),
-                                              self.name)
+        try:
+            spec, arrays = model_io.graph_to_spec(self.graph_function(),
+                                                  self.name)
+            pickled = None
+        except model_io.UnserializableConfig as e:
+            logger.warning("definition serialization unavailable (%s); "
+                           "saving the architecture by pickle", e)
+            pickled = model_io.dump_pickled_spec(self.graph_function(),
+                                                 self.name)
         os.makedirs(path, exist_ok=True)
         for stale in ("architecture.json", "config_arrays.npz",
                       "architecture.pkl"):
             sp = os.path.join(path, stale)
             if os.path.exists(sp):
                 os.remove(sp)
-        with open(os.path.join(path, "architecture.json"), "w") as f:
-            json.dump(spec, f, indent=1)
-        if arrays:
-            np.savez(os.path.join(path, "config_arrays.npz"), **arrays)
+        if pickled is not None:
+            with open(os.path.join(path, "architecture.pkl"), "wb") as f:
+                f.write(pickled)
+        else:
+            with open(os.path.join(path, "architecture.json"), "w") as f:
+                json.dump(spec, f, indent=1)
+            if arrays:
+                np.savez(os.path.join(path, "config_arrays.npz"), **arrays)
         serialization.save_pytree(os.path.join(path, "weights.npz"),
                                   {"params": self.param_tree(),
                                    "state": self.state_tree()})
@@ -350,19 +387,22 @@ class KerasNet(KerasLayer):
         from . import model_io
 
         json_path = os.path.join(path, "architecture.json")
-        if not os.path.exists(json_path):
-            raise NotImplementedError(
-                f"{path} holds no architecture.json: a pickled "
-                "architecture (the JAX package's fallback for Lambda / "
-                "CustomLoss graphs) loads once those layers are ported "
-                "(ROADMAP A8)")
-        with open(json_path) as f:
-            spec = json.load(f)
-        arrays = {}
-        arr_path = os.path.join(path, "config_arrays.npz")
-        if os.path.exists(arr_path):
-            with np.load(arr_path, allow_pickle=False) as z:
-                arrays = {k: z[k] for k in z.files}
+        pkl_path = os.path.join(path, "architecture.pkl")
+        if os.path.exists(json_path):
+            with open(json_path) as f:
+                spec = json.load(f)
+            arrays = {}
+            arr_path = os.path.join(path, "config_arrays.npz")
+            if os.path.exists(arr_path):
+                with np.load(arr_path, allow_pickle=False) as z:
+                    arrays = {k: z[k] for k in z.files}
+        elif os.path.exists(pkl_path):
+            with open(pkl_path, "rb") as f:
+                spec, arrays = model_io.load_pickled_spec(f.read(),
+                                                          pkl_path)
+        else:
+            raise FileNotFoundError(f"{path} holds no architecture.json "
+                                    "or architecture.pkl")
         model = model_io.spec_to_model(spec, arrays)
         blob = serialization.load_pytree(os.path.join(path, "weights.npz"))
         load_jax_params(model, blob["params"], blob.get("state") or {})
@@ -548,3 +588,14 @@ class Sequential(KerasNet):
 
     def new_graph(self, outputs: Sequence[str]) -> Model:
         return self.to_model().new_graph(outputs)
+
+    def save_keras2(self, path: str) -> str:
+        """Write a runnable Keras-2 python definition of this stack
+        (``saveToKeras2``, Topology.scala:557; ``keras2_export``)."""
+        from .keras2_export import sequential_to_keras2_source
+
+        with open(path, "w") as f:
+            f.write(sequential_to_keras2_source(self))
+        return path
+
+    saveToKeras2 = save_keras2

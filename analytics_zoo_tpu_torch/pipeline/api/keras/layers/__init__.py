@@ -1,8 +1,14 @@
 from ..engine.base import Input, InputLayer, KerasLayer
+from .advanced_activations import (ELU, LeakyReLU, PReLU, RReLU, Softmax,
+                                   SReLU, ThresholdedReLU)
 from .convolutional import (AtrousConvolution1D, AtrousConvolution2D,
-                            Convolution1D, Convolution2D, Cropping1D,
-                            Cropping2D, SeparableConvolution2D, UpSampling1D,
-                            UpSampling2D, ZeroPadding1D, ZeroPadding2D)
+                            Convolution1D, Convolution2D, Convolution3D,
+                            Cropping1D, Cropping2D, Cropping3D,
+                            Deconvolution2D, LocallyConnected1D,
+                            LocallyConnected2D, SeparableConvolution2D,
+                            ShareConvolution2D, UpSampling1D, UpSampling2D,
+                            UpSampling3D, ZeroPadding1D, ZeroPadding2D,
+                            ZeroPadding3D)
 from .core import (AddConstant, Activation, BinaryThreshold, CAdd, CMul,
                    Dense, Dropout, Exp, Expand, ExpandDim, Flatten,
                    GaussianDropout, GaussianNoise, GaussianSampler, GetShape,
@@ -22,12 +28,15 @@ from .pooling import (AveragePooling1D, AveragePooling2D, AveragePooling3D,
                       GlobalAveragePooling3D, GlobalMaxPooling1D,
                       GlobalMaxPooling2D, GlobalMaxPooling3D, MaxPooling1D,
                       MaxPooling2D, MaxPooling3D)
-from .recurrent import GRU, LSTM, SimpleRNN
+from .crf import CRF
+from .moe import SparseMoE
+from .recurrent import GRU, LSTM, ConvLSTM2D, ConvLSTM3D, SimpleRNN
 from .self_attention import BERT, TransformerLayer
 from .wrappers import Bidirectional, TimeDistributed
 
 Conv1D = Convolution1D
 Conv2D = Convolution2D
+Conv3D = Convolution3D
 
 __all__ = ["Input", "InputLayer", "KerasLayer", "Activation", "Dense",
            "Dropout", "Flatten", "Select", "Embedding", "SparseEmbedding",
@@ -51,4 +60,9 @@ __all__ = ["Input", "InputLayer", "KerasLayer", "Activation", "Dense",
            "CMul", "Mul", "Scale", "BinaryThreshold", "Threshold",
            "HardTanh", "HardShrink", "SoftShrink", "GaussianNoise",
            "GaussianDropout", "GaussianSampler", "ResizeBilinear",
-           "SparseDense", "SelectTable", "Expand", "GetShape"]
+           "SparseDense", "SelectTable", "Expand", "GetShape", "ELU",
+           "LeakyReLU", "PReLU", "RReLU", "Softmax", "SReLU",
+           "ThresholdedReLU", "Convolution3D", "Conv3D", "Deconvolution2D",
+           "ShareConvolution2D", "LocallyConnected1D", "LocallyConnected2D",
+           "Cropping3D", "UpSampling3D", "ZeroPadding3D", "ConvLSTM2D",
+           "ConvLSTM3D", "CRF", "SparseMoE"]

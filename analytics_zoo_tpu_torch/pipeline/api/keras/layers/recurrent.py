@@ -21,13 +21,18 @@ JAX cell applies it (:func:`gate_activation`). Neither cuDNN's RNN nor
 logistic sigmoid, and their GRU applies ``r`` after ``U_h`` where the
 Keras-1 GRU multiplies ``h_prev`` by ``r`` before it.
 
-``ConvLSTM2D``/``ConvLSTM3D`` are not ported yet (ROADMAP A8).
+``ConvLSTM2D``/``ConvLSTM3D`` run the LSTM cell over (B, T, C, H, W) or
+(B, T, C, D, H, W) with "same"-padded convolutions (XLA's padding,
+``ops/conv.py``) in place of the matmuls: the input convolution of every
+timestep is one convolution with T folded into the batch, then each step
+convolves ``h_prev`` with ``U`` on the same :func:`scan`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .....ops.conv import conv_general_dilated
 from ..engine.base import KerasLayer, get_activation_fn, init_tensor
 
 
@@ -220,3 +225,105 @@ class GRU(_RNNBase):
                          name=name)
         self.inner_activation = gate_activation(inner_activation,
                                                 self.output_dim)
+
+
+def conv_lstm_step(carry, zt, conv_u, act, inner):
+    """One ConvLSTM step on the projected input ``zt`` (B, 4F, ...);
+    ``carry`` is (h, c). Gates [i, f, c, o] on the channel axis."""
+    h_prev, c_prev = carry
+    z = zt + conv_u(h_prev)
+    i, f, g, o = z.chunk(4, dim=1)
+    i, f, o = inner(i), inner(f), inner(o)
+    c = f * c_prev + i * act(g)
+    ht = o * act(c)
+    return (ht, c), ht
+
+
+class _ConvLSTMBase(KerasLayer):
+    nsp = 2
+    dn = ("NCHW", "HWIO", "NCHW")
+
+    def _init(self, nb_filter, nb_kernel, activation, inner_activation,
+              subsample, return_sequences, go_backwards, border_mode):
+        if border_mode != "same":
+            raise ValueError(
+                "ConvLSTM supports border_mode='same' only (the recurrence "
+                "needs shape-preserving convolutions, as in the reference)")
+        self.nb_filter = int(nb_filter)
+        self.nb_kernel = int(nb_kernel)
+        self.activation = get_activation_fn(activation)
+        self.inner_activation = get_activation_fn(inner_activation)
+        self.return_sequences = return_sequences
+        self.go_backwards = go_backwards
+        self.subsample = int(subsample)
+
+    def build(self, generator, input_shape):
+        cin = int(input_shape[2])
+        k = (self.nb_kernel,) * self.nsp
+        f4 = 4 * self.nb_filter
+        return {"W": init_tensor(generator, k + (cin, f4)),
+                "U": init_tensor(generator, k + (self.nb_filter, f4)),
+                "b": torch.zeros(f4)}
+
+    def _conv(self, x, kernel, stride=1):
+        return conv_general_dilated(x, kernel, (stride,) * self.nsp, "SAME",
+                                    dimension_numbers=self.dn)
+
+    def forward(self, x, training=False, **kw):
+        b, t = x.shape[0], x.shape[1]
+        W, U = self.W.to(x.dtype), self.U.to(x.dtype)
+        bias = self.b.to(x.dtype).reshape((1, -1) + (1,) * self.nsp)
+        # the input convolution of all timesteps at once, T in the batch
+        xw = self._conv(x.reshape((b * t,) + x.shape[2:]), W,
+                        self.subsample) + bias
+        xw = xw.reshape((b, t) + xw.shape[1:])
+        act, inner = self.activation, self.inner_activation
+
+        def cell(carry, zt):
+            return conv_lstm_step(carry, zt, lambda h: self._conv(h, U),
+                                  act, inner)
+
+        zeros = xw.new_zeros((b, self.nb_filter) + xw.shape[3:])
+        carry, ys = scan(cell, (zeros, zeros), xw.unbind(1),
+                         reverse=self.go_backwards,
+                         collect=self.return_sequences)
+        if self.return_sequences:
+            return ys.flip(1) if self.go_backwards else ys
+        return carry[0]
+
+    def compute_output_shape(self, s):
+        def down(d):
+            return None if d is None else \
+                (d + self.subsample - 1) // self.subsample
+
+        dims = tuple(down(d) for d in s[3:3 + self.nsp])
+        if self.return_sequences:
+            return (s[0], s[1], self.nb_filter) + dims
+        return (s[0], self.nb_filter) + dims
+
+
+class ConvLSTM2D(_ConvLSTMBase):
+    """Convolutional LSTM over (B, T, C, H, W), channels first."""
+
+    def __init__(self, nb_filter, nb_kernel, activation="tanh",
+                 inner_activation="hard_sigmoid", dim_ordering="th",
+                 subsample=1, return_sequences=False, go_backwards=False,
+                 border_mode="same", input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name)
+        self._init(nb_filter, nb_kernel, activation, inner_activation,
+                   subsample, return_sequences, go_backwards, border_mode)
+
+
+class ConvLSTM3D(_ConvLSTMBase):
+    """Convolutional LSTM over volumes (B, T, C, D, H, W)."""
+
+    nsp = 3
+    dn = ("NCDHW", "DHWIO", "NCDHW")
+
+    def __init__(self, nb_filter, nb_kernel, activation="tanh",
+                 inner_activation="hard_sigmoid", subsample=1,
+                 return_sequences=False, go_backwards=False, border_mode="same",
+                 input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name)
+        self._init(nb_filter, nb_kernel, activation, inner_activation,
+                   subsample, return_sequences, go_backwards, border_mode)

@@ -34,10 +34,20 @@ against the slabs in plain torch, as the JAX package does in ``jnp``.
 The decode methods run without autograd and write the state's slabs in
 place.
 
+``moe_experts > 0`` swaps each block's MLP for a :class:`SparseMoE`
+(``moe.py``: index dispatch, no dense (N, E, C) tensors) with
+``intermediate_size`` and ``moe_top_k``, its parameters under
+``block{i}.moe``; attention and both residual sites stay on the same
+kernels. The MoE is called without a generator, as the JAX layer calls
+it without an rng, so its router noise never acts here. A custom
+``embedding_layer`` is a submodule named ``embedding`` (JAX's
+``params["embedding"]``): it takes the inputs, its output's last
+dimension is the hidden size, and it replaces the token and position
+tables.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 sequence-parallel, data-parallel and pipeline-parallel (GPipe) branches
-(the multi-GPU slice), the MoE feed-forward (the layer-library slice) and
-a custom ``embedding_layer``.
+(the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -96,14 +106,6 @@ class TransformerLayer(KerasLayer):
                  embedding_layer=None, moe_experts=0, moe_top_k=2,
                  input_shape=None, name=None, **kwargs):
         super().__init__(input_shape=input_shape, name=name)
-        if embedding_layer is not None:
-            raise NotImplementedError(
-                "TransformerLayer(embedding_layer=...) is not ported yet; "
-                "it arrives with the layer-library slice of the port")
-        if moe_experts:
-            raise NotImplementedError(
-                "TransformerLayer(moe_experts>0) is not ported yet; the MoE "
-                "feed-forward arrives with the layer-library slice")
         self.n_block = int(n_block)
         self.n_head = int(n_head)
         self.hidden_p_drop = hidden_p_drop
@@ -114,6 +116,16 @@ class TransformerLayer(KerasLayer):
         self.vocab = int(vocab)
         self.seq_len = int(seq_len)
         self.hidden_size = int(hidden_size)
+        self.moe_experts = int(moe_experts)
+        self.moe_top_k = int(moe_top_k)
+        # the MoE's parameters live under each block; the layer object is
+        # kept off the module tree (it holds no parameters of its own)
+        object.__setattr__(self, "_moe", None)
+        if embedding_layer is not None:
+            self.add_module("embedding", embedding_layer)
+            out_shape = embedding_layer.compute_output_shape(
+                (None, self.seq_len))
+            self.hidden_size = int(out_shape[-1])
         self.intermediate_size = int(intermediate_size) or \
             4 * self.hidden_size
         if self.hidden_size % self.n_head:
@@ -121,8 +133,17 @@ class TransformerLayer(KerasLayer):
                              f"multiple of n_head {self.n_head}")
         self.num_outputs = (self.n_block if output_all_block else 1) + 1
 
+    @property
+    def embedding_layer(self):
+        return self._modules.get("embedding")
+
     # -- params --------------------------------------------------------
     def _embedding_params(self, generator):
+        if self.embedding_layer is not None:
+            if not self.embedding_layer.built:
+                self.embedding_layer.build_params(generator,
+                                                  (None, self.seq_len))
+            return {}
         return {
             "tok_emb": _normal(generator, (self.vocab, self.hidden_size),
                                self.initializer_range),
@@ -134,24 +155,35 @@ class TransformerLayer(KerasLayer):
         h = self.hidden_size
         m = self.intermediate_size
         std = self.initializer_range
-        return {
+        p = {
             "qkv_w": _normal(generator, (h, 3 * h), std),
             "qkv_b": torch.zeros(3 * h),
             "proj_w": _normal(generator, (h, h), std),
             "proj_b": torch.zeros(h),
             "ln1_g": torch.ones(h), "ln1_b": torch.zeros(h),
             "ln2_g": torch.ones(h), "ln2_b": torch.zeros(h),
-            "mlp_in_w": _normal(generator, (h, m), std),
-            "mlp_in_b": torch.zeros(m),
-            "mlp_out_w": _normal(generator, (m, h), std),
-            "mlp_out_b": torch.zeros(h),
         }
+        if self.moe_experts:
+            p["moe"] = self._moe.build(generator, (None, self.seq_len, h))
+        else:
+            p.update({
+                "mlp_in_w": _normal(generator, (h, m), std),
+                "mlp_in_b": torch.zeros(m),
+                "mlp_out_w": _normal(generator, (m, h), std),
+                "mlp_out_b": torch.zeros(h),
+            })
+        return p
 
     def build(self, generator, input_shape):
         if _parallel_degree("pipeline_parallel") > 1:
             raise NotImplementedError(
                 "pipeline_parallel > 1 (the GPipe stacked-block layout) is "
                 f"not ported yet; it arrives with {_MULTI_GPU}")
+        if self.moe_experts and self._moe is None:
+            from .moe import SparseMoE
+            object.__setattr__(self, "_moe", SparseMoE(
+                self.moe_experts, self.intermediate_size,
+                top_k=self.moe_top_k))
         params = self._embedding_params(generator)
         for i in range(self.n_block):
             params[f"block{i}"] = self._block_params(generator)
@@ -204,13 +236,19 @@ class TransformerLayer(KerasLayer):
                                       training)
 
     def _ffn(self, p, n, training):
+        if self.moe_experts:
+            return self._moe.dispatch(p["moe"], n, training=training)
         m = torch.matmul(n, p["mlp_in_w"].to(n.dtype)) + \
             p["mlp_in_b"].to(n.dtype)
         m = self._gelu(m)
         return torch.matmul(m, p["mlp_out_w"].to(n.dtype)) + \
             p["mlp_out_b"].to(n.dtype)
 
-    def _embed(self, inputs):
+    def _embed(self, inputs, training=False):
+        if self.embedding_layer is not None:
+            x = inputs if not isinstance(inputs, (list, tuple)) or \
+                len(inputs) > 1 else inputs[0]
+            return self.embedding_layer(x, training=training), None
         tokens = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
         e = take_rows(self.tok_emb, tokens)
         e = e + self.pos_emb[None, :e.shape[1]]
@@ -222,7 +260,7 @@ class TransformerLayer(KerasLayer):
                           self.pooler_b.to(x.dtype))
 
     def forward(self, inputs, training=False, generator=None, **kw):
-        e, mask_bias = self._embed(inputs)
+        e, mask_bias = self._embed(inputs, training)
         e = _dropout(e, self.hidden_p_drop, generator, training)
         states = []
         x = e
@@ -407,7 +445,7 @@ class BERT(TransformerLayer):
         params["emb_ln_b"] = torch.zeros(self.hidden_size)
         return params
 
-    def _embed(self, inputs):
+    def _embed(self, inputs, training=False):
         tokens, positions, segments, mask = inputs
         e = take_rows(self.tok_emb, tokens)
         e = e + take_rows(self.pos_emb, positions)

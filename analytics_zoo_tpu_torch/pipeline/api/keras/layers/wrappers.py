@@ -6,7 +6,7 @@ wrapped layers are submodules under the JAX params' role keys --
 ``layer`` for TimeDistributed, ``forward`` and ``backward`` for
 Bidirectional -- so the parameter paths are the JAX tree's
 (``timedistributed_1.layer.kernel``, ``bidirectional_1.forward.W``).
-``KerasLayerWrapper`` is not ported yet (ROADMAP A8, with A14's torchnet).
+``KerasLayerWrapper`` is not ported yet (ROADMAP A14.5, with torchnet).
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@ per-sample loss vector so the engine can apply sample weights and padding
 masks, then reduces by the weighted mean, with the JAX package's clips
 (``_EPS = 1e-7``). Labels are 0-based unless ``zero_based_label=False``.
 
-Not ported yet: ``CRFLoss`` (it needs ``ops/crf.py``) and ``MultiLoss``;
-both arrive with the layer-library slice, and asking for them raises
-``NotImplementedError``.
+``CRFLoss`` is the negative CRF log-likelihood of a ``CRF`` head's
+``[unary, transitions]`` outputs (``ops/crf.py``); ``MultiLoss`` (a list of
+losses) is the weighted sum of per-output losses of a multi-output model.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-7
-_LAYER_SLICE = "the layer-library slice of the port"
 
 
 class LossFunction:
@@ -216,8 +215,31 @@ class Identity(LossFunction):
         return _flat_mean(y_pred)
 
 
+class CRFLoss(LossFunction):
+    """Negative CRF log-likelihood over a ``CRF`` layer's output pair:
+    ``y_pred = [unary (B, L, E), transitions (B, E, E)]`` (a third output
+    ``mask (B, L)`` for explicit lengths), ``y_true`` integer tags (B, L)
+    or one-hot (B, L, E)."""
+
+    def per_sample(self, y_pred, y_true):
+        from ....ops.crf import crf_log_likelihood
+
+        if not isinstance(y_pred, (list, tuple)) or len(y_pred) < 2:
+            raise ValueError("CRFLoss needs [unary, transitions] outputs "
+                             "(add a CRF layer as the model head)")
+        unary, trans = y_pred[0], y_pred[1]
+        mask = y_pred[2] if len(y_pred) > 2 else None
+        tags = y_true[0] if isinstance(y_true, (list, tuple)) else y_true
+        tags = tags.int()
+        if tags.dim() == unary.dim():      # one-hot targets
+            tags = tags.argmax(-1)
+        return -crf_log_likelihood(unary, tags, trans[0], mask)
+
+
 _LOSSES = {
     "identity": Identity,
+    "crf": CRFLoss,
+    "crf_nll": CRFLoss,
     "binary_crossentropy": BinaryCrossEntropy,
     "categorical_crossentropy": CategoricalCrossEntropy,
     "mse": MeanSquaredError,
@@ -240,16 +262,37 @@ _LOSSES = {
     "sigmoid_crossentropy_with_logits": SigmoidCrossEntropyWithLogits,
 }
 
-_NOT_PORTED = ("crf", "crf_nll")
+class MultiLoss(LossFunction):
+    """Weighted sum of per-output losses for multi-output models."""
+
+    def __init__(self, losses, weights=None):
+        self.losses = [get_loss(l) for l in losses]
+        self.weights = list(weights) if weights is not None else \
+            [1.0] * len(self.losses)
+        if len(self.weights) != len(self.losses):
+            raise ValueError("loss_weights length mismatch")
+
+    def per_sample(self, y_pred, y_true):
+        if not isinstance(y_pred, (list, tuple)) or \
+                not isinstance(y_true, (list, tuple)) or \
+                len(y_pred) != len(self.losses) or \
+                len(y_true) != len(self.losses):
+            raise ValueError(
+                f"MultiLoss over {len(self.losses)} outputs needs matching "
+                "prediction/target tuples")
+        total = None
+        for loss, w, yp, yt in zip(self.losses, self.weights, y_pred,
+                                   y_true):
+            term = w * loss.per_sample(yp, yt)
+            total = term if total is None else total + term
+        return total
 
 
 def get_loss(identifier):
     if identifier is None or isinstance(identifier, LossFunction):
         return identifier
     if isinstance(identifier, (list, tuple)):
-        raise NotImplementedError(
-            f"MultiLoss (a list of losses) is not ported yet; it arrives "
-            f"with {_LAYER_SLICE}")
+        return MultiLoss(identifier)
     if callable(identifier):
         fn = identifier
 
@@ -261,12 +304,7 @@ def get_loss(identifier):
                 return out
 
         return _Wrapped()
-    key = identifier.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"CRFLoss is not ported yet (it needs ops/crf.py); it arrives "
-            f"with {_LAYER_SLICE}")
     try:
-        return _LOSSES[key]()
+        return _LOSSES[identifier.lower()]()
     except KeyError:
         raise ValueError(f"Unknown loss: {identifier}")

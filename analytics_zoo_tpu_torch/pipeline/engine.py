@@ -1281,11 +1281,13 @@ class SPMDTrainer:
             it.close()
         if not chunks:
             return None
+        # detached: an output that is a parameter's view (a CRF's
+        # transitions, a ParameterLayer) keeps its requires_grad
         if isinstance(chunks[0], list):
-            result = [torch.cat([c[i] for c in chunks]).cpu().numpy()
-                      for i in range(len(chunks[0]))]
+            result = [torch.cat([c[i] for c in chunks]).detach().cpu()
+                      .numpy() for i in range(len(chunks[0]))]
         else:
-            result = torch.cat(chunks).cpu().numpy()
+            result = torch.cat(chunks).detach().cpu().numpy()
         self.last_predict_stats = self._emit_inference_stats(
             "Predict", monitor, len(chunks), n_samples,
             time.perf_counter() - t0)

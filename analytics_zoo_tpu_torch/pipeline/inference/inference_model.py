@@ -200,12 +200,13 @@ class QuantizedModel(FloatModel):
     def _compute_eligible_paths(self) -> frozenset:
         """Kernels whose layer routes its product through
         ``quant.matmul``/``quant.conv2d``: exact types only (a subclass
-        that overrides ``forward`` may not). ``ShareConvolution2D`` joins
-        when the port has it (ROADMAP A8)."""
+        that overrides ``forward`` may not), JAX's set."""
         from ..api.keras.layers import (AtrousConvolution2D, Convolution2D,
-                                        Dense, SparseDense)
+                                        Dense, ShareConvolution2D,
+                                        SparseDense)
 
-        ok_types = (Dense, SparseDense, Convolution2D, AtrousConvolution2D)
+        ok_types = (Dense, SparseDense, Convolution2D, AtrousConvolution2D,
+                    ShareConvolution2D)
         eligible = set()
         for layer in getattr(self._graph, "layers", ()):
             if type(layer) in ok_types:
@@ -556,6 +557,8 @@ class InferenceModel:
             return self.model.predict(inputs)
         finally:
             self._permits.put(permit)
+
+    do_predict = predict
 
     def predict_async(self, inputs):
         """Permit-guarded dispatch: returns device tensors. The permit is

@@ -26,8 +26,10 @@ pairs its layers with the model's as :func:`load_jax_params` does, and
 checkpoint store and ``save_model`` both go through these.
 
 A layer's tree may nest deeper than one level: a wrapper's role keys
-(``bidirectional_1.forward.W``, ``timedistributed_1.layer.kernel``) and a
-Seq2seq coder's ``l{i}`` groups and ``embedding`` are submodule paths, so
+(``bidirectional_1.forward.W``, ``timedistributed_1.layer.kernel``), a
+Seq2seq coder's ``l{i}`` groups and ``embedding``, a MoE transformer
+block's ``block{i}.moe.w_in`` (nested ``ParameterDict``s) and a custom
+transformer embedding's ``embedding.table`` are submodule paths, so
 they flatten, pair and sort as the JAX trees do; a frozen
 ``WordEmbedding`` table stays a parameter (it takes a zero gradient), so
 it keeps its place among optax's leaves.

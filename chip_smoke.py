@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
 Serving, int8 inference, serving-fleet, training-observability, host
-data and object-detection paths once on one NVIDIA GPU.
+data, object-detection and layer-library paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -305,7 +305,7 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``infeed-worker:kill@3``: the worker respawns and the checksums equal the clean run's,
               complete, in order, no duplicates. Its files, under
               ``build/chip_smoke_data``, are deleted at the end.
-17. detect -- (last) image features without OpenCV and SSD object
+17. detect -- image features without OpenCV and SSD object
               detection, float32, TF32 off, weights from ``--seed``. 32
               seeded images (gradients with filled rectangles, 375 x 500
               and 480 x 640) in two class folders, half baseline JPEG from
@@ -335,6 +335,35 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               is importable there is printed, it is never imported. K1-K5
               are launched 0 times in the phase. Its files, under
               ``build/chip_smoke_detect``, are deleted at the end.
+18. layers -- (last) the rest of the layer library. A: bench.py's
+              classifier with every block's MLP a ``SparseMoE``
+              (``BERT(moe_experts=8, moe_top_k=2)``, capacity factor
+              1.25; weights from ``--seed``) through ``fit`` in bf16 at
+              32 x 512 (int32 ids), dropout 0.1, Adam 1e-4, 8 steps:
+              K1-K5 12/12/12/24/24 a step (``launches_layers``), the
+              losses finite and falling, float32 parameters and moments;
+              the first step's routing of every block against the CPU's
+              from the same bf16 rows (every token whose top-2 gates
+              clear the next and each other by 1e-2 routed alike), the
+              drop counter (telemetry on for that step) equal to the
+              recount from the card's gates; a float32 dropout-off step
+              on 2 rows against the CPU; the step timed (p50, tokens/s,
+              peak memory, dropped share) and profiled (idle share, the
+              device time split by the ``moe/*`` scopes and backward
+              nodes: router, gather/scatter, expert products, K1-K5).
+              B: two ``ConvLSTM2D(64, 3)`` and a sigmoid convolution on
+              10 frames of 1 x 64 x 64 (Moving MNIST's shape; a seeded
+              moving square) at batch 16, float32 and bf16: the first
+              step on 2 rows against the CPU, 4 falling ``fit`` steps.
+              C: a BiLSTM-CRF tagger at Lample et al.'s widths
+              (embedding 100, LSTM 100 a direction, CoNLL-2003's 9
+              tags) with ``CRFLoss`` over masked sequences of up to 64
+              tokens at batch 32: 4 falling ``fit`` steps; Viterbi on
+              the card equal to the CPU's where the best path beats the
+              second by 1e-3. D: every new layer forward and backward
+              on the card against the CPU at small sizes, float32 and
+              bf16 (Deconvolution2D at strides 1-3, kernels 2 and 3,
+              both border modes). K1-K5 are launched 0 times in B-D.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -1037,11 +1066,12 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_device(fn, group_of=None):
+def profile_device(fn, group_of=None, split=None):
     """Device time by kernel group (``group_of``, ``kernel_group`` by
     default) over one call of ``fn``, from ``torch.profiler``: the
     groups' sums, their shares of the call's wall time, and the device's
-    idle share. None where the profiler recorded no device time."""
+    idle share. None where the profiler recorded no device time. With
+    ``split``, its reading of the profile goes under ``split``."""
     group_of = group_of or kernel_group
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1053,7 +1083,11 @@ def profile_device(fn, group_of=None):
         wall_us = 1e6 * (time.perf_counter() - t0)
     groups, other = {}, []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function scope's range on the device spans kernels
+        # counted on their own: not device time of its own
+        if evt.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(evt, "is_user_annotation", False) or \
+                evt.key in MOE_SCOPES:
             continue
         group = group_of(evt.key)
         g = groups.setdefault(group, {"device_ms": 0.0, "launches": 0})
@@ -1062,8 +1096,10 @@ def profile_device(fn, group_of=None):
         if group == "other":
             other.append((evt.self_device_time_total / 1e3, evt.key[:80]))
     busy_ms = sum(g["device_ms"] for g in groups.values())
+    extra = {} if split is None else {"split": split(prof)}
     if busy_ms == 0.0:
-        return dict(wall_ms=wall_us / 1e3, groups=None, idle_share=None)
+        return dict(wall_ms=wall_us / 1e3, groups=None, idle_share=None,
+                    **extra)
     for g in groups.values():
         g["share_of_wall"] = 1e3 * g["device_ms"] / wall_us
     if other:   # the largest kernels no group claimed, by name
@@ -1071,7 +1107,8 @@ def profile_device(fn, group_of=None):
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_ms,
                 idle_share=1.0 - 1e3 * busy_ms / wall_us,
                 groups=dict(sorted(groups.items(),
-                                   key=lambda kv: -kv[1]["device_ms"])))
+                                   key=lambda kv: -kv[1]["device_ms"])),
+                **extra)
 
 
 def flash_bound_ms(b, lq, lk, h, d, dtype):
@@ -1232,15 +1269,17 @@ def train(seed, compute_dtype="float32"):
         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
 
-def check_train_parity(seed, device, compute_dtype="float32"):
+def check_train_parity(seed, device, compute_dtype="float32", extra=None):
     """One training step in ``compute_dtype``, dropout off, on PARITY_ROWS
     rows: the card (the flash kernels run, the dropout+add+LN kernels do
     not) against the port's CPU run (plain versions) from the same
-    weights. Returns the gaps, which must lie within the dtype's limits."""
+    weights (``extra``: more of the BERT layer's config, the MoE's).
+    Returns the gaps, which must lie within the dtype's limits."""
     bf16 = compute_dtype == "bfloat16"
     loss_tol, grad_tol = (BF16_LOSS_TOL, BF16_GRAD_TOL) if bf16 else \
         (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)
-    config = dict(BERT_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0)
+    config = dict(BERT_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0,
+                  **(extra or {}))
     model = build_classifier(seed + 2, config)
     cpu_model = copy.deepcopy(model)
     loss_fn = get_loss("sparse_categorical_crossentropy")
@@ -6504,6 +6543,557 @@ def detect_phase(seed, smi):
         wall_s=time.perf_counter() - t0), launches
 
 
+# ---------------------------------------------------------------------------
+# layers: the rest of the layer library (the MoE transformer, ConvLSTM2D,
+# a BiLSTM-CRF tagger and a sweep of every new layer)
+# ---------------------------------------------------------------------------
+
+#: every block's MLP a SparseMoE of 8 experts, top-2, the layer's capacity
+#: factor 1.25 (``TransformerLayer(moe_experts=, moe_top_k=)``)
+MOE_CONFIG = dict(moe_experts=8, moe_top_k=2)
+#: tokens whose top-2 gates clear the next gate (and each other) by this
+#: are routed as the CPU routes them
+MOE_ROUTE_MARGIN = 1e-2
+MOE_TIMED_STEPS = 5
+#: Moving MNIST's frame shape: 10 frames of 1 x 64 x 64, the next one
+#: predicted
+CONVLSTM_BATCH, CONVLSTM_FRAMES, CONVLSTM_SIDE = 16, 10, 64
+CONVLSTM_FILTERS, CONVLSTM_STEPS = 64, 4
+#: Lample et al. 2016 (NAACL, "Neural Architectures for Named Entity
+#: Recognition"): word embeddings of 100, an LSTM of 100 a direction;
+#: CoNLL-2003's 9 IOB tags; a seeded surrogate vocabulary of 20,000
+NER_VOCAB, NER_EMB, NER_HIDDEN, NER_TAGS = 20000, 100, 100, 9
+NER_LEN, NER_BATCH, NER_STEPS = 64, 32, 4
+#: Viterbi paths whose best score beats the second best by this equal
+#: the CPU's
+NER_MARGIN = 1e-3
+#: the sweep: (forward, of the output's scale; gradients, of their norm)
+LAYER_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 5e-2)}
+
+#: backward nodes of the MoE's ops -> their device-time group
+MOE_BACKWARD = {"BaddbmmBackward0": "expert products",
+                "GeluBackward0": "expert products",
+                "IndexSelectBackward0": "gather/scatter",
+                "IndexAddBackward0": "gather/scatter",
+                "SortBackward0": "router", "SoftmaxBackward0": "router",
+                "CumsumBackward0": "router"}
+MOE_SCOPES = {"moe/router": "router", "moe/dispatch": "gather/scatter",
+              "moe/experts": "expert products",
+              "moe/combine": "gather/scatter"}
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+
+
+def moe_split(prof):
+    """Device ms of a profiled step by part: the MoE's router, gather/
+    scatter and expert products (by the ``moe/*`` scope or backward node
+    above the op that launched each kernel), the attention and layer-norm
+    kernels (K1-K5) and the rest by kernel name. None where the
+    profiler's events hold no kernels."""
+    out, total = {}, 0.0
+    for evt in prof.events():
+        kernels = getattr(evt, "kernels", None) or []
+        if not kernels:
+            continue
+        part, node = None, evt
+        while node is not None and part is None:
+            name = getattr(node, "name", "")
+            if name in MOE_SCOPES:
+                part = MOE_SCOPES[name]
+            elif name.startswith(BACKWARD_NODE):
+                part = MOE_BACKWARD.get(name[len(BACKWARD_NODE):], "")
+            node = getattr(node, "cpu_parent", None)
+        for k in kernels:
+            group = part or kernel_group(getattr(k, "name", ""))
+            if "port kernel" in group:
+                group = ("attention (K1-K3)" if "flash" in group
+                         else "layer-norm sites (K4-K5)")
+            out[group] = out.get(group, 0.0) + k.duration / 1e3
+            total += k.duration / 1e3
+    if total == 0.0:
+        return None
+    return dict(device_ms=total, groups=dict(sorted(
+        out.items(), key=lambda kv: -kv[1])))
+
+
+class RouteRecorder:
+    """Wraps a ``SparseMoE``'s ``route`` for the calls of one step: each
+    call's input rows and gates, as the card computed them."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+        self.route = moe.route
+        moe.route = self
+
+    def __call__(self, p, flat, generator=None, training=False):
+        gates = self.route(p, flat, generator, training)
+        self.calls.append((flat.detach(), gates.detach()))
+        return gates
+
+    def close(self):
+        del self.moe.route
+
+
+def moe_classifier(seed, dropout):
+    config = dict(BERT_CONFIG, hidden_p_drop=dropout, attn_p_drop=dropout,
+                  **MOE_CONFIG)
+    return build_classifier(seed, config), config
+
+
+def check_moe_routing(calls, router_ws, cap):
+    """Each block's routing on the card against the CPU's from the same
+    bf16 rows and router weights: every token whose top-2 gates clear
+    the next gate and each other by MOE_ROUTE_MARGIN (on the CPU) goes
+    to the same experts in the same order; the drops recounted from the
+    card's routing. Returns (tokens held, drops, assignments)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import moe as lmoe
+    held = dropped = total = 0
+    for i, ((flat, gates), w) in enumerate(zip(calls, router_ws)):
+        _, card_top = lmoe.top_k_gates(gates, 2)
+        _, kept = lmoe.assign_slots(card_top, MOE_CONFIG["moe_experts"], cap)
+        dropped += int(kept.numel() - kept.sum())
+        total += kept.numel()
+        flat_cpu = flat.cpu()
+        cpu = torch.softmax(torch.matmul(flat_cpu, w.to(flat_cpu.dtype))
+                            .float(), dim=-1)
+        g, cpu_top = torch.sort(cpu, dim=-1, descending=True, stable=True)
+        margin = torch.minimum(g[:, 0] - g[:, 1], g[:, 1] - g[:, 2])
+        clear = margin > MOE_ROUTE_MARGIN
+        bad = (card_top.cpu()[clear] != cpu_top[clear, :2]).any(-1)
+        if bad.any():
+            raise AssertionError(
+                f"block {i}: {int(bad.sum())} of {int(clear.sum())} clear "
+                "tokens routed apart from the CPU")
+        held += int(clear.sum())
+    return held, dropped, total
+
+
+def moe_leg(seed, dev, smi):
+    """Leg A: MoE BERT-base (bench.py's classifier, each block's MLP a
+    SparseMoE of 8 experts, top-2) through ``fit`` in bf16 at 32 x 512,
+    dropout 0.1, Adam 1e-4, 8 steps; the first step's routing held
+    against the CPU and its drops against the counter; a float32
+    dropout-off step against the CPU; the step timed and profiled."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import moe as lmoe
+    t0 = time.perf_counter()
+    model, config = moe_classifier(seed, TRAIN_P_DROP)
+    build_s = time.perf_counter() - t0
+    bert = next(l for l in model.graph_function().layers
+                if isinstance(l, L.BERT))
+    n_params = sum(p.numel() for p in model.parameters())
+    expert_params = sum(p.numel() for n, p in model.named_parameters()
+                        if ".moe.w_" in n or ".moe.b_" in n)
+    model.compile(optimizer=Adam(lr=TRAIN_LR),
+                  loss="sparse_categorical_crossentropy")
+    model.set_compute_dtype("bfloat16")
+    x, y, real_tokens = train_data(seed, TRAIN_BATCH, config=config,
+                                   ids=np.int32)
+    n_tok = x[0].size
+    cap = lmoe.capacity(n_tok, 2, MOE_CONFIG["moe_experts"],
+                        bert._moe.capacity_factor)
+    router_ws = [getattr(bert, f"block{i}")["moe"]["router_w"].detach()
+                 .clone().to(torch.bfloat16)
+                 for i in range(BERT_CONFIG["n_block"])]
+    counter = telemetry.counter("zoo_moe_dropped_tokens_total",
+                                layer=bert._moe.name)
+    before = counter.value
+    recorder = RouteRecorder(bert._moe)
+    telemetry.set_enabled(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    try:
+        model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    finally:
+        telemetry.set_enabled(False)
+        recorder.close()
+    losses = list(model.trainer.step_losses)
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=TRAIN_STEPS - 1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    losses += model.trainer.step_losses
+    counted = counter.value - before
+    n_block = BERT_CONFIG["n_block"]
+    per_step = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
+                attn.DKV_KERNEL_NAME: n_block,
+                dln.FWD_KERNEL_NAME: 2 * n_block,
+                dln.BWD_KERNEL_NAME: 2 * n_block}
+    expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"MoE launches {launches}, expected {expected}")
+    if len(recorder.calls) != n_block:
+        raise AssertionError(f"{len(recorder.calls)} MoE calls in a step")
+    held, dropped, assigned = check_moe_routing(
+        recorder.calls, [w.cpu() for w in router_ws], cap)
+    del recorder
+    if counted != dropped:
+        raise AssertionError(f"drop counter {counted}, recount {dropped}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or \
+            not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"MoE losses {losses}")
+    check_float32_state(model)
+    # the step, timed and profiled on the trained model
+    trainer = model.trainer
+    batch = trainer.put_batch((x, y, np.ones(TRAIN_BATCH, np.float32)))
+    step_s = []
+    for _ in range(MOE_TIMED_STEPS):
+        s0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+    p50 = percentile(step_s, 50)
+    profile = profile_device(lambda: trainer.train_step(batch),
+                             split=moe_split)
+    timing = dict(step_ms=[1e3 * s for s in step_s], step_p50_ms=1e3 * p50,
+                  padded_tokens_per_s=n_tok / p50,
+                  real_tokens_per_s=real_tokens / p50,
+                  clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                                    "temperature.gpu"),
+                  profile=profile)
+    del model, trainer, batch
+    collect()
+    parity = check_train_parity(seed + 80, dev, extra=MOE_CONFIG)
+    collect()
+    return dict(
+        model="BERT-base classifier (bench.py:353-438), every block's MLP "
+              "a SparseMoE", config=config, capacity=cap,
+        parameters=n_params, expert_parameters=expert_params,
+        compute_dtype="bfloat16", ids="int32", batch=TRAIN_BATCH,
+        steps=TRAIN_STEPS, optimizer=f"adam lr {TRAIN_LR}", build_s=build_s,
+        losses=losses, launches=launches, launches_per_step=per_step,
+        fit_wall_s=fit_s, peak_memory_bytes=peak,
+        routing=dict(tokens_held=held, margin=MOE_ROUTE_MARGIN,
+                     assignments=assigned, dropped=dropped,
+                     dropped_share=dropped / assigned,
+                     counter=counted),
+        timing=timing, float32_parity=parity), launches
+
+
+def moving_frames(seed, n):
+    """n sequences of CONVLSTM_FRAMES + 1 frames (1 x 64 x 64): an 8 x 8
+    square moving at a seeded velocity, bouncing off the edges; the
+    first CONVLSTM_FRAMES are the input, the last the target."""
+    rs = np.random.default_rng(seed)
+    side, size = CONVLSTM_SIDE, 8
+    frames = np.zeros((n, CONVLSTM_FRAMES + 1, 1, side, side), np.float32)
+    for i in range(n):
+        pos = rs.uniform(0, side - size, 2)
+        vel = rs.uniform(-4, 4, 2)
+        for t in range(CONVLSTM_FRAMES + 1):
+            r, c = pos.astype(int)
+            frames[i, t, 0, r:r + size, c:c + size] = 1.0
+            pos = pos + vel
+            for d in range(2):
+                if not 0 <= pos[d] <= side - size:
+                    vel[d] = -vel[d]
+                    pos[d] = np.clip(pos[d], 0, side - size)
+    return frames[:, :-1], frames[:, -1]
+
+
+def convlstm_model(seed):
+    m = Sequential(seed=seed)
+    m.add(L.ConvLSTM2D(CONVLSTM_FILTERS, 3, return_sequences=True,
+                       input_shape=(CONVLSTM_FRAMES, 1, CONVLSTM_SIDE,
+                                    CONVLSTM_SIDE)))
+    m.add(L.ConvLSTM2D(CONVLSTM_FILTERS, 3))
+    m.add(L.Convolution2D(1, 3, 3, border_mode="same",
+                          activation="sigmoid"))
+    return m
+
+
+def first_step_parity(model, x, y, loss, dtype, dev):
+    """One step of ``model`` (built, not trained) on PARITY_ROWS rows in
+    ``dtype`` on the card against a CPU copy's: the loss's and every
+    gradient's gap, within TRAIN_LOSS_TOL / TRAIN_GRAD_TOL in float32 and
+    BF16_LOSS_TOL / BF16_GRAD_TOL in bf16."""
+    bf16 = dtype == "bfloat16"
+    loss_tol, grad_tol = (BF16_LOSS_TOL, BF16_GRAD_TOL) if bf16 else \
+        (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)
+    model.graph_function()      # a Sequential builds its weights here
+    cpu_model = copy.deepcopy(model)
+    loss_fn = get_loss(loss)
+    card = SPMDTrainer(model, loss_fn, get_optimizer("sgd"), device=dev,
+                       compute_dtype=dtype)
+    cpu = SPMDTrainer(cpu_model, loss_fn, get_optimizer("sgd"),
+                      device="cpu", compute_dtype=dtype)
+    batch = (x if isinstance(x, list) else [x], y,
+             np.ones(len(y), np.float32))
+    card.ensure_initialized()
+    cpu.ensure_initialized()
+    card_loss = card.loss_and_grads(card.put_batch(batch)).item()
+    t0 = time.perf_counter()
+    cpu_loss = cpu.loss_and_grads(cpu.put_batch(batch)).item()
+    cpu_s = time.perf_counter() - t0
+    cpu_params = dict(cpu_model.named_parameters())
+    worst, worst_name = 0.0, None
+    for name, p in model.named_parameters():
+        g, w = p.grad.cpu(), cpu_params[name].grad
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite gradient on the card")
+        rel = _rel(g, w)
+        if rel > worst:
+            worst, worst_name = rel, name
+    res = dict(rows=len(y), compute_dtype=dtype, card_loss=card_loss,
+               cpu_loss=cpu_loss, loss_err=abs(card_loss - cpu_loss),
+               loss_tol=loss_tol, max_grad_rel_err=worst,
+               max_grad_rel_err_param=worst_name, grad_tol=grad_tol,
+               cpu_step_s=cpu_s)
+    if res["loss_err"] > loss_tol or worst > grad_tol:
+        raise AssertionError(f"first step off the CPU's: {res}")
+    return res
+
+
+def convlstm_leg(seed, dev):
+    """Leg B: two ConvLSTM2D(64, 3) over 10 frames of 1 x 64 x 64 and a
+    sigmoid convolution predicting the next frame, batch 16, Adam, mse;
+    in float32 and bf16: the first step on PARITY_ROWS rows against the
+    CPU, then 4 falling ``fit`` steps."""
+    x, y = moving_frames(seed, CONVLSTM_BATCH)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        parity = first_step_parity(convlstm_model(seed + 1),
+                                   x[:PARITY_ROWS], y[:PARITY_ROWS], "mse",
+                                   dtype, dev)
+        model = convlstm_model(seed + 1)
+        model.compile(optimizer=Adam(lr=1e-3), loss="mse")
+        model.set_compute_dtype(dtype)
+        fit = fit_one_batch(f"ConvLSTM2D {dtype}", model, x, y,
+                            CONVLSTM_BATCH, CONVLSTM_STEPS)
+        trainer = model.trainer
+        batch = trainer.put_batch(([x], y, np.ones(CONVLSTM_BATCH,
+                                                   np.float32)))
+        step_s = []
+        for _ in range(3):
+            s0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - s0)
+        out[dtype] = dict(first_step=parity, fit=fit,
+                          step_p50_ms=1e3 * percentile(step_s, 50))
+        del model, trainer, batch
+        collect()
+    return dict(model="ConvLSTM2D(64, 3, return_sequences) -> "
+                      "ConvLSTM2D(64, 3) -> Convolution2D(1, 3, 3, sigmoid)",
+                input=[CONVLSTM_BATCH, CONVLSTM_FRAMES, 1, CONVLSTM_SIDE,
+                       CONVLSTM_SIDE], steps=CONVLSTM_STEPS, **out)
+
+
+def token_mask(words):
+    """The CRF's mask: real tokens (ids above 0) before the padded
+    tail."""
+    return (words > 0).float()
+
+
+def ner_model(seed):
+    from analytics_zoo_tpu_torch.pipeline.api.autograd import Lambda
+    words = L.Input(shape=(NER_LEN,), name="words")
+    h = L.Embedding(NER_VOCAB, NER_EMB)(words)
+    h = L.Bidirectional(L.LSTM(NER_HIDDEN, return_sequences=True))(h)
+    h = L.TimeDistributed(L.Dense(NER_TAGS))(h)
+    unary, trans = L.CRF(NER_TAGS)(h)
+    mask = Lambda(token_mask)(words)
+    return Model(words, [unary, trans, mask], seed=seed)
+
+
+def ner_data(seed, n):
+    rs = np.random.default_rng(seed)
+    lengths = rs.integers(8, NER_LEN + 1, n)
+    words = rs.integers(1, NER_VOCAB, (n, NER_LEN))
+    real = np.arange(NER_LEN)[None] < lengths[:, None]
+    words = np.where(real, words, 0)
+    tags = np.where(real, words % NER_TAGS, 0)
+    return words.astype(np.float32), tags.astype(np.float32)
+
+
+def viterbi_margins(unary, trans, mask):
+    """Each sequence's best path score less the second best, in float64:
+    the best score through (t, j) is the forward max plus the backward
+    max, and the second-best path leaves the best one somewhere."""
+    u = unary.double()
+    tr = trans.double()
+    m = mask.bool()
+    b, l, e = u.shape
+    fwd = [u[:, 0]]
+    for t in range(1, l):
+        new = (fwd[-1][:, :, None] + tr[None]).amax(1) + u[:, t]
+        fwd.append(torch.where(m[:, t, None], new, fwd[-1]))
+    bwd = [torch.zeros(b, e, dtype=torch.float64)]
+    for t in range(l - 2, -1, -1):
+        new = (tr[None] + (u[:, t + 1] + bwd[0])[:, None, :]).amax(2)
+        bwd.insert(0, torch.where(m[:, t + 1, None], new, bwd[0]))
+    through = torch.stack([f + g for f, g in zip(fwd, bwd)], 1)  # (B,L,E)
+    best = through.amax(-1)[:, 0]
+    top = torch.topk(through, 2, dim=-1).values
+    second = torch.where(m, top[..., 1], torch.full_like(top[..., 1],
+                                                         -np.inf))
+    return best - second.amax(-1)
+
+
+def ner_leg(seed, dev):
+    """Leg C: a BiLSTM-CRF tagger at Lample et al.'s widths through
+    ``fit`` (``CRFLoss`` with the token mask) for 4 falling steps at
+    batch 32 x 64; its Viterbi paths on the card (``ops/crf.py`` on card
+    tensors) against the CPU's where the best path clears the second."""
+    from analytics_zoo_tpu_torch.ops import crf as crf_ops
+    x, y = ner_data(seed, NER_BATCH)
+    model = ner_model(seed + 1)
+    model.compile(optimizer=Adam(lr=1e-2), loss="crf")
+    fit = fit_one_batch("BiLSTM-CRF", model, x, y, NER_BATCH, NER_STEPS)
+    unary, trans, mask = model.predict(x, batch_size=NER_BATCH)
+    cpu = cpu_twin(model)
+    cunary, ctrans, cmask = cpu.trainer.predict(x, batch_size=NER_BATCH)
+    dev_tags, _ = crf_ops.crf_decode(torch.as_tensor(unary, device=dev),
+                                     torch.as_tensor(trans[0], device=dev),
+                                     torch.as_tensor(mask, device=dev))
+    cpu_tags, _ = crf_ops.crf_decode(torch.as_tensor(cunary),
+                                     torch.as_tensor(ctrans[0]),
+                                     torch.as_tensor(cmask))
+    margins = viterbi_margins(torch.as_tensor(cunary),
+                              torch.as_tensor(ctrans[0]),
+                              torch.as_tensor(cmask))
+    clear = margins > NER_MARGIN
+    real = torch.as_tensor(cmask).bool()
+    same = ((dev_tags.cpu() == cpu_tags) | ~real).all(-1)
+    if not same[clear].all() or not clear.any():
+        raise AssertionError(f"Viterbi paths off the CPU's: {int(clear.sum())}"
+                             f" clear, {int((~same[clear]).sum())} differ")
+    unary_err = float(np.abs(unary - cunary).max())
+    del model, cpu
+    collect()
+    return dict(model=f"Embedding({NER_VOCAB}, {NER_EMB}) -> "
+                      f"Bidirectional(LSTM({NER_HIDDEN})) -> "
+                      f"TimeDistributed(Dense({NER_TAGS})) -> "
+                      f"CRF({NER_TAGS}), CRFLoss with the token mask",
+                batch=NER_BATCH, max_len=NER_LEN, fit=fit,
+                unary_max_abs_err=unary_err, paths_clear=int(clear.sum()),
+                paths_equal=int(same.sum()), margin=NER_MARGIN)
+
+
+#: (name, layer maker, input shape less the batch, checked in bf16)
+LAYER_SWEEP = [
+    ("LeakyReLU", lambda: L.LeakyReLU(0.2), (3, 5), True),
+    ("ELU", lambda: L.ELU(0.7), (3, 5), True),
+    ("PReLU", lambda: L.PReLU(n_output_plane=3), (3, 4, 2), True),
+    ("SReLU", lambda: L.SReLU(shared_axes=[1]), (3, 4), True),
+    ("ThresholdedReLU", lambda: L.ThresholdedReLU(0.3), (3, 5), True),
+    ("RReLU", lambda: L.RReLU(0.1, 0.4), (3, 5), True),
+    ("Softmax", lambda: L.Softmax(axis=1), (4, 3), True),
+    ("Convolution3D", lambda: L.Convolution3D(
+        8, 3, 3, 3, border_mode="same", subsample=(2, 1, 2)),
+     (4, 9, 10, 11), True),
+    ("Convolution3D_tf", lambda: L.Convolution3D(
+        6, 2, 3, 2, dim_ordering="tf"), (7, 8, 6, 4), True),
+    ("ShareConvolution2D", lambda: L.ShareConvolution2D(
+        8, 3, 3, border_mode="same"), (4, 12, 10), True),
+    ("LocallyConnected2D", lambda: L.LocallyConnected2D(
+        4, 3, 3, border_mode="same", subsample=(2, 2)), (3, 9, 8), True),
+    ("LocallyConnected1D", lambda: L.LocallyConnected1D(
+        5, 3, subsample_length=2), (11, 4), True),
+    ("Cropping3D", lambda: L.Cropping3D(((1, 0), (0, 1), (1, 1))),
+     (2, 4, 4, 5), True),
+    ("UpSampling3D", lambda: L.UpSampling3D((1, 2, 3)), (2, 2, 3, 2), True),
+    ("ZeroPadding3D", lambda: L.ZeroPadding3D((1, 0, 2)), (2, 2, 3, 2),
+     True),
+    ("ConvLSTM2D", lambda: L.ConvLSTM2D(4, 3, return_sequences=True,
+                                        go_backwards=True),
+     (3, 2, 8, 8), True),
+    ("ConvLSTM3D", lambda: L.ConvLSTM3D(3, 3, subsample=2),
+     (3, 2, 5, 6, 6), True),
+    ("CRF", lambda: L.CRF(5), (7, 5), True),
+    # routing ties between bf16 and float32 are leg A's margin rule
+    ("SparseMoE", lambda: L.SparseMoE(4, 32, top_k=2), (16, 24), False),
+] + [(f"Deconvolution2D_s{s}_k{k}_{mode}",
+      lambda s=s, k=k, mode=mode: L.Deconvolution2D(
+          6, k, k + 1, border_mode=mode, subsample=(s, s)),
+      (4, 7, 9), True)
+     for s in (1, 2, 3) for k in (2, 3) for mode in ("valid", "same")]
+
+
+def sweep_layer(name, make, shape, dtype, dev, seed):
+    """The layer's forward and backward on the card (TF32 off) against the
+    port's CPU run in float32 on the same inputs (bf16: the inputs and
+    parameters rounded to bf16 first): the outputs within LAYER_TOL of
+    their scale, the input's and parameters' gradients of their norm."""
+    gen = torch.Generator().manual_seed(seed)
+    layer = make()
+    layer.build_params(gen, (None,) + shape)
+    with torch.no_grad():   # nonzero biases and thresholds
+        for p in layer.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    bf16 = dtype == "bfloat16"
+    x = torch.randn((4,) + shape, generator=gen)
+    if bf16:
+        x = x.to(torch.bfloat16).float()
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.copy_(p.to(torch.bfloat16).float())
+    card_layer = copy.deepcopy(layer).to(dev)
+
+    def run(lay, xx, cast):
+        xx = xx.clone().requires_grad_()
+        params = {k: v.to(cast) for k, v in lay.named_parameters()}
+        out = torch.func.functional_call(lay, params, (xx.to(cast),))
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        cots = [torch.randn(o.shape, generator=torch.Generator()
+                            .manual_seed(seed + i)).to(o.device)
+                for i, o in enumerate(outs)]
+        grads = torch.autograd.grad(
+            sum((o.float() * c).sum() for o, c in zip(outs, cots)),
+            [xx] + list(params.values()), allow_unused=True)
+        return [o.detach().float().cpu() for o in outs], \
+            [None if g is None else g.float().cpu() for g in grads]
+
+    want, want_g = run(layer, x, torch.float32)
+    got, got_g = run(card_layer, x.to(dev),
+                     torch.bfloat16 if bf16 else torch.float32)
+    fwd_tol, grad_tol = LAYER_TOL[dtype]
+    fwd_err = max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+                  for g, w in zip(got, want))
+    grad_err = max((_rel(g, w) for g, w in zip(got_g, want_g)
+                    if w is not None and float(w.norm()) > 0), default=0.0)
+    if fwd_err > fwd_tol or grad_err > grad_tol or \
+            not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"{name} ({dtype}) on the card off the CPU: "
+                             f"forward {fwd_err}, gradient {grad_err}")
+    return dict(forward_err=fwd_err, grad_err=grad_err)
+
+
+def sweep_leg(seed, dev):
+    """Leg D: every new layer forward and backward on the card against
+    the CPU, float32 and bf16."""
+    out = {}
+    for i, (name, make, shape, with_bf16) in enumerate(LAYER_SWEEP):
+        for dtype in ("float32", "bfloat16") if with_bf16 else ("float32",):
+            out[f"{name}/{dtype}"] = sweep_layer(name, make, shape, dtype,
+                                                 dev, seed + i)
+    return dict(cases=len(out), tol=LAYER_TOL, results=out,
+                worst_forward_err=max(r["forward_err"] for r in
+                                      out.values()),
+                worst_grad_err=max(r["grad_err"] for r in out.values()))
+
+
+def layers_phase(seed, dev, smi):
+    """The layers phase (see the module docstring): returns the report
+    and leg A's K1-K5 launches."""
+    t0 = time.perf_counter()
+    leg_a, launches = moe_leg(seed + 90, dev, smi)
+    a_s = time.perf_counter() - t0
+    _kernels.LAUNCHES.reset()
+    leg_b = convlstm_leg(seed + 91, dev)
+    leg_c = ner_leg(seed + 92, dev)
+    leg_d = sweep_leg(seed + 93, dev)
+    others = _kernels.LAUNCHES.snapshot()
+    if others:
+        raise AssertionError(f"legs B-D launched hand-written kernels "
+                             f"{others}")
+    return dict(card=smi, leg_a=leg_a, leg_a_s=a_s, leg_b=leg_b,
+                leg_c=leg_c, leg_d=leg_d, k1_k5_launches_b_to_d=others,
+                wall_s=time.perf_counter() - t0), launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -6683,6 +7273,11 @@ def main(argv=None):
     detect_report, detect_launches = detect_phase(args.seed, smi)
     emit("detect", **detect_report)
 
+    # 18. layers: the MoE transformer and the rest of the layer library
+    collect()
+    layers_report, layers_launches = layers_phase(args.seed, dev, smi)
+    emit("layers", **layers_report)
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -6719,7 +7314,8 @@ def main(argv=None):
                      launches_fleet=fleet_launches.get(name, 0),
                      launches_observe=obs_launches.get(name, 0),
                      launches_data=data_launches.get(name, 0),
-                     launches_detect=detect_launches.get(name, 0))
+                     launches_detect=detect_launches.get(name, 0),
+                     launches_layers=layers_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

@@ -277,5 +277,9 @@ def test_parallel_branches_raise_not_implemented(monkeypatch):
     model = _causal_lm("torch")
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         model(torch.zeros(1, L))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.TransformerLayer(n_block=1, moe_experts=4)
+    tnn.set_nncontext(None)
+    monkeypatch.delenv("ZOO_TPU_SEQUENCE_PARALLEL")
+    monkeypatch.setenv("ZOO_TPU_PIPELINE_PARALLEL", "2")
+    tnn.init_nncontext(device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        _causal_lm("torch")

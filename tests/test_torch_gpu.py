@@ -1617,3 +1617,110 @@ def test_object_detector_on_the_card_equals_the_cpu(cuda):
                         1e-4
     finally:
         nncontext.set_nncontext(None)
+
+
+# -- the rest of the layer library (no hand-written kernel) -----------------
+
+LAYER_TOL = (1e-4, 1e-4)
+
+
+def _card_and_cpu(make, in_shape, seed=0):
+    cpu = make()
+    cpu.build_params(torch.Generator().manual_seed(seed), in_shape)
+    with torch.no_grad():   # nonzero biases
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator()
+                                     .manual_seed(seed + 1)))
+    return cpu, copy.deepcopy(cpu)
+
+
+def _fwd_bwd(layer, x, dev):
+    layer.to(dev)
+    xi = x.to(dev).clone().requires_grad_()
+    out = layer(xi)
+    outs = out if isinstance(out, tuple) else (out,)
+    loss = sum((o.float() * torch.randn(
+        o.shape, generator=torch.Generator().manual_seed(9 + i)).to(dev))
+        .sum() for i, o in enumerate(outs))
+    loss.backward()
+    return [o.detach().cpu() for o in outs] + [xi.grad.cpu()] + \
+        [p.grad.cpu() for _, p in layer.named_parameters()]
+
+
+def test_sparse_moe_on_the_card_matches_the_cpu_without_a_host_sync(cuda):
+    """SparseMoE at 8 experts, top-2, on 4 x 128 tokens: the output and
+    every gradient within 1e-4 of the CPU's, and neither the forward nor
+    the backward synchronises with the host (no shape hangs on the
+    routing)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+
+    cpu, card = _card_and_cpu(lambda: tl.SparseMoE(8, 64, top_k=2),
+                              (None, 128, 32))
+    x = torch.randn(4, 128, 32, generator=torch.Generator().manual_seed(3))
+    want = _fwd_bwd(cpu, x, "cpu")
+    card.to(cuda)
+    xi = x.to(cuda).requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = card(xi)
+        (out * torch.ones_like(out)).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for p in card.parameters():
+        p.grad = None
+    got = _fwd_bwd(card, x, cuda)
+    for g, w in zip(got, want):
+        _close(g, w, LAYER_TOL)
+
+
+@pytest.mark.parametrize("case", ["deconv_s2_same", "deconv_s3_valid",
+                                  "conv3d_same", "local2d", "convlstm2d",
+                                  "crf"])
+def test_new_layer_on_the_card_matches_the_cpu(cuda, case):
+    """Forward and backward of the layer library's new layers (float32,
+    TF32 off) within 1e-4 of the CPU's max plus 1e-4 relative: cuDNN's
+    transposed and 3-D convolutions pad as the port's CPU path does."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+
+    make, shape = {
+        "deconv_s2_same": (lambda: tl.Deconvolution2D(
+            8, 3, 4, border_mode="same", subsample=(2, 2)), (4, 9, 11)),
+        "deconv_s3_valid": (lambda: tl.Deconvolution2D(
+            8, 2, 2, subsample=(3, 3)), (4, 9, 11)),
+        "conv3d_same": (lambda: tl.Convolution3D(
+            8, 3, 3, 3, border_mode="same", subsample=(2, 1, 2)),
+            (4, 9, 10, 11)),
+        "local2d": (lambda: tl.LocallyConnected2D(
+            6, 3, 3, border_mode="same", subsample=(2, 2)), (4, 11, 10)),
+        "convlstm2d": (lambda: tl.ConvLSTM2D(8, 3, return_sequences=True),
+                       (5, 3, 12, 12)),
+        "crf": (lambda: tl.CRF(7), (16, 7)),
+    }[case]
+    cpu, card = _card_and_cpu(make, (None,) + shape)
+    x = torch.randn((3,) + shape, generator=torch.Generator().manual_seed(4))
+    _kernels.LAUNCHES.reset()
+    want = _fwd_bwd(cpu, x, "cpu")
+    got = _fwd_bwd(card, x, cuda)
+    assert not _kernels.LAUNCHES.snapshot()
+    for g, w in zip(got, want):
+        _close(g, w, LAYER_TOL)
+
+
+def test_viterbi_on_the_card_equals_the_cpu(cuda):
+    from analytics_zoo_tpu_torch.ops import crf
+
+    gen = torch.Generator().manual_seed(5)
+    unary = torch.randn(16, 40, 9, generator=gen)
+    trans = torch.randn(9, 9, generator=gen)
+    lengths = torch.randint(1, 41, (16,), generator=gen)
+    mask = (torch.arange(40)[None] < lengths[:, None]).float()
+    want, wscore = crf.crf_decode(unary, trans, mask)
+    got, score = crf.crf_decode(unary.to(cuda), trans.to(cuda),
+                                mask.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert (score.cpu() - wscore).abs().max() <= 1e-4
+    ll = crf.crf_log_likelihood(unary.to(cuda), want.to(cuda),
+                                trans.to(cuda), mask.to(cuda))
+    wll = crf.crf_log_likelihood(unary, want, trans, mask)
+    assert (ll.cpu() - wll).abs().max() <= 1e-4

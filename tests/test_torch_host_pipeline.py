@@ -663,6 +663,29 @@ def test_zoo_config_data_fields_equal_jax(monkeypatch):
 # ---------------------------------------------------------------------------
 # ProcessTransformPool: spawned workers + shared-memory rings
 # ---------------------------------------------------------------------------
+def _drain(pool, seconds=120.0):
+    """``list(pool)`` on a daemon thread, failing the test (and closing
+    the pool) if the epoch has not ended within ``seconds``: a pool whose
+    workers stop answering fails here instead of holding the run."""
+    out = {}
+
+    def run():
+        try:
+            out["batches"] = list(pool)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        pool.close()
+        pytest.fail(f"the process pool gave no end of epoch in {seconds} s")
+    if "error" in out:
+        raise out["error"]
+    return out["batches"]
+
+
 class TestProcessTransformPool:
     def _pool(self, fs=None, n=64, workers=2, fn=_double, **kw):
         fs = fs or _array_fs(n=n)
@@ -675,7 +698,7 @@ class TestProcessTransformPool:
 
         stats = TransformStats()
         pool = self._pool(stats=stats)
-        got = list(pool)
+        got = _drain(pool)
         want = JPTI(_jax_fs().batches(8), _jax_lambda(_double),
                     num_workers=2)
         assert_batches_equal(got, want)
@@ -714,7 +737,7 @@ class TestProcessTransformPool:
 
     def test_oversized_batches_travel_pickled(self):
         pool = self._pool(slot_bytes=64)
-        got = list(pool)
+        got = _drain(pool)
         assert pool.pickled_batches == 8 and pool.shm_batches == 0
         assert_batches_equal(got, _array_fs().transform(
             LambdaPreprocessing(_double)).batches(8))
@@ -728,7 +751,7 @@ class TestProcessTransformPool:
         pool = ProcessTransformPool(fs.batches(8),
                                     LambdaPreprocessing(_double),
                                     num_workers=2)
-        got = list(pool)
+        got = _drain(pool)
         assert os.path.exists(
             str(tmp_path / "fired.infeed-worker_kill_2")), \
             "fault never fired"

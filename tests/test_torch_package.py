@@ -77,6 +77,8 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.models.textmatching, "
             "analytics_zoo_tpu_torch.models.seq2seq, "
             "analytics_zoo_tpu_torch.pipeline.api.autograd, "
+            "analytics_zoo_tpu_torch.pipeline.api.keras2, "
+            "analytics_zoo_tpu_torch.ops.crf, "
             "analytics_zoo_tpu_torch.common.zoo_trigger, "
             "analytics_zoo_tpu_torch.ops, "
             "analytics_zoo_tpu_torch.ops.kv_cache, "
@@ -106,6 +108,86 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+#: JAX packages with an ``__all__`` the port has not ported yet, each
+#: with the ROADMAP item that ports it; a package named with a list is
+#: ported but for those names
+NOT_PORTED = {
+    "analytics_zoo_tpu.automl": "A14.5",
+    "analytics_zoo_tpu.parallel": "A12",
+    "analytics_zoo_tpu.pipeline.api.caffe": "A14.5",
+    "analytics_zoo_tpu.pipeline.api.net": "A14.5",
+    "analytics_zoo_tpu.pipeline.api.onnx": "A14.5",
+    "analytics_zoo_tpu.pipeline.nnframes": "A14.5",
+    "analytics_zoo_tpu.ray": "A14.5",
+    "analytics_zoo_tpu.tfpark": "A14.5",
+    "analytics_zoo_tpu.tfpark.text": "A14.5",
+    "analytics_zoo_tpu.tfpark.text.estimator": "A14.5",
+    "analytics_zoo_tpu.tfpark.text.keras": "A14.5",
+    "analytics_zoo_tpu.launcher": ("A12", ["HostSpec", "LaunchError",
+                                           "launch", "parse_hosts_file"]),
+    "analytics_zoo_tpu.pipeline.estimator": ("A14.5", ["LocalEstimator"]),
+}
+
+
+def _jax_all(init: Path):
+    """A JAX package's ``__all__``, read from its source (no import)."""
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    return None
+
+
+def _jax_packages():
+    out = {}
+    for init in sorted((ROOT / "analytics_zoo_tpu").rglob("__init__.py")):
+        names = _jax_all(init)
+        if names is not None:
+            out[".".join(init.parent.relative_to(ROOT).parts)] = names
+    return out
+
+
+@pytest.mark.parametrize("package", sorted(_jax_packages()))
+def test_every_public_jax_name_imports_from_the_port(package):
+    """Each name of a JAX package's ``__all__`` imports from the port's
+    package of the same path, but for the packages and names that are
+    still to port (each naming its ROADMAP item)."""
+    import importlib
+
+    names = _jax_packages()[package]
+    waiting = NOT_PORTED.get(package)
+    port_name = "analytics_zoo_tpu_torch" + package[len("analytics_zoo_tpu"):]
+    if isinstance(waiting, str):
+        assert waiting.startswith("A")
+        with pytest.raises(ModuleNotFoundError):
+            importlib.import_module(port_name)
+        return
+    exempt = set(waiting[1]) if waiting else set()
+    port = importlib.import_module(port_name)
+    missing = sorted(n for n in names if n not in exempt and
+                     not hasattr(port, n))
+    assert not missing, f"{port_name} lacks {missing}"
+    assert all(not hasattr(port, n) for n in exempt), \
+        f"{port_name} has {exempt}: take them out of NOT_PORTED"
+
+
+def test_every_jax_layer_class_is_in_the_ports_layers_all():
+    """The JAX layers package (which has no ``__all__``) exports each of
+    its layer classes; the port's ``layers.__all__`` lists them all but
+    ``KerasLayerWrapper`` (ROADMAP A14.5)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+
+    tree = ast.parse((ROOT / "analytics_zoo_tpu/pipeline/api/keras/layers/"
+                      "__init__.py").read_text())
+    names = {a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    names |= {t.id for node in tree.body if isinstance(node, ast.Assign)
+              for t in node.targets}
+    missing = sorted(names - set(tl.__all__) - {"KerasLayerWrapper"})
+    assert not missing, missing
+    assert "KerasLayerWrapper" not in tl.__all__
 
 
 def test_init_nncontext_without_a_card_raises(monkeypatch):

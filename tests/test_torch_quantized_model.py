@@ -144,7 +144,22 @@ def _reshape_permute_sparse(L, Seq):
     return m
 
 
+def _share_conv(L, Seq):
+    """Two ``ShareConvolution2D`` layers (int8 kernels, as JAX's set
+    has them) into a ``Dense``."""
+    m = Seq()
+    m.add(L.ShareConvolution2D(6, 3, 3, activation="relu",
+                               border_mode="same", input_shape=(2, 8, 8),
+                               name="sc1"))
+    m.add(L.ShareConvolution2D(4, 3, 3, activation="relu", name="sc2"))
+    m.add(L.Flatten(name="scfl"))
+    m.add(L.Dense(3, name="scout"))
+    return m
+
+
 GRAPHS = {   # case -> (builder, package args, input shape, chains)
+    "share_conv": (_share_conv, "seq", (2, 8, 8),
+                   [("sc1", "sc2"), ("sc2", "scout")]),
     "reshape_permute_sparse": (_reshape_permute_sparse, "seq", (2, 8, 8),
                                [("rpc1", "rpsd"), ("rpsd", "rpout")]),
     "chained_cnn": (_chained_cnn, "seq", (3, 16, 16),

@@ -152,7 +152,9 @@ def test_chaos_sigkill_broker_exactly_once():
             q.enqueue(_rec(i))
         # serve half the stream, then kill one broker dead
         served = {}
+        deadline = time.time() + 60.0
         while len(served) < n // 2:
+            assert time.time() < deadline, f"served {len(served)} of {n}"
             for rid, rec in q.read_batch(8, timeout=2.0):
                 served[rec["uri"]] = rec["uri"].encode()
             q.put_results(served)

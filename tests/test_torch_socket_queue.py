@@ -187,6 +187,7 @@ def test_frames_are_byte_equal_to_jax(k):
         try:
             mod.write_frame(a, FRAMES[k])
             a.shutdown(socket.SHUT_WR)
+            b.settimeout(10.0)          # a short frame fails, not hangs
             buf = b""
             while True:
                 chunk = b.recv(1 << 20)
