@@ -1,23 +1,43 @@
-"""Runtime context: config and the device the entry points run on.
+"""Runtime context: config, the rank's device and the rank mesh.
 
 Counterpart of ``analytics_zoo_tpu/common/nncontext.py``. The JAX context
-builds a device mesh over every visible chip; this one holds one
-``torch.device``. ``init_nncontext()`` with no device selects ``cuda:0``
-and raises when no CUDA device is present — it never falls back to the
-CPU; a caller that wants the CPU asks for it (``device="cpu"``). The
-mesh, multi-process initialisation and compile cache arrive with later
-slices. A context whose config asks for telemetry arms the telemetry
-spine (``_maybe_enable_telemetry``).
+builds a device mesh over every visible chip of a multi-controller
+runtime; here each process is one rank holding one ``torch.device``, and
+the mesh is a mesh of ranks (``parallel/mesh.py``) with one process group
+per slice of each axis.
+
+``init_nncontext()`` first joins ``torch.distributed`` when the launcher's
+environment contract is set (``_maybe_init_distributed``:
+``ZOO_TPU_COORDINATOR`` host:port, ``ZOO_TPU_NUM_PROCESSES`` the world
+size, ``ZOO_TPU_PROCESS_ID`` the rank; a partial or inconsistent contract
+raises, as in JAX). A rank's device is ``cuda:{local_rank %
+device_count}``; with no device and no card it raises, never falling back
+to the CPU; a caller that wants the CPU asks for it (``device="cpu"``).
+The backend follows one rule, recorded on the context (``backend``):
+NCCL when every rank of the host has a card of its own, gloo on the CPU
+and gloo when ranks share a card (NCCL refuses two ranks on one GPU).
+Without the contract the context is one rank of a world of one, with no
+process group.
+
+Tensor, pipeline and expert parallelism (``model_parallel``,
+``pipeline_parallel``, ``expert_parallel`` above 1) raise
+``NotImplementedError`` (ROADMAP A12.2). The compile cache has no
+counterpart. A context whose config asks for telemetry arms the
+telemetry spine (``_maybe_enable_telemetry``).
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import datetime
 import logging
 import os
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import RankMesh, make_mesh
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -30,11 +50,26 @@ class ZooConfig:
     with the JAX package so one environment configures both). Only the
     fields the ported path reads."""
 
-    # parallel degrees; the port runs on one device, so anything above 1
-    # reaches a NotImplementedError in the layer that would need it
-    data_parallel: int = 1
+    # rank-mesh axis sizes; -1 means "fill with the remaining ranks".
+    # model, pipeline and expert parallelism above 1 raise (ROADMAP A12.2)
+    data_parallel: int = -1
+    model_parallel: int = 1
     sequence_parallel: int = 1
     pipeline_parallel: int = 1
+    expert_parallel: int = 1
+    # long-context strategy when sequence_parallel > 1: "auto" picks
+    # ulysses (two all-to-alls around full-L flash attention on H/sp
+    # heads) when the head count divides the seq axis, else ring (K/V
+    # chunks rotating by ppermute, O(L/sp) score memory, any head count);
+    # "ring" / "ulysses" force the choice
+    sequence_parallel_mode: str = "auto"
+    # ZeRO optimizer-state partitioning over the data axis. 0: every rank
+    # holds the full optimizer state and the gradients are all-reduced.
+    # 1: each rank holds 1/dp of it (flattened, padded to a multiple of
+    # dp): gradients are reduce-scattered, each rank updates its shard,
+    # and the parameters are all-gathered (parallel/zero.py). Needs an
+    # elementwise optimizer (all built-in ones are); at dp = 1 it is off
+    zero_stage: int = 0
     # seed for weights a model draws when it is built
     seed: int = 42
     # host data pipeline (feature/host_pipeline.py): transformed batches
@@ -163,6 +198,12 @@ def _parse(field_type, env: str):
     return env
 
 
+def _local_rank() -> int:
+    """This process's rank among the ranks of its host: every rank the
+    launcher starts runs on one host, so it is the rank itself."""
+    return int(os.environ.get("ZOO_TPU_PROCESS_ID", "0"))
+
+
 def _resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -170,25 +211,73 @@ def _resolve_device(device) -> torch.device:
                 "init_nncontext(): no CUDA device is visible. The port runs "
                 "on the GPU unless asked otherwise; pass device='cpu' to "
                 "run on the CPU.")
-        return torch.device("cuda", 0)
+        return torch.device("cuda",
+                            _local_rank() % torch.cuda.device_count())
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but no CUDA device "
                                "is visible")
         if dev.index is None:
-            dev = torch.device("cuda", 0)
+            dev = torch.device("cuda",
+                               _local_rank() % torch.cuda.device_count())
     return dev
 
 
+#: bound of every collective and of the rendezvous: a rank that waits
+#: this long for its peers belongs to a dead gang
+DIST_TIMEOUT_S = 600
+
+
+def choose_backend(device: torch.device, world: int) -> str:
+    """The process-group backend for ``world`` ranks on one host with
+    ``device``: NCCL when every rank has a card of its own, gloo on the
+    CPU and when ranks share a card."""
+    if device.type != "cuda":
+        return "gloo"
+    return "nccl" if world <= torch.cuda.device_count() else "gloo"
+
+
+_A122 = ("is not ported yet; tensor, pipeline and expert parallelism "
+         "arrive with ROADMAP A12.2")
+
+
+def _refuse_a122(cfg: ZooConfig) -> None:
+    """Raise for the parallel modes of ROADMAP A12.2."""
+    for field in ("model_parallel", "pipeline_parallel", "expert_parallel"):
+        if int(getattr(cfg, field)) > 1:
+            raise NotImplementedError(f"{field}={getattr(cfg, field)} "
+                                      f"{_A122}")
+
+
 class ZooContext:
-    """Holds the config and the ``torch.device``. One per process."""
+    """Holds the config, this rank's ``torch.device`` and the rank mesh.
+    One per process."""
 
     def __init__(self, config: Optional[ZooConfig] = None, device=None):
+        import torch.distributed as dist
+
         self.config = config or ZooConfig.from_env()
         self.device = _resolve_device(device)
+        joined = dist.is_available() and dist.is_initialized()
+        #: this process's rank and the world size
+        self.process_index = dist.get_rank() if joined else 0
+        self.num_processes = dist.get_world_size() if joined else 1
+        #: the process-group backend ("nccl" or "gloo"), None alone
+        self.backend = dist.get_backend() if joined else None
+        _refuse_a122(self.config)
+        self.mesh: RankMesh = make_mesh(
+            data=self.config.data_parallel,
+            seq=max(int(self.config.sequence_parallel), 1))
         _maybe_enable_telemetry(self.config)
-        logger.info("ZooContext: device %s", self.device)
+        logger.info("ZooContext: rank %d/%d on %s, mesh %s, backend %s",
+                    self.process_index, self.num_processes, self.device,
+                    self.mesh.shape, self.backend)
+
+    @property
+    def num_devices(self) -> int:
+        """Devices of the mesh: one a rank."""
+        return self.num_processes
 
 
 def _maybe_enable_telemetry(cfg: ZooConfig):
@@ -210,8 +299,11 @@ def init_nncontext(conf=None, cluster_mode: str = "local", device=None,
     """Initialize (or fetch) the global context.
 
     Mirrors ``init_nncontext`` (pyzoo/zoo/common/nncontext.py:23);
-    ``cluster_mode`` is accepted for API parity. ``device`` None selects
-    ``cuda:0`` and raises without a CUDA device."""
+    ``cluster_mode`` is accepted for API parity. Under the launcher's
+    environment contract it first joins ``torch.distributed``
+    (:func:`_maybe_init_distributed`). ``device`` None selects
+    ``cuda:{local_rank % device_count}`` and raises without a CUDA
+    device."""
     global _global_context
     if _global_context is None:
         if isinstance(conf, ZooConfig):
@@ -220,6 +312,7 @@ def init_nncontext(conf=None, cluster_mode: str = "local", device=None,
             cfg = ZooConfig.from_env(**conf)
         else:
             cfg = ZooConfig.from_env(**kwargs)
+        _maybe_init_distributed(device)
         _global_context = ZooContext(cfg, device=device)
     return _global_context
 
@@ -231,3 +324,70 @@ def get_nncontext() -> ZooContext:
 def set_nncontext(ctx: Optional[ZooContext]):
     global _global_context
     _global_context = ctx
+
+
+def _maybe_init_distributed(device=None) -> None:
+    """Join ``torch.distributed`` when launched under
+    ``analytics_zoo_tpu_torch.launcher`` (or any launcher that sets the
+    ``ZOO_TPU_*`` topology contract), JAX's ``_maybe_init_distributed``
+    on ``torch.distributed``. A partial contract is a config error, not a
+    single-process run: an incomplete or inconsistent environment raises.
+    The rendezvous is ``tcp://<ZOO_TPU_COORDINATOR>``; the backend is
+    :func:`choose_backend`'s for this rank's device."""
+    import torch.distributed as dist
+
+    coord = os.environ.get("ZOO_TPU_COORDINATOR")
+    nproc_env = os.environ.get("ZOO_TPU_NUM_PROCESSES")
+    pid_env = os.environ.get("ZOO_TPU_PROCESS_ID")
+    if not coord:
+        if nproc_env is not None or pid_env is not None:
+            raise RuntimeError(
+                "partial distributed env: ZOO_TPU_NUM_PROCESSES/"
+                "ZOO_TPU_PROCESS_ID are set but ZOO_TPU_COORDINATOR is "
+                "not. Set all three (host:port, world size, rank) or "
+                "none — `zoo-launch --hosts N train.py` does this for "
+                "you.")
+        return
+    missing = [name for name, val in
+               (("ZOO_TPU_NUM_PROCESSES", nproc_env),
+                ("ZOO_TPU_PROCESS_ID", pid_env)) if val is None]
+    if missing:
+        raise RuntimeError(
+            f"partial distributed env: ZOO_TPU_COORDINATOR={coord!r} but "
+            f"{' and '.join(missing)} missing. Set all three or none — "
+            f"`zoo-launch --hosts N train.py` does this for you.")
+    try:
+        num_processes = int(nproc_env)
+        process_id = int(pid_env)
+    except ValueError as e:
+        raise RuntimeError(
+            f"bad distributed env: ZOO_TPU_NUM_PROCESSES={nproc_env!r} / "
+            f"ZOO_TPU_PROCESS_ID={pid_env!r} must be integers") from e
+    if num_processes < 1 or not 0 <= process_id < num_processes:
+        raise RuntimeError(
+            f"inconsistent distributed env: ZOO_TPU_PROCESS_ID="
+            f"{process_id} must be in [0, ZOO_TPU_NUM_PROCESSES="
+            f"{num_processes})")
+    if dist.is_initialized():
+        return  # init_process_group is once a process
+    dev = _resolve_device(device)
+    backend = choose_backend(dev, num_processes)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coord}", world_size=num_processes,
+        rank=process_id,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    # torn down before the interpreter's own teardown: a gloo group left
+    # to its destructor at exit can abort the process (SIGABRT) after the
+    # script has finished
+    atexit.register(_destroy_process_group)
+    logger.info("joined distributed topology: rank %d/%d via %s (%s on "
+                "%s)", process_id, num_processes, coord, backend, dev)
+
+
+def _destroy_process_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -69,7 +69,7 @@ def _roadmap_item(path: str) -> str:
     if any(part in path for part in _INTEROP):
         return "A14.5"
     if ".parallel." in path:
-        return "A12"
+        return "A12.2"
     if ".models." in path:
         return "A9"
     return "A10"

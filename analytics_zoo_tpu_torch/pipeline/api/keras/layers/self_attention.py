@@ -45,12 +45,33 @@ it without an rng, so its router noise never acts here. A custom
 dimension is the hidden size, and it replaces the token and position
 tables.
 
+Data parallelism needs nothing of the layer: the trainer gives each rank
+its block of the batch and a generator seeded with its data rank, so the
+dropout masks differ across ranks (JAX's ``fold_in(axis_index)``).
+
+Sequence parallelism (``ZooConfig.sequence_parallel`` = sp > 1, JAX
+:281-345): each seq rank holds only its L/sp chunk of every block's
+activations. It embeds its chunk of the inputs (the position table at the
+chunk's offset), draws its dropout from the step's generator folded with
+its seq rank, and runs attention over the seq group: Ulysses
+(``parallel/ulysses.py``: two all-to-alls around the flash kernels on
+H/sp heads) or the ring (``parallel/ring_attention.py``, plain torch), as
+``sequence_parallel_mode`` says (auto: Ulysses when the heads divide by
+sp); the key bias rides along. At the layer's exit each returned
+sequence output is all-gathered over the seq group into the global
+(B, L, h) tensor, as JAX's sharded attention returns it (the backward
+reduce-scatters), and the pooler reads its first token. Every seq rank
+computes the same loss, so the trainer divides the gradients it sums over
+the seq group by sp. A length that does not split over sp runs unsplit on every
+seq rank, as JAX's layer then runs unsharded attention.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-sequence-parallel, data-parallel and pipeline-parallel (GPipe) branches
-(the multi-GPU slice).
+pipeline-parallel (GPipe) stacked-block layout (ROADMAP A12.2).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -62,7 +83,42 @@ from .....ops.layernorm import layer_norm
 from ..engine.base import KerasLayer
 from .embeddings import take_rows
 
-_MULTI_GPU = "the multi-GPU slice of the port"
+_A122 = "ROADMAP A12.2"
+
+
+class _SeqSplit(NamedTuple):
+    """This rank's part of a sequence split over the seq group."""
+
+    group: object
+    n: int
+    rank: int
+    chunk_len: int
+
+    def chunk(self, t, dim: int = 1):
+        return t.narrow(dim, self.rank * self.chunk_len, self.chunk_len)
+
+
+def _seq_split(length: int) -> Optional[_SeqSplit]:
+    """The seq group's split of a sequence of ``length`` (None without a
+    seq axis, or when the length does not split over it)."""
+    from .....common import nncontext as _nn
+    ctx = _nn._global_context
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is None or mesh.shape["seq"] <= 1 or \
+            length % mesh.shape["seq"]:
+        return None
+    n = mesh.shape["seq"]
+    return _SeqSplit(mesh.group("seq"), n, mesh.index("seq"), length // n)
+
+
+def _seq_mode() -> str:
+    from .....common import nncontext as _nn
+    mode = str(getattr(_nn._global_context.config, "sequence_parallel_mode",
+                       "auto")).lower()
+    if mode not in ("auto", "ring", "ulysses"):
+        raise ValueError(f"sequence_parallel_mode must be auto|ring|"
+                         f"ulysses, got {mode!r}")
+    return mode
 
 
 def _normal(generator, shape, std):
@@ -178,7 +234,7 @@ class TransformerLayer(KerasLayer):
         if _parallel_degree("pipeline_parallel") > 1:
             raise NotImplementedError(
                 "pipeline_parallel > 1 (the GPipe stacked-block layout) is "
-                f"not ported yet; it arrives with {_MULTI_GPU}")
+                f"not ported yet; it arrives with {_A122}")
         if self.moe_experts and self._moe is None:
             from .moe import SparseMoE
             object.__setattr__(self, "_moe", SparseMoE(
@@ -201,33 +257,37 @@ class TransformerLayer(KerasLayer):
         return F.gelu(x, approximate="tanh" if self.gelu_approximate
                       else "none")
 
-    def _attention(self, p, x, mask_bias, generator, training):
+    def _attention(self, p, x, mask_bias, generator, training, seq=None):
         b, l, h = x.shape
         nh = self.n_head
         d = h // nh
-        if _parallel_degree("sequence_parallel") > 1:
-            raise NotImplementedError(
-                "sequence parallelism (ring / ulysses attention) is not "
-                f"ported yet; it arrives with {_MULTI_GPU}")
-        if _parallel_degree("data_parallel") > 1:
-            raise NotImplementedError(
-                "the data-parallel attention wrap is not ported yet; it "
-                f"arrives with {_MULTI_GPU}")
         qkv = torch.matmul(x, p["qkv_w"].to(x.dtype)) + \
             p["qkv_b"].to(x.dtype)
         q, k, v = qkv.split(h, dim=-1)
         # (B, L, H, d) views of the fused projection feed the kernel
         # directly: no [B, H, L, d] relayout copies in, none out
         q4, k4, v4 = (t.reshape(b, l, nh, d) for t in (q, k, v))
-        o = flash_attention_blhd(q4, k4, v4, bias=mask_bias,
-                                 causal=not self.bidirectional)
+        if seq is None:
+            o = flash_attention_blhd(q4, k4, v4, bias=mask_bias,
+                                     causal=not self.bidirectional)
+        else:
+            from .....parallel.ring_attention import ring_attention_blhd
+            from .....parallel.ulysses import ulysses_attention_blhd
+
+            mode = _seq_mode()
+            attend = ulysses_attention_blhd if mode == "ulysses" or (
+                mode == "auto" and nh % seq.n == 0) else ring_attention_blhd
+            kb = None if mask_bias is None else mask_bias.reshape(
+                mask_bias.shape[0], l).float().expand(b, l)
+            o = attend(q4, k4, v4, seq.group,
+                       causal=not self.bidirectional, kbias=kb)
         o = o.reshape(b, l, h)
         o = _dropout(o, self.attn_p_drop, generator, training)
         return torch.matmul(o, p["proj_w"].to(x.dtype)) + \
             p["proj_b"].to(x.dtype)
 
-    def _block(self, p, x, mask_bias, generator, training):
-        a = self._attention(p, x, mask_bias, generator, training)
+    def _block(self, p, x, mask_bias, generator, training, seq=None):
+        a = self._attention(p, x, mask_bias, generator, training, seq)
         n = dropout_add_layer_norm(a, x, p["ln1_g"], p["ln1_b"], generator,
                                    self.hidden_p_drop, training)
         m = self._ffn(p, n, training)
@@ -244,30 +304,54 @@ class TransformerLayer(KerasLayer):
         return torch.matmul(m, p["mlp_out_w"].to(n.dtype)) + \
             p["mlp_out_b"].to(n.dtype)
 
-    def _embed(self, inputs, training=False):
+    def _embed(self, inputs, training=False, seq=None):
         if self.embedding_layer is not None:
             x = inputs if not isinstance(inputs, (list, tuple)) or \
                 len(inputs) > 1 else inputs[0]
-            return self.embedding_layer(x, training=training), None
+            e = self.embedding_layer(x, training=training)
+            return (e if seq is None else seq.chunk(e)), None
         tokens = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
+        offset = 0
+        if seq is not None:
+            tokens = seq.chunk(tokens)
+            offset = seq.rank * seq.chunk_len
         e = take_rows(self.tok_emb, tokens)
-        e = e + self.pos_emb[None, :e.shape[1]]
+        e = e + self.pos_emb[None, offset:offset + e.shape[1]]
         return e, None
 
     def _pooler(self, x):
-        first = x[:, 0]
-        return torch.tanh(torch.matmul(first, self.pooler_w.to(x.dtype)) +
+        return torch.tanh(torch.matmul(x[:, 0], self.pooler_w.to(x.dtype)) +
                           self.pooler_b.to(x.dtype))
 
+    @staticmethod
+    def _inputs_length(inputs) -> int:
+        first = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
+        return int(first.shape[1])
+
     def forward(self, inputs, training=False, generator=None, **kw):
-        e, mask_bias = self._embed(inputs, training)
+        seq = _seq_split(self._inputs_length(inputs))
+        if seq is not None and generator is not None:
+            # each seq rank draws the masks of its own chunk
+            from ....engine import step_seed
+            folded = torch.Generator(device=generator.device)
+            folded.manual_seed(step_seed(generator.initial_seed(), seq.rank))
+            generator = folded
+        e, mask_bias = self._embed(inputs, training, seq)
         e = _dropout(e, self.hidden_p_drop, generator, training)
         states = []
         x = e
         for i in range(self.n_block):
             x = self._block(getattr(self, f"block{i}"), x, mask_bias,
-                            generator, training)
+                            generator, training, seq)
             states.append(x)
+        if seq is not None:
+            # the sequence outputs are global (B, L, h) tensors, as JAX's
+            # sharded attention returns them: each seq rank's chunk is
+            # all-gathered in rank order (the backward reduce-scatters)
+            from .....parallel.collectives import all_gather
+            keep = states if self.output_all_block else states[-1:]
+            states = [all_gather(t, seq.group, dim=1) for t in keep]
+            x = states[-1]
         pooled = self._pooler(x)
         if self.output_all_block:
             return tuple(states) + (pooled,)
@@ -445,8 +529,12 @@ class BERT(TransformerLayer):
         params["emb_ln_b"] = torch.zeros(self.hidden_size)
         return params
 
-    def _embed(self, inputs, training=False):
+    def _embed(self, inputs, training=False, seq=None):
         tokens, positions, segments, mask = inputs
+        if seq is not None:
+            tokens, positions, segments = (seq.chunk(t) for t in
+                                           (tokens, positions, segments))
+            mask = seq.chunk(mask, dim=3)
         e = take_rows(self.tok_emb, tokens)
         e = e + take_rows(self.pos_emb, positions)
         e = e + take_rows(self.seg_emb, segments)

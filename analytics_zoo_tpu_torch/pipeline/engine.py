@@ -1,8 +1,8 @@
-"""Training engine on one device.
+"""Training engine: one device a rank, over a mesh of ranks.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/engine.py`` (``SPMDTrainer``
 :180, ``GradientClipping`` :147). The JAX trainer compiles one XLA program
-per step over a device mesh; this one runs the step eagerly on one
+per step over a device mesh; this one runs the step eagerly on its rank's
 ``torch.device``: forward through the model's graph, the loss on f32
 predictions, ``loss.backward()`` (so the flash-attention and
 dropout+add+layer-norm kernels run their backward kernels on the card),
@@ -99,13 +99,37 @@ stream, and the step's stream waits on the copy's event before it reads
 the batch; on the CPU it is ``put_batch``. ``put_batch`` and
 :func:`as_device_tensor` stay for callers outside the engine (serving).
 
-Not ported: the sharded checkpoint format (``ZOO_TPU_SHARDED_CHECKPOINT``
-raises, ROADMAP A12), the fused k-step dispatch (A2/A15), ZeRO (A12).
+Data parallelism (the context's rank mesh, ``parallel/mesh.py``): with
+more than one rank every rank reads the same global batch and keeps its
+contiguous block (``P("data")``; padded first to a multiple of dp with
+zero-weight rows, JAX's ``_pad_to_dp_multiple``), or, from a dataset
+partitioned by ``process_topology()``, reads its 1/dp of the global batch
+from its own part. Each rank's loss enters the backward scaled by its
+weight mass over the data group's, and the gradients are summed over
+every rank holding a replica (data, and seq, whose sum is divided by sp)
+in one all-reduce of one flat buffer (:meth:`SPMDTrainer._sum_grads`),
+or under ZeRO-1 (``ZooConfig.zero_stage=1``, ``parallel/zero.py``)
+reduce-scattered, each rank updating its 1/dp of the optimizer state and
+all-gathering the parameters. Each data rank draws its dropout from the
+step's generator folded with its data rank. Only rank 0 writes logs,
+summaries and checkpoint files; every rank calls ``save_checkpoint``
+(the ZeRO gather is a collective) and waits at a barrier for rank 0's
+commit. ``evaluate`` and ``predict`` run the whole batch on every rank.
+
+Checkpoint formats: the flat store above, or with
+``ZOO_TPU_SHARDED_CHECKPOINT=1`` the JAX package's sharded format
+(``utils/sharded_checkpoint.py``: a shard file a process, manifests,
+crc32c, a commit), which either package reads. Both hold the canonical
+(parameter-shaped) optimizer state.
+
+Not ported: the fused k-step dispatch (A2/A15); ZeRO's gspmd mode and
+tensor, pipeline and expert parallelism (A12.2).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import logging
 import os
@@ -121,9 +145,12 @@ from ..common.nncontext import ZooContext, get_nncontext
 from ..common.zoo_trigger import EveryEpoch, MaxEpoch, TrainRecord, \
     ZooTrigger
 from ..feature.feature_set import ArrayFeatureSet, FeatureSet, MiniBatch
+from ..feature.feature_set import minibatch_len, pad_minibatch
 from ..feature.host_pipeline import (DeviceStagingIterator,
                                      build_host_pipeline)
-from ..utils import faults, file_io, memory, serialization, telemetry
+from ..parallel import collectives, zero
+from ..utils import (faults, file_io, memory, serialization,
+                     sharded_checkpoint, telemetry)
 from ..utils.crc32c import crc32c
 from ..utils.jax_weights import (check_optimizer_leaves, load_jax_params,
                                  load_optimizer_leaves, optimizer_leaves,
@@ -197,12 +224,10 @@ def _checkpoint_writer_pool():
     return _CKPT_POOL
 
 
-def _refuse_sharded() -> None:
-    if os.environ.get("ZOO_TPU_SHARDED_CHECKPOINT", "0") == "1":
-        raise NotImplementedError(
-            "ZOO_TPU_SHARDED_CHECKPOINT=1: the sharded (per-process) "
-            "checkpoint format is not ported yet; it arrives with the "
-            "multi-GPU modes (ROADMAP A12)")
+def _sharded_format() -> bool:
+    """``ZOO_TPU_SHARDED_CHECKPOINT=1`` selects the per-process sharded
+    format (``utils/sharded_checkpoint.py``) over the flat store."""
+    return os.environ.get("ZOO_TPU_SHARDED_CHECKPOINT", "0") == "1"
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -373,6 +398,24 @@ class PinnedStager:
             *(_batch_leaves(h) for h in hosts))])
 
 
+def _sorted_leaves(tree) -> list:
+    """A nested dict's leaves with keys sorted at every level
+    (``jax.tree_util.tree_leaves`` of a dict tree)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in
+                _sorted_leaves(tree[k])]
+    return [tree]
+
+
+def _fill_sorted(template, leaves):
+    """``template``'s structure with its leaves taken in sorted-key order
+    from the iterator ``leaves``."""
+    if isinstance(template, dict):
+        return {k: _fill_sorted(template[k], leaves)
+                for k in sorted(template)}
+    return next(leaves)
+
+
 def _tree_float(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_tree_float(v) for v in x)
@@ -396,12 +439,15 @@ class GradientClipping:
         self.max_value = max_value
         self.l2_norm = l2_norm
 
-    def apply_with_norm(self, grads: Dict[str, torch.Tensor]):
+    def apply_with_norm(self, grads: Dict[str, torch.Tensor],
+                        precomputed_norm=None):
         """Clip, and return the pre-clip global norm when L2-norm clipping
-        computed one (else None)."""
-        gnorm = None
+        computed one (else None). ``precomputed_norm``: the norm to clip
+        by (ZeRO's, summed over the ranks' blocks)."""
+        gnorm = precomputed_norm
         if self.l2_norm is not None:
-            gnorm = global_norm(grads)
+            if gnorm is None:
+                gnorm = global_norm(grads)
             scale = torch.clamp(self.l2_norm / (gnorm + 1e-12), max=1.0)
             grads = {k: g * scale for k, g in grads.items()}
         if self.min_value is not None or self.max_value is not None:
@@ -412,7 +458,8 @@ class GradientClipping:
 
 
 class SPMDTrainer:
-    """Trains ``model`` (a ``KerasNet``) on one device.
+    """Trains ``model`` (a ``KerasNet``) on this rank's device, over the
+    context's rank mesh.
 
     ``loss_fn`` is a ``LossFunction``, ``optimizer`` a ``ZooOptimizer``.
     ``device`` defaults to the context's (``cuda:0`` unless the context
@@ -494,6 +541,12 @@ class SPMDTrainer:
         self._profiler: Optional[ProfilerHook] = None
         # the pinned side-stream stager (CUDA devices), built on first use
         self._pinned: Optional[PinnedStager] = None
+        #: the rank mesh (None: a world of one)
+        self.mesh = getattr(self.ctx, "mesh", None)
+        # ZeRO-1 ("off" / "flat", resolved on first use) and the flat
+        # layout of this rank's optimizer shards
+        self._zero_mode: Optional[str] = None
+        self._zero_layout: Optional[zero.FlatLayout] = None
 
     def set_frozen(self, names):
         self.frozen_names = frozenset(names or ())
@@ -511,7 +564,100 @@ class SPMDTrainer:
         self.model.to(self.device)
         if self.opt_state is None:
             with torch.no_grad():
-                self.opt_state = self.tx.init(self.params())
+                self.opt_state = self.tx.init(self._opt_params())
+
+    # ------------------------------------------------------------------
+    # the rank mesh: data parallelism and ZeRO-1
+    # ------------------------------------------------------------------
+    def axis_size(self, axis: str) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[axis]
+
+    def world_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def is_rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _group(self, axis: str):
+        """The process group of ``axis`` (None over one rank)."""
+        return None if self.mesh is None else self.mesh.group(axis)
+
+    def _replica_group(self):
+        """The ranks holding replicas of every parameter: the whole world
+        (the mesh has data and seq axes only)."""
+        import torch.distributed as dist
+        return dist.group.WORLD if self.world_size() > 1 else None
+
+    def zero_mode(self) -> str:
+        """"off" (stage 0, or dp = 1) or "flat" (stage 1 on a pure
+        data-parallel mesh: flat optimizer shards, reduce-scatter,
+        all-gather). Stage 1 beside a seq axis is JAX's "gspmd" mode
+        (ROADMAP A12.2)."""
+        if self._zero_mode is not None:
+            return self._zero_mode
+        stage = int(getattr(self.ctx.config, "zero_stage", 0) or 0)
+        if stage not in (0, 1):
+            raise ValueError(f"zero_stage must be 0 or 1, got {stage}")
+        if stage == 0 or self.axis_size("data") <= 1:
+            self._zero_mode = "off"
+            return self._zero_mode
+        if self.world_size() != self.axis_size("data"):
+            raise NotImplementedError(
+                "zero_stage=1 beside a sequence-parallel axis is ZeRO's "
+                "gspmd mode, which arrives with ROADMAP A12.2")
+        if getattr(self.optimizer, "clipnorm", None):
+            raise ValueError(
+                "zero_stage=1 needs an elementwise optimizer: clipnorm "
+                "takes a global norm of the whole gradient; use "
+                "set_gradient_clipping_by_l2_norm instead")
+        self._zero_mode = "flat"
+        self._zero_layout = zero.FlatLayout(
+            {k: p.shape for k, p in self.params().items()},
+            self.axis_size("data"))
+        return self._zero_mode
+
+    def _opt_params(self) -> Dict[str, torch.Tensor]:
+        """What the optimizer state mirrors: the parameters, or under
+        ZeRO-1 this rank's flat block of each."""
+        params = self.params()
+        if self.zero_mode() == "off":
+            return params
+        rank = self.mesh.index("data")
+        return {k: self._zero_layout.own_block(p.detach(), k, rank)
+                for k, p in params.items()}
+
+    def canonical_opt_state(self):
+        """The optimizer state in the parameter-shaped (stage 0) form,
+        what every checkpoint writes. Under ZeRO-1 an all-gather over the
+        data group, so every rank calls it."""
+        if self.zero_mode() == "off":
+            return self.opt_state
+        with torch.no_grad():
+            return zero.unshard_opt_state(self.opt_state, self._zero_layout,
+                                          self.mesh.group("data"))
+
+    def _rank_block(self, batch: MiniBatch) -> MiniBatch:
+        """This rank's contiguous block of a global host batch, as
+        ``P("data")`` slices it; the batch is first padded to a multiple
+        of dp with zero-weight rows (``_pad_to_dp_multiple``). Seq ranks
+        of one data group take the same block."""
+        dp = self.axis_size("data")
+        n = minibatch_len(batch)
+        target = -(-n // dp) * dp
+        if target != n:
+            batch = pad_minibatch(batch, target)
+        lo = self.mesh.index("data") * (target // dp)
+        hi = lo + target // dp
+
+        def cut(a):
+            if a is None:
+                return None
+            if isinstance(a, (list, tuple)):
+                return type(a)(cut(v) for v in a)
+            return np.asarray(a)[lo:hi]
+
+        xs, y, w = batch
+        return MiniBatch(cut(tuple(xs)), cut(y), cut(w))
 
     def put_batch(self, batch: MiniBatch):
         """A host (inputs, targets, weights) batch as tensors on the
@@ -591,6 +737,10 @@ class SPMDTrainer:
         seed = step_seed(self.seed, step)
         if micro is not None:
             seed = step_seed(seed, micro)
+        if self.axis_size("data") > 1:
+            # each data rank draws its own masks (JAX's fold_in of the
+            # data axis index)
+            seed = step_seed(seed, self.mesh.index("data"))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return gen
@@ -608,24 +758,22 @@ class SPMDTrainer:
         return cut(list(xs)), cut(y), cut(w)
 
     def loss_and_grads(self, batch, training: bool = True):
-        """Forward and backward of one device batch at the current step,
-        without a parameter update: the loss, and each parameter's
+        """Forward and backward of this rank's device batch at the current
+        step, without a parameter update: the loss, and each parameter's
         gradient left in its ``.grad`` (None where the loss does not reach
-        it). A training forward updates the state buffers. With
-        ``grad_accum_steps`` = k > 1 (training only) the batch runs as k
-        equal microbatches (``_weighted_grad_sums``): each weighted-mean
-        loss enters the backward scaled by its microbatch's weight mass
-        over the batch's, so ``.grad`` sums to the batch's weighted-mean
-        gradient, and the loss returned is the mass-weighted mean."""
+        it). A training forward updates the state buffers. The batch runs
+        as ``grad_accum_steps`` = k equal microbatches (training only,
+        ``_weighted_grad_sums``): each microbatch's weighted-mean loss
+        enters the backward scaled by its weight mass over the data
+        group's total mass (JAX :544), so ``.grad`` summed over the data
+        ranks is the global batch's weighted-mean gradient, and the loss
+        returned is the mass-weighted mean over the data group
+        (:651-652). Over one rank and one microbatch the scale is exactly
+        1 and the loss is the batch's own."""
         params = self.params()
         for p in params.values():
             p.grad = None
         accum = self._grad_accum_steps() if training else 1
-        if accum == 1:
-            gen = self.generator(self.step) if training else None
-            loss, _ = self._loss_and_preds(batch, gen, training)
-            loss.backward()
-            return loss.detach()
         xs, _, w = batch
         n = xs[0].shape[0]
         if n % accum:
@@ -635,39 +783,136 @@ class SPMDTrainer:
         masses = [w[i * size:(i + 1) * size].float().sum() if w is not None
                   else torch.tensor(float(size), device=self.device)
                   for i in range(accum)]
-        total = torch.clamp(torch.stack(masses).sum(), min=1e-12)
+        data = self._group("data")
+        with torch.no_grad():
+            total = torch.clamp(collectives.all_reduce(
+                torch.stack(masses).sum(), data), min=1e-12)
         loss_sum = torch.zeros((), device=self.device)
         for i in range(accum):
-            micro = self._microbatch(batch, i, size)
-            loss, _ = self._loss_and_preds(micro, self.generator(self.step, i),
-                                           True)
-            (loss * (masses[i] / total)).backward()
-            loss_sum = loss_sum + loss.detach() * masses[i]
-        return loss_sum / total
+            micro = batch if accum == 1 else self._microbatch(batch, i, size)
+            gen = self.generator(self.step, i if accum > 1 else None) \
+                if training else None
+            loss, _ = self._loss_and_preds(micro, gen, training)
+            share = masses[i] / total
+            (loss * share).backward()
+            loss_sum = loss_sum + loss.detach() * share
+        with torch.no_grad():
+            return collectives.all_reduce(loss_sum, data)
 
     def train_step(self, batch) -> torch.Tensor:
-        """One optimization step on a device batch (``_step_body``): fwd
-        (which updates the state buffers), bwd, frozen masks, clipping,
-        update. Returns the loss on the device (no host sync)."""
-        loss = self.loss_and_grads(batch)
+        """One optimization step on this rank's device batch
+        (``_step_body``): fwd (which updates the state buffers), bwd, the
+        gradients summed over the replicas (:meth:`summed_grads`),
+        clipping, update, frozen layers left still; under ZeRO-1 the
+        update is :meth:`_zero_update`. The state buffers' floating values
+        (BatchNorm's moving statistics, each rank's from its own block)
+        are then averaged over the data group, as JAX's ZeRO step does.
+        Returns the loss on the device (no host sync)."""
+        loss, grads = self.summed_grads(batch)
         params = self.params()
+        with torch.no_grad():
+            if self.zero_mode() == "flat":
+                self._zero_update(loss, grads)
+            else:
+                grads, self._last_gnorm = self.clipping.apply_with_norm(
+                    grads)
+                if getattr(self.ctx.config, "health_monitor", False):
+                    self._update_sentinel(loss, grads)
+                updates, self.opt_state = self.tx.update(
+                    grads, self.opt_state, params)
+                # frozen layers do not move at all: stateful transforms
+                # (Adam moments from before the freeze, weight decay)
+                # still emit nonzero updates for them, as in the JAX step
+                for k, p in params.items():
+                    if not self._frozen(k):
+                        p.add_(updates[k].to(p.dtype))
+            self._average_state()
+        self.step += 1
+        return loss
+
+    def summed_grads(self, batch):
+        """Forward and backward of this rank's batch and the gradients
+        summed over the replicas, before clipping and the update: (the
+        loss, {path: gradient}). Frozen layers' gradients are zero."""
+        loss = self.loss_and_grads(batch)
         with torch.no_grad():
             grads = {k: p.grad if p.grad is not None and
                      not self._frozen(k) else torch.zeros_like(p)
-                     for k, p in params.items()}
-            grads, self._last_gnorm = self.clipping.apply_with_norm(grads)
-            if getattr(self.ctx.config, "health_monitor", False):
-                self._update_sentinel(loss, grads)
-            updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                     params)
-            # frozen layers do not move at all: stateful transforms (Adam
-            # moments from before the freeze, weight decay) still emit
-            # nonzero updates for them, as in the JAX step
-            for k, p in params.items():
-                if not self._frozen(k):
-                    p.add_(updates[k].to(p.dtype))
-        self.step += 1
-        return loss
+                     for k, p in self.params().items()}
+            return loss, self._sum_grads(grads)
+
+    def _sum_grads(self, grads):
+        """The gradients summed over every rank holding a replica of the
+        parameters: the data group, and the seq group, whose ranks each
+        computed the same loss and whose sum therefore holds it ``sp``
+        times (divided by ``sp``), in one all-reduce of one flat buffer.
+        Under ZeRO-1 this rank's flat block of each (one reduce-scatter of
+        the packed gradients, JAX's ``psum_scatter``). Over one rank the
+        gradients as they are."""
+        if self.zero_mode() == "flat":
+            layout = self._zero_layout
+            return layout.split(collectives.reduce_scatter(
+                layout.pack(grads), self._group("data"), dim=0))
+        group = self._replica_group()
+        if group is None:
+            return grads
+        keys = list(grads)
+        flat = collectives.all_reduce(
+            torch.cat([grads[k].reshape(-1) for k in keys]), group)
+        sp = self.axis_size("seq")
+        if sp > 1:
+            flat.div_(sp)
+        off = 0
+        for k in keys:
+            n = grads[k].numel()
+            grads[k] = flat[off:off + n].view_as(grads[k])
+            off += n
+        return grads
+
+    def _zero_update(self, loss, g_sh) -> None:
+        """ZeRO-1's update (JAX ``_zero_step_body``) from this rank's
+        blocks ``g_sh`` of the summed gradients: clipping's norm is the
+        sum over the data group of the blocks' squares; the optimizer
+        updates this rank's blocks of the parameters and moments; one
+        all-gather brings the updated parameters back to every rank."""
+        layout, data = self._zero_layout, self._group("data")
+        want_norm = self.clipping.l2_norm is not None or (
+            getattr(self.ctx.config, "health_monitor", False) and
+            getattr(self.ctx.config, "health_grad_sentinel", False))
+        gnorm = None
+        if want_norm:
+            sq = sum((g.float() * g.float()).sum() for g in g_sh.values())
+            gnorm = torch.sqrt(collectives.all_reduce(sq, data))
+        g_sh, self._last_gnorm = self.clipping.apply_with_norm(
+            g_sh, precomputed_norm=gnorm)
+        if getattr(self.ctx.config, "health_monitor", False):
+            self._update_sentinel(loss, g_sh)
+        rank = self.mesh.index("data")
+        params = self.params()
+        p_sh = {k: layout.own_block(p, k, rank) for k, p in params.items()}
+        updates, self.opt_state = self.tx.update(g_sh, self.opt_state, p_sh)
+        for k, u in updates.items():
+            if not self._frozen(k):
+                p_sh[k].add_(u.to(p_sh[k].dtype))
+        full = layout.gather(p_sh, data)
+        for k, p in params.items():
+            if not self._frozen(k):
+                p.copy_(full[k])
+
+    def _average_state(self) -> None:
+        """Average the floating state buffers over the data group."""
+        if self.axis_size("data") <= 1:
+            return
+        bufs = [b for b in self.model.buffers() if b.is_floating_point()]
+        if not bufs:
+            return
+        flat = collectives.all_reduce(
+            torch.cat([b.reshape(-1).float() for b in bufs]),
+            self.mesh.group("data")) / self.axis_size("data")
+        off = 0
+        for b in bufs:
+            b.copy_(flat[off:off + b.numel()].view_as(b))
+            off += b.numel()
 
     def _update_sentinel(self, loss, grads):
         """Fold this step's non-finite check into the device sentinel:
@@ -844,7 +1089,6 @@ class SPMDTrainer:
         end_trigger = end_trigger or MaxEpoch(max_epoch or 1)
         checkpoint_trigger = checkpoint_trigger or self.checkpoint_trigger
         if checkpoint_trigger is not None:
-            _refuse_sharded()
             if self.checkpoint_dir is None:
                 raise ValueError(
                     "checkpoint_trigger set but no checkpoint dir; call "
@@ -953,9 +1197,28 @@ class SPMDTrainer:
             worker_provider=stats_fn().worker_busy_snapshot
             if callable(stats_fn) else None, scope="train")
         it = staging = None
+        put_one = self._put_one
+        host_batch = batch_size
+        cap = None
+        if self.world_size() > 1:
+            if getattr(train_set, "num_processes", 1) > 1:
+                # a dataset partitioned by process_topology(): each rank
+                # reads its 1/dp of the global batch from its own part,
+                # and every rank stops at the shortest part's last batch
+                # (a rank that stepped alone would wait on its peers)
+                if self.world_size() != self.axis_size("data"):
+                    raise ValueError(
+                        "a dataset partitioned by process needs a pure "
+                        "data-parallel mesh (seq ranks share their rows)")
+                host_batch = batch_size // self.axis_size("data")
+                cap = self._fewest_batches(train_set, host_batch)
+            else:
+                # every rank reads the same global batch and keeps its
+                # block of it
+                put_one = lambda b: self._put_one(self._rank_block(b))  # noqa: E731
         try:
             it = build_host_pipeline(
-                train_set, batch_size, shuffle=True, drop_remainder=True,
+                train_set, host_batch, shuffle=True, drop_remainder=True,
                 seed=self.seed + record.epoch,
                 transform_workers=getattr(self.ctx.config,
                                           "transform_workers", -1),
@@ -974,7 +1237,9 @@ class SPMDTrainer:
                     if next(it, None) is None:
                         break
             staging = DeviceStagingIterator(
-                it, self._put_one, self._put_stacked,
+                it if cap is None else itertools.islice(
+                    it, max(cap - self.epoch_batches, 0)),
+                put_one, self._put_stacked,
                 depth=getattr(self.ctx.config, "device_ahead", 2),
                 monitor=monitor)
             self._epoch_loop(staging, monitor, batch_size, record,
@@ -985,6 +1250,16 @@ class SPMDTrainer:
                 staging.close()
             if it is not None:
                 it.close()
+
+    def _fewest_batches(self, train_set, host_batch: int) -> int:
+        """The fewest full batches any rank's part of ``train_set`` holds
+        (a MIN all-reduce over the world)."""
+        import torch.distributed as dist
+
+        n = torch.tensor([train_set.num_batches(host_batch, True)],
+                         device=self.device)
+        dist.all_reduce(n, op=dist.ReduceOp.MIN)
+        return int(n.item())
 
     def _epoch_loop(self, staging, monitor, batch_size, record,
                     checkpoint_trigger, validation_set, validation_trigger,
@@ -1058,9 +1333,10 @@ class SPMDTrainer:
         record.epoch = self.epoch
         record.epoch_finished = True
         dur = time.time() - t0
-        logger.info("epoch %d done: %d iterations in %.1fs (%.1f samples/s)",
-                    record.epoch, n_batches, dur,
-                    n_batches * batch_size / max(dur, 1e-9))
+        if self.is_rank0():
+            logger.info("epoch %d done: %d iterations in %.1fs (%.1f "
+                        "samples/s)", record.epoch, n_batches, dur,
+                        n_batches * batch_size / max(dur, 1e-9))
         if validation_trigger is not None and validation_trigger(record):
             self._run_validation(validation_set, batch_size, record)
         if checkpoint_trigger is not None and checkpoint_trigger(record) \
@@ -1102,7 +1378,8 @@ class SPMDTrainer:
                 watermark_fraction=getattr(cfg, "hbm_watermark_fraction",
                                            0.0),
                 out_dir=getattr(cfg, "trace_dir", None))
-        summary = self.train_summary
+        # only rank 0 writes logs and summaries (JAX :1680)
+        summary = self.train_summary if self.is_rank0() else None
         if summary is not None:
             summary.add_scalar("Loss", loss_v, self.step)
             summary.add_scalar("LearningRate", lr, self.step)
@@ -1145,13 +1422,14 @@ class SPMDTrainer:
                     summary.add_scalar(
                         "MFU", self.flops_per_step * steps / wall / peak,
                         self.step)
-        logger.info("epoch %d step %d loss %.5f", record.epoch, self.step,
-                    loss_v)
+        if self.is_rank0():
+            logger.info("epoch %d step %d loss %.5f", record.epoch,
+                        self.step, loss_v)
 
     def _run_validation(self, validation_set, batch_size, record):
         results = self.evaluate(validation_set, batch_size)
         record.score = next(iter(results.values())) if results else None
-        if self.val_summary is not None:
+        if self.val_summary is not None and self.is_rank0():
             for name, value in results.items():
                 self.val_summary.add_scalar(name, value, self.step)
         logger.info("validation @%d: %s", self.step, results)
@@ -1178,7 +1456,8 @@ class SPMDTrainer:
         ValidationSummary."""
         stats = inference_window(monitor, n_batches, n_samples, wall_s, 0,
                                  kind)
-        if kind == "Eval" and self.val_summary is not None:
+        if kind == "Eval" and self.val_summary is not None and \
+                self.is_rank0():
             for name, value in stats.items():
                 self.val_summary.add_scalar(name, value, self.step)
         logger.info("%s: %.1f samples/s (%d batches, input-bound %.3f)",
@@ -1319,7 +1598,13 @@ class SPMDTrainer:
 
     def has_checkpoint(self, directory: str) -> bool:
         return bool(self._store_candidates(directory)) or \
-            file_io.exists(os.path.join(directory, "model.npz"))
+            file_io.exists(os.path.join(directory, "model.npz")) or \
+            self._sharded_available(directory)
+
+    @staticmethod
+    def _sharded_available(directory: str) -> bool:
+        tag = sharded_checkpoint.read_commit(directory)
+        return sharded_checkpoint.exists(directory, "params", tag)
 
     @staticmethod
     def _write_flat_checkpoint(directory, params_np, state_np, opt_leaves,
@@ -1442,15 +1727,18 @@ class SPMDTrainer:
         self._losses = [(s, l) for s, l in self._losses if s <= self.step]
         self._last_log_step = self.step
 
-    def _flat_snapshot(self):
+    def _flat_snapshot(self, opt_state=None):
         """Owned host copies of the trainer state: (params tree, state
-        tree, optimizer leaves, meta). On the GPU each tensor is copied
-        into a pinned host buffer kept from the last save (the previous
-        write has finished with it: ``save_checkpoint`` waits for it
-        first), and the copies are complete when this returns, so the
-        next step's in-place update cannot reach them."""
+        tree, optimizer leaves, meta); ``opt_state`` is the canonical
+        optimizer state (the trainer's own by default). On the GPU each
+        tensor is copied into a pinned host buffer kept from the last
+        save (the previous write has finished with it: ``save_checkpoint``
+        waits for it first), and the copies are complete when this
+        returns, so the next step's in-place update cannot reach them."""
         params, state = self.model.param_tree(), self.model.state_tree()
-        leaves = optimizer_leaves(self.opt_state, param_order(self.model))
+        leaves = optimizer_leaves(
+            self.opt_state if opt_state is None else opt_state,
+            param_order(self.model))
         tensors: List[torch.Tensor] = []
 
         def collect(tree):
@@ -1501,12 +1789,32 @@ class SPMDTrainer:
         directory = directory or self.checkpoint_dir
         if directory is None:
             raise ValueError("no checkpoint dir set")
-        _refuse_sharded()
         self.ensure_initialized()
         t0 = time.perf_counter()
         # one writer at a time per trainer, and the snapshot buffers are
         # the previous write's until it has finished
         self.wait_for_checkpoint()
+        if _sharded_format():
+            with span("ckpt/write", step=self.step, format="sharded"):
+                self._save_checkpoint_sharded(directory)
+            telemetry.counter("zoo_checkpoint_writes_total").inc()
+            return
+        if self.world_size() > 1:
+            # every rank gathers the canonical optimizer state (ZeRO's
+            # all-gather), rank 0 alone writes, and no rank leaves before
+            # the files are committed (JAX :2026)
+            opt = self.canonical_opt_state()
+            if self.is_rank0():
+                faults.begin_save()
+                snapshot = self._flat_snapshot(opt)
+                stats = {"step": self.step}
+                self.checkpoint_stats.append(stats)
+                self._write_flat_checkpoint(
+                    directory, *snapshot,
+                    int(getattr(self.ctx.config, "keep_checkpoints", 3)),
+                    stats)
+            collectives.barrier()
+            return
         faults.begin_save()
         keep = int(getattr(self.ctx.config, "keep_checkpoints", 3))
         t1 = time.perf_counter()
@@ -1533,7 +1841,14 @@ class SPMDTrainer:
         t0 = time.perf_counter()
         self.wait_for_checkpoint()
         self.ensure_initialized()
+        # the writer (rank 0) must have finished before anyone reads
+        collectives.barrier()
         candidates = self._store_candidates(directory)
+        if not candidates and self._sharded_available(directory) and \
+                not file_io.exists(os.path.join(directory, "model.npz")):
+            self._load_checkpoint_sharded(directory)
+            self.last_load_s = time.perf_counter() - t0
+            return
         if candidates:
             skipped = []
             for name, manifest in candidates:
@@ -1590,12 +1905,98 @@ class SPMDTrainer:
     def _apply_loaded(self, blob, leaves, meta) -> None:
         params, state = blob["params"], blob.get("state") or {}
         # the pairing, the optimizer leaves' count and shapes are checked
-        # before anything is copied
+        # before anything is copied; the file holds the canonical
+        # (parameter-shaped) optimizer state, which ZeRO-1 re-shards onto
+        # this run's dp degree
         order = param_order(self.model, names=list(params))
+        flat = self.zero_mode() == "flat"
+        target = self.opt_state
+        if leaves is not None and flat:
+            with torch.no_grad():
+                target = self.tx.init(self.params())
         if leaves is not None:
-            check_optimizer_leaves(self.opt_state, leaves, order)
+            check_optimizer_leaves(target, leaves, order)
         load_jax_params(self.model, params, state)
         if leaves is not None:
-            self.opt_state = load_optimizer_leaves(self.opt_state, leaves,
-                                                   order)
+            target = load_optimizer_leaves(target, leaves, order)
+            self.opt_state = zero.shard_opt_state(
+                target, self._zero_layout, self.mesh.group("data")) \
+                if flat else target
         self._restore_position(meta)
+
+    # -- the sharded format (utils/sharded_checkpoint.py, JAX :1691) ----
+    _SHARDED_GROUPS = ("params", "state", "optim")
+
+    def _sharded_groups(self, opt_state) -> Dict[str, list]:
+        """The leaves of each group in the JAX trees' order (dict keys
+        sorted, as ``jax.tree_util.tree_leaves`` gives them)."""
+        return {"params": _sorted_leaves(self.model.param_tree()),
+                "state": _sorted_leaves(self.model.state_tree()),
+                "optim": optimizer_leaves(opt_state,
+                                          param_order(self.model))}
+
+    def _save_checkpoint_sharded(self, directory: str) -> None:
+        """JAX's ``_save_checkpoint_sharded``: every rank writes its shard
+        file of each group (the replicated state comes out of rank 0, the
+        others' files are empty), a barrier, then rank 0 writes the
+        manifests, the meta, the commit and removes stale files. Every
+        file of a save carries its step's tag, so the save becomes
+        visible only at the commit."""
+        opt = self.canonical_opt_state()
+        tag = f"s{self.step}"
+        faults.begin_save()
+        host = None
+        if self.is_rank0():
+            host = {name: [np.array(t.detach().cpu()) if isinstance(
+                t, torch.Tensor) else np.asarray(t) for t in leaves]
+                for name, leaves in self._sharded_groups(opt).items()}
+        for name in self._SHARDED_GROUPS:
+            sharded_checkpoint.save_shards(
+                directory, name, host[name] if host else [], tag=tag)
+        # every shard file exists before a manifest names it
+        collectives.barrier()
+        if self.is_rank0():
+            for name in self._SHARDED_GROUPS:
+                sharded_checkpoint.write_manifest(directory, name,
+                                                  host[name], tag=tag)
+            serialization.save_pytree(
+                os.path.join(directory, f"meta.{tag}.npz"),
+                self._train_position_meta())
+            sharded_checkpoint.write_commit(directory, tag)
+            sharded_checkpoint.gc_stale(directory,
+                                        list(self._SHARDED_GROUPS), tag)
+            try:
+                entries = file_io.listdir(directory)
+            except OSError:
+                entries = []
+            for fname in entries:
+                if fname.startswith("meta.s") and \
+                        not fname.startswith(f"meta.{tag}."):
+                    try:
+                        file_io.remove(os.path.join(directory, fname))
+                    except OSError:
+                        pass
+            logger.info("sharded checkpoint saved to %s @step %d",
+                        directory, self.step)
+        collectives.barrier()
+
+    def _load_checkpoint_sharded(self, directory: str) -> None:
+        """Restore the committed sharded set: each group's leaves are
+        assembled from whatever pieces the writer's layout saved, and fill
+        this model's trees (the JAX order) and a fresh canonical optimizer
+        state, which ZeRO-1 then re-shards."""
+        tag = sharded_checkpoint.read_commit(directory)
+        params_tree = self.model.param_tree()
+        params = _fill_sorted(params_tree, iter(
+            sharded_checkpoint.load_shards(directory, "params", tag=tag)))
+        state_tree = self.model.state_tree()
+        state = {}
+        if _sorted_leaves(state_tree) and \
+                sharded_checkpoint.exists(directory, "state", tag):
+            state = _fill_sorted(state_tree, iter(
+                sharded_checkpoint.load_shards(directory, "state",
+                                               tag=tag)))
+        leaves = sharded_checkpoint.load_shards(directory, "optim", tag=tag)
+        meta_name = "meta.npz" if tag is None else f"meta.{tag}.npz"
+        meta = serialization.load_pytree(os.path.join(directory, meta_name))
+        self._apply_loaded({"params": params, "state": state}, leaves, meta)

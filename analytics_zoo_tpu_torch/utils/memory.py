@@ -31,6 +31,7 @@ key), next to the flight-recorder dump under ``<trace_dir>/debug/``.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import threading
@@ -44,6 +45,7 @@ logger = logging.getLogger("analytics_zoo_tpu_torch.memory")
 # last-known per-program breakdowns / memory summaries / device
 # watermarks, composed into the OOM forensics payload
 _LOCK = threading.Lock()
+_DUMP_SEQ = itertools.count()
 _PROGRAMS: Dict[str, Dict[str, Any]] = {}
 _SUMMARIES: Dict[str, str] = {}
 _LAST_DEVICE: Dict[str, Any] = {}
@@ -400,8 +402,10 @@ def oom_forensics(reason: str, out_dir: Optional[str] = None) -> \
             return None
         debug = os.path.join(base, "debug")
         os.makedirs(debug, exist_ok=True)
+        # the sequence number keeps two dumps of one millisecond apart
         path = os.path.join(
-            debug, f"oom-{os.getpid()}-{int(time.time() * 1000)}.json")
+            debug, f"oom-{os.getpid()}-{int(time.time() * 1000)}-"
+            f"{next(_DUMP_SEQ)}.json")
         now, summaries = _current_devices()
         with _LOCK:
             payload = {

@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
 Serving, int8 inference, serving-fleet, training-observability, host
-data, object-detection and layer-library paths once on one NVIDIA GPU.
+data, object-detection, layer-library and data- and sequence-parallel
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -22,7 +23,9 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               one line per case and dtype, each case also called twice
               and held bit for bit equal: the flash-attention forward
               (K1), its backward dq and dkv kernels (K2, K3), the fused
-              dropout+add+layer-norm forward and backward (K4, K5); then
+              dropout+add+layer-norm forward and backward (K4, K5),
+              among the cases the shapes of the parallel phase's ranks
+              (K1-K3 at (32, 512, 6, 64), K4/K5 on 8,192 rows); then
               ``torch.autograd.grad`` through ``flash_attention_blhd``
               against the plain backward.
 4. serve   -- the BERT-base classifier of ``bench.py`` (full width and
@@ -364,6 +367,31 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               on the card against the CPU at small sizes, float32 and
               bf16 (Deconvolution2D at strides 1-3, kernels 2 and 3,
               both border modes). K1-K5 are launched 0 times in B-D.
+19. parallel -- data and sequence parallelism through the launcher
+              (``python -m analytics_zoo_tpu_torch.launcher.cli`` runs
+              this script as each rank, ``--parallel-worker``), all on
+              the BERT-base classifier at full width, 32 x 512. In the
+              script's process first: the bf16 fit of 4 steps (dropout
+              0.1, Adam) and one float32 step, dropout off, whose loss and
+              gradients the ranks read. A: one rank over NCCL: the same
+              4-step fit, bit for bit equal to the in-process losses, a
+              sharded checkpoint at step 2, and steps 3-4 resumed from it
+              in a new process bit for bit equal; K1-K5 12/12/12/24/24 a
+              step. B: two ranks sharing the card over gloo (NCCL refuses
+              two ranks on one GPU), data_parallel=2 and ZeRO-1: the
+              float32 step's loss within 1e-5 and each rank's gradient
+              blocks within 1e-3 of the in-process step's, 2 bf16 steps
+              (K1-K5 12/12/12/24/24 a step on each rank at B = 16), the
+              collective contract, each rank's Adam moment bytes against
+              leg A's. C: two ranks sharing the card, sequence_parallel=2,
+              in Ulysses mode (K1-K3 at (32, 512, 6, 64), 12/12/12 a
+              step) and then ring mode (K1-K3 0), each with the float32
+              gate and bf16 steps, K4/K5 24/24 a step. Each leg: the step
+              p50, the collective time a step by kind from the profiler,
+              each rank's peak memory, the backend and the collectives
+              gloo carried through host memory. The gloo legs' times are
+              of two ranks sharing one card through the host, not of
+              NVLink.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -466,6 +494,8 @@ from analytics_zoo_tpu_torch.serving.shard_fabric import wait_broker_up
 from analytics_zoo_tpu_torch.serving.generation import (
     ContinuousBatchScheduler, GenRequest, PrefixCache,
     SpeculativeDecodeEngine, TransformerDecodeEngine)
+from analytics_zoo_tpu_torch.parallel import collectives as par_collectives
+from analytics_zoo_tpu_torch.parallel import zero
 from analytics_zoo_tpu_torch.utils import (faults, memory, profiling,
                                            serialization, telemetry)
 from analytics_zoo_tpu_torch.utils.crc32c import crc32c
@@ -491,6 +521,10 @@ PARITY_ROWS = 2
 # the training shape of the kernels: (B, L, H, d) and (N, D) rows
 TRAIN_SHAPE = (TRAIN_BATCH, 512, 12, 64)
 DLN_SHAPE = (TRAIN_BATCH * 512, 768)
+# the parallel phase's two ranks: Ulysses runs K1-K3 on H / 2 heads at
+# full L; K4/K5 take B / 2 rows of 512 (data parallelism) or B rows of
+# 512 / 2 (sequence parallelism), 8,192 rows either way
+PAR_SHARDS = 2
 
 # Tolerances, kernel against plain version, element by element.
 # K1 o: |o - ro| <= atol + rtol * |ro|. float32: the kernel sums in another
@@ -738,6 +772,9 @@ KERNEL_CASES = [
     # a batched join's prefill: causal at a ragged length with the
     # generation path's -1e9 padding bias
     ("join_prefill_300", 4, 300, 300, 12, 64, True, PREFILL_BIAS),
+    # the parallel phase's Ulysses shape: every head-split rank at full L
+    ("ulysses_train_shape", TRAIN_BATCH, 512, 512, 12 // PAR_SHARDS, 64,
+     False, True),
 ]
 # the backward's cases: the forward's, less the serving and generation
 # shapes, plus causal tile edges at d=128 and causal Lq < Lk with a wide
@@ -752,6 +789,8 @@ BWD_CASES = [c for c in KERNEL_CASES
 # chunk (4 float32 or 8 bf16 values), so its rows start off 16-byte
 # boundaries and the backward takes one value a chunk
 DLN_CASES = [("train_shape",) + DLN_SHAPE + (1.0 - TRAIN_P_DROP,),
+             ("parallel_rank_rows", DLN_SHAPE[0] // PAR_SHARDS,
+              DLN_SHAPE[1], 1.0 - TRAIN_P_DROP),
              ("ragged", 300, 1000, 0.75),
              ("off_vector_width", 301, 770, 0.8)]
 
@@ -7094,15 +7133,497 @@ def layers_phase(seed, dev, smi):
                 wall_s=time.perf_counter() - t0), launches
 
 
+# ---------------------------------------------------------------------------
+# parallel: data and sequence parallelism through the launcher
+# ---------------------------------------------------------------------------
+
+PAR_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_parallel")
+# the script the launcher runs on every rank (this one, in worker mode)
+PAR_SCRIPT = os.path.abspath(__file__)
+PAR_STEPS, PAR_SAVE_AT = 4, 2          # leg A: bf16 steps, the checkpoint
+PAR_B_STEPS = 2                        # leg B: bf16 steps a rank
+PAR_C_STEPS = {"ulysses": 2, "ring": 2}
+PAR_TIMED_STEPS = 2
+PAR_LAUNCH_TIMEOUT_S = 300.0
+# the ranks of legs B and C: two sharing the one card (gloo); on a
+# machine with more cards, one a card (NCCL)
+PAR_RANKS = PAR_SHARDS
+# leg A over NCCL: one rank a card
+PAR_A_BACKEND = "nccl"
+
+
+class AtEpochEnd(ZooTrigger):
+    """Fires once: at the end of the epoch whose last iteration is
+    ``iteration`` (the checkpoint then holds the next epoch's start)."""
+
+    def __init__(self, iteration):
+        self.iteration = iteration
+
+    def __call__(self, record):
+        return record.epoch_finished and record.iteration == self.iteration
+
+
+def par_env():
+    """The launcher's environment: TF32 off in every rank (as in the
+    script), none of the caller's ZOO_TPU_* variables."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ZOO_TPU_")}
+    env["NVIDIA_TF32_OVERRIDE"] = "0"
+    return env
+
+
+def par_reports(leg, ranks):
+    """Each rank's report of ``leg`` (``PAR_ROOT/<leg>.rank<r>.json``)."""
+    reports = []
+    for r in range(ranks):
+        with open(os.path.join(PAR_ROOT, f"{leg}.rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def par_launch(leg, ranks, seed, env=None):
+    """Run the ``leg`` worker on ``ranks`` ranks through ``python -m
+    analytics_zoo_tpu_torch.launcher.cli``; returns the launch's wall
+    time. The launcher runs in a session of its own, killed whole at the
+    time limit."""
+    cmd = [sys.executable, "-m", "analytics_zoo_tpu_torch.launcher.cli",
+           "--hosts", str(ranks), PAR_SCRIPT, "--parallel-worker", leg,
+           "--seed", str(seed)]
+    full_env = par_env()
+    full_env.update(env or {})
+    log = os.path.join(PAR_ROOT, f"{leg}.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, env=full_env, stdout=f,
+                             stderr=subprocess.STDOUT,
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             start_new_session=True)
+        try:
+            rc = p.wait(timeout=PAR_LAUNCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait(timeout=30)
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        tail = open(log).read()[-6000:]
+        raise AssertionError(f"parallel leg {leg}: launcher rc={rc}\n{tail}")
+    return wall
+
+
+def par_bf16_model(seed):
+    """The leg's bf16 classifier: bench.py's BERT-base at full width,
+    dropout 0.1, Adam at TRAIN_LR (``train``'s)."""
+    config = dict(BERT_CONFIG, hidden_p_drop=TRAIN_P_DROP,
+                  attn_p_drop=TRAIN_P_DROP)
+    model = build_classifier(seed + 1, config)
+    model.compile(optimizer=Adam(lr=TRAIN_LR),
+                  loss="sparse_categorical_crossentropy")
+    model.set_compute_dtype("bfloat16")
+    return model
+
+
+def par_f32_model(seed):
+    """The float32 gate's classifier, dropout off."""
+    model = build_classifier(seed + 2, dict(BERT_CONFIG, hidden_p_drop=0.0,
+                                            attn_p_drop=0.0))
+    model.compile(optimizer=Adam(lr=TRAIN_LR),
+                  loss="sparse_categorical_crossentropy")
+    return model
+
+
+def par_per_step():
+    n = BERT_CONFIG["n_block"]
+    return {attn.KERNEL_NAME: n, attn.DQ_KERNEL_NAME: n,
+            attn.DKV_KERNEL_NAME: n, dln.FWD_KERNEL_NAME: 2 * n,
+            dln.BWD_KERNEL_NAME: 2 * n}
+
+
+def par_check_launches(what, launches, steps, attention=True):
+    """K1-K5 launched as a step of the path runs them, ``steps`` times
+    (K1-K3 not at all where ``attention`` is False: the ring)."""
+    want = {k: steps * v for k, v in par_per_step().items()
+            if attention or k in (dln.FWD_KERNEL_NAME, dln.BWD_KERNEL_NAME)}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def par_reference(seed, dev):
+    """The in-process references: the bf16 fit of leg A (losses, the
+    Adam moments' bytes) and the float32 gate's step (loss and every
+    gradient, saved for the ranks)."""
+    model = par_bf16_model(seed)
+    x, y, _ = train_data(seed, TRAIN_BATCH, ids=np.int32)
+    _kernels.LAUNCHES.reset()
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=PAR_STEPS)
+    par_check_launches("in-process bf16 fit", _kernels.LAUNCHES.snapshot(),
+                       PAR_STEPS)
+    ref = dict(losses=list(model.trainer.step_losses),
+               moment_bytes=zero.per_rank_bytes(model.trainer.opt_state))
+    del model
+    collect()
+    model = par_f32_model(seed)
+    trainer = model._ensure_trainer()
+    trainer.ensure_initialized()
+    x, y, _ = train_data(seed + 2, TRAIN_BATCH)
+    loss = trainer.loss_and_grads(trainer.put_batch(
+        (x, y, np.ones(TRAIN_BATCH, np.float32))))
+    # in parameter order: the ranks' models carry other layer names
+    grads = [p.grad.detach().cpu() for p in model.parameters()]
+    ref["f32_loss"] = float(loss)
+    torch.save({"loss": ref["f32_loss"], "grads": grads},
+               os.path.join(PAR_ROOT, "f32_step.pt"))
+    del model, trainer, grads
+    collect()
+    return ref
+
+
+def par_gate(trainer, seed):
+    """The float32 gate on this rank: one step's loss and gradients
+    summed over the ranks (under ZeRO-1 this rank's block of each)
+    against the in-process step's, each gradient's error over the
+    reference gradient's norm (``check_train_parity``'s measure)."""
+    ref = torch.load(os.path.join(PAR_ROOT, "f32_step.pt"))
+    x, y, _ = train_data(seed + 2, TRAIN_BATCH)
+    batch = trainer.put_batch(trainer._rank_block(
+        MiniBatch(tuple(x), y, np.ones(TRAIN_BATCH, np.float32))))
+    loss, grads = trainer.summed_grads(batch)
+    worst, worst_name = 0.0, None
+    rank = trainer.mesh.index("data")
+    for name, full in zip(trainer.params(), ref["grads"]):
+        want = trainer._zero_layout.own_block(full, name, rank) \
+            if trainer.zero_mode() == "flat" else full
+        g = grads[name].float().cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite gradient")
+        rel = ((g - want).norm() / max(full.norm().item(), 1e-12)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_err = abs(float(loss) - ref["loss"])
+    res = dict(rows=TRAIN_BATCH, dropout=0.0, compute_dtype="float32",
+               loss=float(loss), in_process_loss=ref["loss"],
+               loss_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
+               max_grad_rel_err=worst, max_grad_rel_err_param=worst_name,
+               grad_tol=TRAIN_GRAD_TOL, zero_blocks=trainer.zero_mode())
+    if loss_err > TRAIN_LOSS_TOL or worst > TRAIN_GRAD_TOL:
+        raise AssertionError(f"float32 gate: {res}")
+    return res
+
+
+def collective_split(prof):
+    """Each collective kind's time over a profile: the host time of its
+    ``zoo_collective/<kind>`` ranges (``parallel/collectives.py``; a gloo
+    collective is synchronous, so its range is its time; an NCCL one's is
+    its launch), and the NCCL kernels' device time."""
+    out = {}
+    for evt in prof.key_averages():
+        if evt.key.startswith("zoo_collective/") and \
+                evt.device_type == torch.autograd.DeviceType.CPU:
+            out[evt.key.split("/", 1)[1]] = dict(
+                host_ms=evt.cpu_time_total / 1e3, calls=evt.count)
+        elif "nccl" in evt.key.lower() and \
+                evt.device_type == torch.autograd.DeviceType.CUDA:
+            g = out.setdefault("nccl_device", dict(device_ms=0.0, calls=0))
+            g["device_ms"] += evt.self_device_time_total / 1e3
+            g["calls"] += evt.count
+    return out
+
+
+def par_timed(trainer, x, y, profile=True):
+    """PAR_TIMED_STEPS steps on this rank's block of one batch: the step
+    times (host clock to a synchronize), then (``profile``) one more
+    step under the profiler, its collective time by kind."""
+    batch = trainer.put_batch(trainer._rank_block(
+        MiniBatch(tuple(x), y, np.ones(len(y), np.float32))))
+    times = []
+    for _ in range(PAR_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out = dict(step_ms=times, step_p50_ms=float(np.median(times)))
+    if profile:
+        prof = profile_device(lambda: trainer.train_step(batch),
+                              split=collective_split)
+        out.update(collectives_per_step=prof.pop("split"), profile=prof)
+    return out
+
+
+def par_worker_report(ctx, leg, **fields):
+    """Write this rank's report of ``leg`` (the fields over the rank's
+    context, peak memory and collectives made)."""
+    report = dict(rank=ctx.process_index, world=ctx.num_processes,
+                  backend=ctx.backend, mesh=ctx.mesh.shape,
+                  device=str(ctx.device),
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                  gloo_host_routed_kinds=sorted(
+                      par_collectives.GLOO_HOST_ROUTED)
+                  if ctx.backend == "gloo" else [],
+                  collective_calls=par_collectives.CALLS.snapshot())
+    report.update(fields)
+    path = os.path.join(PAR_ROOT, f"{leg}.rank{ctx.process_index}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(report, f)
+    os.replace(path + ".tmp", path)
+
+
+def par_worker_a(seed, resume):
+    """Leg A on one rank over NCCL: the bf16 fit with a sharded
+    checkpoint at step PAR_SAVE_AT, or (``resume``) steps PAR_SAVE_AT+1 to
+    PAR_STEPS from it."""
+    t0 = time.perf_counter()
+    ctx = init_nncontext()
+    if ctx.backend != PAR_A_BACKEND or ctx.num_processes != 1:
+        raise AssertionError(f"leg A: backend {ctx.backend}, world "
+                             f"{ctx.num_processes}")
+    model = par_bf16_model(seed)
+    x, y, _ = train_data(seed, TRAIN_BATCH, ids=np.int32)
+    ckpt = os.path.join(PAR_ROOT, "a_ckpt")
+    trainer = model._ensure_trainer()
+    seconds = dict(init_and_build=time.perf_counter() - t0)
+    if resume:
+        t1 = time.perf_counter()
+        trainer.load_checkpoint(ckpt)
+        seconds["load"] = time.perf_counter() - t1
+        if trainer.step != PAR_SAVE_AT:
+            raise AssertionError(f"resumed at step {trainer.step}")
+    else:
+        model.set_checkpoint(ckpt, trigger=AtEpochEnd(PAR_SAVE_AT))
+    steps = PAR_STEPS - trainer.step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES.snapshot()
+    par_check_launches("leg A", launches, steps)
+    seconds["fit"] = wall
+    fields = dict(losses=list(model.trainer.step_losses), launches=launches,
+                  steps=steps, seconds=seconds,
+                  moment_bytes=zero.per_rank_bytes(trainer.opt_state))
+    if not resume:
+        fields["checkpoint"] = sorted(os.listdir(ckpt))
+        t1 = time.perf_counter()
+        # one rank makes no collective call (collective_calls stays empty):
+        # nothing for the profiler to time
+        fields["timing"] = par_timed(trainer, x, y, profile=False)
+        seconds["timed"] = time.perf_counter() - t1
+    par_worker_report(ctx, "a_resume" if resume else "a", **fields)
+
+
+def par_bf16_fit(what, model, x, y, steps, attention=True):
+    """``steps`` bf16 ``fit`` steps from the counters at 0: the losses,
+    K1-K5's launches (checked) and the collective calls made."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    par_collectives.CALLS.reset()
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=steps)
+    torch.cuda.synchronize()
+    launches = _kernels.LAUNCHES.snapshot()
+    par_check_launches(what, launches, steps, attention)
+    losses = list(model.trainer.step_losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: losses {losses}")
+    return dict(losses=losses, launches=launches,
+                fit_collective_calls=par_collectives.CALLS.snapshot(),
+                fit_s=time.perf_counter() - t0)
+
+
+def par_leg_b(seed):
+    """Leg B on this rank (data_parallel = the world, ZeRO-1): the
+    float32 gate, PAR_B_STEPS bf16 steps at B = 32 / dp a rank, the
+    timed steps."""
+    t0 = time.perf_counter()
+    model = par_f32_model(seed)
+    trainer = model._ensure_trainer()
+    trainer.ensure_initialized()
+    gate = par_gate(trainer, seed)
+    del model, trainer
+    collect()
+    t1 = time.perf_counter()
+    model = par_bf16_model(seed)
+    x, y, _ = train_data(seed, TRAIN_BATCH, ids=np.int32)
+    fit = par_bf16_fit("leg B", model, x, y, PAR_B_STEPS)
+    trainer = model.trainer
+    if trainer.zero_mode() != "flat":
+        raise AssertionError(f"leg B: ZeRO mode {trainer.zero_mode()}")
+    zero.assert_zero_collectives(fit["fit_collective_calls"],
+                                 sum(p.numel() for p in model.parameters()))
+    out = dict(gate=gate,
+               batch_per_rank=TRAIN_BATCH // trainer.world_size(),
+               zero_mode=trainer.zero_mode(),
+               moment_bytes=zero.per_rank_bytes(trainer.opt_state),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), **fit)
+    t2 = time.perf_counter()
+    out["timing"] = par_timed(trainer, x, y)
+    out["seconds"] = dict(gate=t1 - t0, fit=t2 - t1,
+                          timed=time.perf_counter() - t2)
+    return out
+
+
+def par_leg_c(seed):
+    """Leg C on this rank (sequence_parallel = the world): the float32
+    gate in each
+    mode on one float32 model, then in Ulysses mode and then in ring
+    mode PAR_C_STEPS[mode] bf16 steps of a fresh model (the same weights)
+    and the timed steps."""
+    config = zoo_nncontext.get_nncontext().config
+    t0 = time.perf_counter()
+    model = par_f32_model(seed)
+    trainer = model._ensure_trainer()
+    trainer.ensure_initialized()
+    modes = {}
+    for mode in ("ulysses", "ring"):
+        config.sequence_parallel_mode = mode
+        modes[mode] = dict(gate=par_gate(trainer, seed))
+    del model, trainer
+    collect()
+    seconds = dict(gates=time.perf_counter() - t0)
+    x, y, _ = train_data(seed, TRAIN_BATCH, ids=np.int32)
+    for mode in ("ulysses", "ring"):
+        config.sequence_parallel_mode = mode
+        t1 = time.perf_counter()
+        model = par_bf16_model(seed)
+        modes[mode].update(par_bf16_fit(f"leg C {mode}", model, x, y,
+                                        PAR_C_STEPS[mode],
+                                        attention=mode == "ulysses"))
+        modes[mode]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        modes[mode]["timing"] = par_timed(model.trainer, x, y)
+        seconds[mode] = time.perf_counter() - t1
+        del model
+        collect()
+    modes["ulysses"]["k1_shape"] = [
+        TRAIN_BATCH, BERT_CONFIG["seq_len"],
+        BERT_CONFIG["n_head"] // zoo_nncontext.get_nncontext().num_processes,
+        BERT_CONFIG["hidden_size"] // BERT_CONFIG["n_head"]]
+    return dict(modes=modes, seconds=seconds)
+
+
+def par_worker_bc(seed):
+    """Legs B and C on the launch's ranks (two sharing the card over
+    gloo, or one a card over NCCL), one launch: leg B's context, then leg
+    C's over the same process group."""
+    world = int(os.environ["ZOO_TPU_NUM_PROCESSES"])
+    ctx = init_nncontext(zoo_nncontext.ZooConfig(data_parallel=world,
+                                                 zero_stage=1))
+    b = par_leg_b(seed)
+    par_worker_report(ctx, "b", **b)
+    zoo_nncontext.set_nncontext(None)
+    ctx = init_nncontext(zoo_nncontext.ZooConfig(data_parallel=1,
+                                                 sequence_parallel=world))
+    par_worker_report(ctx, "c", **par_leg_c(seed))
+
+
+def parallel_worker(leg, seed):
+    """One rank of a leg of the parallel phase (the launcher's script)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.library()
+    if leg in ("a", "a_resume"):
+        par_worker_a(seed, resume=leg == "a_resume")
+    else:
+        par_worker_bc(seed)
+
+
+def par_sum_launches(*reports):
+    out = {}
+    for launches in reports:
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def parallel_phase(seed, dev, smi):
+    """The parallel phase (see the module docstring): returns the report
+    and the K1-K5 launches of every rank of the three legs' fits."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    os.makedirs(PAR_ROOT)
+    try:
+        ref = par_reference(seed, dev)
+        ref_s = time.perf_counter() - t0
+        # leg A: one rank over NCCL through the launcher, then resumed
+        sharded = {"ZOO_TPU_SHARDED_CHECKPOINT": "1"}
+        a_s = par_launch("a", 1, seed, sharded)
+        a2_s = par_launch("a_resume", 1, seed, sharded)
+        (a,), (a2,) = par_reports("a", 1), par_reports("a_resume", 1)
+        if a["losses"] != ref["losses"]:
+            raise AssertionError(f"leg A: losses {a['losses']} vs the "
+                                 f"in-process fit's {ref['losses']}")
+        if a2["losses"] != a["losses"][PAR_SAVE_AT:]:
+            raise AssertionError(f"leg A: resumed losses {a2['losses']} vs "
+                                 f"{a['losses'][PAR_SAVE_AT:]}")
+        if "sharded.commit" not in a["checkpoint"]:
+            raise AssertionError(f"leg A checkpoint {a['checkpoint']}")
+        # legs B (data_parallel=2, ZeRO-1) and C (sequence_parallel=2,
+        # Ulysses then ring): two ranks sharing the card, one launch
+        bc_s = par_launch("bc", PAR_RANKS, seed)
+        b, c = par_reports("b", PAR_RANKS), par_reports("c", PAR_RANKS)
+        if b[0]["losses"] != b[1]["losses"]:
+            raise AssertionError(f"leg B: the ranks' losses differ "
+                                 f"{b[0]['losses']} {b[1]['losses']}")
+    finally:
+        shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    launches = par_sum_launches(
+        a["launches"], a2["launches"], *(r["launches"] for r in b),
+        *(m["launches"] for r in c for m in r["modes"].values()))
+
+    def rank_view(r, *keys):
+        return {k: r[k] for k in keys if k in r}
+
+    report = dict(
+        card=smi, model="BERT-base classifier (bench.py:353-438)",
+        config=BERT_CONFIG, seed=seed, batch=TRAIN_BATCH,
+        reference=dict(losses=ref["losses"], moment_bytes=ref[
+            "moment_bytes"], f32_loss=ref["f32_loss"], wall_s=ref_s),
+        leg_a=dict(backend=a["backend"], world=a["world"],
+                   losses=a["losses"], resumed_losses=a2["losses"],
+                   seconds=a["seconds"], resumed_seconds=a2["seconds"],
+                   bit_equal_to_in_process=True, bit_equal_resumed=True,
+                   launches=a["launches"], checkpoint=a["checkpoint"],
+                   peak_memory_bytes=a["peak_memory_bytes"],
+                   moment_bytes=a["moment_bytes"], timing=a["timing"]),
+        leg_b=dict(backend=b[0]["backend"], world=PAR_RANKS,
+                   gloo_host_routed_kinds=b[0]["gloo_host_routed_kinds"],
+                   ranks=[rank_view(r, "gate", "losses", "launches",
+                                    "batch_per_rank", "zero_mode",
+                                    "moment_bytes", "peak_memory_bytes",
+                                    "fit_collective_calls", "timing",
+                                    "seconds")
+                          for r in b],
+                   moment_bytes_vs_leg_a=[r["moment_bytes"] /
+                                          a["moment_bytes"] for r in b]),
+        leg_c=dict(backend=c[0]["backend"], world=PAR_RANKS,
+                   gloo_host_routed_kinds=c[0]["gloo_host_routed_kinds"],
+                   ranks=[rank_view(r, "rank", "modes", "seconds")
+                          for r in c]),
+        launch_s=dict(a=a_s, a_resume=a2_s, b_and_c=bc_s),
+        launches=launches, wall_s=time.perf_counter() - t0)
+    return report, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, requests, training data "
                          "and kernel inputs")
+    ap.add_argument("--parallel-worker", choices=("a", "a_resume", "bc"),
+                    default=None,
+                    help="run one rank of a leg of the parallel phase (the "
+                         "phase starts these through the launcher)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; it runs on the "
                  "GPU only")
+    if args.parallel_worker is not None:
+        parallel_worker(args.parallel_worker, args.seed)
+        return
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -7278,6 +7799,11 @@ def main(argv=None):
     layers_report, layers_launches = layers_phase(args.seed, dev, smi)
     emit("layers", **layers_report)
 
+    # 19. parallel: data and sequence parallelism through the launcher
+    collect()
+    parallel_report, parallel_launches = parallel_phase(args.seed, dev, smi)
+    emit("parallel", **parallel_report)
+
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]
     bf16_launches = bf16_report["launches"]
@@ -7315,7 +7841,8 @@ def main(argv=None):
                      launches_observe=obs_launches.get(name, 0),
                      launches_data=data_launches.get(name, 0),
                      launches_detect=detect_launches.get(name, 0),
-                     launches_layers=layers_launches.get(name, 0))
+                     launches_layers=layers_launches.get(name, 0),
+                     launches_parallel=parallel_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

@@ -272,14 +272,19 @@ def test_predict_without_a_context_or_a_card_raises(monkeypatch):
 
 
 def test_parallel_branches_raise_not_implemented(monkeypatch):
+    """Sequence and data parallelism run now (tests/test_torch_seq_
+    parallel.py, test_torch_data_parallel.py): asked for on one process
+    they meet JAX's mesh check. The pipeline-parallel (GPipe) layout
+    still raises, naming ROADMAP A12.2, in the context and in the layer."""
     monkeypatch.setenv("ZOO_TPU_SEQUENCE_PARALLEL", "2")
-    tnn.init_nncontext(device="cpu")
-    model = _causal_lm("torch")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        model(torch.zeros(1, L))
-    tnn.set_nncontext(None)
+    with pytest.raises(ValueError, match="needs 2 devices but 1"):
+        tnn.init_nncontext(device="cpu")
     monkeypatch.delenv("ZOO_TPU_SEQUENCE_PARALLEL")
     monkeypatch.setenv("ZOO_TPU_PIPELINE_PARALLEL", "2")
-    tnn.init_nncontext(device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(NotImplementedError, match="A12.2"):
+        tnn.init_nncontext(device="cpu")
+    monkeypatch.delenv("ZOO_TPU_PIPELINE_PARALLEL")
+    ctx = tnn.init_nncontext(device="cpu")
+    ctx.config.pipeline_parallel = 2
+    with pytest.raises(NotImplementedError, match="A12.2"):
         _causal_lm("torch")

@@ -351,9 +351,17 @@ def test_an_async_write_holds_the_state_of_its_step(tmp_path):
 
 
 def test_the_sharded_format_is_refused(tmp_path, monkeypatch):
+    """The sharded format is ported now (ROADMAP A12): with
+    ``ZOO_TPU_SHARDED_CHECKPOINT=1`` training writes it (a commit, no
+    flat ``ckpt-*`` store), and a fresh trainer restores it bit for bit
+    (tests/test_torch_sharded_checkpoint.py holds it against JAX)."""
     monkeypatch.setenv("ZOO_TPU_SHARDED_CHECKPOINT", "1")
-    with pytest.raises(NotImplementedError, match="A12"):
-        _train(_make_est(tmp_path / "s"), 2)
+    est = _train(_make_est(tmp_path / "s"), 2)
+    names = os.listdir(tmp_path / "s")
+    assert "sharded.commit" in names
+    assert not any(n.startswith("ckpt-") for n in names)
+    fresh = _make_est(tmp_path / "s").load_checkpoint(str(tmp_path / "s"))
+    _assert_bit_exact(_leaves(fresh.trainer), _leaves(est.trainer))
 
 
 # -- file_io retry envelope ---------------------------------------------

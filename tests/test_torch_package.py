@@ -94,6 +94,12 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.serving.shard_fabric, "
             "analytics_zoo_tpu_torch.serving.socket_queue, "
             "analytics_zoo_tpu_torch.launcher, "
+            "analytics_zoo_tpu_torch.launcher.cli, "
+            "analytics_zoo_tpu_torch.launcher.worker, "
+            "analytics_zoo_tpu_torch.parallel, "
+            "analytics_zoo_tpu_torch.parallel.collectives, "
+            "analytics_zoo_tpu_torch.parallel.zero, "
+            "analytics_zoo_tpu_torch.utils.sharded_checkpoint, "
             "analytics_zoo_tpu_torch.utils.yaml_subset, "
             "analytics_zoo_tpu_torch.utils.telemetry, "
             "analytics_zoo_tpu_torch.utils.profiling, "
@@ -115,7 +121,10 @@ def test_importing_the_port_loads_no_jax():
 #: ported but for those names
 NOT_PORTED = {
     "analytics_zoo_tpu.automl": "A14.5",
-    "analytics_zoo_tpu.parallel": "A12",
+    "analytics_zoo_tpu.parallel": ("A12.2", [
+        "DEFAULT_RULES", "FSDP_RULES", "make_param_sharding_fn",
+        "shard_params", "pipeline_forward", "sequential_reference",
+        "stack_stage_params", "stage_param_sharding"]),
     "analytics_zoo_tpu.pipeline.api.caffe": "A14.5",
     "analytics_zoo_tpu.pipeline.api.net": "A14.5",
     "analytics_zoo_tpu.pipeline.api.onnx": "A14.5",
@@ -125,8 +134,6 @@ NOT_PORTED = {
     "analytics_zoo_tpu.tfpark.text": "A14.5",
     "analytics_zoo_tpu.tfpark.text.estimator": "A14.5",
     "analytics_zoo_tpu.tfpark.text.keras": "A14.5",
-    "analytics_zoo_tpu.launcher": ("A12", ["HostSpec", "LaunchError",
-                                           "launch", "parse_hosts_file"]),
     "analytics_zoo_tpu.pipeline.estimator": ("A14.5", ["LocalEstimator"]),
 }
 

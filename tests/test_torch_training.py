@@ -435,10 +435,10 @@ def test_training_with_dropout_draws_from_the_step_generator():
 
 
 def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path):
-    """Gradient accumulation and checkpoint triggers train now; what
-    stays refused says why: the sharded checkpoint format names its
-    ROADMAP item (A12), and a graph whose config holds a callable that
-    pickle cannot store (a lambda) is refused by the pickled save."""
+    """Gradient accumulation, checkpoint triggers and the sharded
+    checkpoint format (ROADMAP A12) train now; what stays refused says
+    why: a graph whose config holds a callable that pickle cannot store
+    (a lambda) is refused by the pickled save."""
     from analytics_zoo_tpu_torch.common.zoo_trigger import SeveralIteration
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine.model_io import \
         UnserializableConfig
@@ -453,10 +453,11 @@ def test_fit_refuses_what_is_not_ported(monkeypatch, tmp_path):
     model.fit(x, y, batch_size=4, checkpoint_trigger=SeveralIteration(1),
               nb_epoch=1)
     assert (tmp_path / "ckpt" / "latest").read_text() == "ckpt-2"
+    # the sharded format is ported now (ROADMAP A12): it writes a commit
     monkeypatch.setenv("ZOO_TPU_SHARDED_CHECKPOINT", "1")
-    with pytest.raises(NotImplementedError, match="A12"):
-        model.fit(x, y, batch_size=4, checkpoint_trigger=SeveralIteration(1),
-                  nb_epoch=1)
+    model.fit(x, y, batch_size=4, checkpoint_trigger=SeveralIteration(1),
+              nb_epoch=1)
+    assert (tmp_path / "ckpt" / "sharded.commit").read_text() == "s3"
     bad = tl.Dense(2, activation=lambda t: t * 2.0)
     inp = tl.Input(shape=(3,))
     with pytest.raises(UnserializableConfig, match="cannot be pickled"):

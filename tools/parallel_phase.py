@@ -1,0 +1,57 @@
+"""``chip_smoke.py``'s ``parallel`` phase alone on one CUDA card: data
+and sequence parallelism through the launcher (legs A-C, see the
+script's docstring), after building the kernels, with TF32 off. Prints
+the phase's seconds and each leg's report, and writes the whole report
+to ``chiprun_out/parallel_report.json``:
+
+    python tools/parallel_phase.py [--seed N] [--ranks N]
+
+``--ranks`` sets the ranks of legs B and C (two by default, sharing one
+card over gloo); on a machine with that many cards each rank has its
+own, over NCCL (the backend rule of ``common/nncontext.py``).
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ranks", type=int, default=2)
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    import torch
+
+    import chip_smoke as cs
+
+    cs.PAR_RANKS = args.ranks
+    cs._kernels.library()
+    cs.init_nncontext()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = cs.nvidia_smi("name,power.limit")
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    report, launches = cs.parallel_phase(args.seed, torch.device("cuda", 0),
+                                         smi)
+    out = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    name = "parallel_report.json" if args.ranks == 2 else \
+        f"parallel_report_{args.ranks}.json"
+    with open(os.path.join(out, name), "w") as f:
+        json.dump(report, f, indent=1)
+    print("PHASE_S", time.perf_counter() - t0, "launches", launches,
+          flush=True)
+    for leg in ("leg_a", "leg_b", "leg_c"):
+        print(leg, json.dumps(report[leg])[:1500], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
