@@ -19,11 +19,17 @@ and gloo when ranks share a card (NCCL refuses two ranks on one GPU).
 Without the contract the context is one rank of a world of one, with no
 process group.
 
-Tensor, pipeline and expert parallelism (``model_parallel``,
-``pipeline_parallel``, ``expert_parallel`` above 1) raise
-``NotImplementedError`` (ROADMAP A12.2). The compile cache has no
-counterpart. A context whose config asks for telemetry arms the
-telemetry spine (``_maybe_enable_telemetry``).
+The mesh has JAX's five axes in JAX's order, ``(data, pipe, seq, expert,
+model)`` (JAX :227-260): tensor (``model_parallel``), pipeline
+(``pipeline_parallel``), sequence and expert parallelism above 1 take
+their ranks from the world, and ``data_parallel`` -1 fills the rest. A
+mesh that does not cover the world raises JAX's message. The batch is
+split over ``data`` only (JAX's ``batch_sharding``): the pipe, seq,
+expert and model ranks of one data group read the same rows. The
+parameters' layout over the mesh (``param_sharding``) is the trainer's
+(``parallel/sharding.py``). The compile cache has no counterpart. A
+context whose config asks for telemetry arms the telemetry spine
+(``_maybe_enable_telemetry``).
 """
 
 from __future__ import annotations
@@ -50,8 +56,7 @@ class ZooConfig:
     with the JAX package so one environment configures both). Only the
     fields the ported path reads."""
 
-    # rank-mesh axis sizes; -1 means "fill with the remaining ranks".
-    # model, pipeline and expert parallelism above 1 raise (ROADMAP A12.2)
+    # rank-mesh axis sizes; -1 means "fill with the remaining ranks"
     data_parallel: int = -1
     model_parallel: int = 1
     sequence_parallel: int = 1
@@ -63,12 +68,28 @@ class ZooConfig:
     # chunks rotating by ppermute, O(L/sp) score memory, any head count);
     # "ring" / "ulysses" force the choice
     sequence_parallel_mode: str = "auto"
+    # parameter layout applied when a model has no explicit
+    # set_param_sharding(): "auto" installs the annotation-driven layout
+    # (parallel.sharding DEFAULT_RULES) whenever the mesh has a non-data
+    # axis > 1, so tp/pp/ep run from Model.fit; "fsdp" also shards the
+    # embed/in/out-annotated parameters over the data axis (each rank
+    # holds 1/dp of them and of their optimizer state; the forward
+    # all-gathers them at use); "default" forces the annotation layout
+    # even on a pure-dp mesh; "none" keeps every parameter whole
+    param_sharding: str = "auto"
+    # GPipe microbatches per step when pipeline_parallel > 1 (0 = one per
+    # pipe stage)
+    pipeline_microbatches: int = 0
     # ZeRO optimizer-state partitioning over the data axis. 0: every rank
     # holds the full optimizer state and the gradients are all-reduced.
-    # 1: each rank holds 1/dp of it (flattened, padded to a multiple of
-    # dp): gradients are reduce-scattered, each rank updates its shard,
-    # and the parameters are all-gathered (parallel/zero.py). Needs an
-    # elementwise optimizer (all built-in ones are); at dp = 1 it is off
+    # 1: each rank holds 1/dp of it. On a pure data-parallel mesh with
+    # every parameter whole ("flat"): flattened, padded to a multiple of
+    # dp, gradients reduce-scattered, each rank updating its shard, the
+    # parameters all-gathered (parallel/zero.py). Beside another axis or a
+    # sharded parameter ("gspmd"): the moments of the parameters not laid
+    # out over data are cut over data along their first divisible
+    # dimension. Needs an elementwise optimizer (all built-in ones are);
+    # at dp = 1 it is off
     zero_stage: int = 0
     # seed for weights a model draws when it is built
     seed: int = 42
@@ -238,18 +259,6 @@ def choose_backend(device: torch.device, world: int) -> str:
     return "nccl" if world <= torch.cuda.device_count() else "gloo"
 
 
-_A122 = ("is not ported yet; tensor, pipeline and expert parallelism "
-         "arrive with ROADMAP A12.2")
-
-
-def _refuse_a122(cfg: ZooConfig) -> None:
-    """Raise for the parallel modes of ROADMAP A12.2."""
-    for field in ("model_parallel", "pipeline_parallel", "expert_parallel"):
-        if int(getattr(cfg, field)) > 1:
-            raise NotImplementedError(f"{field}={getattr(cfg, field)} "
-                                      f"{_A122}")
-
-
 class ZooContext:
     """Holds the config, this rank's ``torch.device`` and the rank mesh.
     One per process."""
@@ -265,10 +274,13 @@ class ZooContext:
         self.num_processes = dist.get_world_size() if joined else 1
         #: the process-group backend ("nccl" or "gloo"), None alone
         self.backend = dist.get_backend() if joined else None
-        _refuse_a122(self.config)
+        cfg = self.config
         self.mesh: RankMesh = make_mesh(
-            data=self.config.data_parallel,
-            seq=max(int(self.config.sequence_parallel), 1))
+            data=cfg.data_parallel,
+            pipe=max(int(cfg.pipeline_parallel), 1),
+            seq=max(int(cfg.sequence_parallel), 1),
+            expert=max(int(cfg.expert_parallel), 1),
+            model=max(int(cfg.model_parallel), 1))
         _maybe_enable_telemetry(self.config)
         logger.info("ZooContext: rank %d/%d on %s, mesh %s, backend %s",
                     self.process_index, self.num_processes, self.device,

@@ -211,6 +211,7 @@ class Bridge(KerasLayer):
         shapes = self._shapes(input_shapes)
         total_in = sum(int(s[-1]) for s in shapes)
         total_out = self.decoder_hidden_size * len(shapes)
+        self._annotate(W=("in", "out"))
         return {"W": init_tensor(generator, (total_in, total_out))}
 
     def forward(self, states, training=False, **kw):

@@ -12,6 +12,11 @@ autodiff transposes it to:
   all_to_all           backward: the reverse all_to_all
   ppermute             backward: ppermute by the inverse permutation
 
+and Megatron's pair around a region whose ranks each compute a part
+(tensor parallelism's heads, expert parallelism's experts):
+:func:`copy_to_region` (identity forward, all-reduce backward) and
+:func:`reduce_from_region` (all-reduce forward, identity backward).
+
 ``reduce_scatter``, ``all_gather`` and ``all_to_all`` follow JAX's
 ``tiled=True`` layout: ``all_gather(x, dim)`` concatenates the ranks'
 ``x`` along ``dim`` in group order; ``reduce_scatter(x, dim)`` sums over
@@ -275,6 +280,43 @@ class _PPermute(torch.autograd.Function):
             None, None
 
 
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_region(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's f: the identity forward, the gradient all-reduced over
+    ``group`` backward. Where a replicated activation enters a region
+    each rank of ``group`` computes a part of (its heads, its experts),
+    the parts' gradients sum into the whole one."""
+    return _CopyToRegion.apply(x, group) if group_size(group) > 1 else x
+
+
+def reduce_from_region(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's g: the ranks' partial results summed over ``group``
+    forward, the gradient passed through unchanged backward (every rank
+    holds the same, whole gradient of the sum)."""
+    return _ReduceFromRegion.apply(x, group) if group_size(group) > 1 \
+        else x
+
+
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of ``x`` over ``group`` on every rank (``lax.psum``)."""
     return _AllReduce.apply(x, group) if group_size(group) > 1 else x
@@ -323,5 +365,5 @@ def barrier(group=None) -> None:
 
 __all__: List[str] = ["CALLS", "CallCounter", "GLOO_HOST_ROUTED",
                       "all_gather", "all_reduce", "all_to_all", "barrier",
-                      "group_rank", "group_size", "ppermute",
-                      "reduce_scatter"]
+                      "copy_to_region", "group_rank", "group_size",
+                      "ppermute", "reduce_from_region", "reduce_scatter"]

@@ -6,10 +6,10 @@ device is one process (a rank), and the mesh lays the ranks of
 ``torch.distributed``'s world over the same axes:
 
   data   — data parallelism (gradients summed over the data group)
-  pipe   — pipeline stages (ROADMAP A12.2)
+  pipe   — pipeline stages (GPipe, ``parallel/pipeline.py``)
   seq    — sequence parallelism (Ulysses all-to-alls, ring ppermutes)
-  expert — expert parallelism (ROADMAP A12.2)
-  model  — tensor parallelism (ROADMAP A12.2)
+  expert — expert parallelism (``SparseMoE``'s stacked experts)
+  model  — tensor parallelism (the Megatron layout of TransformerLayer)
 
 Ranks are numbered row-major over (data, pipe, seq, expert, model), as
 ``np.array(devices).reshape(shape)`` numbers JAX's devices, so the last
@@ -59,6 +59,17 @@ class RankMesh:
 
     def __repr__(self):
         return f"RankMesh({self.shape}, rank={self.rank})"
+
+
+def ambient_axis(axis: str) -> Tuple[object, int, int]:
+    """(process group, size, this rank's index) of ``axis`` in the global
+    context's mesh; (None, 1, 0) without a context or on an axis of one
+    rank. Peeks the context without creating one."""
+    from ..common import nncontext as _nn
+    mesh = getattr(_nn._global_context, "mesh", None)
+    if mesh is None or mesh.shape[axis] <= 1:
+        return None, 1, 0
+    return mesh.group(axis), mesh.shape[axis], mesh.index(axis)
 
 
 def axis_slices(ranks: np.ndarray, axis: str) -> List[List[int]]:

@@ -1,8 +1,8 @@
 """ZeRO stage-1 optimizer-state partitioning over the ``data`` axis.
 
-Counterpart of ``analytics_zoo_tpu/parallel/zero.py`` (its "flat" mode;
-the "gspmd" mode for meshes with a model, pipeline or expert axis arrives
-with ROADMAP A12.2). Following Rajbhandari et al. ("ZeRO: Memory
+Counterpart of ``analytics_zoo_tpu/parallel/zero.py``: its "flat" mode
+(below) and, through :class:`DimLayout`, its "gspmd" mode. Following
+Rajbhandari et al. ("ZeRO: Memory
 Optimizations Toward Training Trillion Parameter Models"), stage 1 keeps
 the parameters replicated but gives each of the ``dp`` data-parallel
 ranks a 1/dp slice of the optimizer state:
@@ -19,6 +19,16 @@ ranks a 1/dp slice of the optimizer state:
 holds block r of every padded leaf, one after the other, so one
 ``reduce_scatter`` and one ``all_gather`` of the buffer move every leaf
 (the JAX step has one of each per leaf inside its program).
+
+Beside a non-data axis, or with any parameter laid out over the mesh,
+the trainer runs JAX's "gspmd" mode instead (JAX ``engine.py:395-478``):
+the parameters keep their layout, and the moments of each leaf not laid
+out over ``data`` are cut over ``data`` along the first dimension of the
+leaf's spec that is unsharded and divides by dp (``_zero_widen_sharding``;
+:func:`widen_dim`). :class:`DimLayout` packs those blocks: each such
+gradient is reduce-scattered along that dimension, the update runs on
+the block, and the updated blocks are all-gathered back into the
+parameter.
 
 The on-disk format is always the canonical (parameter-shaped) optimizer
 state (:func:`unshard_opt_state`, :func:`shard_opt_state`): stage 0 and
@@ -107,6 +117,86 @@ class FlatLayout:
         return self.unpack(all_gather(shard, group, dim=0))
 
 
+def widen_dim(spec, shape, dp: int):
+    """gspmd mode: the dimension of a leaf of ``shape`` laid out as
+    ``spec`` (one entry a dimension) whose moments are cut over ``data``:
+    the first unsharded one that ``dp`` divides; None for a leaf already
+    laid out over ``data``, or without such a dimension (JAX's
+    ``_zero_widen_sharding``)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    if any(e == "data" or (isinstance(e, (tuple, list)) and "data" in e)
+           for e in entries):
+        return None
+    for i, dim in enumerate(shape):
+        if entries[i] is None and dim > 0 and dim % dp == 0:
+            return i
+    return None
+
+
+class DimLayout:
+    """gspmd mode's blocks: leaf ``k`` (of the local ``shapes[k]``) cut
+    into ``dp`` equal blocks along ``dims[k]``. One reduce-scatter of
+    :meth:`pack`'s buffer gives every rank its block of every leaf; one
+    all-gather (:meth:`gather`) brings the blocks back."""
+
+    def __init__(self, shapes: Dict[str, torch.Size], dims: Dict[str, int],
+                 dp: int):
+        self.dp = int(dp)
+        self.dims = dict(dims)
+        self.shapes = {k: tuple(shapes[k]) for k in self.dims}
+        self.block: Dict[str, tuple] = {}
+        self.offsets: Dict[str, int] = {}
+        off = 0
+        for k, d in self.dims.items():
+            shape = list(self.shapes[k])
+            shape[d] //= self.dp
+            self.block[k] = tuple(shape)
+            self.offsets[k] = off
+            off += int(torch.Size(shape).numel())
+        self.width = off
+
+    def _moved(self, k):
+        """A block's shape with its cut dimension first."""
+        d, shape = self.dims[k], self.block[k]
+        return (shape[d],) + shape[:d] + shape[d + 1:]
+
+    def own(self, t: torch.Tensor, k: str, rank: int) -> torch.Tensor:
+        """Block ``rank`` of leaf ``k`` (a view)."""
+        d = self.dims[k]
+        b = self.block[k][d]
+        return t.narrow(d, rank * b, b)
+
+    def pack(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(dp * width,): row r holds block r of every leaf."""
+        cols = [tensors[k].movedim(self.dims[k], 0).reshape(self.dp, -1)
+                for k in self.dims]
+        return torch.cat(cols, dim=1).reshape(-1)
+
+    def split(self, shard: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A rank's (width,) buffer as {k: its block}."""
+        out = {}
+        for k, d in self.dims.items():
+            n = int(torch.Size(self.block[k]).numel())
+            out[k] = shard.narrow(0, self.offsets[k], n) \
+                .view(self._moved(k)).movedim(0, d)
+        return out
+
+    def gather(self, blocks: Dict[str, torch.Tensor], group
+               ) -> Dict[str, torch.Tensor]:
+        """The leaves from every rank's blocks (one all-gather)."""
+        shard = torch.cat([blocks[k].movedim(self.dims[k], 0).reshape(-1)
+                           for k in self.dims])
+        rows = all_gather(shard, group, dim=0).reshape(self.dp, self.width)
+        out = {}
+        for k, d in self.dims.items():
+            n = int(torch.Size(self.block[k]).numel())
+            moved = self._moved(k)
+            full = rows[:, self.offsets[k]:self.offsets[k] + n].reshape(
+                (self.dp * moved[0],) + moved[1:])
+            out[k] = full.movedim(0, d)
+        return out
+
+
 def _is_param_dict(tree, layout: FlatLayout) -> bool:
     """A dict of tensors keyed by every parameter path (a moment)."""
     return isinstance(tree, dict) and set(tree) == set(layout.shapes) and \
@@ -188,6 +278,6 @@ def assert_zero_collectives(report: Dict[str, Dict[str, int]],
             f"operand {largest} >= floor {grad_numel_floor}")
 
 
-__all__: List[str] = ["FlatLayout", "assert_zero_collectives",
+__all__: List[str] = ["DimLayout", "FlatLayout", "assert_zero_collectives",
                       "padded_size", "per_rank_bytes", "shard_opt_state",
-                      "unshard_opt_state"]
+                      "unshard_opt_state", "widen_dim"]

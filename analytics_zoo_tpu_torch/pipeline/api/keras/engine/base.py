@@ -39,7 +39,7 @@ import collections
 import functools
 import inspect
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -117,6 +117,7 @@ class KerasLayer(nn.Module):
         # Reference layers accept input_shape WITHOUT the batch dim.
         self.input_shape = (None,) + tuple(input_shape) if input_shape \
             else None
+        self._param_axes: Dict[str, Tuple[Optional[str], ...]] = {}
 
     # -- to be overridden ------------------------------------------------
     def build(self, generator, input_shape) -> Dict[str, Any]:
@@ -130,6 +131,33 @@ class KerasLayer(nn.Module):
 
     def compute_output_shape(self, input_shape):
         return input_shape
+
+    # -- sharding metadata ----------------------------------------------
+    #: the logical axes this layer computes on as blocks, each with the
+    #: mesh axis it expects them laid out over (a Megatron layer consumes
+    #: its "heads" and "mlp" dimensions sharded over "model"): a
+    #: parameter dimension laid out over another axis, or carrying another
+    #: logical axis, reaches the layer gathered (``parallel/sharding.py``)
+    sharded_compute: Dict[str, str] = {}
+
+    def param_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Logical axis names per parameter (``kernel`` -> ('in', 'out')),
+        keyed by the JAX tree's "/"-joined path (``block0/qkv_w``).
+        ``parallel.sharding`` maps logical axes to mesh axes; layers
+        record them in ``build`` through :meth:`_annotate`, as the JAX
+        layers do."""
+        return self._param_axes
+
+    def _annotate(self, **axes):
+        self._param_axes.update(axes)
+
+    def param_pieces(self) -> Dict[str, Tuple[int, int]]:
+        """{path: (dim, pieces)} for a parameter whose dimension ``dim``
+        is ``pieces`` equal parts computed apart (a fused QKV kernel's
+        q, k and v columns): sharded over an axis, a rank's block of it
+        is its share of each part, not a contiguous block. Port-only: the
+        JAX layers leave that to GSPMD."""
+        return {}
 
     # -- parameters --------------------------------------------------------
     def build_params(self, generator, input_shape) -> None:

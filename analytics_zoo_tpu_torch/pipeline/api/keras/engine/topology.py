@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -50,6 +51,7 @@ import torch
 from .....common.zoo_trigger import EveryEpoch, MaxEpoch, ZooTrigger
 from .....feature.feature_set import ArrayFeatureSet, FeatureSet
 from .....utils import serialization, tensorboard
+from .....parallel.sharding import full_param, full_shape, load_whole
 from .....utils.jax_weights import load_jax_params
 from ....engine import GradientClipping, SPMDTrainer
 from ..metrics import get_metric
@@ -235,6 +237,50 @@ class KerasNet(KerasLayer):
             stack.extend(v.node for v in node.inputs if v.node is not None)
         return self.freeze(sorted(target))
 
+    def set_param_sharding(self, fn):
+        """Install a ``params -> tree of specs`` function
+        (``parallel.sharding.make_param_sharding_fn``'s): the layout the
+        next trainer cuts the parameters into. Drops the trainer."""
+        self._param_sharding_fn = fn
+        self.trainer = None
+
+    def _resolve_param_sharding_fn(self, graph):
+        """The one precedence rule of every training surface: an explicit
+        ``set_param_sharding`` wins; otherwise the config's layout
+        (``ZooConfig.param_sharding``)."""
+        fn = getattr(self, "_param_sharding_fn", None)
+        if fn is not None:
+            return fn
+        return self._config_param_sharding(graph)
+
+    def _config_param_sharding(self, graph):
+        """The config's layout when no ``set_param_sharding`` was given:
+        "auto" applies the annotation rules whenever the ambient mesh has
+        a non-data axis > 1; "fsdp" also lays the embed/in/out-annotated
+        parameters over the data axis; "default" applies the rules on any
+        mesh; "none" keeps every parameter whole."""
+        from .....common import nncontext as _nn
+
+        ctx = _nn._global_context
+        if ctx is None:
+            return None
+        mode = str(getattr(ctx.config, "param_sharding", "auto")).lower()
+        if mode not in ("auto", "none", "default", "fsdp"):
+            raise ValueError(
+                f"param_sharding must be auto|none|default|fsdp, "
+                f"got {mode!r}")
+        if mode == "none":
+            return None
+        non_data = any(v > 1 for ax, v in ctx.mesh.shape.items()
+                       if ax != "data")
+        if mode == "auto" and not non_data:
+            return None
+        from .....parallel.sharding import (FSDP_RULES,
+                                            make_param_sharding_fn)
+
+        rules = FSDP_RULES if mode == "fsdp" else None
+        return make_param_sharding_fn(graph, ctx.mesh, rules=rules)
+
     def frozen_layers(self) -> List[str]:
         return sorted(self._frozen)
 
@@ -300,14 +346,27 @@ class KerasNet(KerasLayer):
                 tree[layer.name] = s
         return tree
 
+    def full_param_tree(self) -> Dict[str, Any]:
+        """:meth:`param_tree` with each parameter laid out over the ranks
+        all-gathered whole (a collective: every rank calls it)."""
+        def whole(tree):
+            return {k: whole(v) if isinstance(v, dict) else full_param(v)
+                    for k, v in tree.items()}
+        return whole(self.param_tree())
+
     def get_weights(self) -> List[np.ndarray]:
-        """Every parameter as numpy, in the JAX model's leaf order."""
-        return [p.detach().cpu().numpy()
-                for p in _flatten_sorted(self.param_tree(), [])]
+        """Every parameter as numpy, in the JAX model's leaf order, whole
+        (a parameter laid out over the ranks is all-gathered: every rank
+        calls it)."""
+        return [p.cpu().numpy()
+                for p in _flatten_sorted(self.full_param_tree(), [])]
 
     def get_params(self) -> Dict[str, Any]:
         """The parameters as the JAX params pytree (``{layer name:
-        {...}}``), the live tensors."""
+        {...}}``): the live tensors, or where the trainer laid them out
+        over the ranks, their whole leaves (a collective)."""
+        if any(hasattr(p, "_zoo_shard") for p in self.parameters()):
+            return self.full_param_tree()
         return self.param_tree()
 
     def summary(self, line_length=100) -> str:
@@ -317,7 +376,7 @@ class KerasNet(KerasLayer):
                  f"{'Layer (type)':40s}{'Param #':>12s}", "=" * line_length]
         total = 0
         for layer in self.graph_function().layers:
-            n = sum(p.numel() for p in layer.parameters())
+            n = sum(math.prod(full_shape(p)) for p in layer.parameters())
             total += n
             lines.append(f"{layer.name + ' (' + type(layer).__name__ + ')':40s}"
                          f"{n:>12,d}")
@@ -331,13 +390,8 @@ class KerasNet(KerasLayer):
         if len(leaves) != len(weights):
             raise ValueError(f"expected {len(leaves)} arrays, got "
                              f"{len(weights)}")
-        with torch.no_grad():
-            for p, w in zip(leaves, weights):
-                w = torch.as_tensor(np.asarray(w))
-                if tuple(w.shape) != tuple(p.shape):
-                    raise ValueError(f"shape {tuple(w.shape)} does not "
-                                     f"match {tuple(p.shape)}")
-                p.copy_(w.to(p.dtype))
+        for p, w in zip(leaves, weights):
+            load_whole(p, np.asarray(w))
 
     # -- persistence ---------------------------------------------------
     def save_model(self, path, weight_path=None, over_write=False):
@@ -374,7 +428,7 @@ class KerasNet(KerasLayer):
             if arrays:
                 np.savez(os.path.join(path, "config_arrays.npz"), **arrays)
         serialization.save_pytree(os.path.join(path, "weights.npz"),
-                                  {"params": self.param_tree(),
+                                  {"params": self.full_param_tree(),
                                    "state": self.state_tree()})
 
     saveModel = save_model

@@ -78,6 +78,7 @@ class Convolution2D(KerasLayer):
         kh, kw = self.kernel_size
         params = {"kernel": init_tensor(
             generator, (kh, kw, cin, self.nb_filter), self.init)}
+        self._annotate(kernel=(None, None, "in", "out"))
         if self.use_bias:
             params["bias"] = torch.zeros(self.nb_filter)
         return params
@@ -131,6 +132,7 @@ class Convolution1D(KerasLayer):
         cin = int(input_shape[-1])
         params = {"kernel": init_tensor(
             generator, (self.filter_length, cin, self.nb_filter), self.init)}
+        self._annotate(kernel=(None, "in", "out"))
         if self.use_bias:
             params["bias"] = torch.zeros(self.nb_filter)
         return params

@@ -47,8 +47,10 @@ class Dense(KerasLayer):
         params = {"kernel": init_tensor(generator,
                                         (in_dim, self.output_dim),
                                         self.init)}
+        self._annotate(kernel=("in", "out"))
         if self.use_bias:
             params["bias"] = torch.zeros(self.output_dim)
+            self._annotate(bias=("out",))
         return params
 
     def forward(self, x, training=False, **kw):
@@ -693,8 +695,10 @@ class SparseDense(KerasLayer):
         params = {"kernel": init_tensor(generator,
                                         (in_dim, self.output_dim),
                                         self.init)}
+        self._annotate(kernel=("in", "out"))
         if self.use_bias:
             params["bias"] = torch.zeros(self.output_dim)
+            self._annotate(bias=("out",))
         return params
 
     def forward(self, x, training=False, **kw):

@@ -77,6 +77,7 @@ class Embedding(KerasLayer):
         else:
             table = init_tensor(generator, (self.input_dim, self.output_dim),
                                 self.init)
+        self._annotate(table=("vocab", "embed"))
         return {"table": table}
 
     def forward(self, x, training=False, **kw):

@@ -32,6 +32,21 @@ What matches JAX exactly (:func:`assign_slots`):
   tied gates pick the lower expert index first, as ``jax.lax.top_k``
   does (a stable descending sort).
 
+Expert parallelism (``expert_parallel`` = ep > 1; JAX lays the stacked
+weights over the expert axis and lets GSPMD move the tokens): under the
+trainer's layout each expert rank holds E/ep of the stacked ``(E, ...)``
+weights, and the layer reads it from their shapes. The rows are not
+split over the expert axis, so every expert rank routes every token
+(capacity and slots as above, over all E experts), fills and runs only
+its own experts' slots, and the combined output is all-reduced over the
+expert group (``reduce_from_region``); the token rows and the top-k
+weights enter through ``copy_to_region``, so the router and the layer
+below get the whole gradient on every rank. With ``model`` > 1 the
+experts' ``mlp`` dimension is cut too (``w_in``/``b_in`` columns,
+``w_out`` rows): each model rank computes its part of every slot's
+hidden layer and the second product is summed over the model group
+before ``b_out``. No token all-to-all, as in the JAX package.
+
 With telemetry enabled, ``zoo_moe_dropped_tokens_total{layer=...}`` grows
 by n·k less the assigned slots (one host read a call); disabled, nothing
 is read on the host. ``router_noise`` acts only when a generator is
@@ -47,6 +62,8 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
+from .....parallel.collectives import copy_to_region, reduce_from_region
+from .....parallel.mesh import ambient_axis
 from ..engine.base import KerasLayer, get_activation_fn, init_tensor
 
 
@@ -86,6 +103,9 @@ class SparseMoE(KerasLayer):
     """Top-k gated mixture of expert MLPs. Input ``(B, L, H)`` (or
     ``(B, H)``); output the same shape."""
 
+    # the stacked experts over expert, their hidden columns over model
+    sharded_compute = {"expert": "expert", "mlp": "model"}
+
     def __init__(self, n_experts: int, intermediate_size: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
                  activation: str = "gelu", router_noise: float = 0.0,
@@ -104,13 +124,21 @@ class SparseMoE(KerasLayer):
     def build(self, generator, input_shape):
         h = int(input_shape[-1])
         e, f = self.n_experts, self.intermediate_size
-        return {
+        params = {
             "router_w": init_tensor(generator, (h, e)),
             "w_in": init_tensor(generator, (e, h, f)),
             "b_in": torch.zeros(e, f),
             "w_out": init_tensor(generator, (e, f, h)),
             "b_out": torch.zeros(e, h),
         }
+        self._annotate(**{
+            "router_w": ("embed", None),
+            "w_in": ("expert", "embed", "mlp"),
+            "b_in": ("expert", "mlp"),
+            "w_out": ("expert", "mlp", "embed"),
+            "b_out": ("expert", "embed"),
+        })
+        return params
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape)
@@ -129,9 +157,31 @@ class SparseMoE(KerasLayer):
                 dtype=logits.dtype)
         return torch.softmax(logits.float(), dim=-1)
 
+    def _local(self, p):
+        """(expert group, first local expert, local experts, model
+        group) of the weights ``p``: this rank's experts and the groups
+        its parts sum over (None where the weights are whole)."""
+        e_loc, f_loc = p["w_in"].shape[0], p["w_in"].shape[-1]
+        ep = tp = None
+        e0 = 0
+        if e_loc != self.n_experts:
+            ep, n, r = ambient_axis("expert")
+            if n * e_loc != self.n_experts:
+                raise ValueError(f"{e_loc} of {self.n_experts} experts do "
+                                 f"not match the expert axis ({n} ranks)")
+            e0 = r * e_loc
+        if f_loc != self.intermediate_size:
+            tp, n, _ = ambient_axis("model")
+            if n * f_loc != self.intermediate_size:
+                raise ValueError(f"{f_loc} of {self.intermediate_size} "
+                                 f"hidden columns do not match the model "
+                                 f"axis ({n} ranks)")
+        return ep, e0, e_loc, tp
+
     def dispatch(self, p, x, training=False, generator=None):
         """The layer's output for ``x`` with the parameters ``p`` (a dict
-        or a ``ParameterDict`` of the five tensors)."""
+        or a ``ParameterDict`` of the five tensors; this rank's experts
+        under expert parallelism)."""
         orig_shape = x.shape
         h = orig_shape[-1]
         flat = x.reshape(-1, h)                       # (N, H)
@@ -151,32 +201,47 @@ class SparseMoE(KerasLayer):
             telemetry.counter("zoo_moe_dropped_tokens_total",
                               layer=self.name).inc(float(dropped))
 
+        ep, e0, e_loc, tp = self._local(p)
         # every (token, slot) assignment in token-major order; a dropped
-        # one points at the spare slot e * cap (a zero row of h2) with
-        # weight 0, so no shape depends on the data (no host sync)
+        # one (or, under expert parallelism, one of another rank's
+        # experts) points at the spare slot e_loc * cap (a zero row of
+        # h2) with weight 0, so no shape depends on the data (no host
+        # sync)
         kept = kept.reshape(-1)
-        slot = torch.where(kept, slot.reshape(-1), e * cap)
-        weight = torch.where(kept, top_w.reshape(-1), 0.0)
+        slot = slot.reshape(-1) - e0 * cap
+        if ep is not None:
+            kept = kept & (slot >= 0) & (slot < e_loc * cap)
+        slot = torch.where(kept, slot, e_loc * cap)
+        weight = torch.where(kept, copy_to_region(top_w, ep).reshape(-1),
+                             0.0)
         token = torch.arange(n, device=x.device).repeat_interleave(k)
         with record_function("moe/dispatch"):
             # the token each expert slot holds; an empty slot reads row
             # n, a zero row
-            holder = torch.full((e * cap + 1,), n, dtype=torch.int64,
+            holder = torch.full((e_loc * cap + 1,), n, dtype=torch.int64,
                                 device=x.device)
             holder[slot] = token
-            padded = torch.cat([flat, flat.new_zeros(1, h)])
-            xin = padded.index_select(0, holder[:-1]).view(e, cap, h)
+            padded = torch.cat([copy_to_region(flat, ep),
+                                flat.new_zeros(1, h)])
+            xin = padded.index_select(0, holder[:-1]).view(e_loc, cap, h)
         dt = x.dtype
         with record_function("moe/experts"):
+            xin = copy_to_region(xin, tp)
             h1 = torch.baddbmm(p["b_in"].to(dt)[:, None], xin,
                                p["w_in"].to(dt))
             h1 = self.activation(h1)
-            h2 = torch.baddbmm(p["b_out"].to(dt)[:, None], h1,
-                               p["w_out"].to(dt)).view(e * cap, h)
+            if tp is None:
+                h2 = torch.baddbmm(p["b_out"].to(dt)[:, None], h1,
+                                   p["w_out"].to(dt))
+            else:
+                h2 = reduce_from_region(torch.bmm(h1, p["w_out"].to(dt)),
+                                        tp) + p["b_out"].to(dt)[:, None]
+            h2 = h2.view(e_loc * cap, h)
         with record_function("moe/combine"):
             h2 = torch.cat([h2, h2.new_zeros(1, h)])
             contrib = h2.index_select(0, slot) * weight.to(dt)[:, None]
             out = flat.new_zeros(n, h).index_add(0, token, contrib)
+            out = reduce_from_region(out, ep)
         return out.reshape(orig_shape)
 
     def forward(self, inputs, training=False, generator=None, **kw):

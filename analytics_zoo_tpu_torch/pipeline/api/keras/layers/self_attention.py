@@ -65,8 +65,37 @@ computes the same loss, so the trainer divides the gradients it sums over
 the seq group by sp. A length that does not split over sp runs unsplit on every
 seq rank, as JAX's layer then runs unsharded attention.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-pipeline-parallel (GPipe) stacked-block layout (ROADMAP A12.2).
+Tensor parallelism (``model_parallel`` = tp > 1, the Megatron layout of
+JAX's rules, :204-220): the layer's parameters carry the logical axes
+JAX annotates, and under the trainer's layout (``parallel/sharding.py``)
+each model rank holds its columns of qkv and MLP-in and its rows of proj
+and MLP-out. The layer reads the layout from the shapes it is given:
+with ``qkv_w`` narrower than 3h it computes on its H/tp heads (K1-K3 at
+(B, L, H/tp, d)), with ``mlp_in_w`` narrower than the intermediate size
+on its columns, each region entered through ``copy_to_region`` and left
+through ``reduce_from_region`` over the model group before the replicated
+bias; the residual sites (K4/K5) run on the replicated full hidden. JAX's
+``qkv_w`` is (h, 3h) with q, k and v side by side, and a contiguous block
+of its columns is not a rank's heads, so the layer declares the leaf
+three parts (``param_pieces``): a rank's block is its heads' columns of
+each of q, k and v. The attention-output dropout draws the whole
+(B, L, h) mask and keeps the rank's columns, so every rank's generator
+stays in step and the masks are the unsharded layer's.
+
+Pipeline parallelism (``pipeline_parallel`` = S > 1, JAX :237-260 and
+:424-490): built under a pipe axis, the layer stacks its blocks'
+parameters on a leading 'stage' axis (``blocks.qkv_w`` (n_block, h, 3h),
+...), refusing an ``n_block`` S does not divide and ``output_all_block``;
+each pipe rank holds its n_block/S blocks. The trunk runs through
+``parallel.pipeline.pipeline_forward``: the embedding output and the
+attention mask travel together between stages, microbatch ``m`` at B/M
+rows, ``M`` = ``pipeline_microbatches`` (0: one per stage). Dropout in
+the trunk follows the port's own rule: block ``i`` of microbatch ``m``
+draws from a generator seeded from (the step generator's seed, m, i),
+host integers every pipe rank derives alike, so nothing crosses the
+wire for them (JAX folds one seed with the pipe index and reuses it
+for every microbatch). KV-cache decoding refuses the stacked layout and
+a cut parameter, as JAX's refuses the stacked one.
 """
 
 from __future__ import annotations
@@ -80,10 +109,10 @@ from .....ops import kv_cache
 from .....ops.attention import flash_attention_blhd
 from .....ops.fused_dropout_ln import dropout_add_layer_norm
 from .....ops.layernorm import layer_norm
+from .....parallel.collectives import copy_to_region, reduce_from_region
+from .....parallel.mesh import ambient_axis
 from ..engine.base import KerasLayer
 from .embeddings import take_rows
-
-_A122 = "ROADMAP A12.2"
 
 
 class _SeqSplit(NamedTuple):
@@ -125,13 +154,19 @@ def _normal(generator, shape, std):
     return std * torch.randn(shape, generator=generator)
 
 
-def _dropout(x, p, generator, training):
+def _dropout(x, p, generator, training, cols=None):
     """Inverted dropout with a Bernoulli keep-mask drawn from
-    ``generator`` (the embedding and attention-output sites)."""
+    ``generator`` (the embedding and attention-output sites). ``cols``
+    ``(start, width, whole)``: ``x`` holds columns ``start:start+width``
+    of a ``whole``-wide last dimension; the whole mask is drawn and its
+    columns kept."""
     if not training or generator is None or p <= 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if cols is None else x.shape[:-1] + (cols[2],)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if cols is not None:
+        mask = mask[..., cols[0]:cols[0] + cols[1]]
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
@@ -145,6 +180,38 @@ def _parallel_degree(field: str) -> int:
     return int(getattr(ctx.config, field, 1))
 
 
+def _stack(per_block):
+    """Per-block parameter dicts stacked leaf by leaf on a new leading
+    axis (nested dicts, a MoE block's, stack inside)."""
+    first = per_block[0]
+    return {k: _stack([p[k] for p in per_block]) if isinstance(v, dict)
+            else torch.stack([p[k] for p in per_block])
+            for k, v in first.items()}
+
+
+def _flat_params(tree, prefix=""):
+    """A ParameterDict tree as {dotted path: tensor}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, (dict, torch.nn.ParameterDict)):
+            out.update(_flat_params(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _nest(flat):
+    """{dotted path: tensor} as nested dicts."""
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return out
+
+
 class TransformerLayer(KerasLayer):
     """GPT-style transformer stack.
 
@@ -154,6 +221,10 @@ class TransformerLayer(KerasLayer):
 
     stochastic = True
     gelu_approximate = True  # TransformerLayer.scala uses the tanh approx
+    # the Megatron layout: heads and MLP columns over model, the stacked
+    # blocks over pipe, a MoE block's experts over expert
+    sharded_compute = {"heads": "model", "mlp": "model", "stage": "pipe",
+                       "expert": "expert"}
 
     def __init__(self, n_block, hidden_p_drop=0.1, attn_p_drop=0.1,
                  n_head=12, initializer_range=0.02, bidirectional=False,
@@ -200,12 +271,14 @@ class TransformerLayer(KerasLayer):
                 self.embedding_layer.build_params(generator,
                                                   (None, self.seq_len))
             return {}
-        return {
+        params = {
             "tok_emb": _normal(generator, (self.vocab, self.hidden_size),
                                self.initializer_range),
             "pos_emb": _normal(generator, (self.seq_len, self.hidden_size),
                                self.initializer_range),
         }
+        self._annotate(tok_emb=("vocab", "embed"), pos_emb=(None, "embed"))
+        return params
 
     def _block_params(self, generator):
         h = self.hidden_size
@@ -230,19 +303,64 @@ class TransformerLayer(KerasLayer):
             })
         return p
 
+    def _block_axis_map(self):
+        """Logical axes per block parameter (the Megatron TP layout)."""
+        axes = {
+            "qkv_w": ("embed", "heads"), "qkv_b": ("heads",),
+            "proj_w": ("heads", "embed"), "proj_b": (None,),
+            "ln1_g": (None,), "ln1_b": (None,),
+            "ln2_g": (None,), "ln2_b": (None,),
+        }
+        if self.moe_experts:
+            for k, v in self._moe.param_axes().items():
+                axes[f"moe/{k}"] = v
+        else:
+            axes.update({"mlp_in_w": ("embed", "mlp"),
+                         "mlp_in_b": ("mlp",),
+                         "mlp_out_w": ("mlp", "embed"),
+                         "mlp_out_b": (None,)})
+        return axes
+
+    def param_pieces(self):
+        """q, k and v side by side in the last dimension of ``qkv_w`` and
+        ``qkv_b`` (per block, or stacked): three parts, cut part by
+        part."""
+        return {k: (len(v) - 1, 3) for k, v in self.param_axes().items()
+                if k.rsplit("/", 1)[-1] in ("qkv_w", "qkv_b")}
+
     def build(self, generator, input_shape):
-        if _parallel_degree("pipeline_parallel") > 1:
-            raise NotImplementedError(
-                "pipeline_parallel > 1 (the GPipe stacked-block layout) is "
-                f"not ported yet; it arrives with {_A122}")
         if self.moe_experts and self._moe is None:
             from .moe import SparseMoE
             object.__setattr__(self, "_moe", SparseMoE(
                 self.moe_experts, self.intermediate_size,
                 top_k=self.moe_top_k))
         params = self._embedding_params(generator)
-        for i in range(self.n_block):
-            params[f"block{i}"] = self._block_params(generator)
+        pp = _parallel_degree("pipeline_parallel")
+        if pp > 1:
+            # the GPipe layout: block parameters stacked on a leading
+            # 'stage' axis, so each pipe rank holds only its blocks
+            if self.n_block % pp:
+                raise ValueError(
+                    f"pipeline_parallel={pp} must divide n_block="
+                    f"{self.n_block}")
+            if self.output_all_block:
+                raise ValueError(
+                    "output_all_block=True is incompatible with "
+                    "pipeline_parallel > 1 (intermediate block states "
+                    "live on other pipe ranks); build with "
+                    "output_all_block=False")
+            per_block = [self._block_params(generator)
+                         for _ in range(self.n_block)]
+            params["blocks"] = _stack(per_block)
+            self._annotate(**{
+                f"blocks/{k}": ("stage",) + tuple(v)
+                for k, v in self._block_axis_map().items()})
+        else:
+            for i in range(self.n_block):
+                params[f"block{i}"] = self._block_params(generator)
+                self._annotate(**{
+                    f"block{i}/{k}": v
+                    for k, v in self._block_axis_map().items()})
         params["pooler_w"] = _normal(generator,
                                      (self.hidden_size, self.hidden_size),
                                      self.initializer_range)
@@ -257,13 +375,34 @@ class TransformerLayer(KerasLayer):
         return F.gelu(x, approximate="tanh" if self.gelu_approximate
                       else "none")
 
+    def _model_group(self, width: int, whole: int):
+        """The model group and this rank's index where a weight of
+        ``width`` columns is this rank's block of ``whole`` (tensor
+        parallelism), else (None, 0)."""
+        if width == whole:
+            return None, 0
+        group, n, r = ambient_axis("model")
+        if n * width != whole:
+            raise ValueError(f"a block of {width} of {whole} columns does "
+                             f"not match the model axis ({n} ranks)")
+        return group, r
+
     def _attention(self, p, x, mask_bias, generator, training, seq=None):
         b, l, h = x.shape
-        nh = self.n_head
-        d = h // nh
-        qkv = torch.matmul(x, p["qkv_w"].to(x.dtype)) + \
+        d = h // self.n_head
+        # this rank's columns of each of q, k and v: all of them, or its
+        # heads' under tensor parallelism
+        width = p["qkv_w"].shape[-1] // 3
+        if width % d:
+            raise ValueError(f"{width} columns of q are not whole heads of "
+                             f"{d}: n_head={self.n_head} must divide over "
+                             f"the model axis")
+        nh = width // d
+        tp, tp_rank = self._model_group(width, h)
+        xin = copy_to_region(x, tp)
+        qkv = torch.matmul(xin, p["qkv_w"].to(x.dtype)) + \
             p["qkv_b"].to(x.dtype)
-        q, k, v = qkv.split(h, dim=-1)
+        q, k, v = qkv.split(width, dim=-1)
         # (B, L, H, d) views of the fused projection feed the kernel
         # directly: no [B, H, L, d] relayout copies in, none out
         q4, k4, v4 = (t.reshape(b, l, nh, d) for t in (q, k, v))
@@ -281,10 +420,11 @@ class TransformerLayer(KerasLayer):
                 mask_bias.shape[0], l).float().expand(b, l)
             o = attend(q4, k4, v4, seq.group,
                        causal=not self.bidirectional, kbias=kb)
-        o = o.reshape(b, l, h)
-        o = _dropout(o, self.attn_p_drop, generator, training)
-        return torch.matmul(o, p["proj_w"].to(x.dtype)) + \
-            p["proj_b"].to(x.dtype)
+        o = o.reshape(b, l, width)
+        o = _dropout(o, self.attn_p_drop, generator, training,
+                     None if tp is None else (tp_rank * width, width, h))
+        a = reduce_from_region(torch.matmul(o, p["proj_w"].to(x.dtype)), tp)
+        return a + p["proj_b"].to(x.dtype)
 
     def _block(self, p, x, mask_bias, generator, training, seq=None):
         a = self._attention(p, x, mask_bias, generator, training, seq)
@@ -298,11 +438,14 @@ class TransformerLayer(KerasLayer):
     def _ffn(self, p, n, training):
         if self.moe_experts:
             return self._moe.dispatch(p["moe"], n, training=training)
-        m = torch.matmul(n, p["mlp_in_w"].to(n.dtype)) + \
-            p["mlp_in_b"].to(n.dtype)
+        tp, _ = self._model_group(p["mlp_in_w"].shape[-1],
+                                  self.intermediate_size)
+        m = torch.matmul(copy_to_region(n, tp), p["mlp_in_w"].to(n.dtype)) \
+            + p["mlp_in_b"].to(n.dtype)
         m = self._gelu(m)
-        return torch.matmul(m, p["mlp_out_w"].to(n.dtype)) + \
-            p["mlp_out_b"].to(n.dtype)
+        m = reduce_from_region(torch.matmul(m, p["mlp_out_w"].to(n.dtype)),
+                               tp)
+        return m + p["mlp_out_b"].to(n.dtype)
 
     def _embed(self, inputs, training=False, seq=None):
         if self.embedding_layer is not None:
@@ -338,6 +481,12 @@ class TransformerLayer(KerasLayer):
             generator = folded
         e, mask_bias = self._embed(inputs, training, seq)
         e = _dropout(e, self.hidden_p_drop, generator, training)
+        if "blocks" in self._modules:   # the GPipe layout
+            if seq is not None:
+                raise ValueError("the pipelined trunk does not run beside "
+                                 "sequence parallelism")
+            x = self._call_pp(e, mask_bias, generator, training)
+            return (x, self._pooler(x))
         states = []
         x = e
         for i in range(self.n_block):
@@ -357,20 +506,64 @@ class TransformerLayer(KerasLayer):
             return tuple(states) + (pooled,)
         return (x, pooled)
 
+    def _call_pp(self, e, mask_bias, generator, training):
+        """The block trunk as a GPipe pipeline over the pipe group
+        (``parallel/pipeline.py``): this rank's stacked blocks, the
+        activations and the attention mask travelling together."""
+        from .....common.nncontext import get_nncontext
+        from .....parallel.pipeline import pipeline_forward
+        from ....engine import step_seed
+
+        ctx = get_nncontext()
+        group, S, stage = ambient_axis("pipe")
+        blocks = _flat_params(self.blocks)
+        bps = next(iter(blocks.values())).shape[0]
+        if bps * S != self.n_block:
+            raise ValueError(f"{bps} stacked blocks on each of {S} pipe "
+                             f"ranks do not make n_block={self.n_block}")
+        n_micro = int(getattr(ctx.config, "pipeline_microbatches", 0)) or S
+        b = e.shape[0]
+        tree = {"x": e}
+        if mask_bias is not None:
+            tree["mask"] = mask_bias.expand((b,) + tuple(mask_bias.shape[1:]))
+        seed = None if generator is None or not training else \
+            generator.initial_seed()
+
+        def run_stage(p, t, m):
+            x, mask = t["x"], t.get("mask")
+            for i in range(bps):
+                gen = None
+                if seed is not None:
+                    gen = torch.Generator(device=x.device)
+                    gen.manual_seed(step_seed(step_seed(seed, m),
+                                              stage * bps + i))
+                x = self._block(_nest({k: v[i] for k, v in p.items()}), x,
+                                mask, gen, training)
+            return dict(t, x=x)
+
+        return pipeline_forward(run_stage, blocks, tree, group=group,
+                                n_microbatch=n_micro, pass_micro=True)["x"]
+
     # -- KV-cache incremental decode (ops/kv_cache.py) -----------------
     #
     # The generative-serving path: prefill runs the prompt once through
     # the causal flash route and stashes every block's projected K/V into
     # preallocated slabs; decode_step then advances one token per call
     # with O(S) cached attention. Decode is inference-only: no dropout,
-    # no autograd. The pipeline-parallel stacked-block layout the JAX
-    # method refuses cannot be built here (``build`` raises).
+    # no autograd, and the per-block layout of whole parameters.
 
     def _require_decode_layout(self):
         if self.bidirectional:
             raise ValueError(
                 "KV-cache decode needs a causal trunk; this layer was "
                 "built bidirectional (BERT-style)")
+        if "blocks" in self._modules:
+            raise ValueError(
+                "KV-cache decode does not support the pipeline-parallel "
+                "stacked-block layout; rebuild with pipeline_parallel=1")
+        if any(hasattr(p, "_zoo_shard") for p in self.parameters()):
+            raise ValueError("KV-cache decode needs the layer's parameters "
+                             "whole; this layer is laid out over ranks")
 
     def init_decode_state(self, batch, capacity, dtype=torch.float32,
                           rng=None):

@@ -114,7 +114,32 @@ all-gathering the parameters. Each data rank draws its dropout from the
 step's generator folded with its data rank. Only rank 0 writes logs,
 summaries and checkpoint files; every rank calls ``save_checkpoint``
 (the ZeRO gather is a collective) and waits at a barrier for rank 0's
-commit. ``evaluate`` and ``predict`` run the whole batch on every rank.
+commit. ``evaluate`` and ``predict`` give each data rank its block of
+every batch: the metric sums are all-reduced over the data group, and
+the predictions all-gathered in order onto every rank.
+
+The parameters' layout (``parallel/sharding.py``, JAX's
+``_place_state``): the model's ``set_param_sharding`` function, else
+``ZooConfig.param_sharding``'s rules, gives each parameter a spec, and
+at the trainer's first use each parameter laid out over an axis longer
+than one is cut to this rank's block, in place (``shards``); a pipe or
+expert axis nothing is laid out over raises JAX's misconfiguration
+error. The forward hands each cut parameter to its layer as the layer
+computes on it (``sharding.use_param``: TransformerLayer and SparseMoE
+take their model-, pipe- and expert-axis blocks as they are; every other
+cut dimension, FSDP's over data or a vocabulary-sharded table, is
+all-gathered at use and its gradient reduce-scattered), so the
+gradients and the optimizer state have the blocks' shapes. The step
+stays the one step: the gradients are summed over data (the leaves not
+cut over it) and seq; the model, pipe and expert ranks hold the same
+gradient of every replicated leaf (``copy_to_region`` /
+``reduce_from_region`` in the layers). Clipping's norm sums each leaf's
+squares over the axes it is cut over. ZeRO-1 beside such a layout is
+JAX's gspmd mode (:meth:`zero_mode`). Checkpoints of a layout are the
+sharded format, each rank writing its regions of every cut leaf
+(a qkv block is three regions) and reading back its own regions from
+whatever layout wrote the file; ``get_weights``, ``get_params`` and
+``save_model`` all-gather the whole leaves.
 
 Checkpoint formats: the flat store above, or with
 ``ZOO_TPU_SHARDED_CHECKPOINT=1`` the JAX package's sharded format
@@ -122,8 +147,7 @@ Checkpoint formats: the flat store above, or with
 crc32c, a commit), which either package reads. Both hold the canonical
 (parameter-shaped) optimizer state.
 
-Not ported: the fused k-step dispatch (A2/A15); ZeRO's gspmd mode and
-tensor, pipeline and expert parallelism (A12.2).
+Not ported: the fused k-step dispatch (A2/A15).
 """
 
 from __future__ import annotations
@@ -148,13 +172,13 @@ from ..feature.feature_set import ArrayFeatureSet, FeatureSet, MiniBatch
 from ..feature.feature_set import minibatch_len, pad_minibatch
 from ..feature.host_pipeline import (DeviceStagingIterator,
                                      build_host_pipeline)
-from ..parallel import collectives, zero
+from ..parallel import collectives, sharding, zero
 from ..utils import (faults, file_io, memory, serialization,
                      sharded_checkpoint, telemetry)
 from ..utils.crc32c import crc32c
 from ..utils.jax_weights import (check_optimizer_leaves, load_jax_params,
-                                 load_optimizer_leaves, optimizer_leaves,
-                                 param_order)
+                                 load_optimizer_leaves, optimizer_leaf_params,
+                                 optimizer_leaves, param_order)
 from ..utils.profiling import (FlopCounter, InfeedMonitor, ProfilerHook,
                                device_kind, inference_window, peak_flops)
 from ..utils.telemetry import span
@@ -407,15 +431,6 @@ def _sorted_leaves(tree) -> list:
     return [tree]
 
 
-def _fill_sorted(template, leaves):
-    """``template``'s structure with its leaves taken in sorted-key order
-    from the iterator ``leaves``."""
-    if isinstance(template, dict):
-        return {k: _fill_sorted(template[k], leaves)
-                for k in sorted(template)}
-    return next(leaves)
-
-
 def _tree_float(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_tree_float(v) for v in x)
@@ -543,10 +558,15 @@ class SPMDTrainer:
         self._pinned: Optional[PinnedStager] = None
         #: the rank mesh (None: a world of one)
         self.mesh = getattr(self.ctx, "mesh", None)
-        # ZeRO-1 ("off" / "flat", resolved on first use) and the flat
-        # layout of this rank's optimizer shards
+        # ZeRO-1 ("off" / "flat" / "gspmd", resolved on first use), the
+        # flat layout of this rank's optimizer shards, and gspmd's blocks
         self._zero_mode: Optional[str] = None
         self._zero_layout: Optional[zero.FlatLayout] = None
+        self._zero_dims: Optional[zero.DimLayout] = None
+        #: {path: spec} of the parameters' layout (None until installed)
+        self.param_specs: Optional[Dict[str, tuple]] = None
+        #: {path: LeafShard} of the parameters cut over the mesh
+        self.shards: Dict[str, sharding.LeafShard] = {}
 
     def set_frozen(self, names):
         self.frozen_names = frozenset(names or ())
@@ -562,9 +582,88 @@ class SPMDTrainer:
 
     def ensure_initialized(self):
         self.model.to(self.device)
+        self._install_layout()
         if self.opt_state is None:
             with torch.no_grad():
                 self.opt_state = self.tx.init(self._opt_params())
+
+    # ------------------------------------------------------------------
+    # the parameters' layout over the mesh (parallel/sharding.py)
+    # ------------------------------------------------------------------
+    def _install_layout(self) -> None:
+        """Resolve the parameters' layout (``set_param_sharding``, else
+        ``ZooConfig.param_sharding``; JAX ``_place_state``), refuse a
+        misconfigured mesh, and cut each parameter laid out over an axis
+        longer than one into this rank's block (once)."""
+        if self.param_specs is not None:
+            return
+        fn = None
+        if hasattr(self.model, "_resolve_param_sharding_fn"):
+            fn = self.model._resolve_param_sharding_fn(
+                self.model.graph_function())
+        specs = sharding.model_specs(self.model, fn) if fn is not None \
+            else {}
+        self._validate_parallel_config(specs)
+        if self.mesh is not None and specs:
+            self.shards = sharding.install_layout(self.model, specs,
+                                                  self.mesh)
+            if self.shards and getattr(self.optimizer, "clipnorm", None):
+                raise ValueError(
+                    "a layout over the mesh needs an elementwise "
+                    "optimizer: clipnorm takes a global norm of the whole "
+                    "gradient; use set_gradient_clipping_by_l2_norm "
+                    "instead")
+        self.param_specs = specs
+
+    def _validate_parallel_config(self, specs) -> None:
+        """The pipe and expert axes must be used by the parameters'
+        layout; seq is a library-level axis (ring and Ulysses attention).
+        A config that would degrade to replicated compute raises (JAX
+        :294-312)."""
+        if self.mesh is None:
+            return
+        if self.mesh.shape["pipe"] > 1 and not any(
+                sharding.spec_mentions(s, "pipe") for s in specs.values()):
+            raise ValueError(
+                "pipeline_parallel > 1 but no parameter is laid out over "
+                "the 'pipe' axis — use a pipeline-capable model (e.g. "
+                "TransformerLayer/BERT built under this context stacks "
+                "its blocks per stage) with set_param_sharding(), or set "
+                "pipeline_parallel=1")
+        if self.mesh.shape["expert"] > 1 and not any(
+                sharding.spec_mentions(s, "expert") for s in specs.values()):
+            raise ValueError(
+                "expert_parallel > 1 but no parameter is laid out over "
+                "the 'expert' axis — add a SparseMoE layer (e.g. "
+                "TransformerLayer(moe_experts=...)) with "
+                "set_param_sharding(), or set expert_parallel=1")
+
+    def _cut(self, path: str, axis: str) -> bool:
+        """Whether parameter ``path`` is cut over ``axis``."""
+        shard = self.shards.get(path)
+        return shard is not None and axis in shard.axes
+
+    def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The gradients' global L2 norm over the whole leaves: each
+        leaf's squares summed over the axes it is cut over (under gspmd,
+        ``data`` too for the leaves whose blocks are cut there)."""
+        widened = set() if self._zero_dims is None else \
+            set(self._zero_dims.dims)
+        buckets: Dict[tuple, torch.Tensor] = {}
+        for k, g in grads.items():
+            shard = self.shards.get(k)
+            axes = set(shard.axes) if shard is not None else set()
+            if k in widened:
+                axes.add("data")
+            key = tuple(a for a in sharding.AXES if a in axes)
+            sq = (g.float() * g.float()).sum()
+            buckets[key] = buckets[key] + sq if key in buckets else sq
+        total = torch.zeros((), device=self.device)
+        for axes, sq in buckets.items():
+            for axis in axes:
+                sq = collectives.all_reduce(sq, self._group(axis))
+            total = total + sq
+        return torch.sqrt(total)
 
     # ------------------------------------------------------------------
     # the rank mesh: data parallelism and ZeRO-1
@@ -582,17 +681,14 @@ class SPMDTrainer:
         """The process group of ``axis`` (None over one rank)."""
         return None if self.mesh is None else self.mesh.group(axis)
 
-    def _replica_group(self):
-        """The ranks holding replicas of every parameter: the whole world
-        (the mesh has data and seq axes only)."""
-        import torch.distributed as dist
-        return dist.group.WORLD if self.world_size() > 1 else None
-
     def zero_mode(self) -> str:
-        """"off" (stage 0, or dp = 1) or "flat" (stage 1 on a pure
-        data-parallel mesh: flat optimizer shards, reduce-scatter,
-        all-gather). Stage 1 beside a seq axis is JAX's "gspmd" mode
-        (ROADMAP A12.2)."""
+        """"off" (stage 0, or dp = 1), "flat" (stage 1 on a pure
+        data-parallel mesh with every parameter whole: flat optimizer
+        shards, reduce-scatter, all-gather) or "gspmd" (stage 1 beside
+        another axis, or with a parameter laid out over the mesh: the
+        moments of the leaves not laid out over data cut over data along
+        :func:`zero.widen_dim`'s dimension), JAX's choice
+        (``_zero_mode_resolved``)."""
         if self._zero_mode is not None:
             return self._zero_mode
         stage = int(getattr(self.ctx.config, "zero_stage", 0) or 0)
@@ -601,38 +697,64 @@ class SPMDTrainer:
         if stage == 0 or self.axis_size("data") <= 1:
             self._zero_mode = "off"
             return self._zero_mode
-        if self.world_size() != self.axis_size("data"):
-            raise NotImplementedError(
-                "zero_stage=1 beside a sequence-parallel axis is ZeRO's "
-                "gspmd mode, which arrives with ROADMAP A12.2")
         if getattr(self.optimizer, "clipnorm", None):
             raise ValueError(
                 "zero_stage=1 needs an elementwise optimizer: clipnorm "
                 "takes a global norm of the whole gradient; use "
                 "set_gradient_clipping_by_l2_norm instead")
-        self._zero_mode = "flat"
-        self._zero_layout = zero.FlatLayout(
-            {k: p.shape for k, p in self.params().items()},
-            self.axis_size("data"))
+        self._install_layout()
+        dp = self.axis_size("data")
+        all_repl = all(sharding.spec_is_replicated(s)
+                       for s in self.param_specs.values())
+        params = self.params()
+        if self.world_size() == dp and all_repl:
+            self._zero_mode = "flat"
+            self._zero_layout = zero.FlatLayout(
+                {k: p.shape for k, p in params.items()}, dp)
+            return self._zero_mode
+        self._zero_mode = "gspmd"
+        dims = {}
+        for k, p in params.items():
+            shape = sharding.full_shape(p)
+            d = zero.widen_dim(self.param_specs.get(k, ()), shape, dp)
+            if d is not None:
+                dims[k] = d
+        self._zero_dims = zero.DimLayout(
+            {k: p.shape for k, p in params.items()}, dims, dp)
         return self._zero_mode
 
     def _opt_params(self) -> Dict[str, torch.Tensor]:
-        """What the optimizer state mirrors: the parameters, or under
-        ZeRO-1 this rank's flat block of each."""
+        """What the optimizer state mirrors: the parameters, under flat
+        ZeRO-1 this rank's flat block of each, under gspmd this rank's
+        data block of each leaf it cuts."""
         params = self.params()
-        if self.zero_mode() == "off":
+        mode = self.zero_mode()
+        if mode == "off":
             return params
         rank = self.mesh.index("data")
+        if mode == "gspmd":
+            return {k: self._zero_dims.own(p.detach(), k, rank)
+                    if k in self._zero_dims.dims else p
+                    for k, p in params.items()}
         return {k: self._zero_layout.own_block(p.detach(), k, rank)
                 for k, p in params.items()}
 
     def canonical_opt_state(self):
-        """The optimizer state in the parameter-shaped (stage 0) form,
-        what every checkpoint writes. Under ZeRO-1 an all-gather over the
-        data group, so every rank calls it."""
-        if self.zero_mode() == "off":
+        """The optimizer state in the parameter-shaped (stage 0) form:
+        under flat ZeRO-1 an all-gather over the data group, so every
+        rank calls it; under gspmd the cut moments all-gathered into the
+        parameters' own shapes (blocks, for a parameter laid out over
+        the mesh)."""
+        mode = self.zero_mode()
+        if mode == "off":
             return self.opt_state
         with torch.no_grad():
+            if mode == "gspmd":
+                layout, group = self._zero_dims, self.mesh.group("data")
+                return zero._map_param_dicts(
+                    self.opt_state, lambda d: {**d, **layout.gather(
+                        {k: d[k] for k in layout.dims}, group)}
+                    if layout.dims and set(layout.dims) <= set(d) else d)
             return zero.unshard_opt_state(self.opt_state, self._zero_layout,
                                           self.mesh.group("data"))
 
@@ -712,16 +834,21 @@ class SPMDTrainer:
     # ------------------------------------------------------------------
     def _forward(self, xs, generator, training: bool):
         """The model's outputs on device inputs ``xs``, in the compute
-        dtype, as float32."""
-        if self.compute_dtype is None:
+        dtype, as float32. A parameter cut over the mesh enters as its
+        layer computes on it (``sharding.use_param``: all-gathered over
+        the axes its layer does not compute on as blocks)."""
+        if self.compute_dtype is None and not self.shards:
             preds = self.model(list(xs), training=training,
                                generator=generator)
         else:
-            cast = {k: _cast_floating(p, self.compute_dtype)
-                    for k, p in self.model.named_parameters()}
+            dt = self.compute_dtype
+            cast = {}
+            for k, p in self.model.named_parameters():
+                t = sharding.use_param(p) if k in self.shards else p
+                cast[k] = t if dt is None else _cast_floating(t, dt)
+            xs = xs if dt is None else _cast_floating(list(xs), dt)
             preds = torch.func.functional_call(
-                self.model, cast,
-                (_cast_floating(list(xs), self.compute_dtype),),
+                self.model, cast, (list(xs),),
                 dict(training=training, generator=generator))
         return _tree_float(preds)
 
@@ -811,21 +938,42 @@ class SPMDTrainer:
         loss, grads = self.summed_grads(batch)
         params = self.params()
         with torch.no_grad():
-            if self.zero_mode() == "flat":
+            mode = self.zero_mode()
+            if mode == "flat":
                 self._zero_update(loss, grads)
             else:
+                layout = self._zero_dims if mode == "gspmd" else None
+                gnorm = None
+                if self.shards or layout is not None:
+                    want = self.clipping.l2_norm is not None or (
+                        getattr(self.ctx.config, "health_monitor", False)
+                        and getattr(self.ctx.config, "health_grad_sentinel",
+                                    False))
+                    gnorm = self._global_norm(grads) if want else None
                 grads, self._last_gnorm = self.clipping.apply_with_norm(
-                    grads)
+                    grads, precomputed_norm=gnorm)
                 if getattr(self.ctx.config, "health_monitor", False):
                     self._update_sentinel(loss, grads)
+                rank = self.mesh.index("data") if layout else 0
+                # gspmd: this rank's data block of each leaf it cuts (a
+                # view, updated in place, then all-gathered)
+                targets = {k: layout.own(p, k, rank)
+                           if layout and k in layout.dims else p
+                           for k, p in params.items()}
                 updates, self.opt_state = self.tx.update(
-                    grads, self.opt_state, params)
+                    grads, self.opt_state, targets)
                 # frozen layers do not move at all: stateful transforms
                 # (Adam moments from before the freeze, weight decay)
                 # still emit nonzero updates for them, as in the JAX step
-                for k, p in params.items():
+                for k, p in targets.items():
                     if not self._frozen(k):
                         p.add_(updates[k].to(p.dtype))
+                if layout is not None and layout.dims:
+                    full = layout.gather({k: targets[k] for k in
+                                          layout.dims}, self._group("data"))
+                    for k in layout.dims:
+                        if not self._frozen(k):
+                            params[k].copy_(full[k])
             self._average_state()
         self.step += 1
         return loss
@@ -842,26 +990,54 @@ class SPMDTrainer:
             return loss, self._sum_grads(grads)
 
     def _sum_grads(self, grads):
-        """The gradients summed over every rank holding a replica of the
-        parameters: the data group, and the seq group, whose ranks each
+        """The gradients summed over the ranks whose parts make them: the
+        data group (each rank's rows), and the seq group, whose ranks each
         computed the same loss and whose sum therefore holds it ``sp``
-        times (divided by ``sp``), in one all-reduce of one flat buffer.
-        Under ZeRO-1 this rank's flat block of each (one reduce-scatter of
-        the packed gradients, JAX's ``psum_scatter``). Over one rank the
-        gradients as they are."""
-        if self.zero_mode() == "flat":
+        times (divided by ``sp``). On a mesh of data and seq ranks alone,
+        one all-reduce of one flat buffer over the world. A leaf cut over
+        ``data`` (FSDP) was summed by its all-gather's reduce-scatter; the
+        model, pipe and expert ranks hold the same gradient of every
+        replicated leaf already (``copy_to_region`` /
+        ``reduce_from_region``). Under flat ZeRO-1 this rank's flat block
+        of each (one reduce-scatter of the packed gradients, JAX's
+        ``psum_scatter``), under gspmd this rank's data block of each leaf
+        whose moments it cuts. Over one rank the gradients as they
+        are."""
+        mode = self.zero_mode()
+        if mode == "flat":
             layout = self._zero_layout
             return layout.split(collectives.reduce_scatter(
                 layout.pack(grads), self._group("data"), dim=0))
-        group = self._replica_group()
-        if group is None:
+        if self.world_size() == 1:
             return grads
-        keys = list(grads)
+        sp = self.axis_size("seq")
+        cut = self._zero_dims.dims if mode == "gspmd" else {}
+        if cut:
+            grads.update(self._zero_dims.split(collectives.reduce_scatter(
+                self._zero_dims.pack(grads), self._group("data"), dim=0)))
+        rest = [k for k in grads if k not in cut and
+                not self._cut(k, "data")]
+        dp = self.axis_size("data")
+        if not cut and len(rest) == len(grads) and \
+                self.world_size() == dp * sp:
+            import torch.distributed as dist
+            return self._all_reduce_keys(grads, list(grads),
+                                         dist.group.WORLD, sp)
+        self._all_reduce_keys(grads, rest, self._group("data"), 1)
+        if sp > 1:
+            self._all_reduce_keys(grads, list(grads), self._group("seq"), sp)
+        return grads
+
+    def _all_reduce_keys(self, grads, keys, group, divide: int):
+        """Sum ``grads[k]`` for ``keys`` over ``group`` in one all-reduce
+        of one flat buffer, divided by ``divide``; in place in
+        ``grads``. Nothing over a group of one rank (None)."""
+        if not keys or collectives.group_size(group) == 1:
+            return grads
         flat = collectives.all_reduce(
             torch.cat([grads[k].reshape(-1) for k in keys]), group)
-        sp = self.axis_size("seq")
-        if sp > 1:
-            flat.div_(sp)
+        if divide > 1:
+            flat.div_(divide)
         off = 0
         for k in keys:
             n = grads[k].numel()
@@ -1438,15 +1614,20 @@ class SPMDTrainer:
     def _inference_pipeline(self, data, batch_size, monitor):
         """The staged pipeline of ``evaluate``/``predict`` (JAX's
         ``_inference_pipeline``): in order, the last batch padded with
-        zero-weight rows (each chunk's ``real_counts`` unpads it)."""
+        zero-weight rows (each chunk's ``real_counts`` unpads it). Over
+        several ranks each data rank stages its block of every batch
+        (``_rank_block``, JAX's ``P("data")`` batch sharding)."""
         cfg = self.ctx.config
         it = build_host_pipeline(
             data, batch_size, shuffle=False, drop_remainder=False,
             pad_remainder=True,
             transform_workers=getattr(cfg, "transform_workers", -1),
             prefetch_depth=getattr(cfg, "prefetch_depth", 2))
+        put_one = self._put_one
+        if self.world_size() > 1:
+            put_one = lambda b: self._put_one(self._rank_block(b))  # noqa: E731
         return it, DeviceStagingIterator(
-            it, self._put_one, self._put_stacked,
+            it, put_one, self._put_stacked,
             depth=getattr(cfg, "device_ahead", 2), monitor=monitor)
 
     def _emit_inference_stats(self, kind, monitor, n_batches, n_samples,
@@ -1468,8 +1649,10 @@ class SPMDTrainer:
     def evaluate(self, data: FeatureSet, batch_size: int) -> Dict[str, float]:
         """Metric means over ``data``: each batch's (num, den) partial sums
         accumulate on the device and are fetched once. The last batch is
-        padded with zero-weight rows, as in the JAX trainer. The run's
-        Eval* scalars land in :attr:`last_eval_stats`."""
+        padded with zero-weight rows, as in the JAX trainer. Over several
+        ranks each data rank runs its block of each batch and the partial
+        sums are all-reduced over the data group. The run's Eval* scalars
+        land in :attr:`last_eval_stats`."""
         self.ensure_initialized()
         acc: Dict[str, Any] = {}
         monitor = InfeedMonitor(scope="eval")
@@ -1512,8 +1695,10 @@ class SPMDTrainer:
         if not acc:
             raise ValueError("evaluate() got an empty dataset or one "
                              "without labels")
+        data_group = self._group("data")
         with span("eval/device_sync"):
-            host = {k: (n.cpu().numpy(), d.cpu().numpy())
+            host = {k: tuple(collectives.all_reduce(t, data_group).cpu()
+                             .numpy() for t in (n, d))
                     for k, (n, d) in acc.items()}
         self.last_eval_stats = self._emit_inference_stats(
             "Eval", monitor, n_batches, n_samples, time.perf_counter() - t0)
@@ -1527,11 +1712,16 @@ class SPMDTrainer:
         or list of arrays) as float32 numpy, in batches of
         ``batch_size``: the last batch padded to full size and the padding
         cut off on the device, one host transfer at the end (the JAX
-        trainer's ``predict``). None for an empty dataset. The run's
-        Predict* scalars land in :attr:`last_predict_stats`."""
+        trainer's ``predict``). Over several ranks each data rank runs its
+        block of each batch and the rows are all-gathered over the data
+        group, so every rank returns them all, in order. None for an empty
+        dataset. The run's Predict* scalars land in
+        :attr:`last_predict_stats`."""
         if not isinstance(data, FeatureSet):
             data = ArrayFeatureSet(data)
         self.model.to(self.device)
+        self._install_layout()
+        data_group = self._group("data")
         chunks: List[Any] = []
         monitor = InfeedMonitor(scope="predict")
         n_samples = 0
@@ -1552,6 +1742,11 @@ class SPMDTrainer:
                     n_samples += real
                     with span("predict/dispatch"):
                         out = self._observed("predict", forward, xs)
+                    if data_group is not None:
+                        out = [collectives.all_gather(o, data_group)
+                               for o in out] if isinstance(
+                            out, (list, tuple)) else \
+                            collectives.all_gather(out, data_group)
                     chunks.append([o[:real] for o in out]
                                   if isinstance(out, (list, tuple))
                                   else out[:real])
@@ -1794,7 +1989,9 @@ class SPMDTrainer:
         # one writer at a time per trainer, and the snapshot buffers are
         # the previous write's until it has finished
         self.wait_for_checkpoint()
-        if _sharded_format():
+        if _sharded_format() or self.shards:
+            # a layout over the mesh always writes the sharded format:
+            # each rank its own blocks, no leaf gathered to save it
             with span("ckpt/write", step=self.step, format="sharded"):
                 self._save_checkpoint_sharded(directory)
             telemetry.counter("zoo_checkpoint_writes_total").inc()
@@ -1914,6 +2111,13 @@ class SPMDTrainer:
         if leaves is not None and flat:
             with torch.no_grad():
                 target = self.tx.init(self.params())
+        if leaves is not None and (self.shards or self._zero_dims):
+            # whole leaves from the file: this rank's blocks of them
+            paths = optimizer_leaf_params(target, order)
+            live = optimizer_leaves(target, order)
+            leaves = [leaf if path is None else self._block_of_whole(
+                path, np.asarray(leaf), tuple(have.shape))
+                for leaf, path, have in zip(leaves, paths, live)]
         if leaves is not None:
             check_optimizer_leaves(target, leaves, order)
         load_jax_params(self.model, params, state)
@@ -1927,38 +2131,98 @@ class SPMDTrainer:
     # -- the sharded format (utils/sharded_checkpoint.py, JAX :1691) ----
     _SHARDED_GROUPS = ("params", "state", "optim")
 
-    def _sharded_groups(self, opt_state) -> Dict[str, list]:
-        """The leaves of each group in the JAX trees' order (dict keys
-        sorted, as ``jax.tree_util.tree_leaves`` gives them)."""
-        return {"params": _sorted_leaves(self.model.param_tree()),
-                "state": _sorted_leaves(self.model.state_tree()),
-                "optim": optimizer_leaves(opt_state,
-                                          param_order(self.model))}
+    def _regions(self, path: Optional[str], shape) -> Tuple[list, bool]:
+        """(this rank's [(region of the whole leaf, slices of its
+        tensor)], whether it writes them) for a tensor of ``shape`` that
+        mirrors parameter ``path`` (the parameter, or a moment; None for
+        a leaf that mirrors none, which rank 0 writes whole). A moment
+        gspmd cuts over data takes its data block of the parameter's
+        regions."""
+        p = self.params().get(path) if path is not None else None
+        shard = self.shards.get(path) if path is not None else None
+        whole = sharding.full_shape(p) if p is not None else tuple(shape)
+        if shard is not None:
+            regions = [(list(r), list(sl)) for r, sl in shard.regions()]
+            replicas = set(shard.replica_axes())
+        else:
+            regions = [([(0, d) for d in whole],
+                        [slice(0, d) for d in whole])]
+            replicas = {a for a in sharding.AXES
+                        if self.axis_size(a) > 1}
+        dims = self._zero_dims.dims if self._zero_dims is not None else {}
+        if path in dims and tuple(shape) != tuple(p.shape):
+            w = dims[path]
+            b = shape[w]
+            c = self.mesh.index("data")
+            for region, sl in regions:
+                region[w] = (c * b, (c + 1) * b)
+                sl[w] = slice(0, b)
+            replicas.discard("data")
+        writer = all(self.mesh.index(a) == 0 for a in replicas)
+        return [(r, tuple(sl)) for r, sl in regions], writer
+
+    def _block_of_whole(self, path, whole: np.ndarray, shape):
+        """This rank's tensor of ``shape`` (mirroring ``path``) cut out
+        of the whole leaf ``whole``."""
+        out = np.empty(shape, whole.dtype)
+        for region, sl in self._regions(path, shape)[0]:
+            out[sl] = whole[tuple(slice(a, b) for a, b in region)]
+        return out
+
+    def _sharded_leaves(self, opt_state):
+        """Each group's leaves in the JAX trees' order (dict keys sorted,
+        as ``jax.tree_util.tree_leaves`` gives them), each as (tensor or
+        value, the parameter path it mirrors or None, the whole leaf's
+        shape)."""
+        order = param_order(self.model)
+        params = self.params()
+        groups = {"params": [(params[k], k, sharding.full_shape(params[k]))
+                             for k in order]}
+        groups["state"] = [(t, None, tuple(t.shape)) for t in
+                           _sorted_leaves(self.model.state_tree())]
+        optim = []
+        for leaf, path in zip(optimizer_leaves(opt_state, order),
+                              optimizer_leaf_params(opt_state, order)):
+            whole = sharding.full_shape(params[path]) if path is not None \
+                else tuple(np.shape(leaf))
+            optim.append((leaf, path, whole))
+        groups["optim"] = optim
+        return groups
 
     def _save_checkpoint_sharded(self, directory: str) -> None:
         """JAX's ``_save_checkpoint_sharded``: every rank writes its shard
-        file of each group (the replicated state comes out of rank 0, the
-        others' files are empty), a barrier, then rank 0 writes the
+        file of each group (its regions of each leaf laid out over the
+        mesh, as the first of the ranks holding a block; the replicated
+        leaves out of rank 0), a barrier, then rank 0 writes the
         manifests, the meta, the commit and removes stale files. Every
         file of a save carries its step's tag, so the save becomes
-        visible only at the commit."""
-        opt = self.canonical_opt_state()
+        visible only at the commit. Under flat ZeRO-1 the optimizer state
+        is written in its canonical (parameter-shaped) form."""
+        opt = self.canonical_opt_state() if self.zero_mode() == "flat" \
+            else self.opt_state
         tag = f"s{self.step}"
         faults.begin_save()
-        host = None
-        if self.is_rank0():
-            host = {name: [np.array(t.detach().cpu()) if isinstance(
-                t, torch.Tensor) else np.asarray(t) for t in leaves]
-                for name, leaves in self._sharded_groups(opt).items()}
+        groups = self._sharded_leaves(opt)
+        described = {}
         for name in self._SHARDED_GROUPS:
-            sharded_checkpoint.save_shards(
-                directory, name, host[name] if host else [], tag=tag)
+            pieces, descs = [], []
+            for li, (leaf, path, whole) in enumerate(groups[name]):
+                arr = np.array(leaf.detach().cpu()) if isinstance(
+                    leaf, torch.Tensor) else np.asarray(leaf)
+                descs.append(_LeafDesc(whole, arr.dtype))
+                regions, writer = self._regions(path, arr.shape)
+                if writer:
+                    pieces += [(li, region, arr[sl])
+                               for region, sl in regions]
+            described[name] = descs
+            sharded_checkpoint.save_shards(directory, name, [], tag=tag,
+                                           pieces=pieces)
         # every shard file exists before a manifest names it
         collectives.barrier()
         if self.is_rank0():
             for name in self._SHARDED_GROUPS:
                 sharded_checkpoint.write_manifest(directory, name,
-                                                  host[name], tag=tag)
+                                                  described[name], tag=tag)
             serialization.save_pytree(
                 os.path.join(directory, f"meta.{tag}.npz"),
                 self._train_position_meta())
@@ -1981,22 +2245,72 @@ class SPMDTrainer:
         collectives.barrier()
 
     def _load_checkpoint_sharded(self, directory: str) -> None:
-        """Restore the committed sharded set: each group's leaves are
-        assembled from whatever pieces the writer's layout saved, and fill
-        this model's trees (the JAX order) and a fresh canonical optimizer
-        state, which ZeRO-1 then re-shards."""
+        """Restore the committed sharded set (a resharding load): each
+        leaf's regions this rank holds are assembled from whatever pieces
+        the writer's layout saved, never the whole of a leaf laid out
+        over the mesh, and copied into this rank's parameters, state
+        buffers and optimizer state; under flat ZeRO-1 the canonical
+        optimizer state is read whole and re-sharded."""
         tag = sharded_checkpoint.read_commit(directory)
-        params_tree = self.model.param_tree()
-        params = _fill_sorted(params_tree, iter(
-            sharded_checkpoint.load_shards(directory, "params", tag=tag)))
-        state_tree = self.model.state_tree()
-        state = {}
-        if _sorted_leaves(state_tree) and \
-                sharded_checkpoint.exists(directory, "state", tag):
-            state = _fill_sorted(state_tree, iter(
-                sharded_checkpoint.load_shards(directory, "state",
-                                               tag=tag)))
-        leaves = sharded_checkpoint.load_shards(directory, "optim", tag=tag)
+        flat = self.zero_mode() == "flat"
+        if flat:
+            with torch.no_grad():
+                target = self.tx.init(self.params())
+        else:
+            target = self.opt_state
+        groups = self._sharded_leaves(target)
+        if not groups["state"] or not sharded_checkpoint.exists(
+                directory, "state", tag):
+            groups.pop("state")
+        loaded = {}
+        for name, leaves in groups.items():
+            wanted, shapes, dtypes, slices = [], [], [], []
+            for leaf, path, whole in leaves:
+                shape = tuple(np.shape(leaf))
+                regions, _ = self._regions(path, shape)
+                wanted.append([r for r, _ in regions])
+                slices.append((shape, [sl for _, sl in regions]))
+                shapes.append(whole)
+                dtypes.append(_np_dtype(leaf))
+            got = sharded_checkpoint.load_regions(
+                directory, name, wanted, dtypes=dtypes, tag=tag,
+                shapes=shapes)
+            arrays = []
+            for (shape, sls), parts, dt in zip(slices, got, dtypes):
+                out = np.empty(shape, dt)
+                for sl, part in zip(sls, parts):
+                    out[sl] = part
+                arrays.append(out)
+            loaded[name] = arrays
+        with torch.no_grad():
+            for (p, _, _), arr in zip(groups["params"], loaded["params"]):
+                p.copy_(torch.from_numpy(arr).to(device=p.device,
+                                                 dtype=p.dtype))
+            for (t, _, _), arr in zip(groups.get("state", ()),
+                                      loaded.get("state", ())):
+                t.copy_(torch.from_numpy(arr).to(device=t.device,
+                                                 dtype=t.dtype))
+        order = param_order(self.model)
+        target = load_optimizer_leaves(target, loaded["optim"], order)
+        self.opt_state = zero.shard_opt_state(
+            target, self._zero_layout, self.mesh.group("data")) \
+            if flat else target
         meta_name = "meta.npz" if tag is None else f"meta.{tag}.npz"
         meta = serialization.load_pytree(os.path.join(directory, meta_name))
-        self._apply_loaded({"params": params, "state": state}, leaves, meta)
+        self._restore_position(meta)
+
+
+def _np_dtype(leaf) -> np.dtype:
+    """The numpy dtype of a tensor or a value."""
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty((), dtype=leaf.dtype).numpy().dtype
+    return np.asarray(leaf).dtype
+
+
+class _LeafDesc:
+    """A leaf's whole shape and dtype, what a manifest records (rank 0
+    holds only its block of a leaf laid out over the mesh)."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)

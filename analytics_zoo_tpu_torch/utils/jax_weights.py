@@ -102,8 +102,38 @@ def _pair_layers(port_layers, names) -> list:
     return pairs
 
 
-def _copy_leaves(layer, name, src_tree, dst, what) -> None:
+def _restack(src_tree, dst):
+    """A transformer's blocks in the other layout than ``dst`` holds
+    (``model_io`` reads either): per-block ``block{i}.*`` leaves stacked
+    into ``blocks.*`` (the GPipe layout, ``self_attention.py``), or
+    ``blocks.*`` unstacked into ``block{i}.*``."""
     src = _flatten(src_tree)
+    stacked = any(k.startswith("blocks.") for k in dst)
+    if stacked and not any(k.startswith("blocks.") for k in src):
+        per = {}
+        for k, v in src.items():
+            m = re.fullmatch(r"block(\d+)\.(.+)", k)
+            if m:
+                per.setdefault(m.group(2), {})[int(m.group(1))] = v
+        if per:
+            for sub, byi in per.items():
+                src[f"blocks.{sub}"] = np.stack(
+                    [np.asarray(byi[i]) for i in sorted(byi)])
+            src = {k: v for k, v in src.items()
+                   if not re.fullmatch(r"block\d+\..+", k)}
+    elif not stacked and any(k.startswith("blocks.") for k in src):
+        for k in [k for k in src if k.startswith("blocks.")]:
+            arr = np.asarray(src.pop(k))
+            for i in range(arr.shape[0]):
+                src[f"block{i}.{k[len('blocks.'):]}"] = arr[i]
+    return src
+
+
+def _copy_leaves(layer, name, src_tree, dst, what) -> None:
+    # (imported here: parallel/ imports ops/, which imports this module)
+    from ..parallel.sharding import full_shape, load_whole
+
+    src = _restack(src_tree, dst)
     missing = sorted(set(dst) - set(src))
     extra = sorted(set(src) - set(dst))
     if missing or extra:
@@ -111,12 +141,13 @@ def _copy_leaves(layer, name, src_tree, dst, what) -> None:
                          f"{missing}, extra {extra}")
     for path, t in dst.items():
         arr = np.asarray(src[path])
-        if tuple(arr.shape) != tuple(t.shape):
+        want = full_shape(t)
+        if tuple(arr.shape) != want:
             raise ValueError(
                 f"{layer.name}.{path} <- {name}.{path}: shape "
-                f"{tuple(arr.shape)} vs {tuple(t.shape)}")
-        with torch.no_grad():
-            t.copy_(torch.from_numpy(np.array(arr)).to(t.dtype))
+                f"{tuple(arr.shape)} vs {want}")
+        # a parameter laid out over the ranks takes its block
+        load_whole(t, arr)
 
 
 def load_jax_params(model, params: Mapping[str, Mapping[str, Any]],
@@ -181,24 +212,41 @@ def param_order(model, names: Optional[Sequence[str]] = None) -> List[str]:
     return [port for _, port in sorted(keys)]
 
 
-def _opt_walk(state, order, param_set, visit):
+def _opt_walk(state, order, param_set, visit, keyed=False):
     """Visit the optimizer state's leaves in optax's order: ``visit(leaf)``
-    returns the value that replaces it. Returns the rebuilt state."""
+    (``visit(leaf, path)`` with ``keyed``, the parameter path a leaf
+    mirrors or None) returns the value that replaces it. Returns the
+    rebuilt state."""
     if state is None:
         return None
     if isinstance(state, (list, tuple)):
-        return type(state)(_opt_walk(s, order, param_set, visit)
+        return type(state)(_opt_walk(s, order, param_set, visit, keyed)
                            for s in state)
     if isinstance(state, dict):
         if state and all(k in param_set for k in state):
             out = dict(state)
             for k in order:
                 if k in state:
-                    out[k] = visit(state[k])
+                    out[k] = visit(state[k], k) if keyed else \
+                        visit(state[k])
             return out
-        return {k: _opt_walk(v, order, param_set, visit)
+        return {k: _opt_walk(v, order, param_set, visit, keyed)
                 for k, v in state.items()}
-    return visit(state)
+    return visit(state, None) if keyed else visit(state)
+
+
+def optimizer_leaf_params(opt_state, order: Sequence[str]
+                          ) -> List[Optional[str]]:
+    """The parameter path each leaf of :func:`optimizer_leaves` mirrors
+    (an Adam moment's), None for a leaf that mirrors none (a count)."""
+    paths: List[Optional[str]] = []
+
+    def visit(leaf, path):
+        paths.append(path)
+        return leaf
+
+    _opt_walk(opt_state, list(order), set(order), visit, keyed=True)
+    return paths
 
 
 def optimizer_leaves(opt_state, order: Sequence[str]) -> List[Any]:

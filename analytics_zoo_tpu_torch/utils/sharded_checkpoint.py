@@ -375,6 +375,46 @@ def load_shards(directory: str, name: str,
     return out
 
 
+def load_regions(directory: str, name: str,
+                 wanted: Sequence[Optional[Sequence[Sequence[Tuple[int,
+                                                                   int]]]]],
+                 dtypes: Optional[Sequence[Any]] = None,
+                 tag: Optional[str] = None,
+                 shapes: Optional[Sequence[Tuple[int, ...]]] = None
+                 ) -> List[List[np.ndarray]]:
+    """Load regions of a sharded checkpoint's leaves: ``wanted[i]`` is a
+    list of regions (``[(start, stop), ...]`` a dimension) of leaf ``i``,
+    or None for the whole leaf; returns a list of arrays a leaf, one a
+    region. Each region is assembled from the saved pieces that overlap
+    it, whatever layout wrote them (a rank reads its blocks, never the
+    whole leaf). With ``shapes`` the leaves' whole shapes are checked
+    against the manifest's first."""
+    with file_io.open_file(_join(directory, _manifest_name(name, tag)),
+                           "rb") as f:
+        manifest = json.loads(f.read().decode())
+    n = manifest["n_leaves"]
+    if len(wanted) != n:
+        raise ValueError(f"checkpoint has {n} leaves, caller expects "
+                         f"{len(wanted)}")
+    if shapes is not None:
+        for i, (info, shape) in enumerate(zip(manifest["leaves"], shapes)):
+            if tuple(info["shape"]) != tuple(shape):
+                raise ValueError(f"leaf {i}: the checkpoint holds shape "
+                                 f"{tuple(info['shape'])}, expected "
+                                 f"{tuple(shape)}")
+    catalog = _PieceCatalog(directory, manifest)
+    out = []
+    for li, info in enumerate(manifest["leaves"]):
+        shape = tuple(info["shape"])
+        dtype = np.dtype(dtypes[li]) if dtypes is not None \
+            else np.dtype(info["dtype"])
+        regions = wanted[li] if wanted[li] is not None else \
+            [[(0, d) for d in shape]]
+        out.append([catalog.read_region(li, _slices(region), shape, dtype)
+                    for region in regions])
+    return out
+
+
 __all__ = ["COMMIT_FILE", "ChecksumError", "exists", "gc_stale",
-           "load_shards", "process_topology", "read_commit", "save_shards",
+           "load_regions", "load_shards", "process_topology", "read_commit", "save_shards",
            "write_commit", "write_manifest"]

@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
 Serving, int8 inference, serving-fleet, training-observability, host
-data, object-detection, layer-library and data- and sequence-parallel
-paths once on one NVIDIA GPU.
+data, object-detection, layer-library and data-, sequence-, tensor-,
+pipeline- and expert-parallel paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -25,7 +25,9 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               (K1), its backward dq and dkv kernels (K2, K3), the fused
               dropout+add+layer-norm forward and backward (K4, K5),
               among the cases the shapes of the parallel phase's ranks
-              (K1-K3 at (32, 512, 6, 64), K4/K5 on 8,192 rows); then
+              (K1-K3 at (32, 512, 6, 64) and, for leg D, (8, 512, 6,
+              64); K4/K5 on 8,192 rows and, for leg E's microbatches,
+              1,024 rows); then
               ``torch.autograd.grad`` through ``flash_attention_blhd``
               against the plain backward.
 4. serve   -- the BERT-base classifier of ``bench.py`` (full width and
@@ -391,7 +393,21 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               each rank's peak memory, the backend and the collectives
               gloo carried through host memory. The gloo legs' times are
               of two ranks sharing one card through the host, not of
-              NVLink.
+              NVLink. Then in the script's process one float32 step of
+              the classifier and of its MoE variant at B = 8 rows, whose
+              losses and gradients legs D-G read; legs D-G run in leg B
+              and C's launch, after them, each in its own context: D tensor parallelism (model_parallel=2: K1-K3 on 6
+              heads a rank), E pipeline parallelism (pipeline_parallel=2,
+              4 microbatches of 2 rows: K1-K5 24/24/24/48/48 a step), F
+              expert parallelism (expert_parallel=2 on the MoE BERT-base,
+              8 experts, top 2), G FSDP (data_parallel=2,
+              param_sharding="fsdp", ZeRO-1's gspmd mode). Each: the
+              float32 step's loss within 1e-5 and each rank's gradient
+              blocks within 1e-3 of the in-process step's, 2 bf16 steps
+              (dropout 0.1) with the ranks' losses equal and K1-K5's
+              launches a step checked, the step p50 and collectives by
+              kind, each rank's peak memory and its parameters' and
+              Adam moments' bytes against the whole model's.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -415,6 +431,7 @@ import math
 import multiprocessing
 import os
 import queue
+import re
 import shutil
 import signal
 import socket
@@ -495,6 +512,7 @@ from analytics_zoo_tpu_torch.serving.generation import (
     ContinuousBatchScheduler, GenRequest, PrefixCache,
     SpeculativeDecodeEngine, TransformerDecodeEngine)
 from analytics_zoo_tpu_torch.parallel import collectives as par_collectives
+from analytics_zoo_tpu_torch.parallel import sharding as par_sharding
 from analytics_zoo_tpu_torch.parallel import zero
 from analytics_zoo_tpu_torch.utils import (faults, memory, profiling,
                                            serialization, telemetry)
@@ -525,6 +543,10 @@ DLN_SHAPE = (TRAIN_BATCH * 512, 768)
 # full L; K4/K5 take B / 2 rows of 512 (data parallelism) or B rows of
 # 512 / 2 (sequence parallelism), 8,192 rows either way
 PAR_SHARDS = 2
+# the parallel phase's layout legs D-G: B rows a step (every rank's under
+# tensor, pipeline and expert parallelism; B / dp a rank under FSDP),
+# depth cut from leg A's 32; GPipe's M microbatches of B / M rows
+PAR_LAYOUT_BATCH, PAR_PIPE_MICRO = 8, 4
 
 # Tolerances, kernel against plain version, element by element.
 # K1 o: |o - ro| <= atol + rtol * |ro|. float32: the kernel sums in another
@@ -775,6 +797,9 @@ KERNEL_CASES = [
     # the parallel phase's Ulysses shape: every head-split rank at full L
     ("ulysses_train_shape", TRAIN_BATCH, 512, 512, 12 // PAR_SHARDS, 64,
      False, True),
+    # leg D's: a tensor-parallel rank's H / 2 heads at B = 8
+    ("tp_leg_shape", PAR_LAYOUT_BATCH, 512, 512, 12 // PAR_SHARDS, 64,
+     False, True),
 ]
 # the backward's cases: the forward's, less the serving and generation
 # shapes, plus causal tile edges at d=128 and causal Lq < Lk with a wide
@@ -791,6 +816,9 @@ BWD_CASES = [c for c in KERNEL_CASES
 DLN_CASES = [("train_shape",) + DLN_SHAPE + (1.0 - TRAIN_P_DROP,),
              ("parallel_rank_rows", DLN_SHAPE[0] // PAR_SHARDS,
               DLN_SHAPE[1], 1.0 - TRAIN_P_DROP),
+             # leg E's: one GPipe microbatch, B / M rows of 512
+             ("pipeline_micro_rows", PAR_LAYOUT_BATCH // PAR_PIPE_MICRO *
+              512, DLN_SHAPE[1], 1.0 - TRAIN_P_DROP),
              ("ragged", 300, 1000, 0.75),
              ("off_vector_width", 301, 770, 0.8)]
 
@@ -2153,7 +2181,7 @@ CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "chip_smoke_checkpoint")
 # alternating windows of one epoch each: an async checkpoint every
 # CKPT_EVERY steps against none
-CKPT_TIMED_WINDOWS = 4
+CKPT_TIMED_WINDOWS = 2
 CKPT_SERVE_ROWS, CKPT_RESNET_ROWS = 8, 8
 # one step, dropout off, accumulation CKPT_ACCUM against 1 on the same
 # weights and batch: the loss, and each parameter's gradient relative to
@@ -2453,8 +2481,9 @@ def save_serve_resnet(seed, directory):
 
 def time_async_steps(model, x, y, directory):
     """Steps with an async checkpoint every CKPT_EVERY steps against none,
-    in alternating one-epoch windows (async, none, none, async): each
-    step's wall between synchronised clock reads, and the p50."""
+    in alternating one-epoch windows (async, none, none, async, the first
+    CKPT_TIMED_WINDOWS of them): each step's wall between synchronised
+    clock reads, and the p50."""
     step_s = {"async": [], "none": []}
     with _Config(async_checkpoint=True, keep_checkpoints=CKPT_KEEP):
         for w in range(CKPT_TIMED_WINDOWS):
@@ -4596,10 +4625,12 @@ def int8_phase(seed, device, smi):
 # ceiling); Leg C, a fleet of 2 over 2 broker processes (shard://).
 FL_REPO = os.path.dirname(os.path.abspath(__file__))
 FL_ROOT = os.path.join(FL_REPO, "build", "chip_smoke_fleet")
-FL_A_RECORDS, FL_A_AFTER_RESTART = 128, 16
-FL_B_CLEAN, FL_B_RECORDS, FL_B_KILL_AFTER = 256, 256, 32
-FL_CEILING_RECORDS = 512
-FL_C_RECORDS = 128
+# records: depth, halved in PR 18 to keep the script inside its limit
+# beside the parallel phase's legs D-G
+FL_A_RECORDS, FL_A_AFTER_RESTART = 64, 16
+FL_B_CLEAN, FL_B_RECORDS, FL_B_KILL_AFTER = 128, 128, 32
+FL_CEILING_RECORDS = 256
+FL_C_RECORDS = 64
 FL_WORKERS = 2
 # client processes of the timed socket windows (one client alone writes
 # 602 KB records slower than two workers serve them); Leg A's file
@@ -5271,7 +5302,7 @@ OBS_DRILL_BATCHES, OBS_NAN_AT, OBS_GRAD_NAN_AT = 8, 6, 3
 OBS_WATERMARK = 0.01
 # the timing leg: the monitor and accountant off and on in alternating
 # windows of one epoch of OBS_DRILL_BATCHES steps each
-OBS_TIMED_PAIRS = 3
+OBS_TIMED_PAIRS = 2
 # the FLOP count against bench.py's formula, and MFU against that count
 # over the StepTimeMs scalar over the card's peak
 OBS_FLOPS_TOL, OBS_MFU_TOL = 0.01, 0.05
@@ -6022,13 +6053,14 @@ def data_leg_b(seed, root, smi):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        # three epochs' batches through one pool: the first against the
-        # serial transform, the rest for the pool's rate once started
+        # two epochs' batches through one pool: the first against the
+        # serial transform, the second for the pool's rate once started
+        # (depth: three before PR 18)
         stats = TransformStats()
         got, pool = data_pool_pass(
             itertools.chain(*(files.batches(RESNET_BATCH, shuffle=True,
                                             seed=epoch_seed + e)
-                              for e in range(3))),
+                              for e in range(2))),
             chain, workers, stats, steady_after=len(want) + 1)
         got = got[:len(want)]
         if got != want or pool["shm_batches"] < 1:
@@ -7506,9 +7538,9 @@ def par_leg_c(seed):
 
 
 def par_worker_bc(seed):
-    """Legs B and C on the launch's ranks (two sharing the card over
+    """Legs B to G on the launch's ranks (two sharing the card over
     gloo, or one a card over NCCL), one launch: leg B's context, then leg
-    C's over the same process group."""
+    C's and legs D-G's over the same process group."""
     world = int(os.environ["ZOO_TPU_NUM_PROCESSES"])
     ctx = init_nncontext(zoo_nncontext.ZooConfig(data_parallel=world,
                                                  zero_stage=1))
@@ -7518,6 +7550,215 @@ def par_worker_bc(seed):
     ctx = init_nncontext(zoo_nncontext.ZooConfig(data_parallel=1,
                                                  sequence_parallel=world))
     par_worker_report(ctx, "c", **par_leg_c(seed))
+    par_worker_layout(seed)
+
+
+# ---------------------------------------------------------------------------
+# the parallel phase's layout legs D-G: tensor, pipeline and expert
+# parallelism and FSDP with ZeRO-1's gspmd mode, two ranks sharing the card
+# (or one a card over NCCL on a machine with as many cards)
+# ---------------------------------------------------------------------------
+
+PAR_LAYOUT_STEPS = 2
+PAR_LAYOUT_LEGS = ("d", "e", "f", "g")
+
+
+def par_layout_config(leg, world):
+    """The leg's ZooConfig fields over ``world`` ranks: D tensor, E
+    pipeline (M = PAR_PIPE_MICRO), F expert parallelism (the MoE
+    BERT-base), G FSDP with ZeRO-1 (gspmd)."""
+    return {"d": dict(data_parallel=1, model_parallel=world),
+            "e": dict(data_parallel=1, pipeline_parallel=world,
+                      pipeline_microbatches=PAR_PIPE_MICRO),
+            "f": dict(data_parallel=1, expert_parallel=world),
+            "g": dict(data_parallel=world, param_sharding="fsdp",
+                      zero_stage=1)}[leg]
+
+
+def par_layout_model(seed, leg):
+    """The leg's classifier at BERT-base width (leg F's with PR 16's 8
+    experts, top 2), dropout off, Adam at TRAIN_LR, float32; the same
+    weights in every rank and in the in-process reference (drawn from the
+    seed on the CPU, in the same order in the stacked layout)."""
+    config = dict(BERT_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0,
+                  **(MOE_CONFIG if leg == "f" else {}))
+    model = build_classifier(seed + 5, config)
+    model.compile(optimizer=Adam(lr=TRAIN_LR),
+                  loss="sparse_categorical_crossentropy")
+    return model
+
+
+def par_layout_per_step(leg, world):
+    """K1-K5 launched a step on a rank: the 12 blocks' (a pipe rank's
+    n_block / S blocks once a microbatch)."""
+    n = BERT_CONFIG["n_block"]
+    if leg == "e":
+        n = n // world * PAR_PIPE_MICRO
+    return {attn.KERNEL_NAME: n, attn.DQ_KERNEL_NAME: n,
+            attn.DKV_KERNEL_NAME: n, dln.FWD_KERNEL_NAME: 2 * n,
+            dln.BWD_KERNEL_NAME: 2 * n}
+
+
+def par_rel_name(model, name):
+    """A parameter's name with its layer's position in the graph in
+    place of the layer's name (the ranks' models number layers apart)."""
+    layer, _, rest = name.partition(".")
+    names = [l.name for l in model.graph_function().layers]
+    return f"{names.index(layer)}:{rest}"
+
+
+def par_layout_reference(seed):
+    """The in-process float32 steps the legs' gates hold each rank to:
+    the dense and the MoE classifier's loss and every gradient of one
+    step on PAR_LAYOUT_BATCH rows, dropout off, saved for the ranks."""
+    x, y, _ = train_data(seed + 3, PAR_LAYOUT_BATCH)
+    out = {}
+    for kind, leg in (("dense", "d"), ("moe", "f")):
+        model = par_layout_model(seed, leg)
+        trainer = model._ensure_trainer()
+        trainer.ensure_initialized()
+        loss = trainer.loss_and_grads(trainer.put_batch(
+            (x, y, np.ones(PAR_LAYOUT_BATCH, np.float32))))
+        grads = {par_rel_name(model, n): p.grad.detach().cpu()
+                 for n, p in model.named_parameters()}
+        out[kind] = dict(loss=float(loss), moment_bytes=zero.per_rank_bytes(
+            trainer.opt_state))
+        torch.save({"loss": float(loss), "grads": grads},
+                   os.path.join(PAR_ROOT, f"layout_{kind}.pt"))
+        del model, trainer, grads
+        collect()
+    return out
+
+
+def par_layout_want(trainer, name, rel, grads):
+    """The reference gradient of parameter ``name`` as this rank holds
+    it: the stacked layout's blocks stacked, then the rank's block of the
+    leaf, then under gspmd its data block."""
+    m = re.fullmatch(r"(\d+):blocks\.(.+)", rel)
+    if m:
+        full = torch.stack([grads[f"{m.group(1)}:block{i}.{m.group(2)}"]
+                            for i in range(BERT_CONFIG["n_block"])])
+    else:
+        full = grads[rel]
+    want = full
+    shard = trainer.shards.get(name)
+    if shard is not None:
+        want = shard.block_of(full)
+    dims = trainer._zero_dims
+    if dims is not None and name in dims.dims:
+        want = dims.own(want, name, trainer.mesh.index("data"))
+    return full, want
+
+
+def par_layout_gate(trainer, seed, kind):
+    """The float32 gate on this rank: one step's loss and its gradient
+    blocks against the in-process step's, each block's error over the
+    whole reference gradient's norm (``par_gate``'s measure)."""
+    ref = torch.load(os.path.join(PAR_ROOT, f"layout_{kind}.pt"))
+    x, y, _ = train_data(seed + 3, PAR_LAYOUT_BATCH)
+    batch = trainer.put_batch(trainer._rank_block(
+        MiniBatch(tuple(x), y, np.ones(PAR_LAYOUT_BATCH, np.float32))))
+    loss, grads = trainer.summed_grads(batch)
+    worst, worst_name = 0.0, None
+    for name, g in grads.items():
+        full, want = par_layout_want(trainer, name,
+                                     par_rel_name(trainer.model, name),
+                                     ref["grads"])
+        g = g.float().cpu()
+        if tuple(g.shape) != tuple(want.shape):
+            raise AssertionError(f"{name}: block {tuple(g.shape)}, "
+                                 f"expected {tuple(want.shape)}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite gradient")
+        rel = ((g - want).norm() / max(full.norm().item(), 1e-12)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_err = abs(float(loss) - ref["loss"])
+    res = dict(rows=PAR_LAYOUT_BATCH, dropout=0.0, compute_dtype="float32",
+               loss=float(loss), in_process_loss=ref["loss"],
+               loss_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
+               max_grad_rel_err=worst, max_grad_rel_err_param=worst_name,
+               grad_tol=TRAIN_GRAD_TOL, zero_mode=trainer.zero_mode(),
+               cut_leaves=len(trainer.shards))
+    if loss_err > TRAIN_LOSS_TOL or worst > TRAIN_GRAD_TOL:
+        raise AssertionError(f"float32 gate: {res}")
+    return res
+
+
+def par_layout_leg(leg, seed, world):
+    """One layout leg on this rank: its context, the float32 gate, then
+    PAR_LAYOUT_STEPS bf16 steps (dropout 0.1) with K1-K5's launches
+    checked, the memory a rank and the timed steps with their
+    collectives by kind."""
+    zoo_nncontext.set_nncontext(None)
+    ctx = init_nncontext(zoo_nncontext.ZooConfig(
+        **par_layout_config(leg, world)))
+    kind = "moe" if leg == "f" else "dense"
+    t0 = time.perf_counter()
+    model = par_layout_model(seed, leg)
+    trainer = model._ensure_trainer()
+    trainer.ensure_initialized()
+    gate = par_layout_gate(trainer, seed, kind)
+    # the gate moved no weight: the bf16 fit starts from the same ones, on
+    # a new trainer (a new Adam state) over the layout already cut, with
+    # dropout on
+    bert = next(l for l in model.graph_function().layers
+                if isinstance(l, L.BERT))
+    bert.hidden_p_drop = bert.attn_p_drop = TRAIN_P_DROP
+    model.set_compute_dtype("bfloat16")
+    del trainer
+    collect()
+    t1 = time.perf_counter()
+    x, y, _ = train_data(seed, PAR_LAYOUT_BATCH, ids=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    par_collectives.CALLS.reset()
+    model.fit(x, y, batch_size=PAR_LAYOUT_BATCH, nb_epoch=PAR_LAYOUT_STEPS)
+    torch.cuda.synchronize()
+    launches = _kernels.LAUNCHES.snapshot()
+    want = {k: PAR_LAYOUT_STEPS * v
+            for k, v in par_layout_per_step(leg, world).items()}
+    if launches != want:
+        raise AssertionError(f"leg {leg.upper()}: launches {launches}, "
+                             f"expected {want}")
+    losses = list(model.trainer.step_losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"leg {leg.upper()}: losses {losses}")
+    trainer = model.trainer
+    params = dict(model.named_parameters())
+    cut = [n for n in params if n in trainer.shards]
+    out = dict(config=par_layout_config(leg, world), gate=gate,
+               losses=losses, launches=launches,
+               fit_collective_calls=par_collectives.CALLS.snapshot(),
+               fit_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               zero_mode=trainer.zero_mode(),
+               moment_bytes=zero.per_rank_bytes(trainer.opt_state),
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in params.values()),
+               whole_param_bytes=sum(
+                   int(np.prod(par_sharding.full_shape(p))) * 4
+                   for p in params.values()),
+               cut_param_bytes=sum(params[n].numel() * 4 for n in cut),
+               cut_whole_param_bytes=sum(
+                   int(np.prod(par_sharding.full_shape(params[n]))) * 4
+                   for n in cut),
+               rows_per_rank=PAR_LAYOUT_BATCH // trainer.axis_size("data"))
+    t2 = time.perf_counter()
+    out["timing"] = par_timed(trainer, x, y)
+    out["seconds"] = dict(gate=t1 - t0, fit=t2 - t1,
+                          timed=time.perf_counter() - t2)
+    par_worker_report(ctx, leg, **out)
+    del model, trainer, params
+    collect()
+
+
+def par_worker_layout(seed):
+    """Legs D-G on the launch's ranks, one after another over one process
+    group (each leg's context makes its own mesh of groups)."""
+    world = int(os.environ["ZOO_TPU_NUM_PROCESSES"])
+    for leg in PAR_LAYOUT_LEGS:
+        par_layout_leg(leg, seed, world)
 
 
 def parallel_worker(leg, seed):
@@ -7527,8 +7768,57 @@ def parallel_worker(leg, seed):
     _kernels.library()
     if leg in ("a", "a_resume"):
         par_worker_a(seed, resume=leg == "a_resume")
+    elif leg == "layout":
+        par_worker_layout(seed)
     else:
         par_worker_bc(seed)
+
+
+def layout_reports():
+    """Legs D-G's reports, {leg: each rank's}; the ranks' losses must
+    agree."""
+    layout = {leg: par_reports(leg, PAR_RANKS) for leg in PAR_LAYOUT_LEGS}
+    for leg, ranks in layout.items():
+        if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+            raise AssertionError(f"leg {leg.upper()}: the ranks' losses "
+                                 f"differ {[r['losses'] for r in ranks]}")
+    return layout
+
+
+def layout_report(ref, layout):
+    """Legs D-G's part of the parallel phase's report."""
+    keys = ("rank", "gate", "losses", "launches", "zero_mode",
+            "moment_bytes", "param_bytes", "whole_param_bytes",
+            "cut_param_bytes", "cut_whole_param_bytes", "rows_per_rank",
+            "fit_peak_memory_bytes", "peak_memory_bytes",
+            "fit_collective_calls", "timing", "seconds")
+    return {leg: dict(
+        backend=ranks[0]["backend"], world=PAR_RANKS,
+        config=ranks[0]["config"],
+        gloo_host_routed_kinds=ranks[0]["gloo_host_routed_kinds"],
+        in_process_moment_bytes=ref["moe" if leg == "f" else "dense"][
+            "moment_bytes"],
+        ranks=[{k: r[k] for k in keys if k in r} for r in ranks])
+        for leg, ranks in layout.items()}
+
+
+def layout_phase(seed, smi):
+    """Legs D-G alone (``tools/parallel_phase.py --layout-only``): the
+    report and the K1-K5 launches of every rank's fit."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    os.makedirs(PAR_ROOT)
+    try:
+        ref = par_layout_reference(seed)
+        seconds = par_launch("layout", PAR_RANKS, seed)
+        layout = layout_reports()
+    finally:
+        shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    launches = par_sum_launches(*(r["launches"] for ranks in
+                                  layout.values() for r in ranks))
+    return dict(card=smi, legs_d_to_g=layout_report(ref, layout),
+                launch_s=dict(d_to_g=seconds), launches=launches,
+                wall_s=time.perf_counter() - t0), launches
 
 
 def par_sum_launches(*reports):
@@ -7547,6 +7837,7 @@ def parallel_phase(seed, dev, smi):
     os.makedirs(PAR_ROOT)
     try:
         ref = par_reference(seed, dev)
+        layout_ref = par_layout_reference(seed)
         ref_s = time.perf_counter() - t0
         # leg A: one rank over NCCL through the launcher, then resumed
         sharded = {"ZOO_TPU_SHARDED_CHECKPOINT": "1"}
@@ -7561,18 +7852,21 @@ def parallel_phase(seed, dev, smi):
                                  f"{a['losses'][PAR_SAVE_AT:]}")
         if "sharded.commit" not in a["checkpoint"]:
             raise AssertionError(f"leg A checkpoint {a['checkpoint']}")
-        # legs B (data_parallel=2, ZeRO-1) and C (sequence_parallel=2,
-        # Ulysses then ring): two ranks sharing the card, one launch
+        # legs B (data_parallel=2, ZeRO-1), C (sequence_parallel=2,
+        # Ulysses then ring) and D-G (tensor, pipeline, expert
+        # parallelism, FSDP): two ranks sharing the card, one launch
         bc_s = par_launch("bc", PAR_RANKS, seed)
         b, c = par_reports("b", PAR_RANKS), par_reports("c", PAR_RANKS)
         if b[0]["losses"] != b[1]["losses"]:
             raise AssertionError(f"leg B: the ranks' losses differ "
                                  f"{b[0]['losses']} {b[1]['losses']}")
+        layout = layout_reports()
     finally:
         shutil.rmtree(PAR_ROOT, ignore_errors=True)
     launches = par_sum_launches(
         a["launches"], a2["launches"], *(r["launches"] for r in b),
-        *(m["launches"] for r in c for m in r["modes"].values()))
+        *(m["launches"] for r in c for m in r["modes"].values()),
+        *(r["launches"] for ranks in layout.values() for r in ranks))
 
     def rank_view(r, *keys):
         return {k: r[k] for k in keys if k in r}
@@ -7603,9 +7897,25 @@ def parallel_phase(seed, dev, smi):
                    gloo_host_routed_kinds=c[0]["gloo_host_routed_kinds"],
                    ranks=[rank_view(r, "rank", "modes", "seconds")
                           for r in c]),
-        launch_s=dict(a=a_s, a_resume=a2_s, b_and_c=bc_s),
+        legs_d_to_g=layout_report(layout_ref, layout),
+        launch_s=dict(a=a_s, a_resume=a2_s, b_to_g=bc_s),
         launches=launches, wall_s=time.perf_counter() - t0)
     return report, launches
+
+
+class PhaseClock:
+    """Seconds of each phase of ``main``, host clock between marks (the
+    ``phases`` line: where the script's time limit goes)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._name, self._t = None, time.perf_counter()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        if self._name is not None:
+            self.seconds[self._name] = now - self._t
+        self._name, self._t = name, now
 
 
 def main(argv=None):
@@ -7613,7 +7923,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, requests, training data "
                          "and kernel inputs")
-    ap.add_argument("--parallel-worker", choices=("a", "a_resume", "bc"),
+    ap.add_argument("--parallel-worker",
+                    choices=("a", "a_resume", "bc", "layout"),
                     default=None,
                     help="run one rank of a leg of the parallel phase (the "
                          "phase starts these through the launcher)")
@@ -7625,6 +7936,8 @@ def main(argv=None):
         parallel_worker(args.parallel_worker, args.seed)
         return
 
+    clock = PhaseClock()
+    clock.mark("device")
     # 1. device
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -7634,6 +7947,7 @@ def main(argv=None):
          cuda=torch.version.cuda)
     print(smi, flush=True)
 
+    clock.mark("build")
     # 2. build
     t0 = time.perf_counter()
     _kernels.library()
@@ -7643,6 +7957,7 @@ def main(argv=None):
          **_kernels.BUILD_INFO)
     check_tensor_cores(sass)
 
+    clock.mark("kernels")
     # 3. kernels against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7652,6 +7967,7 @@ def main(argv=None):
     check_autograd(dev, args.seed)
     dln_err = check_dln(dev, args.seed)
 
+    clock.mark("serve")
     # 4. serve
     ctx = init_nncontext()
     if ctx.device != dev:
@@ -7690,6 +8006,7 @@ def main(argv=None):
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
          wall_s=wall, latency_s=latency, peak_memory_bytes=peak_bytes)
 
+    clock.mark("train")
     # 5. train, in float32 and then in bf16
     trained, train_report = train(args.seed)
     train_launches = train_report["launches"]
@@ -7701,6 +8018,7 @@ def main(argv=None):
         {"float32": trained, "bfloat16": trained_bf16}, args.seed)
     emit("train_bf16", card=smi, **bf16_report)
 
+    clock.mark("timing")
     # 6. timing
     timed = [requests[i % REQUESTS] for i in range(TIMED_REQUESTS)]
     _, t_latency, t_wall = serve(im, timed, CLIENTS)
@@ -7731,6 +8049,7 @@ def main(argv=None):
                                               D=DLN_SHAPE[1]),
              kernels=rows)
 
+    clock.mark("generate")
     # 7. generate, after the served and trained models' memory is freed
     # (their graphs hold reference cycles, so collect them first)
     del trained, trained_bf16, im, model
@@ -7738,32 +8057,39 @@ def main(argv=None):
     torch.cuda.empty_cache()
     gen_launches, prefill_k1 = generate(args.seed, dev, smi)
 
+    clock.mark("ncf")
     # 8. NeuralCF
     emit("ncf", card=smi, **ncf(args.seed, dev))
 
+    clock.mark("checkpoint")
     # 9. checkpoint, after the generation and NCF models are freed
     collect()
     ckpt_report, accum_launches = checkpoint(args.seed, dev, smi, CKPT_ROOT)
     emit("checkpoint", **ckpt_report)
 
+    clock.mark("sequence")
     # 10. the sequence models
     collect()
     seq_report, seq_launches = sequence(args.seed, smi)
     emit("sequence", **seq_report)
 
+    clock.mark("resnet")
     # 11. ResNet-50
     collect()
     resnet(args.seed, dev, smi)
 
+    clock.mark("cluster_serving")
     # 12. Cluster Serving
     collect()
     cs_launches = cluster_serving(args.seed, dev, smi)
 
+    clock.mark('int8')
     # 13. int8 inference
     collect()
     int8_report, int8_launches = int8_phase(args.seed, dev, smi)
     emit("int8", **int8_report)
 
+    clock.mark("fleet")
     # 14. the fleet: the CLI, the socket broker and the shard fabric
     collect()
     fleet_report, fleet_launches = fleet_phase(args.seed, dev, smi)
@@ -7779,30 +8105,39 @@ def main(argv=None):
              restarted_worker_start_s=fleet_report["leg_b"][
                  "restarted_worker_start_s"]))
 
+    clock.mark("observe")
     # 15. observe: the health monitor, the memory accountant, MFU
     collect()
     obs_report, obs_launches = observe(args.seed, smi)
     emit("observe", **obs_report)
 
+    clock.mark("data")
     # 16. data: the host data layer feeding BERT-base and ResNet-50
     collect()
     data_report, data_launches = data(args.seed, smi)
     emit("data", **data_report)
 
+    clock.mark("detect")
     # 17. detect: image features without OpenCV and SSD-300
     collect()
     detect_report, detect_launches = detect_phase(args.seed, smi)
     emit("detect", **detect_report)
 
+    clock.mark("layers")
     # 18. layers: the MoE transformer and the rest of the layer library
     collect()
     layers_report, layers_launches = layers_phase(args.seed, dev, smi)
     emit("layers", **layers_report)
 
-    # 19. parallel: data and sequence parallelism through the launcher
+    clock.mark("parallel")
+    # 19. parallel: data, sequence, tensor, pipeline and expert
+    # parallelism and FSDP through the launcher
     collect()
     parallel_report, parallel_launches = parallel_phase(args.seed, dev, smi)
     emit("parallel", **parallel_report)
+
+    clock.mark(None)
+    emit("phases", seconds=clock.seconds)
 
     f32 = train_kern[torch.float32]
     bf = train_kern[torch.bfloat16]

@@ -272,19 +272,24 @@ def test_predict_without_a_context_or_a_card_raises(monkeypatch):
 
 
 def test_parallel_branches_raise_not_implemented(monkeypatch):
-    """Sequence and data parallelism run now (tests/test_torch_seq_
-    parallel.py, test_torch_data_parallel.py): asked for on one process
-    they meet JAX's mesh check. The pipeline-parallel (GPipe) layout
-    still raises, naming ROADMAP A12.2, in the context and in the layer."""
-    monkeypatch.setenv("ZOO_TPU_SEQUENCE_PARALLEL", "2")
-    with pytest.raises(ValueError, match="needs 2 devices but 1"):
-        tnn.init_nncontext(device="cpu")
-    monkeypatch.delenv("ZOO_TPU_SEQUENCE_PARALLEL")
-    monkeypatch.setenv("ZOO_TPU_PIPELINE_PARALLEL", "2")
-    with pytest.raises(NotImplementedError, match="A12.2"):
-        tnn.init_nncontext(device="cpu")
-    monkeypatch.delenv("ZOO_TPU_PIPELINE_PARALLEL")
+    """Every parallel mode runs now (tests/test_torch_seq_parallel.py,
+    test_torch_data_parallel.py, test_torch_pipeline_parallel.py, ...):
+    asked for on one process sequence and pipeline parallelism meet JAX's
+    mesh check. Built under a pipe axis the layer stacks its blocks, and
+    refuses what JAX's refuses: an n_block the stages do not divide, and
+    output_all_block."""
+    for var in ("ZOO_TPU_SEQUENCE_PARALLEL", "ZOO_TPU_PIPELINE_PARALLEL"):
+        monkeypatch.setenv(var, "2")
+        with pytest.raises(ValueError, match="needs 2 devices but 1"):
+            tnn.init_nncontext(device="cpu")
+        monkeypatch.delenv(var)
     ctx = tnn.init_nncontext(device="cpu")
     ctx.config.pipeline_parallel = 2
-    with pytest.raises(NotImplementedError, match="A12.2"):
-        _causal_lm("torch")
+    with pytest.raises(ValueError, match="must divide n_block=3"):
+        tl.TransformerLayer(n_block=3, n_head=NH, vocab=VOCAB, seq_len=L,
+                            hidden_size=H).build(torch.Generator(),
+                                                 (None, L))
+    with pytest.raises(ValueError, match="output_all_block=True"):
+        tl.TransformerLayer(n_block=2, n_head=NH, vocab=VOCAB, seq_len=L,
+                            hidden_size=H, output_all_block=True).build(
+            torch.Generator(), (None, L))

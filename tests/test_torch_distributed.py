@@ -3,8 +3,8 @@ package on the CPU.
 
 - The launcher's environment contract (``_maybe_init_distributed``): the
   same partial or inconsistent environments raise with JAX's messages; a
-  mesh that does not cover the world raises JAX's ``ValueError``; the
-  modes of ROADMAP A12.2 raise ``NotImplementedError``.
+  mesh that does not cover the world raises JAX's ``ValueError``, tensor,
+  pipeline and expert parallelism asked for on one process included.
 - The rank mesh numbers ranks as JAX's mesh numbers devices (row-major
   over data, pipe, seq, expert, model), and its process groups are the
   slices of each axis (checked in a gang of four ranks over gloo).
@@ -112,8 +112,16 @@ def test_a_mesh_that_does_not_cover_the_world_raises_as_in_jax():
 @pytest.mark.parametrize("field", ["model_parallel", "pipeline_parallel",
                                    "expert_parallel"])
 def test_the_modes_of_a12_2_raise(field):
-    with pytest.raises(NotImplementedError, match="A12.2"):
+    """Tensor, pipeline and expert parallelism run (test_torch_tensor_
+    parallel.py, test_torch_pipeline_parallel.py, test_torch_expert_
+    parallel.py): asked for on one process each meets JAX's mesh check,
+    as sequence parallelism does, with JAX's message."""
+    with pytest.raises(ValueError) as want:
+        jnn.ZooContext(jnn.ZooConfig(**{field: 2}),
+                       devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match="needs 2 devices but 1") as got:
         tnn.ZooContext(tnn.ZooConfig(**{field: 2}), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_the_backend_rule(monkeypatch):

@@ -40,6 +40,19 @@ from analytics_zoo_tpu_torch.utils.profiling import Ewma
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _trace_dir(tmp_path, monkeypatch):
+    """Telemetry's output of this process and of the workers it starts
+    (flight dumps on a fault path, traces) lands under ``tmp_path``, never
+    in the checkout the tests run from."""
+    from analytics_zoo_tpu_torch.utils import telemetry
+
+    trace = str(tmp_path / "trace")
+    monkeypatch.setenv("ZOO_TPU_TRACE_DIR", trace)
+    monkeypatch.setattr(telemetry, "_TRACE_DIR", trace)
+    return trace
+
+
 # ---------------------------------------------------------------------------
 # admission controller policy
 # ---------------------------------------------------------------------------
@@ -683,6 +696,7 @@ def test_socket_fleet_sigkill_redelivers_exactly_once(tmp_path):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("ZOO_")}
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["ZOO_TPU_TRACE_DIR"] = str(tmp_path / "trace")
     port = _free_port()
     wd = tmp_path / "fleet"
     wd.mkdir()

@@ -34,6 +34,19 @@ from analytics_zoo_tpu_torch.serving.routing import (
     gen_substream, load_reports, substream_backlog, sweep_substream)
 
 
+@pytest.fixture(autouse=True)
+def _trace_dir(tmp_path, monkeypatch):
+    """Telemetry's output of this process and of the workers it starts
+    (flight dumps on a fault path, traces) lands under ``tmp_path``, never
+    in the checkout the tests run from."""
+    from analytics_zoo_tpu_torch.utils import telemetry
+
+    trace = str(tmp_path / "trace")
+    monkeypatch.setenv("ZOO_TPU_TRACE_DIR", trace)
+    monkeypatch.setattr(telemetry, "_TRACE_DIR", trace)
+    return trace
+
+
 def _report(wid, now, **kw):
     kw.setdefault("free_slots", 2)
     kw.setdefault("token_ms", 2.0)

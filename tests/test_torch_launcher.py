@@ -28,6 +28,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 180
 
 
+@pytest.fixture(autouse=True)
+def _trace_dir(tmp_path, monkeypatch):
+    """Telemetry's output of this process and of the workers it starts
+    (flight dumps on a fault path, traces) lands under ``tmp_path``, never
+    in the checkout the tests run from."""
+    from analytics_zoo_tpu_torch.utils import telemetry
+
+    trace = str(tmp_path / "trace")
+    monkeypatch.setenv("ZOO_TPU_TRACE_DIR", trace)
+    monkeypatch.setattr(telemetry, "_TRACE_DIR", trace)
+    return trace
+
+
 def _write(tmp_path, name, body):
     p = tmp_path / name
     p.write_text(textwrap.dedent(body))
@@ -48,6 +61,7 @@ def _run_cli(cwd, args, timeout=TIMEOUT_S):
     env = _env()
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    env["ZOO_TPU_TRACE_DIR"] = os.path.join(str(cwd), "trace")
     p = subprocess.Popen(
         [sys.executable, "-m", "analytics_zoo_tpu_torch.launcher.cli",
          *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -121,10 +121,6 @@ def test_importing_the_port_loads_no_jax():
 #: ported but for those names
 NOT_PORTED = {
     "analytics_zoo_tpu.automl": "A14.5",
-    "analytics_zoo_tpu.parallel": ("A12.2", [
-        "DEFAULT_RULES", "FSDP_RULES", "make_param_sharding_fn",
-        "shard_params", "pipeline_forward", "sequential_reference",
-        "stack_stage_params", "stage_param_sharding"]),
     "analytics_zoo_tpu.pipeline.api.caffe": "A14.5",
     "analytics_zoo_tpu.pipeline.api.net": "A14.5",
     "analytics_zoo_tpu.pipeline.api.onnx": "A14.5",

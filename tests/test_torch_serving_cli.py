@@ -37,6 +37,19 @@ ROW_TOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
+def _trace_dir(tmp_path, monkeypatch):
+    """Telemetry's output of this process and of the workers it starts
+    (flight dumps on a fault path, traces) lands under ``tmp_path``, never
+    in the checkout the tests run from."""
+    from analytics_zoo_tpu_torch.utils import telemetry
+
+    trace = str(tmp_path / "trace")
+    monkeypatch.setenv("ZOO_TPU_TRACE_DIR", trace)
+    monkeypatch.setattr(telemetry, "_TRACE_DIR", trace)
+    return trace
+
+
+@pytest.fixture(autouse=True)
 def _port_on_cpu():
     tnn.set_nncontext(None)
     tnn.init_nncontext(device="cpu")
@@ -74,6 +87,7 @@ def test_serving_lifecycle_cli(tmp_path):
     stream_dir = tmp_path / "stream"
     _tiny_model().save_model(str(model_dir))
     env = _env()
+    env["ZOO_TPU_TRACE_DIR"] = str(tmp_path / "trace")
 
     def cli(*args):
         return subprocess.run(

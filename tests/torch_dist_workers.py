@@ -157,7 +157,7 @@ def mesh_worker(rank, world):
 # ---------------------------------------------------------------------------
 
 def bert_classifier(vocab, hidden, seq_len, n_block=2, n_head=2,
-                    p_drop=0.0):
+                    p_drop=0.0, moe_experts=0):
     """The port's small BERT classifier (test_torch_training.py's)."""
     from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
     from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
@@ -165,7 +165,8 @@ def bert_classifier(vocab, hidden, seq_len, n_block=2, n_head=2,
     bert = tl.BERT(vocab=vocab, hidden_size=hidden, n_block=n_block,
                    n_head=n_head, seq_len=seq_len,
                    intermediate_size=2 * hidden, hidden_p_drop=p_drop,
-                   attn_p_drop=p_drop, output_all_block=False)
+                   attn_p_drop=p_drop, output_all_block=False,
+                   moe_experts=moe_experts)
     ins = [tl.Input(shape=(seq_len,), name="tokens"),
            tl.Input(shape=(seq_len,), name="positions"),
            tl.Input(shape=(seq_len,), name="segments"),
@@ -352,3 +353,245 @@ def causal_lm_worker(rank, world, cfg, params, x, y, batch, epochs):
         out["params"] = {n: p.detach().numpy().copy()
                          for n, p in model.named_parameters()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor, pipeline and expert parallelism, FSDP
+# ---------------------------------------------------------------------------
+
+def flat_params(tree, prefix=""):
+    """{layer: nested dict} as {"layer.path": numpy}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_params(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.array(v.detach().cpu())
+    return out
+
+
+def layout_fit_worker(rank, world, arch, params, x, y, batch, epochs,
+                      lr=None, ckpt=None, eval_batch=6):
+    """``fit`` of the small BERT classifier from the JAX weights
+    ``params`` under the gang's layout (Adam, or SGD at ``lr``): every
+    rank's step losses, its parameters' shapes (its blocks), the layout's
+    specs, the ZeRO mode, its optimizer-state bytes and moments' shapes,
+    ``predict`` of ``x`` and ``evaluate`` at ``eval_batch``; rank 0 also
+    the whole trained parameters. With ``ckpt`` the trainer saves a
+    checkpoint there at the end."""
+    from analytics_zoo_tpu_torch.parallel import zero
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.utils import load_jax_params
+    from analytics_zoo_tpu_torch.utils.jax_weights import (
+        optimizer_leaf_params, optimizer_leaves, param_order)
+
+    model = bert_classifier(**arch)
+    model.compile(optimizer="adam" if lr is None else SGD(lr=lr),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    load_jax_params(model, params)
+    model.fit(x, y, batch_size=batch, nb_epoch=epochs)
+    trainer = model.trainer
+    order = param_order(model)
+    moments = {}
+    for leaf, path in zip(optimizer_leaves(trainer.opt_state, order),
+                          optimizer_leaf_params(trainer.opt_state, order)):
+        if path is not None:
+            moments.setdefault(path, []).append(tuple(leaf.shape))
+    out = {"losses": list(trainer.step_losses),
+           "shapes": {n: tuple(p.shape)
+                      for n, p in model.named_parameters()},
+           # the leaves no axis cuts, which every rank must hold alike
+           "whole_leaves": {n: p.detach().numpy().copy()
+                            for n, p in model.named_parameters()
+                            if n not in trainer.shards},
+           "specs": dict(trainer.param_specs),
+           "zero_mode": trainer.zero_mode(),
+           "opt_bytes": zero.per_rank_bytes(trainer.opt_state),
+           "moments": moments,
+           "predict": model.predict(x, batch_size=batch),
+           "evaluate": model.evaluate(x, y, batch_size=eval_batch)}
+    whole = flat_params(model.get_params())
+    if rank == 0:
+        out["params"] = whole
+    if ckpt is not None:
+        trainer.save_checkpoint(ckpt)
+    return out
+
+
+def layout_resume_worker(rank, world, arch, ckpt, x, y, batch):
+    """Restore the checkpoint in ``ckpt`` under the gang's layout: the
+    whole restored parameters and canonical moments (rank 0), then one
+    more step's loss."""
+    from analytics_zoo_tpu_torch.feature.feature_set import MiniBatch
+
+    model = bert_classifier(**arch)
+    model.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    trainer = model._ensure_trainer()
+    trainer.ensure_initialized()
+    trainer.load_checkpoint(ckpt)
+    out = {"step": trainer.step,
+           "shapes": {n: tuple(p.shape)
+                      for n, p in model.named_parameters()}}
+    whole = flat_params(model.get_params())
+    if rank == 0:
+        out["params"] = whole
+    batch_t = trainer.put_batch(trainer._rank_block(
+        MiniBatch(tuple(a[:batch] for a in x), y[:batch],
+                  np.ones(batch, np.float32))))
+    out["loss"] = float(trainer.train_step(batch_t))
+    return out
+
+
+def tp_forward_worker(rank, world, seed):
+    """``test_transformer_tp_sharding_and_forward``'s layer (2 blocks, 4
+    heads, hidden 32, L = 16) under the gang's layout: the pooled output
+    of the whole layer before the layout (the reference), the same
+    through the trainer's ``predict`` after it, and the qkv kernel's spec
+    and this rank's shape of it."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+
+    tokens = tl.Input(shape=(16,))
+    layer = tl.TransformerLayer(n_block=2, n_head=4, vocab=100, seq_len=16,
+                                hidden_size=32, output_all_block=False,
+                                hidden_p_drop=0.0, attn_p_drop=0.0)
+    _, pooled = layer(tokens)
+    model = Model(tokens, pooled, seed=seed)
+    x = np.random.default_rng(3).integers(0, 100, (8, 16)).astype(
+        np.float32)
+    with torch.no_grad():
+        ref = model([torch.as_tensor(x)]).numpy()
+    model.compile(optimizer="adam", loss="mse")
+    trainer = model._ensure_trainer()
+    trainer.ensure_initialized()
+    name = f"{layer.name}.block0.qkv_w"
+    return {"ref": ref, "pooled": model.predict(x, batch_size=8),
+            "spec": trainer.param_specs[name],
+            "qkv_shape": tuple(layer.block0.qkv_w.shape)}
+
+
+def _tanh_stages(S, H, seed):
+    """``test_pipeline_moe.py``'s stages: tanh(x @ w + b), per stage."""
+    rs = np.random.default_rng(seed)
+    return [{"w": (rs.standard_normal((H, H)) / np.sqrt(H)).astype(
+        np.float32), "b": (rs.standard_normal(H) * 0.1).astype(np.float32)}
+        for _ in range(S)]
+
+
+def pipeline_stage_worker(rank, world, S, H, B, M, seed, x_seed):
+    """``pipeline_forward`` of the tanh stages over the pipe group (this
+    rank's stage), the output and the gradients of ``mean(out**2)``:
+    this rank's stage's (w, b) and the input's, and the pipeline
+    telemetry events this rank recorded. ``M`` a list: {M: that} for
+    each."""
+    if isinstance(M, (list, tuple)):
+        return {m: pipeline_stage_worker(rank, world, S, H, B, m, seed,
+                                         x_seed) for m in M}
+    import torch
+
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.parallel import pipeline
+    from analytics_zoo_tpu_torch.utils import telemetry
+
+    telemetry.reset_for_tests()
+    telemetry.set_enabled(True)
+    mesh = get_nncontext().mesh
+    stage = mesh.index("pipe")
+    mine = {k: torch.tensor(v, requires_grad=True)
+            for k, v in _tanh_stages(S, H, seed)[stage].items()}
+    x = torch.tensor(np.random.default_rng(x_seed).standard_normal(
+        (B, H)).astype(np.float32), requires_grad=True)
+    out = pipeline.pipeline_forward(
+        lambda p, h: torch.tanh(h @ p["w"] + p["b"]), mine, x, mesh,
+        n_microbatch=M)
+    (out ** 2).mean().backward()
+    events = [dict(ev.get("args", {}), name=ev["name"])
+              for ev in telemetry.flight_events()
+              if ev["name"].startswith("pipeline/")]
+    telemetry.reset_for_tests()
+    return {"out": out.detach().numpy(), "w": mine["w"].grad.numpy(),
+            "b": mine["b"].grad.numpy(), "x": x.grad.numpy(),
+            "events": events}
+
+
+def pipeline_block_worker(rank, world, seed):
+    """``test_pipeline_transformer_block_stage``: a BERT layer's blocks,
+    built stacked under the pipe axis, pipelined one block a stage over
+    the pipe group against the blocks run one after another."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.parallel import pipeline
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+
+    H, L, B = 16, 8, 4
+    bert = tl.BERT(vocab=50, hidden_size=H, n_block=4, n_head=2, seq_len=L,
+                   intermediate_size=2 * H, output_all_block=False,
+                   hidden_p_drop=0.0, attn_p_drop=0.0)
+    params = bert.build(torch.Generator().manual_seed(seed), [(None, L)] * 4)
+    blocks = params["blocks"]
+    stage = get_nncontext().mesh.index("pipe")
+    x = torch.tensor(np.random.default_rng(4).standard_normal(
+        (B, L, H)).astype(np.float32))
+    zero_bias = torch.zeros(B, 1, 1, L)
+
+    def run(p, h):
+        return bert._block(p, h, zero_bias[:h.shape[0]], None, False)
+
+    with torch.no_grad():
+        out = pipeline.pipeline_forward(
+            run, {k: v[stage] for k, v in blocks.items()}, x,
+            get_nncontext().mesh, n_microbatch=2)
+        ref = x
+        for i in range(4):
+            ref = run({k: v[i] for k, v in blocks.items()}, ref)
+    return {"out": out.numpy(), "ref": ref.numpy(),
+            "stacked": tuple(blocks["qkv_w"].shape)}
+
+
+def misconfig_worker(rank, world):
+    """A Sequential of Dense layers under a pipe (or expert) axis:
+    ``fit`` must raise instead of running replicated; the message."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+
+    model = Sequential()
+    model.add(tl.Dense(4, input_shape=(8,)))
+    model.compile(optimizer="adam", loss="mse")
+    x = np.zeros((16, 8), np.float32)
+    y = np.zeros((16, 4), np.float32)
+    try:
+        model.fit(x, y, batch_size=16, nb_epoch=1)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def moe_forward_worker(rank, world, seed):
+    """``test_moe_forward_and_expert_sharding``'s SparseMoE (4 experts,
+    hidden 16, 32 columns, top 2, capacity factor 2) under the gang's
+    layout: its output on whole weights (the reference) and through the
+    trainer's ``predict`` after the layout, the w_in spec and this rank's
+    shape of it."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+
+    inp = tl.Input(shape=(6, 16))
+    layer = tl.SparseMoE(n_experts=4, intermediate_size=32, top_k=2,
+                         capacity_factor=2.0)
+    model = Model(inp, layer(inp), seed=seed)
+    x = np.random.default_rng(5).standard_normal((4, 6, 16)).astype(
+        np.float32)
+    with torch.no_grad():
+        ref = model([torch.as_tensor(x)]).numpy()
+    model.compile(optimizer="adam", loss="mse")
+    trainer = model._ensure_trainer()
+    trainer.ensure_initialized()
+    return {"ref": ref, "out": model.predict(x, batch_size=4),
+            "spec": trainer.param_specs[f"{layer.name}.w_in"],
+            "w_in": tuple(layer.w_in.shape)}
