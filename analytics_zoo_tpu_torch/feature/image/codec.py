@@ -5,18 +5,20 @@ The JAX package decodes with ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``
 gives the same array, BGR uint8 HWC, for the formats ``ImageSet.read``
 lists (jpg, jpeg, png, bmp), chosen by the file's signature:
 
-- JPEG: baseline and extended-sequential Huffman, 8-bit, 1 or 3
-  components, any integer sampling, restart markers. The decoder is C++
-  (``utils/csrc/zoo_image.cpp``, built with g++ at first use) and uses
-  libjpeg's islow IDCT, fancy upsampling and fixed-point colour tables,
-  so its pixels are libjpeg's. Progressive, arithmetic-coded, lossless
-  and 12-bit files raise ``ValueError`` naming the file and the mode.
+- JPEG: baseline, extended-sequential and progressive Huffman, 8-bit, 1,
+  3 or 4 (CMYK/YCCK) components, any integer sampling, restart markers.
+  The decoder is C++ (``utils/csrc/zoo_image.cpp``, built with g++ at
+  first use) and uses libjpeg's islow IDCT, block smoothing, fancy
+  upsampling and fixed-point colour tables, and OpenCV's CMYK->BGR, so
+  its pixels are libjpeg's and OpenCV's. Arithmetic-coded, lossless,
+  hierarchical and 12-bit files raise ``ValueError`` naming the file and
+  the mode.
   An APP1 Exif block's Orientation (1-8) turns the pixels as OpenCV's
   ``applyExifOrientation`` does (:func:`jpeg_exif_orientation`).
 - PNG: ``zlib`` inflates, the five row filters are reversed in the same
   C++ library; 1/2/4/8/16-bit grey, grey+alpha, RGB, RGBA and palette.
   Alpha is dropped and 16-bit samples keep their high byte, as
-  ``IMREAD_COLOR`` does; an Adam7-interlaced file raises ``ValueError``.
+  ``IMREAD_COLOR`` does; Adam7-interlaced files decode pass by pass.
 - BMP: uncompressed 24- and 32-bit, and 8-bit with a palette.
 
 :func:`encode_jpeg` (baseline 4:2:0, the Annex K tables scaled by
@@ -231,19 +233,59 @@ def decode_png(raw: bytes, what: str = "<bytes>") -> np.ndarray:
                          "or IDAT")
     width, height, depth, ctype, _, _, interlace = ihdr
     _check_size(width, height, "PNG", what)
-    if interlace:
-        raise ValueError(f"cannot decode image {what!r}: Adam7-interlaced "
-                         "PNG is not supported")
     if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"cannot decode image {what!r}: PNG colour type "
                          f"{ctype} at {depth} bits")
+    if interlace > 1:
+        raise ValueError(f"cannot decode image {what!r}: PNG interlace "
+                         f"method {interlace}")
     chans = _PNG_CHANNELS[ctype]
-    bits = chans * depth
-    stride = (width * bits + 7) // 8
     try:
         data = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"cannot decode image {what!r}: {e}") from None
+    if not interlace:
+        px, _ = _png_pass(data, width, height, depth, chans, what)
+    else:
+        # Adam7: seven reduced images, each filtered on its own, scattered
+        # into the full grid
+        px = np.empty((height, width, chans), np.uint8)
+        used = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw = (width - x0 + dx - 1) // dx
+            ph = (height - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue
+            part, n = _png_pass(data[used:], pw, ph, depth, chans, what)
+            px[y0::dy, x0::dx] = part
+            used += n
+    if ctype == 0 and depth < 8:   # grey below 8 bits scales to 0..255
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    if ctype == 3:
+        if palette is None:
+            raise ValueError(f"cannot decode image {what!r}: palette PNG "
+                             "without PLTE")
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette[:256]
+        rgb = full[px[:, :, 0]]
+    elif ctype in (0, 4):
+        rgb = np.repeat(px[:, :, :1], 3, axis=2)
+    else:
+        rgb = px[:, :, :3]
+    return np.ascontiguousarray(rgb[:, :, ::-1])
+
+
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_pass(data: bytes, width: int, height: int, depth: int, chans: int,
+              what: str):
+    """One (reduced) image's filtered rows at the head of ``data`` ->
+    (its samples as uint8 (height, width, chans), the bytes it took)."""
+    bits = chans * depth
+    stride = (width * bits + 7) // 8
     out = np.empty(height * stride, np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
     if load_zoo_image().zoo_png_unfilter(
@@ -263,20 +305,7 @@ def decode_png(raw: bytes, what: str = "<bytes>") -> np.ndarray:
         weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
         vals = unpacked.reshape(height, width, depth) @ weights
         px = vals.astype(np.uint8)[:, :, None]
-        if ctype == 0:  # grey below 8 bits scales to 0..255
-            px = px * np.uint8(255 // ((1 << depth) - 1))
-    if ctype == 3:
-        if palette is None:
-            raise ValueError(f"cannot decode image {what!r}: palette PNG "
-                             "without PLTE")
-        full = np.zeros((256, 3), np.uint8)
-        full[:len(palette)] = palette[:256]
-        rgb = full[px[:, :, 0]]
-    elif ctype in (0, 4):
-        rgb = np.repeat(px[:, :, :1], 3, axis=2)
-    else:
-        rgb = px[:, :, :3]
-    return np.ascontiguousarray(rgb[:, :, ::-1])
+    return px, height * (stride + 1)
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:

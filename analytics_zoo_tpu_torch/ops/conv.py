@@ -93,3 +93,43 @@ def conv_general_dilated(x, w, window_strides, padding, rhs_dilation=None,
     y = _CONV[nsp](xc, weight, None, strides, conv_pad, dilation,
                    feature_group_count)
     return from_channels_first(y, lhs)
+
+
+def conv_explicit(x, w, strides, pads, dilation=None, groups: int = 1):
+    """The convolution of NC-first ``x`` with an OI-first kernel ``w``
+    (PyTorch's layout, ONNX's and Caffe's) under explicit ``pads``, one
+    (before, after) per spatial dim: the importers' convolution, cuDNN on
+    the card (channels-last memory for a 2-D one, as above)."""
+    nsp = x.dim() - 2
+    dilation = tuple(dilation or (1,) * nsp)
+    pads = [(int(a), int(b)) for a, b in pads]
+    if all(a == b for a, b in pads):
+        conv_pad = tuple(a for a, _ in pads)
+    else:
+        x, conv_pad = pad_spatial(x, pads), 0
+    if x.is_cuda and nsp == 2:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return _CONV[nsp](x, w, None, tuple(strides), conv_pad, dilation,
+                      groups)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def conv_transpose_explicit(x, w, strides, pads):
+    """The transposed convolution (the gradient of :func:`conv_explicit`
+    with respect to its input) of ``x`` with the (I, O, spatial...)
+    kernel ``w``, its output cropped by ``pads``, one (before, after) per
+    spatial dim; a negative ``after`` grows the output on the high side
+    (ONNX's ``output_padding``)."""
+    nsp = x.dim() - 2
+    y = _CONV_T[nsp](x, w, None, tuple(strides))
+    grow = [max(-b, 0) for _, b in pads]
+    if any(grow):
+        y = F.pad(y, [p for g in reversed(grow) for p in (0, g)])
+    index = [slice(None), slice(None)]
+    for d, (a, b) in enumerate(pads):
+        n = y.shape[2 + d]
+        index.append(slice(a, n - max(b, 0)))
+    return y[tuple(index)]

@@ -60,14 +60,16 @@ def file_module(module: str) -> str:
     return FILE_PREFIX + module[len(PORT_PREFIX):]
 
 
-_INTEROP = (".keras.layers.wrappers.KerasLayerWrapper", ".api.net.",
-            ".api.onnx.", ".api.caffe.", ".tfpark.", ".nnframes.", ".ray.",
-            ".automl.")
+# the interop modules still to port, each with its ROADMAP item
+_INTEROP = {".nnframes.": "A14.6", ".estimator.local_estimator.": "A14.6",
+            ".ray.": "A14.7", ".automl.": "A14.7", ".api.net.tf": "A14.8",
+            ".tfpark.": "A14.8"}
 
 
 def _roadmap_item(path: str) -> str:
-    if any(part in path for part in _INTEROP):
-        return "A14.5"
+    for part, item in _INTEROP.items():
+        if part in path:
+            return item
     if ".parallel." in path:
         return "A12.2"
     if ".models." in path:

@@ -32,7 +32,7 @@ from .crf import CRF
 from .moe import SparseMoE
 from .recurrent import GRU, LSTM, ConvLSTM2D, ConvLSTM3D, SimpleRNN
 from .self_attention import BERT, TransformerLayer
-from .wrappers import Bidirectional, TimeDistributed
+from .wrappers import Bidirectional, KerasLayerWrapper, TimeDistributed
 
 Conv1D = Convolution1D
 Conv2D = Convolution2D
@@ -51,7 +51,8 @@ __all__ = ["Input", "InputLayer", "KerasLayer", "Activation", "Dense",
            "GlobalAveragePooling1D", "GlobalAveragePooling2D",
            "GlobalAveragePooling3D", "BatchNormalization", "LayerNorm",
            "LRN2D", "WithinChannelLRN2D", "SimpleRNN", "LSTM", "GRU",
-           "TimeDistributed", "Bidirectional", "WordEmbedding",
+           "TimeDistributed", "Bidirectional", "KerasLayerWrapper",
+           "WordEmbedding",
            "SpatialDropout1D", "SpatialDropout2D", "SpatialDropout3D",
            "Reshape", "Permute", "RepeatVector", "Masking", "Highway",
            "MaxoutDense", "Narrow", "Squeeze", "ExpandDim", "Identity",

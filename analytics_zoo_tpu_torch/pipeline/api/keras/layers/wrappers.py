@@ -6,7 +6,9 @@ wrapped layers are submodules under the JAX params' role keys --
 ``layer`` for TimeDistributed, ``forward`` and ``backward`` for
 Bidirectional -- so the parameter paths are the JAX tree's
 (``timedistributed_1.layer.kernel``, ``bidirectional_1.forward.W``).
-``KerasLayerWrapper`` is not ported yet (ROADMAP A14.5, with torchnet).
+``KerasLayerWrapper`` wraps a torch callable (a function or a stateless
+``nn.Module``) as a layer; its output shape comes from one call on the
+``meta`` device, as the JAX layer's comes from ``jax.eval_shape``.
 """
 
 from __future__ import annotations
@@ -136,3 +138,27 @@ class Bidirectional(KerasLayer):
         if self.merge_mode == "concat":
             return tuple(inner[:-1]) + (inner[-1] * 2,)
         return inner
+
+
+class KerasLayerWrapper(KerasLayer):
+    """Wrap an arbitrary torch callable (or stateless layer) as a
+    KerasLayer."""
+
+    def __init__(self, torch_layer=None, input_shape=None, name=None,
+                 function=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name)
+        fn = function or torch_layer
+        if not callable(fn):
+            raise ValueError("KerasLayerWrapper needs a callable")
+        # a module given here is called, not registered: it holds no
+        # parameters the layer would train (the JAX layer's contract)
+        self.__dict__["function"] = fn
+
+    def forward(self, x, training=False, **kw):
+        return self.function(x)
+
+    def compute_output_shape(self, input_shape):
+        probe = torch.zeros(tuple(2 if d is None else d
+                                  for d in input_shape), device="meta")
+        out = self.function(probe)
+        return (None,) + tuple(out.shape[1:])

@@ -293,6 +293,8 @@ def get_loss(identifier):
         return identifier
     if isinstance(identifier, (list, tuple)):
         return MultiLoss(identifier)
+    if hasattr(identifier, "as_loss_function"):   # a TorchCriterion
+        return identifier.as_loss_function()
     if callable(identifier):
         fn = identifier
 

@@ -12,8 +12,11 @@ memory; ``load``, ``load_bigdl``, ``do_load`` on a directory that
 package) or as int8 (:class:`QuantizedModel`: ``load_keras_net(
 quantize=True, calibration=, scales=)``, ``load_quantized`` /
 ``do_load_openvino``, ``calibrate``, ``save_calibration``,
-``load_calibration``; the calibration files are the JAX package's). The
-foreign-format loaders (TF, TorchScript, Caffe, ONNX) are not ported.
+``load_calibration``; the calibration files are the JAX package's).
+Foreign models load through the interop importers: ``load_torch`` /
+``do_load_pytorch`` (an ``nn.Module`` or a TorchScript file),
+``load_caffe`` / ``do_load_caffe`` and ``load_onnx``, the last two with
+``quantize=``; ``load_tf`` raises (ROADMAP A14.8).
 
 ``predict_async`` returns the outputs on the model's device.
 :class:`HostCopy` starts their copy to the host without waiting; its
@@ -482,6 +485,60 @@ class InferenceModel:
                                "(load with quantize=True)")
         self.model.calibrate(samples)
         return self
+
+    # -- foreign models (doLoadPyTorch / doLoadCaffe / ONNX) -------------
+    def load_torch(self, module_or_path, device=None, **kw):
+        """A PyTorch module or TorchScript file (doLoadPyTorch parity)
+        through ``pipeline.api.net``'s ``TorchNet``, moved to ``device``
+        (the context's when None)."""
+        from ..api.net import Net, TorchNet
+
+        if isinstance(module_or_path, (AbstractModel, TorchNet)):
+            net = module_or_path
+        else:
+            net = Net.load_torch(module_or_path, **kw)
+        if device is None:
+            from ...common.nncontext import get_nncontext
+            device = get_nncontext().device
+        self._install(net.to(torch.device(device)))
+        return self
+
+    do_load_pytorch = load_torch
+
+    def load_caffe(self, def_path: str, model_path: str,
+                   quantize: bool = False, device=None):
+        """Caffe prototxt + caffemodel (doLoadCaffe parity,
+        InferenceModel.scala) through ``pipeline.api.caffe``; with
+        ``quantize`` its kernel leaves are int8 weight-only, as
+        ``QuantizedModel`` quantizes any model at construction."""
+        from ..api.caffe import load_caffe
+
+        net = load_caffe(def_path, model_path)
+        self._install(QuantizedModel(net, device=device) if quantize
+                      else FloatModel(net, device=device))
+        return self
+
+    do_load_caffe = load_caffe
+
+    def load_onnx(self, model_path: str, quantize: bool = False,
+                  device=None):
+        """An ONNX file through ``pipeline.api.onnx`` (the reference
+        reaches ONNX through OpenVINO's model optimizer); ``quantize`` as
+        in :meth:`load_caffe`."""
+        from ..api.onnx import load_onnx
+
+        net = load_onnx(model_path)
+        self._install(QuantizedModel(net, device=device) if quantize
+                      else FloatModel(net, device=device))
+        return self
+
+    def load_tf(self, model_path: str, backend: str = "auto", **kw):
+        """TensorFlow models (doLoadTF) are not ported yet: the card's
+        machine has no TensorFlow (ROADMAP A14.8)."""
+        from ..api.net import Net
+        return Net.load_tf(model_path, **kw)
+
+    do_load_tf = load_tf
 
     #: file name probed for exported calibration scales inside a model
     #: directory (written by :meth:`save_calibration`)

@@ -1,14 +1,20 @@
 // zoo_image: the image codec's native half for the PyTorch port.
 //
-// Decodes baseline and extended-sequential Huffman JPEG (8-bit, 1 or 3
-// components, any integer sampling such as 4:4:4, 4:2:2, 4:2:0, restart
-// intervals) to BGR uint8 HWC, the layout of cv2.imdecode(IMREAD_COLOR).
-// To give libjpeg's pixels it uses libjpeg's own arithmetic: the islow
-// integer IDCT (jidctint.c) with its range-limit table, the "fancy"
-// triangular upsampling of h2v1, h1v2 and h2v2 (jdsample.c; edge rows and
-// columns replicated as jdmainct.c pads them) and the fixed-point
-// YCbCr->RGB tables (jdcolor.c). Progressive, arithmetic-coded, lossless
-// and 12-bit files are refused with a message naming the mode.
+// Decodes baseline, extended-sequential and progressive Huffman JPEG
+// (8-bit, 1, 3 or 4 components, any integer sampling such as 4:4:4, 4:2:2,
+// 4:2:0, restart intervals) to BGR uint8 HWC, the layout of
+// cv2.imdecode(IMREAD_COLOR). To give libjpeg's pixels it uses libjpeg's
+// own arithmetic: the islow integer IDCT (jidctint.c) with its range-limit
+// table, the "fancy" triangular upsampling of h2v1, h1v2 and h2v2
+// (jdsample.c; edge rows and columns replicated as jdmainct.c pads them)
+// and the fixed-point YCbCr->RGB tables (jdcolor.c). A progressive file's
+// scans (jdphuff.c: DC first and refine, AC first with EOB runs, AC
+// refine) fill the whole image's coefficients; a file whose last scans
+// leave low coefficients unrefined is block-smoothed as jdcoefct.c's
+// decompress_smooth_data does. Four components are CMYK (or YCCK under an
+// Adobe transform of 2), turned into BGR by OpenCV's own formula.
+// Arithmetic-coded, lossless, hierarchical and 12-bit files are refused
+// with a message naming the mode.
 //
 // Encodes baseline JPEG (4:2:0, the Annex K tables scaled by quality as
 // jpeg_quality_scaling does, the standard Huffman tables, the islow
@@ -80,6 +86,16 @@ struct Component {
   std::vector<uint8_t> plane;  // bw*8 x bh*8 samples
   int pred = 0;
   bool scanned = false;
+  // progressive only: the whole image's coefficients (bw x bh blocks of
+  // 64, natural order, libjpeg's 16-bit JCOEF), and per coefficient the
+  // Al of the last scan that touched it (-1: none yet) and its value when
+  // the current scan began (jdphuff.c's coef_bits and their second half)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+  int prev_coef_bits[64];
+  int16_t* block(int bx, int by) {
+    return coef.data() + (static_cast<size_t>(by) * bw + bx) * 64;
+  }
 };
 
 // The entropy-coded data of one scan, read as libjpeg's jdhuff.c reads
@@ -356,6 +372,8 @@ struct Jpeg {
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
   bool frame = false, jfif = false, adobe = false;
+  bool progressive = false, eoi = false;
+  int scans = 0;
   int adobe_transform = -1;
 
   int u8() {
@@ -415,8 +433,9 @@ struct Jpeg {
       throw Error{"JPEG of " + std::to_string(width) + "x" +
                   std::to_string(height) + " pixels is over the limit of " +
                   std::to_string(kMaxPixels)};
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       throw Error{std::to_string(nc) + "-component JPEG is not supported"};
+    progressive = marker == 0xC2;
     comps.resize(nc);
     for (auto& c : comps) {
       c.id = u8();
@@ -441,9 +460,13 @@ struct Jpeg {
       c.dw = (width * c.h + hmax - 1) / hmax;
       c.dh = (height * c.v + vmax - 1) / vmax;
       c.plane.assign(static_cast<size_t>(c.bw) * 8 * c.bh * 8, 0);
+      if (progressive) {
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+        std::fill(c.prev_coef_bits, c.prev_coef_bits + 64, -1);
+      }
     }
     frame = true;
-    (void)marker;
   }
 
   // One block; `skip` (the data ran out earlier in this restart
@@ -497,21 +520,33 @@ struct Jpeg {
       found->ta = t & 15;
       if (found->td > 3 || found->ta > 3)
         throw Error{"SOS Huffman table id out of range"};
-      if (!dc[found->td].present || !ac[found->ta].present)
-        throw Error{"SOS uses a Huffman table never defined"};
-      if (dc[found->td].max_sym > 15)  // libjpeg's JERR_BAD_HUFF_TABLE
-        throw Error{"bad Huffman table: DC symbol " +
-                    std::to_string(dc[found->td].max_sym) + " is over 15"};
       if (!qt_present[found->tq])
         throw Error{"frame uses a quantization table never defined"};
       found->scanned = true;
       scan.push_back(found);
     }
-    int ss = u8(), se = u8();
-    u8();  // Ah/Al
+    int ss = u8(), se = u8(), ahal = u8();
+    int ah = ahal >> 4, al = ahal & 15;
+    // the tables the scan decodes with: a progressive DC scan reads only
+    // its DC table (a refinement none), an AC scan only its AC table
+    const bool dc_band = ss == 0;
+    for (auto* c : scan) {
+      bool need_dc = !progressive || (dc_band && ah == 0);
+      bool need_ac = !progressive || !dc_band;
+      if ((need_dc && !dc[c->td].present) || (need_ac && !ac[c->ta].present))
+        throw Error{"SOS uses a Huffman table never defined"};
+      if (need_dc && dc[c->td].max_sym > 15)  // libjpeg's JERR_BAD_HUFF_TABLE
+        throw Error{"bad Huffman table: DC symbol " +
+                    std::to_string(dc[c->td].max_sym) + " is over 15"};
+    }
+    pos = seg_end;
+    ++scans;
+    if (progressive) {
+      read_progressive_scan(scan, ss, se, ah, al);
+      return;
+    }
     if (ss != 0 || se != 63)
       throw Error{"spectral selection in a sequential scan"};
-    pos = seg_end;
     for (auto* c : scan) c->pred = 0;
     BitReader br{data + pos, data + n};
     int mcus_left = restart_interval, expected_rst = 0;
@@ -550,6 +585,280 @@ struct Jpeg {
     pos = static_cast<size_t>(br.p - data) - (br.marker ? 2 : 0);
   }
 
+  // One progressive scan (jdphuff.c), into the components' coefficients.
+  void read_progressive_scan(const std::vector<Component*>& scan, int ss,
+                             int se, int ah, int al) {
+    // start_pass_phuff_decoder's checks
+    const bool dc_band = ss == 0;
+    bool bad = dc_band ? se != 0
+                       : (ss > se || se > 63 || scan.size() != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) throw Error{"bad progressive JPEG scan parameters"};
+    for (auto* c : scan) {
+      for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+        c->prev_coef_bits[k] = scans > 1 ? c->coef_bits[k] : 0;
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      c->pred = 0;
+    }
+    BitReader br{data + pos, data + n};
+    int mcus_left = restart_interval, expected_rst = 0, eobrun = 0;
+    auto start_mcu = [&]() {
+      if (restart_interval) {
+        if (mcus_left == 0) {
+          br.restart(expected_rst);
+          for (auto* c : scan) c->pred = 0;
+          eobrun = 0;
+          mcus_left = restart_interval;
+        }
+        --mcus_left;
+      }
+      return br.insufficient;
+    };
+    const int p1 = 1 << al, m1 = -(1 << al);
+    // refine one nonzero coefficient's bit `al`, as jdphuff.c does
+    auto refine = [&](int16_t& v) {
+      if (br.bits(1) && (v & p1) == 0)
+        v = static_cast<int16_t>(v + (v >= 0 ? p1 : m1));
+    };
+    auto block_dc = [&](Component& c, int16_t* b, bool skip) {
+      if (ah == 0) {
+        if (skip) return;
+        int s = br.decode(dc[c.td]);
+        int diff = s ? extend(br.bits(s), s) : 0;
+        c.pred = static_cast<int>(static_cast<unsigned>(c.pred) +
+                                  static_cast<unsigned>(diff));
+        b[0] = static_cast<int16_t>(static_cast<unsigned>(c.pred) << al);
+      } else if (br.bits(1)) {  // DC refine reads even past a marker
+        b[0] = static_cast<int16_t>(b[0] | p1);
+      }
+    };
+    auto block_ac_first = [&](Component& c, int16_t* b) {
+      if (eobrun > 0) {
+        --eobrun;
+        return;
+      }
+      for (int k = ss; k <= se; ++k) {
+        int rs = br.decode(ac[c.ta]);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          b[kNatural[k < 79 ? k : 79]] = static_cast<int16_t>(
+              static_cast<unsigned>(extend(br.bits(s), s)) << al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = (1 << r) + (r ? br.bits(r) : 0) - 1;
+          break;
+        }
+      }
+    };
+    auto block_ac_refine = [&](Component& c, int16_t* b) {
+      int k = ss;
+      if (eobrun == 0) {
+        for (; k <= se; ++k) {
+          int rs = br.decode(ac[c.ta]);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            s = br.bits(1) ? p1 : m1;  // s != 1 is a warning in libjpeg
+          } else if (r != 15) {
+            eobrun = (1 << r) + (r ? br.bits(r) : 0);
+            break;
+          }
+          do {
+            int16_t& v = b[kNatural[k < 79 ? k : 79]];
+            if (v != 0) {
+              refine(v);
+            } else if (--r < 0) {
+              break;
+            }
+            ++k;
+          } while (k <= se);
+          if (s) b[kNatural[k < 79 ? k : 79]] = static_cast<int16_t>(s);
+        }
+      }
+      if (eobrun > 0) {
+        for (; k <= se; ++k) {
+          int16_t& v = b[kNatural[k]];
+          if (v != 0) refine(v);
+        }
+        --eobrun;
+      }
+    };
+    if (dc_band && scan.size() > 1) {
+      for (int my = 0; my < mcuy; ++my)
+        for (int mx = 0; mx < mcux; ++mx) {
+          bool skip = start_mcu();
+          for (auto* c : scan)
+            for (int v = 0; v < c->v; ++v)
+              for (int h = 0; h < c->h; ++h)
+                block_dc(*c, c->block(mx * c->h + h, my * c->v + v), skip);
+        }
+    } else {
+      Component& c = *scan[0];
+      int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
+      for (int by = 0; by < nby; ++by)
+        for (int bx = 0; bx < nbx; ++bx) {
+          bool skip = start_mcu();
+          int16_t* b = c.block(bx, by);
+          if (dc_band) block_dc(c, b, skip);
+          else if (skip) continue;
+          else if (ah == 0) block_ac_first(c, b);
+          else block_ac_refine(c, b);
+        }
+    }
+    pos = static_cast<size_t>(br.p - data) - (br.marker ? 2 : 0);
+  }
+
+  // Dequantize and inverse-transform a progressive file's coefficients
+  // into the planes: jdcoefct.c's decompress_data, or, where the scans
+  // left some of the first nine AC coefficients (or all of them) short
+  // of their last bit, its decompress_smooth_data (libjpeg-turbo's 5x5
+  // DC window; SAVED_COEFS = 10).
+  void output_progressive() {
+    bool smooth = false;
+    for (auto& c : comps) {
+      for (int k : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (qt[c.tq][k] == 0) return output_blocks(false);
+      if (c.coef_bits[0] < 0) return output_blocks(false);
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) smooth = true;
+    }
+    output_blocks(smooth);
+  }
+
+  void output_blocks(bool smooth) {
+    int ws[64];
+    for (auto& c : comps) {
+      const int wib = (c.dw + 7) / 8, hib = (c.dh + 7) / 8;
+      const int pitch = c.bw * 8;
+      const uint16_t* q = qt[c.tq];
+      const int* cb = c.coef_bits;
+      const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 &&
+                             cb[4] == -1 && cb[5] == -1 && cb[6] == -1 &&
+                             cb[7] == -1 && cb[8] == -1 && cb[9] == -1;
+      const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16],
+                    Q11 = q[9], Q02 = q[2], Q03 = q[3], Q12 = q[10],
+                    Q21 = q[17], Q30 = q[24];
+      const int total = mcuy, v = c.v;
+      for (int r = 0; r < total; ++r) {
+        int block_rows = v;
+        if (r == total - 1) {
+          block_rows = hib % v;
+          if (block_rows == 0) block_rows = v;
+        }
+        const int image_block_rows = block_rows * total;
+        for (int brow = 0; brow < block_rows; ++brow) {
+          const int R = r * v + brow;
+          uint8_t* out_row = c.plane.data() + static_cast<size_t>(R) * 8 *
+                                                  pitch;
+          if (!smooth) {
+            for (int bx = 0; bx < wib; ++bx) {
+              const int16_t* b = c.block(bx, R);
+              for (int k = 0; k < 64; ++k) ws[k] = b[k];
+              idct_islow(ws, q, out_row + bx * 8, pitch);
+            }
+            continue;
+          }
+          const int ibr = r * block_rows + brow;
+          int rp = ibr > 0 ? R - 1 : R;
+          int rpp = ibr > 1 ? R - 2 : rp;
+          int rn = ibr < image_block_rows - 1 ? R + 1 : R;
+          int rnn = ibr < image_block_rows - 2 ? R + 2 : rn;
+          const int rows[5] = {rpp, rp, R, rn, rnn};
+          auto dcat = [&](int row, int col) -> int {
+            row = std::min(std::max(row, 0), c.bh - 1);
+            col = std::min(std::max(col, 0), c.bw - 1);
+            return c.block(col, row)[0];
+          };
+          // DC[i][j]: libjpeg's DC01..DC25, row i of the window, column j
+          int DC[5][5];
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 5; ++j) DC[i][j] = dcat(rows[i], 0);
+          const int last_col = wib - 1;
+          for (int bx = 0; bx < wib; ++bx) {
+            const int16_t* b = c.block(bx, R);
+            int16_t wsb[64];
+            std::memcpy(wsb, b, sizeof(wsb));
+            // the window's right edge repeats the last block (a component
+            // two blocks wide included)
+            if (bx == 0 && bx < last_col)
+              for (int i = 0; i < 5; ++i)
+                DC[i][3] = DC[i][4] = dcat(rows[i], bx + 1);
+            if (bx + 1 < last_col)
+              for (int i = 0; i < 5; ++i) DC[i][4] = dcat(rows[i], bx + 2);
+            auto D = [&](int n) { return DC[(n - 1) / 5][(n - 1) % 5]; };
+            auto predict = [&](int pos, int coefi, int64_t qk, int64_t num) {
+              int Al = cb[coefi];
+              if (Al == 0 || wsb[pos] != 0) return;
+              int pred;
+              if (num >= 0) {
+                pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+                if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+              } else {
+                pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+                if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+                pred = -pred;
+              }
+              wsb[pos] = static_cast<int16_t>(pred);
+            };
+            predict(1, 1, Q01, Q00 * (change_dc
+                ? (-D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) -
+                   13 * D(9) + 3 * D(10) - 3 * D(11) + 38 * D(12) -
+                   38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+                   13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25))
+                : (-7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15))));
+            predict(8, 2, Q10, Q00 * (change_dc
+                ? (-D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) +
+                   13 * D(7) + 38 * D(8) + 13 * D(9) - D(10) + D(16) -
+                   13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) + D(21) +
+                   3 * D(22) + 3 * D(23) + 3 * D(24) + D(25))
+                : (-7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23))));
+            predict(16, 3, Q20, Q00 * (change_dc
+                ? (D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) -
+                   14 * D(13) - 5 * D(14) + 2 * D(17) + 7 * D(18) +
+                   2 * D(19) + D(23))
+                : (-D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23))));
+            predict(9, 4, Q11, Q00 * (change_dc
+                ? (-D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) +
+                   9 * D(19) + D(21) - D(25))
+                : (D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) +
+                   D(22) - D(24) + D(4) - D(6) + 10 * D(7) - 10 * D(9))));
+            predict(2, 5, Q02, Q00 * (change_dc
+                ? (2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) -
+                   14 * D(13) + 7 * D(14) + D(15) + 2 * D(17) - 5 * D(18) +
+                   2 * D(19))
+                : (-D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15))));
+            if (change_dc) {
+              predict(3, 6, Q03, Q00 * (D(7) - D(9) + 2 * D(12) - 2 * D(14) +
+                                        D(17) - D(19)));
+              predict(10, 7, Q12, Q00 * (D(7) - 3 * D(8) + D(9) - D(17) +
+                                         3 * D(18) - D(19)));
+              predict(17, 8, Q21, Q00 * (D(7) - D(9) - 3 * D(12) +
+                                         3 * D(14) + D(17) - D(19)));
+              predict(24, 9, Q30, Q00 * (D(7) + 2 * D(8) + D(9) - D(17) -
+                                         2 * D(18) - D(19)));
+              int64_t num = Q00 * (
+                  -2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) -
+                  6 * D(6) + 6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) -
+                  8 * D(11) + 42 * D(12) + 152 * D(13) + 42 * D(14) -
+                  8 * D(15) - 6 * D(16) + 6 * D(17) + 42 * D(18) +
+                  6 * D(19) - 6 * D(20) - 2 * D(21) - 6 * D(22) - 8 * D(23) -
+                  6 * D(24) - 2 * D(25));
+              int pred = num >= 0
+                  ? static_cast<int>(((Q00 << 7) + num) / (Q00 << 8))
+                  : -static_cast<int>(((Q00 << 7) - num) / (Q00 << 8));
+              wsb[0] = static_cast<int16_t>(pred);
+            }
+            for (int k = 0; k < 64; ++k) ws[k] = wsb[k];
+            idct_islow(ws, q, out_row + bx * 8, pitch);
+            for (int i = 0; i < 5; ++i)
+              for (int j = 0; j < 4; ++j) DC[i][j] = DC[i][j + 1];
+          }
+        }
+      }
+    }
+  }
+
   void parse() {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8)
       throw Error{"not a JPEG (no SOI marker)"};
@@ -563,7 +872,10 @@ struct Jpeg {
       while (pos < n && data[pos] == 0xFF) ++pos;
       if (pos >= n) break;
       int marker = data[pos++];
-      if (marker == 0xD9) break;  // EOI
+      if (marker == 0xD9) {  // EOI
+        eoi = true;
+        break;
+      }
       // a stuffed zero (data), TEM and RSTn carry no segment
       if (marker == 0x00 || marker == 0x01 ||
           (marker >= 0xD0 && marker <= 0xD7))
@@ -574,15 +886,14 @@ struct Jpeg {
       switch (marker) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
           read_sof(marker);
           break;
-        case 0xC2:
-        case 0xC6:
-          throw Error{"progressive JPEG is not supported"};
         case 0xC3:
         case 0xC7:
           throw Error{"lossless JPEG is not supported"};
         case 0xC5:
+        case 0xC6:
           throw Error{"hierarchical JPEG is not supported"};
         case 0xC9:
         case 0xCA:
@@ -605,10 +916,12 @@ struct Jpeg {
         case 0xDA:
           read_sos(seg_end);
           scanned = true;
-          // every component decoded: the image is whole, and what
-          // follows its last scan (EOI, or bytes a corrupt file left)
-          // is not read
-          if (std::all_of(comps.begin(), comps.end(),
+          // every component of a sequential file decoded: the image is
+          // whole, and what follows its last scan (EOI, or bytes a
+          // corrupt file left) is not read; a progressive file's scans
+          // run to its EOI
+          if (!progressive &&
+              std::all_of(comps.begin(), comps.end(),
                           [](const Component& c) { return c.scanned; }))
             return;
           continue;  // pos is already past the entropy-coded data
@@ -629,6 +942,12 @@ struct Jpeg {
     }
     if (!frame) throw Error{"JPEG without a frame header"};
     if (!scanned) throw Error{"JPEG without image data"};
+    // libjpeg reads a multi-scan file to its EOI before any output, and
+    // OpenCV's memory source cannot supply more data
+    if (progressive && !eoi)
+      throw Error{"progressive JPEG data ends before its EOI (truncated "
+                  "file)"};
+    if (progressive) output_progressive();
   }
 
   // libjpeg's default_decompress_parms: is a 3-component file RGB?
@@ -718,7 +1037,7 @@ struct Jpeg {
     auto a = upsample(comps[0]);
     auto b = upsample(comps[1]);
     auto c = upsample(comps[2]);
-    if (is_rgb()) {
+    if (comps.size() == 3 && is_rgb()) {
       for (size_t i = 0; i < N; ++i) {
         dst[3 * i] = c[i];
         dst[3 * i + 1] = b[i];
@@ -743,12 +1062,33 @@ struct Jpeg {
     auto clamp = [](int v) -> uint8_t {
       return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
     };
+    if (comps.size() == 3) {
+      for (size_t i = 0; i < N; ++i) {
+        int y = a[i], cb = b[i], cr = c[i];
+        dst[3 * i + 2] = clamp(y + cr_r[cr]);
+        dst[3 * i + 1] =
+            clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SB));
+        dst[3 * i] = clamp(y + cb_b[cb]);
+      }
+      return;
+    }
+    // four components: libjpeg's CMYK output (jdcolor.c's
+    // ycck_cmyk_convert first where the Adobe transform says YCCK, as
+    // default_decompress_parms reads it: 0 is CMYK, any other value
+    // YCCK, no Adobe segment CMYK), then OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+    auto d = upsample(comps[3]);
+    const bool ycck = adobe && adobe_transform != 0;
     for (size_t i = 0; i < N; ++i) {
-      int y = a[i], cb = b[i], cr = c[i];
-      dst[3 * i + 2] = clamp(y + cr_r[cr]);
-      dst[3 * i + 1] =
-          clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SB));
-      dst[3 * i] = clamp(y + cb_b[cb]);
+      int cc = a[i], mm = b[i], yy = c[i], k = d[i];
+      if (ycck) {
+        int y = a[i], cb = b[i], cr = c[i];
+        cc = clamp(255 - (y + cr_r[cr]));
+        mm = clamp(255 - (y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SB)));
+        yy = clamp(255 - (y + cb_b[cb]));
+      }
+      dst[3 * i + 2] = static_cast<uint8_t>(k - ((255 - cc) * k >> 8));
+      dst[3 * i + 1] = static_cast<uint8_t>(k - ((255 - mm) * k >> 8));
+      dst[3 * i] = static_cast<uint8_t>(k - ((255 - yy) * k >> 8));
     }
   }
 };

@@ -25,6 +25,12 @@ pairs its layers with the model's as :func:`load_jax_params` does, and
 :func:`load_optimizer_leaves` copies the leaves into the live state. The
 checkpoint store and ``save_model`` both go through these.
 
+A layer that names its tensors otherwise than the JAX layer does (an
+ONNX ``GraphModule``, whose initializer names lose their "."; a
+``TorchNet``, whose JAX fx lowering names a module's tensors ``0_w``,
+``1_rm``) has a ``load_jax_params(tree)`` method that maps its JAX
+tree, and :func:`load_jax_params` hands it the layer's entry.
+
 A layer's tree may nest deeper than one level: a wrapper's role keys
 (``bidirectional_1.forward.W``, ``timedistributed_1.layer.kernel``), a
 Seq2seq coder's ``l{i}`` groups and ``embedding``, a MoE transformer
@@ -176,6 +182,11 @@ def load_jax_params(model, params: Mapping[str, Mapping[str, Any]],
               if hasattr(model, "graph_function") else [model])
     with_params = [l for l in layers if any(True for _ in l.parameters())]
     for layer, name in _pair_layers(with_params, params):
+        if hasattr(layer, "load_jax_params"):
+            # a layer that names its tensors otherwise than JAX does (an
+            # imported graph's, a TorchNet's) maps the JAX tree itself
+            layer.load_jax_params(params[name])
+            continue
         _copy_leaves(layer, name, params[name],
                      dict(layer.named_parameters()), "params")
     if state is None:

@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
 Serving, int8 inference, serving-fleet, training-observability, host
-data, object-detection, layer-library and data-, sequence-, tensor-,
-pipeline- and expert-parallel paths once on one NVIDIA GPU.
+data, object-detection, layer-library, model-interop and data-,
+sequence-, tensor-, pipeline- and expert-parallel paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -336,8 +337,13 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               one image's pre-softmax logits (within 1e-4 of their scale)
               and probabilities against the CPU. D: every file
               decoded again from disk equal to what was written (PNG) or
-              to the in-memory decode of its bytes (JPEG); whether ``cv2``
-              is importable there is printed, it is never imported. K1-K5
+              to the in-memory decode of its bytes (JPEG); the committed
+              progressive, cut-progressive, CMYK, YCCK and progressive
+              CMYK JPEGs (``tools/codec_fixtures``) to OpenCV's pixels
+              (the SHA-256 ``tools/make_codec_fixtures.py`` recorded), and
+              seeded Adam7-interlaced PNGs (RGB 8-bit, grey 16-bit, 1 x 1
+              to 96 x 128) to their pixels; whether ``cv2`` is importable
+              there is printed, it is never imported. K1-K5
               are launched 0 times in the phase. Its files, under
               ``build/chip_smoke_detect``, are deleted at the end.
 18. layers -- (last) the rest of the layer library. A: bench.py's
@@ -408,6 +414,30 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               launches a step checked, the step p50 and collectives by
               kind, each rank's peak memory and its parameters' and
               Adam moments' bytes against the whole model's.
+20. interop -- (run before ``parallel``) foreign models through the
+              importers. A: the native ResNet-50 (``ImageClassifier(1000,
+              "resnet-50")``, weights from ``--seed``) exported with the
+              port's ONNX builder as opset 13 (Conv, BatchNormalization,
+              Relu, MaxPool, Add, GlobalAveragePool, Flatten, Gemm,
+              Softmax) and loaded by ``InferenceModel().load_onnx``: its
+              rows of 2 batches of 16 x 3 x 224 x 224 within 1e-4 of the
+              native ``predict``'s on the card and of its own CPU run on
+              2 rows; ``load_onnx(quantize=True)`` on the card and on the
+              CPU with equal int8 kernels (54) and rows within 1e-4;
+              records/s, the native model's beside it, and load seconds.
+              B: the same weights written in the published
+              ``ResNet-50-deploy.prototxt`` layout (BatchNorm + Scale,
+              Eltwise, ceil-mode pool1) and a caffemodel of packed blobs,
+              through ``load_caffe``, the same gates (no int8 kernels: a
+              blob's name holds no kernel key). K1-K5 launched 0 times
+              in A-B. C: bench.py's classifier with its Dense(2) head a
+              ``TorchNet(nn.Linear(768, 2))`` under a ``TorchCriterion``,
+              ``fit`` in bf16 at 32 x 512 (int32 ids, dropout 0.1) for 4
+              steps: K1-K5 12/12/12/24/24 a step (``launches_interop``),
+              each loss within 2e-2 relative of the native head's from
+              the same weights, a finite nonzero gradient on the torch
+              module's weight and the weight moved on the card; both
+              heads' step p50s from alternating windows.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -422,6 +452,7 @@ import concurrent.futures
 import contextlib
 import copy
 import gc
+import hashlib
 import importlib.util
 import io
 import itertools
@@ -435,6 +466,7 @@ import re
 import shutil
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -482,6 +514,7 @@ from analytics_zoo_tpu_torch.ops import attention as attn
 from analytics_zoo_tpu_torch.ops import fused_dropout_ln as dln
 from analytics_zoo_tpu_torch.ops import kv_cache
 from analytics_zoo_tpu_torch.ops import quant
+from analytics_zoo_tpu_torch.ops.conv import same_pads
 from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
 from analytics_zoo_tpu_torch.pipeline.api.keras.models import (Model,
                                                             Sequential)
@@ -496,6 +529,9 @@ from analytics_zoo_tpu_torch.pipeline.engine import (PinnedStager,
                                                      clear_preemption,
                                                      preemption_requested,
                                                      request_preemption)
+from analytics_zoo_tpu_torch.pipeline.api.caffe import proto as caffe_proto
+from analytics_zoo_tpu_torch.pipeline.api.net import TorchCriterion, TorchNet
+from analytics_zoo_tpu_torch.pipeline.api.onnx import builder as onnx_builder
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 from analytics_zoo_tpu_torch.serving import (ClusterServing,
                                              ClusterServingHelper,
@@ -6253,10 +6289,99 @@ def write_detect_images(seed, root):
     return written
 
 
-def detect_codec_leg(written):
+# the codec's other modes: committed JPEG files (tools/
+# make_codec_fixtures.py writes them, with OpenCV's pixels as a SHA-256:
+# no OpenCV here) and Adam7-interlaced PNGs written from seeded pixels
+CODEC_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tools", "codec_fixtures")
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+ADAM7_SIZES = ((1, 1), (37, 50), (96, 128))
+
+
+def png_filtered(rows, bpp):
+    """PNG rows (h, stride) uint8 with the five filters in turn, each
+    from the raw bytes as PNG defines them."""
+    out, prev = [], np.zeros(rows.shape[1], np.int64)
+    for r, row in enumerate(rows.astype(np.int64)):
+        a = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        ft, b = r % 5, prev
+        if ft == 4:
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        else:
+            pred = (0, a, b, (a + b) // 2)[ft]
+        out.append(bytes([ft]) + ((row - pred) & 255).astype(
+            np.uint8).tobytes())
+        prev = row
+    return b"".join(out)
+
+
+def adam7_png(px, ctype, depth):
+    """(h, w, c) samples (uint8, or uint16 at depth 16) as an
+    Adam7-interlaced PNG of colour type ``ctype``."""
+    h, w, c = px.shape
+    big = px.astype(">u2") if depth == 16 else px.astype(np.uint8)
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        part = big[y0::dy, x0::dx]
+        if part.size:
+            rows = np.frombuffer(part.tobytes(), np.uint8).reshape(
+                part.shape[0], -1)
+            raw += png_filtered(rows, c * depth // 8)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    return (b"\x89PNG\r\n\x1a\n" +
+            chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                       1)) +
+            chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def codec_modes_leg(seed):
+    """The JPEG fixtures decode to OpenCV's pixels (their SHA-256), and
+    seeded Adam7 PNGs (RGB 8-bit, grey 16-bit) to the written pixels."""
+    t0 = time.perf_counter()
+    with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in sorted(manifest.items()):
+        px = codec.imread(os.path.join(CODEC_FIXTURES, name))
+        digest = hashlib.sha256(np.ascontiguousarray(px).tobytes())
+        if list(px.shape) != want["shape"] or \
+                digest.hexdigest() != want["opencv_sha256"]:
+            raise AssertionError(f"{name}: decoded pixels are not "
+                                 f"OpenCV's ({px.shape})")
+    rs = np.random.default_rng(seed)
+    n_png = 0
+    for h, w in ADAM7_SIZES:
+        rgb = rs.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        grey = rs.integers(0, 65536, (h, w, 1)).astype(np.uint16)
+        for px, ctype, depth, want in (
+                (rgb, 2, 8, rgb[:, :, ::-1]),
+                (grey, 0, 16, np.repeat((grey >> 8).astype(np.uint8), 3,
+                                        axis=2))):
+            got = codec.decode(adam7_png(px, ctype, depth), "adam7.png")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"Adam7 PNG {h} x {w} colour type "
+                                     f"{ctype}: decoded pixels differ")
+            n_png += 1
+    return dict(jpeg_fixtures=sorted(manifest), jpeg_opencv=sorted(
+        {v["opencv"] for v in manifest.values()}), adam7_pngs=n_png,
+        modes_wall_s=time.perf_counter() - t0)
+
+
+def detect_codec_leg(written, seed=0):
     """Leg D: every written file decoded again from disk equals what was
     encoded (PNG) or the in-memory decode of the same bytes (JPEG, the
-    same C++ code; its distance from the drawn pixels is reported)."""
+    same C++ code; its distance from the drawn pixels is reported); then
+    the codec's progressive, CMYK/YCCK and Adam7 modes
+    (:func:`codec_modes_leg`)."""
+    modes = codec_modes_leg(seed)
     t0 = time.perf_counter()
     jpeg_err = 0
     for path, (img, first) in written.items():
@@ -6271,7 +6396,8 @@ def detect_codec_leg(written):
                 png_bit_equal=True, jpeg_equal_to_in_memory_decode=True,
                 jpeg_max_abs_err_vs_drawn=jpeg_err,
                 jpeg_quality=DETECT_JPEG_QUALITY,
-                cv2_importable=importlib.util.find_spec("cv2") is not None)
+                cv2_importable=importlib.util.find_spec("cv2") is not None,
+                **modes)
 
 
 def detect_group(name: str) -> str:
@@ -6600,7 +6726,7 @@ def detect_phase(seed, smi):
         del det, cpu_det
         collect()
         classify_c = detect_classifier_leg(seed + 73, DETECT_ROOT)
-        codec_d = detect_codec_leg(written)
+        codec_d = detect_codec_leg(written, seed + 72)
     finally:
         shutil.rmtree(DETECT_ROOT, ignore_errors=True)
     launches = _kernels.LAUNCHES.snapshot()
@@ -7903,6 +8029,533 @@ def parallel_phase(seed, dev, smi):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# 20. interop: ResNet-50 from ONNX and from Caffe, BERT-base with a PyTorch
+# head
+# ---------------------------------------------------------------------------
+
+IO_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_interop")
+# leg A-B: batches of 16 x 3 x 224 x 224, served after one warm batch
+IO_BATCH, IO_TIMED_BATCHES = 16, 8
+IO_CPU_ROWS = 2
+# an imported ResNet-50's softmax rows against the native
+# ImageClassifier.predict on the card (TF32 off), and against its own CPU
+# run: the same float32 convolutions, but batch norm computed as ONNX and
+# Caffe write it, (x - mean) / sqrt(var + eps) * gamma + beta, where the
+# native layer folds it otherwise, and Caffe's pool5 a 7 x 7 average where
+# the native layer takes a mean: rounding alone, 1e-4 as RESNET_PREDICT_TOL
+IO_ROW_TOL = 1e-4
+# Caffe's BatchNorm takes eps 1e-5 (the published prototxt sets none); the
+# native layer's 1e-3 goes into the variance blob instead
+CAFFE_BN_EPS = 1e-5
+# leg C: bench.py's classifier, its Dense(2) head a TorchNet of
+# nn.Linear(768, 2) under a TorchCriterion, bf16 at 32 x 512, dropout 0.1
+# in both models; each step's loss against the native head's from the
+# same weights, relative: the Dense head rounds its softmax to bf16 where
+# the torch loss takes the bf16 logits (BF16_LOSS_TOL)
+IO_STEPS = 4
+IO_LOSS_TOL = BF16_LOSS_TOL
+# the two heads' steps timed in alternating windows of TIMED_STEPS
+IO_TIMED_WINDOWS = 2
+
+
+def _np32(t):
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _linear(layer):
+    act = getattr(layer, "activation", None)
+    return act is None or getattr(act, "name", "linear") in ("linear",
+                                                             None)
+
+
+def resnet_onnx_bytes(model):
+    """``model`` (ImageClassifier("resnet-50")'s NCHW graph, weights and
+    moving statistics as they are) as ONNX opset 13, written with the
+    port's builder: Conv (ZeroPadding2D and XLA's SAME folded into its
+    pads), BatchNormalization, Relu, MaxPool, Add, GlobalAveragePool,
+    Flatten, Gemm and the head's Softmax. Kernels are initializers named
+    ``<layer>_w`` (a QuantizedModel kernel key)."""
+    graph = model.graph_function()
+    (inp,) = graph.inputs
+    out_of, pads_of = {inp.id: "data"}, {}
+    nodes, inits = [], {}
+    N = onnx_builder.make_node
+
+    def src(v):
+        return out_of[v.id if v.node is None else v.node.id]
+
+    for node in graph.nodes:
+        layer, ins, name = node.layer, node.inputs, node.layer.name
+        if isinstance(layer, L.ZeroPadding2D):
+            out_of[node.id] = src(ins[0])
+            pads_of[node.id] = layer.padding
+            continue
+        if isinstance(layer, L.Convolution2D):
+            if not _linear(layer) or layer.dim_ordering != "th":
+                raise ValueError(f"{name}: not a linear NCHW convolution")
+            v = ins[0]
+            (pt, pb), (pl, pr) = pads_of.get(
+                None if v.node is None else v.node.id, ((0, 0), (0, 0)))
+            k = tuple(layer.kernel_size)
+            same = same_pads(v.shape[2:], k, layer.subsample) \
+                if layer.border_mode == "same" else [(0, 0), (0, 0)]
+            inits[f"{name}_w"] = _np32(layer.kernel.permute(3, 2, 0, 1))
+            args = [src(v), f"{name}_w"]
+            if layer.use_bias:
+                inits[f"{name}_b"] = _np32(layer.bias)
+                args.append(f"{name}_b")
+            nodes.append(N("Conv", args, [name], kernel_shape=list(k),
+                           strides=list(layer.subsample),
+                           pads=[pt + same[0][0], pl + same[1][0],
+                                 pb + same[0][1], pr + same[1][1]]))
+        elif isinstance(layer, L.BatchNormalization):
+            for part in ("gamma", "beta"):
+                inits[f"{name}_{part}"] = _np32(getattr(layer, part))
+            inits[f"{name}_mean"] = _np32(layer.moving_mean)
+            inits[f"{name}_var"] = _np32(layer.moving_var)
+            nodes.append(N("BatchNormalization",
+                           [src(ins[0])] + [f"{name}_{p}" for p in (
+                               "gamma", "beta", "mean", "var")], [name],
+                           epsilon=float(layer.epsilon)))
+        elif isinstance(layer, L.Activation):
+            if getattr(layer.fn, "name", None) != "relu":
+                raise ValueError(f"{name}: activation {layer.fn}")
+            nodes.append(N("Relu", [src(ins[0])], [name]))
+        elif isinstance(layer, L.MaxPooling2D):
+            v = ins[0]
+            same = same_pads(v.shape[2:], layer.pool_size, layer.strides) \
+                if layer.border_mode == "same" else [(0, 0), (0, 0)]
+            nodes.append(N("MaxPool", [src(v)], [name],
+                           kernel_shape=list(layer.pool_size),
+                           strides=list(layer.strides),
+                           pads=[same[0][0], same[1][0], same[0][1],
+                                 same[1][1]]))
+        elif isinstance(layer, L.Add):
+            nodes.append(N("Add", [src(v) for v in ins], [name]))
+        elif isinstance(layer, L.GlobalAveragePooling2D):
+            nodes.append(N("GlobalAveragePool", [src(ins[0])],
+                           [name + "_gap"]))
+            nodes.append(N("Flatten", [name + "_gap"], [name]))
+        elif isinstance(layer, L.Dense):
+            inits[f"{name}_w"] = _np32(layer.kernel)
+            inits[f"{name}_b"] = _np32(layer.bias)
+            nodes.append(N("Gemm", [src(ins[0]), f"{name}_w", f"{name}_b"],
+                           [name + "_logits"]))
+            if getattr(layer.activation, "name", None) != "softmax":
+                raise ValueError(f"{name}: activation {layer.activation}")
+            nodes.append(N("Softmax", [name + "_logits"], [name], axis=1))
+        else:
+            raise ValueError(f"{name}: {type(layer).__name__} has no ONNX "
+                             "export here")
+        out_of[node.id] = name
+    (out,) = graph.outputs
+    g = onnx_builder.make_graph(
+        nodes, "resnet50",
+        [onnx_builder.value_info("data", (None,) + tuple(inp.shape[1:]))],
+        [onnx_builder.value_info(src(out), (None,) + tuple(out.shape[1:]))],
+        inits)
+    return onnx_builder.make_model(g, opset=13)
+
+
+def _resnet_blocks(model):
+    """The native ResNet-50's layers in the published deploy layout's
+    order: (stem conv, stem BN), then per bottleneck (branch1 conv and BN
+    or None, [(conv, BN) of branch2a-2c]), and the head Dense. Walked back
+    from each Add: input 0 is branch2c's BN, input 1 the shortcut."""
+    nodes = model.graph_function().nodes
+    stem = next(n for n in nodes if isinstance(n.layer, L.Convolution2D))
+    stem_bn = next(n for n in nodes if isinstance(n.layer,
+                                                  L.BatchNormalization))
+    blocks = []
+    for n in nodes:
+        if not isinstance(n.layer, L.Add):
+            continue
+        branch, v = [], n.inputs[0]
+        while len(branch) < 3:
+            bn = v.node
+            conv = bn.inputs[0].node
+            branch.append((conv.layer, bn.layer))
+            v = conv.inputs[0]
+            if len(branch) < 3:
+                v = v.node.inputs[0]            # through the ReLU
+        short = n.inputs[1].node
+        shortcut = None
+        if isinstance(short.layer, L.BatchNormalization):
+            shortcut = (short.inputs[0].node.layer, short.layer)
+        blocks.append((shortcut, branch[::-1]))
+    head = next(n.layer for n in nodes if isinstance(n.layer, L.Dense))
+    return (stem.layer, stem_bn.layer), blocks, head
+
+
+def resnet_caffe_files(model, root):
+    """``model`` (the native ResNet-50) written as KaimingHe/
+    deep-residual-networks' ``ResNet-50-deploy.prototxt`` lays it out
+    (conv1 with a bias, BatchNorm with use_global_stats + Scale after
+    every convolution, branch1 shortcuts, the stride in branch2a, Eltwise
+    sums, in-place ReLUs, ceil-mode pool1 3 x 3 / 2, pool5 AVE 7 x 7,
+    fc1000, prob) and a caffemodel of its weights, each blob packed from
+    numpy bytes (the native BatchNorm's epsilon folded into the variance
+    blob, CAFFE_BN_EPS). Returns (prototxt path, caffemodel path)."""
+    (stem, stem_bn), blocks, head = _resnet_blocks(model)
+    text = ['name: "ResNet-50"', 'input: "data"'] + \
+        [f"input_dim: {d}" for d in (1, 3, 224, 224)]
+    layers = []
+
+    def blob(arr):
+        arr = np.ascontiguousarray(arr, np.float32)
+        return {"shape": {"dim": list(arr.shape)}, "data": arr.ravel()}
+
+    def conv(name, bottom, layer, stride, pad, bias):
+        k = layer.kernel_size[0]
+        param = f"num_output: {layer.nb_filter} kernel_size: {k} " \
+                f"pad: {pad} stride: {stride}"
+        if not bias:
+            param += " bias_term: false"
+        text.append(f'layer {{ bottom: "{bottom}" top: "{name}" name: '
+                    f'"{name}" type: "Convolution" convolution_param {{ '
+                    f'{param} }} }}')
+        blobs = [blob(_np32(layer.kernel.permute(3, 2, 0, 1)))]
+        if bias:
+            blobs.append(blob(np.zeros(layer.nb_filter, np.float32)))
+        layers.append({"name": name, "type": "Convolution",
+                       "blobs": blobs})
+
+    def bn_scale(suffix, top, layer):
+        text.append(f'layer {{ bottom: "{top}" top: "{top}" name: '
+                    f'"bn{suffix}" type: "BatchNorm" batch_norm_param {{ '
+                    f'use_global_stats: true }} }}')
+        text.append(f'layer {{ bottom: "{top}" top: "{top}" name: '
+                    f'"scale{suffix}" type: "Scale" scale_param {{ '
+                    f'bias_term: true }} }}')
+        var = _np32(layer.moving_var) + (layer.epsilon - CAFFE_BN_EPS)
+        layers.append({"name": f"bn{suffix}", "type": "BatchNorm", "blobs": [
+            blob(_np32(layer.moving_mean)), blob(var),
+            blob(np.ones(1, np.float32))]})
+        layers.append({"name": f"scale{suffix}", "type": "Scale", "blobs": [
+            blob(_np32(layer.gamma)), blob(_np32(layer.beta))]})
+
+    def relu(top):
+        text.append(f'layer {{ bottom: "{top}" top: "{top}" name: '
+                    f'"{top}_relu" type: "ReLU" }}')
+
+    conv("conv1", "data", stem, 2, 3, True)
+    bn_scale("_conv1", "conv1", stem_bn)
+    relu("conv1")
+    text.append('layer { bottom: "conv1" top: "pool1" name: "pool1" type: '
+                '"Pooling" pooling_param { kernel_size: 3 stride: 2 '
+                'pool: MAX } }')
+    bottom, i = "pool1", 0
+    for stage, n_blocks in zip((2, 3, 4, 5), (3, 4, 6, 3)):
+        for b in range(n_blocks):
+            shortcut, branch = blocks[i]
+            i += 1
+            res = f"res{stage}{'abcdef'[b]}"
+            stride = 2 if b == 0 and stage > 2 else 1
+            short_top = bottom
+            if shortcut is not None:
+                conv(f"{res}_branch1", bottom, shortcut[0], stride, 0,
+                     False)
+                bn_scale(f"{res[3:]}_branch1", f"{res}_branch1",
+                         shortcut[1])
+                short_top = f"{res}_branch1"
+            top = bottom
+            for part, (c, bn) in zip("abc", branch):
+                name = f"{res}_branch2{part}"
+                conv(name, top, c, stride if part == "a" else 1,
+                     1 if part == "b" else 0, False)
+                bn_scale(f"{res[3:]}_branch2{part}", name, bn)
+                if part != "c":
+                    relu(name)
+                top = name
+            text.append(f'layer {{ bottom: "{short_top}" bottom: "{top}" '
+                        f'top: "{res}" name: "{res}" type: "Eltwise" }}')
+            relu(res)
+            bottom = res
+    text.append(f'layer {{ bottom: "{bottom}" top: "pool5" name: "pool5" '
+                'type: "Pooling" pooling_param { kernel_size: 7 stride: 1 '
+                'pool: AVE } }')
+    text.append('layer { bottom: "pool5" top: "fc1000" name: "fc1000" '
+                f'type: "InnerProduct" inner_product_param {{ num_output: '
+                f'{head.output_dim} }} }}')
+    text.append('layer { bottom: "fc1000" top: "prob" name: "prob" type: '
+                '"Softmax" }')
+    layers.append({"name": "fc1000", "type": "InnerProduct", "blobs": [
+        blob(_np32(head.kernel).T), blob(_np32(head.bias))]})
+    os.makedirs(root, exist_ok=True)
+    ptx = os.path.join(root, "ResNet-50-deploy.prototxt")
+    cm = os.path.join(root, "ResNet-50-model.caffemodel")
+    with open(ptx, "w") as f:
+        f.write("\n".join(text) + "\n")
+    with open(cm, "wb") as f:
+        f.write(caffe_proto.encode({"name": "ResNet-50", "layer": layers},
+                                   "NetParameter"))
+    return ptx, cm
+
+
+def io_rows(im, x):
+    """``im``'s rows of ``x`` in batches of IO_BATCH, as one array."""
+    return np.concatenate([np.asarray(im.predict(x[i:i + IO_BATCH]))
+                           for i in range(0, len(x), IO_BATCH)])
+
+
+def io_records_per_s(im, x):
+    """Records/s of IO_TIMED_BATCHES predicts of IO_BATCH rows (host
+    copies of the rows included), after one warm batch."""
+    im.predict(x[:IO_BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(IO_TIMED_BATCHES):
+        j = (i * IO_BATCH) % len(x)
+        im.predict(x[j:j + IO_BATCH])
+    return IO_TIMED_BATCHES * IO_BATCH / (time.perf_counter() - t0)
+
+
+def io_int8_weights(im):
+    """{kernel leaf name: its int8 values} of a quantized model (the
+    imported layer's own name differs from load to load)."""
+    return {path.rsplit("['", 1)[-1]: qt.q.cpu()
+            for path, qt in im.model.kernels.items()}
+
+
+def io_leg(what, load, native_rows, x, cpu_x, want_kernels):
+    """One importer leg: load float32 (timed) and int8 on the card and on
+    the CPU; rows against the native model's and the CPU's; the int8
+    weights against the CPU's; records/s."""
+    t0 = time.perf_counter()
+    im = load(quantize=False, device=None)
+    first_load_s = time.perf_counter() - t0
+    del im
+    t0 = time.perf_counter()
+    im = load(quantize=False, device=None)
+    load_s = time.perf_counter() - t0
+    rows = io_rows(im, x)
+    err = float(np.abs(rows - native_rows).max())
+    cpu_rows = load(quantize=False, device="cpu").predict(cpu_x)
+    cpu_err = float(np.abs(rows[:len(cpu_x)] - cpu_rows).max())
+    if not np.isfinite(rows).all() or err > IO_ROW_TOL or \
+            cpu_err > IO_ROW_TOL:
+        raise AssertionError(f"{what}: rows {err} from the native model's, "
+                             f"{cpu_err} from the CPU's (limit "
+                             f"{IO_ROW_TOL})")
+    q = load(quantize=True, device=None)
+    q_cpu = load(quantize=True, device="cpu")
+    card_q, cpu_q = io_int8_weights(q), io_int8_weights(q_cpu)
+    if len(card_q) != want_kernels or sorted(card_q) != sorted(cpu_q) or \
+            any(not torch.equal(card_q[k], cpu_q[k]) for k in card_q):
+        raise AssertionError(f"{what}: {len(card_q)} int8 kernels (want "
+                             f"{want_kernels}), equal to the CPU's: "
+                             f"{sorted(card_q) == sorted(cpu_q)}")
+    q_rows = q.predict(x[:IO_BATCH])
+    q_err = float(np.abs(q_rows[:len(cpu_x)] - q_cpu.predict(cpu_x)).max())
+    if q_err > IO_ROW_TOL:
+        raise AssertionError(f"{what}: int8 rows {q_err} from the CPU's")
+    rate = io_records_per_s(im, x)
+    report = dict(first_load_s=first_load_s, load_s=load_s,
+                  max_abs_err_vs_native=err,
+                  max_abs_err_vs_cpu=cpu_err, row_tol=IO_ROW_TOL,
+                  int8_kernels=len(card_q), int8_weights_equal_cpu=True,
+                  int8_max_abs_err_vs_cpu=q_err,
+                  int8_max_abs_diff_vs_float=float(
+                      np.abs(q_rows - rows[:IO_BATCH]).max()),
+                  records_per_s=rate)
+    del im, q, q_cpu
+    collect()
+    return report
+
+
+def io_resnet_legs(seed, dev):
+    """Legs A-B: the native ResNet-50 (weights from ``seed``), exported to
+    ONNX and to the Caffe deploy layout, loaded back through
+    ``InferenceModel.load_onnx`` / ``load_caffe`` and served."""
+    clf = build_resnet(seed)
+    rs = np.random.default_rng(seed + 1)
+    x = rs.standard_normal((2 * IO_BATCH,) + RESNET_SHAPE).astype(
+        np.float32)
+    cpu_x = x[:IO_CPU_ROWS]
+    native = InferenceModel().load_keras_net(clf)
+    native_rows = io_rows(native, x)
+    native_rate = io_records_per_s(native, x)
+    os.makedirs(IO_ROOT, exist_ok=True)
+    cpu_model = clf.model.to("cpu")
+    t0 = time.perf_counter()
+    path = os.path.join(IO_ROOT, "resnet50.onnx")
+    with open(path, "wb") as f:
+        f.write(resnet_onnx_bytes(cpu_model))
+    onnx_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptx, cm = resnet_caffe_files(cpu_model, IO_ROOT)
+    caffe_write_s = time.perf_counter() - t0
+    n_kernels = sum(1 for l in cpu_model.graph_function().layers
+                    if isinstance(l, (L.Convolution2D, L.Dense)))
+    del native, clf, cpu_model
+    collect()
+    a = io_leg("leg A (ONNX)", lambda quantize, device: InferenceModel()
+               .load_onnx(path, quantize=quantize, device=device),
+               native_rows, x, cpu_x, n_kernels)
+    b = io_leg("leg B (Caffe)", lambda quantize, device: InferenceModel()
+               .load_caffe(ptx, cm, quantize=quantize, device=device),
+               native_rows, x, cpu_x, 0)
+    a.update(file_mb=os.path.getsize(path) / 2 ** 20, write_s=onnx_write_s,
+             opset=13, ops=sorted({"Conv", "BatchNormalization", "Relu",
+                                   "MaxPool", "Add", "GlobalAveragePool",
+                                   "Flatten", "Gemm", "Softmax"}))
+    b.update(file_mb=os.path.getsize(cm) / 2 ** 20, write_s=caffe_write_s,
+             layout="KaimingHe/deep-residual-networks ResNet-50-deploy"
+                    ".prototxt", bn_eps=CAFFE_BN_EPS,
+             int8_note="blobs are named '<layer>/<blob>', no kernel key: "
+                       "quantize=True keeps every blob float32, as the JAX "
+                       "package's QuantizedModel does")
+    return dict(native_records_per_s=native_rate, onnx=a, caffe=b,
+                batch=IO_BATCH, timed_batches=IO_TIMED_BATCHES)
+
+
+def io_head_models(seed):
+    """bench.py's classifier twice from one draw, dropout 0.1 (K4/K5 run
+    only with dropout on; both models draw the same masks from the step's
+    generator, the heads draw none): the native Dense(2, softmax) head,
+    and a TorchNet of nn.Linear(768, 2) holding the Dense's kernel
+    (transposed) and bias and the same BERT weights."""
+    config = dict(BERT_CONFIG, hidden_p_drop=TRAIN_P_DROP,
+                  attn_p_drop=TRAIN_P_DROP)
+    native = build_classifier(seed, config)
+    l = config["seq_len"]
+    ins = [L.Input(shape=(l,), name="tokens"),
+           L.Input(shape=(l,), name="positions"),
+           L.Input(shape=(l,), name="segments"),
+           L.Input(shape=(1, 1, l), name="mask")]
+    _, pooled = L.BERT(**config)(ins)
+    head = torch.nn.Linear(config["hidden_size"], N_CLASSES)
+    net = TorchNet.from_pytorch(head)
+    model = Model(ins, net(pooled), seed=seed)
+    native_layers = native.graph_function().layers
+    model.graph_function()
+    bert_n = next(l for l in native_layers if isinstance(l, L.BERT))
+    bert_t = next(l for l in model.graph_function().layers
+                  if isinstance(l, L.BERT))
+    dense = next(l for l in native_layers if isinstance(l, L.Dense))
+    with torch.no_grad():
+        for (na, a), (nb, b) in zip(bert_n.named_parameters(),
+                                    bert_t.named_parameters()):
+            if na != nb:
+                raise AssertionError(f"BERT parameters {na} vs {nb}")
+            b.copy_(a)
+        head.weight.copy_(dense.kernel.t())
+        head.bias.copy_(dense.bias)
+    return native, model, head
+
+
+def _torch_head_loss(logits, labels):
+    return F.cross_entropy(logits.float(), labels.long().reshape(-1))
+
+
+def io_torch_leg(seed, dev):
+    """Leg C: both classifiers ``fit`` in bf16 for IO_STEPS steps on one
+    seeded batch of 32 x 512 int32 ids, dropout 0.1; K1-K5's launches a
+    step, each
+    loss against the native head's, gradients on the torch module, then
+    the step time of each."""
+    native, model, head = io_head_models(seed)
+    native.compile(optimizer=Adam(lr=TRAIN_LR),
+                   loss="sparse_categorical_crossentropy")
+    model.compile(optimizer=Adam(lr=TRAIN_LR),
+                  loss=TorchCriterion.from_pytorch(_torch_head_loss))
+    for m in (native, model):
+        m.set_compute_dtype("bfloat16")
+    x, y, _ = train_data(seed, TRAIN_BATCH, ids=np.int32)
+    w0 = head.weight.detach().clone()
+    native.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=IO_STEPS)
+    native_losses = list(native.trainer.step_losses)
+    torch.cuda.synchronize()
+    _kernels.LAUNCHES.reset()
+    model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=IO_STEPS)
+    torch.cuda.synchronize()
+    launches = _kernels.LAUNCHES.snapshot()
+    losses = list(model.trainer.step_losses)
+    n_block = BERT_CONFIG["n_block"]
+    per_step = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
+                attn.DKV_KERNEL_NAME: n_block,
+                dln.FWD_KERNEL_NAME: 2 * n_block,
+                dln.BWD_KERNEL_NAME: 2 * n_block}
+    if launches != {k: IO_STEPS * v for k, v in per_step.items()}:
+        raise AssertionError(f"leg C launches {launches}, per step "
+                             f"{per_step}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, native_losses)]
+    if len(losses) != IO_STEPS or not np.isfinite(losses).all() or \
+            max(rel) > IO_LOSS_TOL:
+        raise AssertionError(f"leg C losses {losses} against the native "
+                             f"head's {native_losses} (limit "
+                             f"{IO_LOSS_TOL} relative)")
+    grad = head.weight.grad
+    moved = float((head.weight.detach() - w0.to(head.weight.device))
+                  .abs().max())
+    if grad is None or not torch.isfinite(grad).all() or \
+            float(grad.abs().max()) == 0.0 or moved == 0.0 or \
+            head.weight.device != dev:
+        raise AssertionError(f"leg C: the torch module's gradient "
+                             f"{None if grad is None else grad.abs().max()}"
+                             f", moved {moved}, on {head.weight.device}")
+    timing = {"torchnet_head": [], "dense_head": []}
+    for w in range(IO_TIMED_WINDOWS):       # alternating windows
+        order = (("torchnet_head", model), ("dense_head", native))
+        for name, m in order if w % 2 == 0 else order[::-1]:
+            timing[name] += io_step_ms(m, x, y)
+    return dict(model="BERT-base classifier (bench.py:353-438), head "
+                      "TorchNet(nn.Linear(768, 2)) + TorchCriterion",
+                compute_dtype="bfloat16", batch=TRAIN_BATCH, steps=IO_STEPS,
+                losses=losses, native_head_losses=native_losses,
+                max_rel_loss_diff=max(rel), loss_tol=IO_LOSS_TOL,
+                launches=launches, launches_per_step=per_step,
+                torch_module_grad_max=float(grad.abs().max()),
+                torch_module_moved=moved,
+                step_p50_ms={k: 1e3 * percentile(v, 50) for k, v in
+                             timing.items()},
+                step_ms={k: [1e3 * t for t in v] for k, v in
+                         timing.items()},
+                timed_windows=IO_TIMED_WINDOWS), launches
+
+
+def io_step_ms(model, x, y):
+    """TIMED_STEPS more bf16 training steps of ``model`` on (x, y), one
+    at a time: their seconds."""
+    trainer = model.trainer
+    batch = trainer.put_batch((x, y, np.ones(len(y), np.float32)))
+    step_s = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return step_s
+
+
+def interop_phase(seed, dev, smi):
+    """The interop phase: legs A-B (ResNet-50 through the ONNX and Caffe
+    importers, K1-K5 launched 0 times) and leg C (BERT-base with a
+    PyTorch head, K1-K5 at 12/12/12/24/24 a step). Returns the report and
+    K1-K5's launches over the phase."""
+    t0 = time.perf_counter()
+    shutil.rmtree(IO_ROOT, ignore_errors=True)
+    _kernels.LAUNCHES.reset()
+    resnets = io_resnet_legs(seed + 70, dev)
+    ab_launches = _kernels.LAUNCHES.snapshot()
+    if ab_launches:
+        raise AssertionError(f"legs A-B launched {ab_launches}")
+    collect()
+    torch_report, launches = io_torch_leg(seed + 71, dev)
+    shutil.rmtree(IO_ROOT, ignore_errors=True)
+    return dict(card=smi, leg_a_onnx=resnets["onnx"],
+                leg_b_caffe=resnets["caffe"],
+                native_records_per_s=resnets["native_records_per_s"],
+                batch=IO_BATCH, leg_c_torchnet=torch_report,
+                launches_legs_a_b=ab_launches,
+                clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                                  "temperature.gpu"),
+                wall_s=time.perf_counter() - t0), launches
+
+
 class PhaseClock:
     """Seconds of each phase of ``main``, host clock between marks (the
     ``phases`` line: where the script's time limit goes)."""
@@ -8129,6 +8782,13 @@ def main(argv=None):
     layers_report, layers_launches = layers_phase(args.seed, dev, smi)
     emit("layers", **layers_report)
 
+    clock.mark("interop")
+    # 20. interop: ResNet-50 from ONNX and Caffe, BERT-base with a
+    # PyTorch head
+    collect()
+    interop_report, interop_launches = interop_phase(args.seed, dev, smi)
+    emit("interop", **interop_report)
+
     clock.mark("parallel")
     # 19. parallel: data, sequence, tensor, pipeline and expert
     # parallelism and FSDP through the launcher
@@ -8177,7 +8837,8 @@ def main(argv=None):
                      launches_data=data_launches.get(name, 0),
                      launches_detect=detect_launches.get(name, 0),
                      launches_layers=layers_launches.get(name, 0),
-                     launches_parallel=parallel_launches.get(name, 0))
+                     launches_parallel=parallel_launches.get(name, 0),
+                     launches_interop=interop_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

@@ -1800,3 +1800,164 @@ def test_sequence_parallel_attention_on_the_card_runs_the_kernels(cuda):
                 torch.testing.assert_close(torch.from_numpy(got),
                                            torch.from_numpy(want),
                                            rtol=0, atol=1e-4)
+
+
+# -- interop: one test a leg of chip_smoke.py's interop phase -------------
+
+def _onnx_cnn_bytes():
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import builder
+
+    rs = np.random.default_rng(0)
+
+    def w(*shape):
+        return (rs.standard_normal(shape) * 0.3).astype(np.float32)
+
+    N = builder.make_node
+    nodes = [N("Conv", ["x", "c1_w", "c1_b"], ["a"], pads=[1, 1, 1, 1],
+               kernel_shape=[3, 3]),
+             N("BatchNormalization", ["a", "g", "b", "m", "v"], ["bn"]),
+             N("Relu", ["bn"], ["r"]),
+             N("MaxPool", ["r"], ["p"], kernel_shape=[3, 3], strides=[2, 2],
+               pads=[0, 0, 1, 1]),
+             N("Conv", ["p", "c2_w"], ["c"], strides=[2, 2],
+               kernel_shape=[1, 1]),
+             N("Add", ["c", "c"], ["s"]),
+             N("GlobalAveragePool", ["s"], ["gap"]),
+             N("Flatten", ["gap"], ["f"]),
+             N("Gemm", ["f", "fc_w", "fc_b"], ["logits"]),
+             N("Softmax", ["logits"], ["y"], axis=1)]
+    inits = {"c1_w": w(8, 3, 3, 3), "c1_b": w(8), "g": w(8), "b": w(8),
+             "m": w(8), "v": np.abs(w(8)) + 0.5, "c2_w": w(16, 8, 1, 1),
+             "fc_w": w(16, 10), "fc_b": w(10)}
+    g = builder.make_graph(nodes, "cnn",
+                           [builder.value_info("x", (None, 3, 32, 32))],
+                           [builder.value_info("y", (None, 10))], inits)
+    return builder.make_model(g)
+
+
+def test_onnx_model_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Leg A's path at small size: ``load_onnx`` on the card (cuDNN) and
+    on the CPU, float32 rows within 1e-5; ``quantize=True`` gives the same
+    int8 kernels on both."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    path = str(tmp_path / "cnn.onnx")
+    with open(path, "wb") as f:
+        f.write(_onnx_cnn_bytes())
+    x = np.random.default_rng(1).standard_normal((4, 3, 32, 32)).astype(
+        np.float32)
+    card = InferenceModel().load_onnx(path, device=cuda).predict(x)
+    cpu = InferenceModel().load_onnx(path, device="cpu").predict(x)
+    assert np.abs(card - cpu).max() <= 1e-5
+    qc = InferenceModel().load_onnx(path, quantize=True, device=cuda)
+    qh = InferenceModel().load_onnx(path, quantize=True, device="cpu")
+    leaves = {k.rsplit("['", 1)[-1]: v.q.cpu()
+              for k, v in qc.model.kernels.items()}
+    assert sorted(leaves) == ["c1_w']", "c2_w']", "fc_w']"]
+    for k, v in qh.model.kernels.items():
+        assert torch.equal(leaves[k.rsplit("['", 1)[-1]], v.q.cpu())
+    assert np.abs(qc.predict(x) - qh.predict(x)).max() <= 1e-5
+
+
+def test_caffe_net_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Leg B's layer set at small size (Convolution, BatchNorm + Scale,
+    ceil-mode pooling, Eltwise, InnerProduct, Softmax) through
+    ``load_caffe``: the card's rows within 1e-5 of the CPU's."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipeline.api.caffe import proto
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    rs = np.random.default_rng(2)
+
+    def blob(*shape, positive=False):
+        a = (rs.standard_normal(shape) * 0.3).astype(np.float32)
+        a = np.abs(a) + 0.5 if positive else a
+        return {"shape": {"dim": list(shape)}, "data": a.ravel()}
+
+    (tmp_path / "net.prototxt").write_text("""
+name: "small"
+input: "data"
+input_dim: 1 input_dim: 3 input_dim: 17 input_dim: 17
+layer { bottom: "data" top: "conv1" name: "conv1" type: "Convolution"
+  convolution_param { num_output: 8 kernel_size: 3 pad: 1 stride: 2 } }
+layer { bottom: "conv1" top: "conv1" name: "bn1" type: "BatchNorm"
+  batch_norm_param { use_global_stats: true } }
+layer { bottom: "conv1" top: "conv1" name: "sc1" type: "Scale"
+  scale_param { bias_term: true } }
+layer { bottom: "conv1" top: "conv1" name: "relu1" type: "ReLU" }
+layer { bottom: "conv1" top: "pool1" name: "pool1" type: "Pooling"
+  pooling_param { kernel_size: 3 stride: 2 pool: MAX } }
+layer { bottom: "pool1" bottom: "pool1" top: "sum" name: "sum"
+  type: "Eltwise" }
+layer { bottom: "sum" top: "fc" name: "fc" type: "InnerProduct"
+  inner_product_param { num_output: 5 } }
+layer { bottom: "fc" top: "prob" name: "prob" type: "Softmax" }
+""")
+    (tmp_path / "net.caffemodel").write_bytes(proto.encode({
+        "name": "small", "layer": [
+            {"name": "conv1", "blobs": [blob(8, 3, 3, 3), blob(8)]},
+            {"name": "bn1", "blobs": [blob(8), blob(8, positive=True),
+                                      blob(1, positive=True)]},
+            {"name": "sc1", "blobs": [blob(8), blob(8)]},
+            {"name": "fc", "blobs": [blob(5, 8 * 4 * 4), blob(5)]}]},
+        "NetParameter"))
+    args = (str(tmp_path / "net.prototxt"), str(tmp_path / "net.caffemodel"))
+    x = np.random.default_rng(3).standard_normal((4, 3, 17, 17)).astype(
+        np.float32)
+    card = InferenceModel().load_caffe(*args, device=cuda).predict(x)
+    cpu = InferenceModel().load_caffe(*args, device="cpu").predict(x)
+    assert card.shape == (4, 5)
+    assert np.abs(card - cpu).max() <= 1e-5
+
+
+def test_torchnet_head_bf16_fit_runs_every_training_kernel(cuda):
+    """Leg C at small size: a BERT classifier whose head is a
+    ``TorchNet(nn.Linear)`` under a ``TorchCriterion``, one bf16 ``fit``
+    step on int32 ids, dropout on: every training kernel once a block (the
+    dropout+add+LN pair twice), a finite nonzero gradient on the torch
+    module's weight, which moved on the card."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+    from analytics_zoo_tpu_torch.pipeline.api.net import (TorchCriterion,
+                                                          TorchNet)
+
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(device=cuda)
+    try:
+        l = 128
+        ins = [tl.Input(shape=(l,)), tl.Input(shape=(l,)),
+               tl.Input(shape=(l,)), tl.Input(shape=(1, 1, l))]
+        _, pooled = tl.BERT(vocab=100, hidden_size=128, n_block=2,
+                            n_head=2, seq_len=l, hidden_p_drop=0.1,
+                            attn_p_drop=0.1, output_all_block=False)(ins)
+        head = torch.nn.Linear(128, 2)
+        model = Model(ins, TorchNet.from_pytorch(head)(pooled), seed=3)
+        model.compile(optimizer="adam", loss=TorchCriterion.from_pytorch(
+            lambda p, t: F.cross_entropy(p.float(), t.long().reshape(-1))))
+        model.set_compute_dtype("bfloat16")
+        xs, y, _ = _small_batch(l, "cpu")
+        xs = [x.int().numpy() for x in xs[:3]] + [xs[3].numpy()]
+        w0 = head.weight.detach().clone()
+        _kernels.LAUNCHES.reset()
+        model.fit(xs, y.numpy(), batch_size=3, nb_epoch=1)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES.snapshot() == {
+            ta.KERNEL_NAME: 2, ta.DQ_KERNEL_NAME: 2, ta.DKV_KERNEL_NAME: 2,
+            tdln.FWD_KERNEL_NAME: 4, tdln.BWD_KERNEL_NAME: 4}
+        assert np.isfinite(model.trainer.step_losses).all()
+        assert head.weight.device == cuda
+        assert torch.isfinite(head.weight.grad).all()
+        assert head.weight.grad.abs().max() > 0
+        assert (head.weight.detach().cpu() - w0).abs().max() > 0
+    finally:
+        tnn.set_nncontext(None)

@@ -7,8 +7,9 @@ package's (which call OpenCV) under one ``random.seed``, the Image3D
 transforms, and ``Estimator.train_imagefeature`` on an ``ImageSet``.
 
 Tolerances:
-- PNG, BMP and baseline JPEG decode: bit-equal to ``cv2.imdecode``
-  (measured max |diff| 0 over every case here);
+- PNG (Adam7 too), BMP, and baseline, progressive (block-smoothed where
+  cut after a scan) and CMYK/YCCK JPEG decode: bit-equal to
+  ``cv2.imdecode`` (measured max |diff| 0 over every case here);
 - the JPEG encoder: OpenCV's decode of its bytes is no further from the
   image than OpenCV's own round trip at the same quality plus 1 level
   (measured: the bytes are OpenCV's, byte for byte); the PNG encoder
@@ -125,17 +126,97 @@ def test_grey_jpeg_decodes_to_three_equal_channels():
 
 
 def test_unsupported_jpeg_modes_raise_naming_the_file_and_mode():
+    """Progressive files now decode bit-equal to OpenCV; arithmetic-coded,
+    lossless and 12-bit frames stay refused, naming the file and mode."""
     img = _scene(40, 40)
     prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1]
-    with pytest.raises(ValueError, match="photo.jpg.*progressive"):
-        codec.decode(prog.tobytes(), "photo.jpg")
+    np.testing.assert_array_equal(codec.decode(prog.tobytes(), "photo.jpg"),
+                                  _cv2_decode(prog))
     base = bytearray(cv2.imencode(".jpg", img)[1].tobytes())
+    sof = base.index(b"\xff\xc0")
+    lossless = bytearray(base)
+    lossless[sof + 1] = 0xC3
+    with pytest.raises(ValueError, match="l.jpg.*lossless"):
+        codec.decode(bytes(lossless), "l.jpg")
+    twelve = bytearray(base)
+    twelve[sof + 4] = 12
+    with pytest.raises(ValueError, match="t.jpg.*12-bit"):
+        codec.decode(bytes(twelve), "t.jpg")
     sof = base.index(b"\xff\xc0")
     base[sof + 1] = 0xC9                       # arithmetic-coded frame
     with pytest.raises(ValueError, match="a.jpg.*arithmetic"):
         codec.decode(bytes(base), "a.jpg")
     with pytest.raises(ValueError, match="not a JPEG, PNG or BMP"):
         codec.decode(b"GIF89a....", "x.gif")
+
+
+PROGRESSIVE_SIZES = [(45, 61), (17, 33), (1, 1), (9, 17), (2, 3), (61, 7),
+                     (100, 130), (33, 9)]
+
+
+@pytest.mark.parametrize("rst", [0, 2])
+@pytest.mark.parametrize("quality", [30, 95])
+@pytest.mark.parametrize("sampling", sorted(SAMPLING) + ["411"])
+def test_progressive_jpeg_decodes_bit_equal_to_opencv(sampling, quality,
+                                                      rst):
+    """OpenCV's progressive files (libjpeg's jpeg_simple_progression: DC
+    first and refine, AC spectral selection and successive approximation,
+    EOB runs), with restart intervals; and each file cut after each of its
+    scans: refused with no EOI, as ``cv2.imdecode`` refuses it, and with
+    an EOI appended bit-equal to OpenCV's block-smoothed decode."""
+    samp = dict(SAMPLING, **{"411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411})
+    for i, (h, w) in enumerate(PROGRESSIVE_SIZES):
+        flags = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                 cv2.IMWRITE_JPEG_QUALITY, quality,
+                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR, samp[sampling]]
+        if rst:
+            flags += [cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+        buf = cv2.imencode(".jpg", _scene(h, w, 20 + i), flags)[1].tobytes()
+        assert b"\xff\xc2" in buf and (not rst or b"\xff\xdd" in buf)
+        np.testing.assert_array_equal(codec.decode(buf), _cv2_decode(buf))
+        sos = [k for k in range(len(buf) - 1) if buf[k:k + 2] == b"\xff\xda"]
+        assert len(sos) >= 6, len(sos)        # a real scan script
+        for at in sos[1:]:
+            assert _cv2_decode(buf[:at]) is None
+            with pytest.raises(ValueError, match="cut.jpg.*truncated"):
+                codec.decode(buf[:at], "cut.jpg")
+            cut = buf[:at] + b"\xff\xd9"
+            np.testing.assert_array_equal(codec.decode(cut), _cv2_decode(cut),
+                                          err_msg=f"{(h, w)} cut at {at}")
+
+
+def test_progressive_grey_jpeg_decodes_bit_equal():
+    g = _scene(45, 61)[..., 1]
+    buf = cv2.imencode(".jpg", g, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1]
+    np.testing.assert_array_equal(codec.decode(buf.tobytes()),
+                                  _cv2_decode(buf))
+
+
+@pytest.mark.parametrize("transform", ["cmyk", "ycck"])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("subsampling", [0, 2])
+def test_four_component_jpeg_decodes_bit_equal(transform, progressive,
+                                               subsampling):
+    """PIL's CMYK JPEGs (Adobe APP14 with transform 0, inverted values as
+    Photoshop writes them) and the same data marked YCCK (transform 2):
+    libjpeg's CMYK output, then OpenCV's CMYK->BGR, bit for bit."""
+    import io
+    from PIL import Image
+    rs = np.random.default_rng(subsampling + 3 * progressive)
+    cmyk = np.concatenate([_scene(37, 50, 5), rs.integers(
+        0, 256, (37, 50, 1)).astype(np.uint8)], axis=2)
+    out = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(out, "JPEG", quality=85,
+                                       progressive=progressive,
+                                       subsampling=subsampling)
+    buf = bytearray(out.getvalue())
+    adobe = buf.index(b"Adobe")
+    assert buf[adobe + 11] == 0
+    if transform == "ycck":
+        buf[adobe + 11] = 2
+    got = codec.decode(bytes(buf))
+    assert got.shape == (37, 50, 3)
+    np.testing.assert_array_equal(got, _cv2_decode(buf))
 
 
 CORRUPT = {   # name -> (h, w, quality, restart interval, sampling)
@@ -268,8 +349,30 @@ def test_jpeg_encoder_is_read_by_opencv_within_its_own_round_trip(quality):
 
 def _png(rows, width, height, depth, ctype, plte=None, trns=None,
          filters=(0, 1, 2, 3, 4), interlace=0):
-    """A PNG written here, cycling the row filters over ``filters``."""
+    """A PNG written here, cycling the row filters over ``filters``. With
+    ``interlace`` set, ``rows`` holds the Adam7 passes' rows, one list per
+    pass (an empty pass an empty list), each pass filtered on its own."""
     bpp = max(1, {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype] * depth // 8)
+    if interlace:
+        raw = b"".join(_filtered(p, bpp, filters) for p in rows if p)
+    else:
+        raw = _filtered(rows, bpp, filters)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + \
+            struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", width, height, depth, ctype, 0, 0, interlace))
+    if plte is not None:
+        data += chunk(b"PLTE", bytes(plte))
+    if trns is not None:
+        data += chunk(b"tRNS", bytes(trns))
+    return data + chunk(b"IDAT", zlib.compress(bytes(raw))) + \
+        chunk(b"IEND", b"")
+
+
+def _filtered(rows, bpp, filters):
     raw = bytearray()
     prev = bytes(len(rows[0]))
     for r, row in enumerate(rows):
@@ -294,19 +397,21 @@ def _png(rows, width, height, depth, ctype, plte=None, trns=None,
             out[i] = (x - pred) & 0xFF
         raw += bytes([ft]) + out
         prev = bytes(row)
+    return bytes(raw)
 
-    def chunk(kind, body):
-        return struct.pack(">I", len(body)) + kind + body + \
-            struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
-    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", width, height, depth, ctype, 0, 0, interlace))
-    if plte is not None:
-        data += chunk(b"PLTE", bytes(plte))
-    if trns is not None:
-        data += chunk(b"tRNS", bytes(trns))
-    return data + chunk(b"IDAT", zlib.compress(bytes(raw))) + \
-        chunk(b"IEND", b"")
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _adam7_rows(vals, chans, depth):
+    """(H, W*C) sample values -> the seven passes' packed rows."""
+    h = vals.shape[0]
+    px = vals.reshape(h, -1, chans)
+    return [_pack_rows(px[y0::dy, x0::dx].reshape(
+                len(range(y0, h, dy)), -1), depth)
+            if px[y0::dy, x0::dx].size else []
+            for x0, y0, dx, dy in ADAM7]
 
 
 def _pack_rows(vals, depth):
@@ -347,6 +452,26 @@ def test_png_decodes_bit_equal_to_opencv(case):
     np.testing.assert_array_equal(codec.decode(data), want)
 
 
+@pytest.mark.parametrize("case", sorted(PNG_CASES))
+def test_adam7_png_decodes_bit_equal_to_opencv(case):
+    """Adam7-interlaced files (written here with zlib: neither OpenCV nor
+    PIL writes them) at sizes where some passes are empty."""
+    depth, ctype, chans = PNG_CASES[case]
+    rs = np.random.default_rng(100 + len(case))
+    for h, w in [(13, 19), (1, 1), (3, 5), (8, 9), (2, 1)]:
+        vals = rs.integers(0, 1 << depth, (h, w * chans))
+        plte = trns = None
+        if ctype == 3:
+            plte = rs.integers(0, 256, 3 << depth).astype(np.uint8)
+            trns = rs.integers(0, 256, 2).astype(np.uint8)
+        data = _png(_adam7_rows(vals, chans, depth), w, h, depth, ctype,
+                    plte, trns, interlace=1)
+        want = _cv2_decode(data)
+        assert want is not None and want.shape == (h, w, 3)
+        np.testing.assert_array_equal(codec.decode(data), want,
+                                      err_msg=str((h, w)))
+
+
 @pytest.mark.parametrize("kind", ["bgr", "grey", "bgra", "bgr16"])
 def test_opencv_written_png_decodes_bit_equal(kind):
     img = _scene(37, 50, 3)
@@ -365,10 +490,11 @@ def test_png_encoder_and_adam7_and_bmp():
             cv2.cvtColor(arr, cv2.COLOR_GRAY2BGR) if arr.ndim == 2 else arr)
         np.testing.assert_array_equal(codec.decode(codec.encode_png(arr)),
                                       _cv2_decode(codec.encode_png(arr)))
-    rows = _pack_rows(img.reshape(23, -1)[:, ::-1].copy(), 8)
-    inter = _png(rows, 31, 23, 8, 2, interlace=1)
-    with pytest.raises(ValueError, match="i.png.*Adam7"):
-        codec.decode(inter, "i.png")
+    rgb = img[:, :, ::-1].reshape(23, -1)
+    inter = _png(_adam7_rows(rgb, 3, 8), 31, 23, 8, 2, interlace=1)
+    got = codec.decode(inter, "i.png")
+    np.testing.assert_array_equal(got, _cv2_decode(inter))
+    np.testing.assert_array_equal(got, img)
     for arr in (img, img[..., 2]):
         buf = cv2.imencode(".bmp", arr)[1].tobytes()
         np.testing.assert_array_equal(codec.decode(buf), _cv2_decode(buf))
@@ -725,3 +851,22 @@ def test_estimator_train_imagefeature_matches_jax(tmp_path):
         moved = max(moved, float(np.abs(p.detach().numpy() -
                                         init[k]).max()))
     assert moved > 1e-4
+
+
+def test_committed_codec_fixtures_are_opencvs():
+    """The JPEG files ``chip_smoke.py`` decodes on the card, where no
+    OpenCV is installed (``tools/codec_fixtures``): OpenCV here decodes
+    each to the SHA-256 its manifest holds, and so does the port."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1] / "tools" / "codec_fixtures"
+    manifest = json.loads((root / "manifest.json").read_text())
+    assert len(manifest) == 6
+    for name, want in manifest.items():
+        data = (root / name).read_bytes()
+        for px in (_cv2_decode(data), codec.decode(data, name)):
+            assert list(px.shape) == want["shape"]
+            assert hashlib.sha256(np.ascontiguousarray(px).tobytes()) \
+                .hexdigest() == want["opencv_sha256"], name

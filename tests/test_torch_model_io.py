@@ -173,13 +173,12 @@ def test_what_cannot_be_saved_or_loaded_names_its_roadmap_item(tmp_path):
     jmodel = JSequential()
     jmodel.add(jl.ELU(input_shape=(3, 2)))
     jmodel.save_model(str(tmp_path / "lstm"))
-    # a class the port still lacks: the wrapper of a foreign module
+    # a class the port still lacks: the TensorFlow graph wrapper
     spec = json.loads((tmp_path / "lstm" / "architecture.json").read_text())
     spec["layers"][0]["class"] = \
-        "analytics_zoo_tpu.pipeline.api.keras.layers.wrappers." \
-        "KerasLayerWrapper"
+        "analytics_zoo_tpu.pipeline.api.net.tfnet.TFNet"
     (tmp_path / "lstm" / "architecture.json").write_text(json.dumps(spec))
-    with pytest.raises(NotImplementedError, match="A14.5"):
+    with pytest.raises(NotImplementedError, match="A14.8"):
         KerasNet.load_model(str(tmp_path / "lstm"))
     spec = json.loads((tmp_path / "lstm" / "architecture.json").read_text())
     spec["layers"][0]["class"] = "os.system"
@@ -329,7 +328,11 @@ def test_every_layer_class_has_a_config_case():
     classes = {type(make(tl)).__name__ for make in CONFIG_CASES.values()}
     ported = {n for n in tl.__all__ if isinstance(getattr(tl, n), type)}
     aliases = {"Conv1D", "Conv2D", "Conv3D", "KerasLayer"}
-    assert ported - aliases <= classes
+    # a wrapper's config is a callable, which saves only pickled: its
+    # round trip is test_torch_torchnet.py's
+    # test_keras_layer_wrapper_in_a_graph_saves_pickled
+    callables = {"KerasLayerWrapper"}
+    assert ported - aliases - callables <= classes
 
 
 @pytest.mark.parametrize("case", sorted(CONFIG_CASES))

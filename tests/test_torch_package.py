@@ -78,6 +78,9 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.models.seq2seq, "
             "analytics_zoo_tpu_torch.pipeline.api.autograd, "
             "analytics_zoo_tpu_torch.pipeline.api.keras2, "
+            "analytics_zoo_tpu_torch.pipeline.api.onnx, "
+            "analytics_zoo_tpu_torch.pipeline.api.caffe, "
+            "analytics_zoo_tpu_torch.pipeline.api.net, "
             "analytics_zoo_tpu_torch.ops.crf, "
             "analytics_zoo_tpu_torch.common.zoo_trigger, "
             "analytics_zoo_tpu_torch.ops, "
@@ -120,17 +123,16 @@ def test_importing_the_port_loads_no_jax():
 #: with the ROADMAP item that ports it; a package named with a list is
 #: ported but for those names
 NOT_PORTED = {
-    "analytics_zoo_tpu.automl": "A14.5",
-    "analytics_zoo_tpu.pipeline.api.caffe": "A14.5",
-    "analytics_zoo_tpu.pipeline.api.net": "A14.5",
-    "analytics_zoo_tpu.pipeline.api.onnx": "A14.5",
-    "analytics_zoo_tpu.pipeline.nnframes": "A14.5",
-    "analytics_zoo_tpu.ray": "A14.5",
-    "analytics_zoo_tpu.tfpark": "A14.5",
-    "analytics_zoo_tpu.tfpark.text": "A14.5",
-    "analytics_zoo_tpu.tfpark.text.estimator": "A14.5",
-    "analytics_zoo_tpu.tfpark.text.keras": "A14.5",
-    "analytics_zoo_tpu.pipeline.estimator": ("A14.5", ["LocalEstimator"]),
+    "analytics_zoo_tpu.automl": "A14.7",
+    "analytics_zoo_tpu.pipeline.api.net": (
+        "A14.8", ["TFNet", "TFGraphFunction", "UnsupportedTFGraph"]),
+    "analytics_zoo_tpu.pipeline.nnframes": "A14.6",
+    "analytics_zoo_tpu.ray": "A14.7",
+    "analytics_zoo_tpu.tfpark": "A14.8",
+    "analytics_zoo_tpu.tfpark.text": "A14.8",
+    "analytics_zoo_tpu.tfpark.text.estimator": "A14.8",
+    "analytics_zoo_tpu.tfpark.text.keras": "A14.8",
+    "analytics_zoo_tpu.pipeline.estimator": ("A14.6", ["LocalEstimator"]),
 }
 
 
@@ -178,8 +180,8 @@ def test_every_public_jax_name_imports_from_the_port(package):
 
 def test_every_jax_layer_class_is_in_the_ports_layers_all():
     """The JAX layers package (which has no ``__all__``) exports each of
-    its layer classes; the port's ``layers.__all__`` lists them all but
-    ``KerasLayerWrapper`` (ROADMAP A14.5)."""
+    its layer classes; the port's ``layers.__all__`` lists them all,
+    ``KerasLayerWrapper`` included."""
     from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
 
     tree = ast.parse((ROOT / "analytics_zoo_tpu/pipeline/api/keras/layers/"
@@ -188,9 +190,9 @@ def test_every_jax_layer_class_is_in_the_ports_layers_all():
              if isinstance(node, ast.ImportFrom) for a in node.names}
     names |= {t.id for node in tree.body if isinstance(node, ast.Assign)
               for t in node.targets}
-    missing = sorted(names - set(tl.__all__) - {"KerasLayerWrapper"})
+    missing = sorted(names - set(tl.__all__))
     assert not missing, missing
-    assert "KerasLayerWrapper" not in tl.__all__
+    assert "KerasLayerWrapper" in tl.__all__
 
 
 def test_init_nncontext_without_a_card_raises(monkeypatch):
