@@ -93,6 +93,19 @@ class ZooConfig:
     zero_stage: int = 0
     # seed for weights a model draws when it is built
     seed: int = 42
+    # backward remat policy of the flash-attention kernel route
+    # (ops/attention.py _flash_remat_policy): "" = the default
+    # ("save-lse-recompute-probs": the backward kernels rebuild the
+    # probabilities from the saved lse, O(L) memory); "full" /
+    # "full-residual" = autograd through the reference attention (O(Lq·Lk)
+    # probabilities, no backward kernels). Env: ZOO_TPU_FLASH_REMAT
+    flash_remat: str = ""
+    # NNFrames ingest: when the processed samples of a frame would exceed
+    # this many bytes, NNEstimator.fit spills them to sharded .npz files
+    # and streams them (ShardedFileFeatureSet) instead of holding the
+    # whole dataset resident (reference: NNEstimator.scala:382 getDataSet
+    # caching tiers)
+    nnframes_spill_bytes: int = 2_000_000_000
     # host data pipeline (feature/host_pipeline.py): transformed batches
     # the prefetch thread keeps queued on the host
     prefetch_depth: int = 2

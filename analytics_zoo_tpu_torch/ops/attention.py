@@ -17,7 +17,17 @@ through :class:`_FlashAttentionBLHD`, the counterpart of the TPU
 package's custom VJP ``_flash_attention_blhd``: the forward kernel
 (``csrc/flash_fwd.cu``) saves lse, and the backward runs the dq and dkv
 kernels (``csrc/flash_bwd.cu``) through :func:`flash_backward_blhd`.
-Without a gradient (serving) the forward kernel runs alone.
+Under the ``full`` remat policy (``ZooConfig.flash_remat`` or
+``ZOO_TPU_FLASH_REMAT``, :func:`_flash_remat_policy`) the backward
+differentiates through :func:`attention_reference` instead, and the
+backward kernels do not launch. Without a gradient (serving) the
+forward kernel runs alone.
+
+On the blockwise route, when an input needs a gradient, the call goes
+through :class:`_BlockwiseAttention`, the counterpart of the TPU
+package's custom VJP ``_attention_blockwise``: the forward saves only
+(q, k, v, bias, o, m, l), and :func:`_blockwise_bwd_impl` rebuilds each
+key block's score tile once, so both directions hold O(L) memory.
 
 Each wrapper (:func:`flash_forward_blhd`, :func:`flash_backward_blhd`)
 launches its kernels on CUDA tensors and runs its plain version
@@ -28,6 +38,7 @@ on CPU tensors.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -43,6 +54,36 @@ DQ_KERNEL_NAME = "flash_bwd_dq"
 DKV_KERNEL_NAME = "flash_bwd_dkv"
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (64, 128)
+
+_REMAT_POLICIES = {
+    "": "lse", "lse": "lse", "save-lse-recompute-probs": "lse",
+    "kernel": "lse",
+    "full": "full", "full-residual": "full", "xla": "full",
+}
+
+
+def _flash_remat_policy() -> str:
+    """Backward remat policy of the kernel route: ``lse`` (aliases
+    ``save-lse-recompute-probs``, ``kernel``; the default) runs the
+    backward kernels, which rebuild the probabilities from the saved lse;
+    ``full`` (aliases ``full-residual``, ``xla``) differentiates through
+    :func:`attention_reference`, holding the O(Lq·Lk) probabilities.
+    Resolution order: ``ZOO_TPU_FLASH_REMAT``, then
+    ``ZooConfig.flash_remat`` of the live context. An unknown name
+    raises ``ValueError``."""
+    raw = os.environ.get("ZOO_TPU_FLASH_REMAT")
+    if raw is None:
+        from ..common import nncontext as _nn
+        ctx = _nn._global_context
+        cfg = getattr(ctx, "config", None) if ctx is not None else None
+        raw = getattr(cfg, "flash_remat", "") or ""
+    key = str(raw).strip().lower()
+    if key not in _REMAT_POLICIES:
+        raise ValueError(
+            "unknown flash remat policy %r (expected 'lse'/"
+            "'save-lse-recompute-probs' or 'full'/'full-residual')"
+            % (raw,))
+    return _REMAT_POLICIES[key]
 
 
 # ---------------------------------------------------------------------------
@@ -133,16 +174,116 @@ def _blockwise_fwd_impl(q, k, v, bias, causal, sm_scale, block_k,
     return (acc / l_safe).to(q.dtype), m, l_safe
 
 
+def _blockwise_bwd_impl(q, k, v, bias, o, m, l, do, causal, sm_scale,
+                        block_k, q_offset=None, bias_grad=True):
+    """Single-pass blockwise dq, dk, dv and dbias: one loop over the key
+    blocks rebuilds each (B, H, Lq, block_k) score tile once from the
+    saved row max and denominator (p = exp(s - m) / l). dq accumulates
+    across blocks; dk, dv and a full-Lk bias's cotangent are written
+    block by block; a key-broadcast bias's cotangent is a running sum.
+    Returns the cotangents in their operands' dtypes (dbias None without
+    a bias or with ``bias_grad`` False, which skips its reduction)."""
+    f32 = torch.float32
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    offset = lk - lq if q_offset is None else int(q_offset)
+    # the denominator folds into the output cotangent once: with
+    # dof = do / l, dv = pu^T dof and ds = pu (dof v^T - delta) work off
+    # the unnormalised pu = exp(s - m)
+    dof = do.float() / l
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    slice_k = bias is not None and bias.shape[3] == lk
+    qf = q.float()
+    dq = torch.zeros(b, h, lq, d, dtype=f32, device=q.device)
+    dk = torch.empty(b, h, lk, d, dtype=f32, device=q.device)
+    dv = torch.empty(b, h, lk, d, dtype=f32, device=q.device)
+    db = None
+    if bias is not None:
+        bb = bias.float()
+    if bias is not None and bias_grad:
+        db = (torch.empty(tuple(bias.shape[:3]) + (lk,), dtype=f32,
+                          device=q.device) if slice_k else
+              torch.zeros(tuple(bias.shape[:3]) + (1,), dtype=f32,
+                          device=q.device))
+    q_pos = offset + torch.arange(lq, device=q.device)[:, None]
+    for start in range(0, lk, block_k):
+        blk = slice(start, start + block_k)
+        k_blk = k[:, :, blk].float()
+        v_blk = v[:, :, blk].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, k_blk) * sm_scale
+        if bias is not None:
+            s = s + (bb[..., blk] if slice_k else bb)
+        mask = None
+        if causal:
+            k_pos = start + torch.arange(block_k, device=q.device)[None, :]
+            mask = q_pos >= k_pos
+            s = torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+        pu = torch.exp(s - m)
+        dv[:, :, blk] = torch.einsum("bhqk,bhqd->bhkd", pu, dof)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, v_blk)
+        ds = pu * (dp - delta)
+        if mask is not None:
+            # where() passes no gradient to masked logits; fully masked
+            # rows (causal, Lq > Lk) still reached dv above
+            ds = torch.where(mask, ds, torch.zeros_like(ds))
+        # sm_scale's chain factor on dq and dk is applied after the loop
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, k_blk)
+        dk[:, :, blk] = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+        if db is not None:
+            red = ds
+            for ax in (0, 1, 2):
+                if bias.shape[ax] == 1:
+                    red = red.sum(dim=ax, keepdim=True)
+            if slice_k:
+                db[..., blk] = red
+            else:
+                db += red.sum(dim=3, keepdim=True)
+    dq *= sm_scale
+    dk *= sm_scale
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            None if db is None else db.to(bias.dtype))
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """The blockwise route with a gradient: the counterpart of the TPU
+    package's custom VJP ``_attention_blockwise``. Saves (q, k, v, bias,
+    o, m, l), never a score tile; the backward runs
+    :func:`_blockwise_bwd_impl`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale, block_k, q_offset):
+        o, m, l = _blockwise_fwd_impl(q, k, v, bias, causal, sm_scale,
+                                      block_k, q_offset)
+        ctx.save_for_backward(q, k, v, bias, o, m, l)
+        ctx.args = (causal, sm_scale, block_k, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, m, l = ctx.saved_tensors
+        causal, sm_scale, block_k, q_offset = ctx.args
+        dq, dk, dv, db = _blockwise_bwd_impl(
+            q, k, v, bias, o, m, l, do, causal, sm_scale, block_k, q_offset,
+            bias_grad=ctx.needs_input_grad[3])
+        return dq, dk, dv, db, None, None, None, None
+
+
 def attention_blockwise(q, k, v, bias=None, causal=False, sm_scale=None,
                         q_offset=None):
-    """O(L)-memory attention: q,k,v (B, H, L, D) -> (B, H, L, D). Its
-    gradient is PyTorch's autograd through these ops; the TPU package's
-    hand-written blockwise backward is not ported yet."""
+    """O(L)-memory attention: q,k,v (B, H, L, D) -> (B, H, L, D). When an
+    input needs a gradient it runs through :class:`_BlockwiseAttention`,
+    whose hand-written backward rebuilds the score tiles block by block
+    (the TPU package's ``_blockwise_bwd_impl``); otherwise the forward
+    runs alone."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if bias is not None and bias.dim() != 4:
         bias = bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape))
     bk = _fallback_block(k.shape[2])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return _BlockwiseAttention.apply(q, k, v, bias, causal, sm_scale,
+                                         bk, q_offset)
     return _blockwise_fwd_impl(q, k, v, bias, causal, sm_scale, bk,
                                q_offset)[0]
 
@@ -383,11 +524,28 @@ def _launch_backward(q, k, v, kbias, o, lse, do, causal, sm_scale):
     return dq, dk, dv, db.reshape(b, h, lk).sum(dim=1)
 
 
+def _reference_vjp_blhd(q, k, v, kbias, do, causal, sm_scale,
+                        bias_grad=True):
+    """The ``full`` policy's backward: autograd through
+    :func:`attention_reference` over the (B, L, H, d) operands, the key
+    bias broadcast to (B, 1, 1, Lk). Returns dq, dk, dv, dkb (None when
+    ``bias_grad`` is False: the bias is then no leaf)."""
+    with torch.enable_grad():
+        ql, kl, vl = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        kbl = kbias.detach().requires_grad_(bias_grad)
+        leaves = [ql, kl, vl] + ([kbl] if bias_grad else [])
+        out = attention_reference(
+            ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+            bias=kbl[:, None, None, :], causal=causal, sm_scale=sm_scale)
+        grads = torch.autograd.grad(out.transpose(1, 2), leaves, do)
+    return tuple(grads) + (() if bias_grad else (None,))
+
+
 class _FlashAttentionBLHD(torch.autograd.Function):
     """The kernel route with a gradient: the counterpart of the TPU
-    package's custom VJP ``_flash_attention_blhd`` under its default
-    save-lse-recompute-probs policy. Saves (q, k, v, kbias, o, lse); the
-    backward runs :func:`flash_backward_blhd`."""
+    package's custom VJP ``_flash_attention_blhd``. Saves (q, k, v,
+    kbias, o, lse); the backward runs :func:`flash_backward_blhd`, or
+    under the ``full`` remat policy :func:`_reference_vjp_blhd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, kbias, causal, sm_scale):
@@ -400,10 +558,15 @@ class _FlashAttentionBLHD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, kbias, o, lse = ctx.saved_tensors
-        if do.stride(3) != 1:
-            do = do.contiguous()
-        dq, dk, dv, dkb = flash_backward_blhd(q, k, v, kbias, o, lse, do,
-                                              ctx.causal, ctx.sm_scale)
+        if _flash_remat_policy() == "full":
+            dq, dk, dv, dkb = _reference_vjp_blhd(
+                q, k, v, kbias, do, ctx.causal, ctx.sm_scale,
+                bias_grad=ctx.needs_input_grad[3])
+        else:
+            if do.stride(3) != 1:
+                do = do.contiguous()
+            dq, dk, dv, dkb = flash_backward_blhd(
+                q, k, v, kbias, o, lse, do, ctx.causal, ctx.sm_scale)
         return (dq, dk, dv, dkb if ctx.needs_input_grad[3] else None,
                 None, None)
 

@@ -61,9 +61,7 @@ def file_module(module: str) -> str:
 
 
 # the interop modules still to port, each with its ROADMAP item
-_INTEROP = {".nnframes.": "A14.6", ".estimator.local_estimator.": "A14.6",
-            ".ray.": "A14.7", ".automl.": "A14.7", ".api.net.tf": "A14.8",
-            ".tfpark.": "A14.8"}
+_INTEROP = {".api.net.tf": "A14.8", ".tfpark.": "A14.8"}
 
 
 def _roadmap_item(path: str) -> str:

@@ -14,7 +14,8 @@ names by class and creation order, ``utils/jax_weights.py``): the JAX
 Estimator's ``_remap_param_names`` step is part of that pairing here.
 ``train_minibatch`` trains on a pre-batched feature set and
 ``train_imagefeature`` on an ``ImageSet`` (through its
-``to_feature_set``). ``LocalEstimator`` waits for ROADMAP A10.
+``to_feature_set``). ``LocalEstimator`` (``local_estimator.py``) trains
+from raw arrays over the same trainer.
 """
 
 from __future__ import annotations

@@ -2,11 +2,13 @@
 """Drive the PyTorch/CUDA port's serving, training (float32 and bf16),
 generation, NeuralCF, checkpoint, sequence-model, ResNet-50, Cluster
 Serving, int8 inference, serving-fleet, training-observability, host
-data, object-detection, layer-library, model-interop and data-,
-sequence-, tensor-, pipeline- and expert-parallel paths once on one
-NVIDIA GPU.
+data, object-detection, layer-library, model-interop, estimator
+(nnframes, LocalEstimator, the attention backward's other routes,
+RayContext, AutoML) and data-, sequence-, tensor-, pipeline- and
+expert-parallel paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --phase estimators|parallel|layout [--ranks N]
 
 It runs from the root of a checkout of the repository, on a machine with
 a CUDA card, PyTorch built for CUDA and the CUDA toolkit (``nvcc``). It
@@ -85,7 +87,8 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``predict`` on a feature set and ``recommend_for_user``.
 9. checkpoint -- the engine's checkpoint store, failure policy,
               accumulation and persistence on the ``train_bf16``
-              classifier (bf16, int32 ids, dropout 0.1, Adam) over 8
+              classifier cut to 4 of its 12 blocks (``CKPT_BLOCKS``,
+              full width; bf16, int32 ids, dropout 0.1, Adam) over 8
               distinct batches of 32 x 512 (random labels) for 2 epochs,
               a checkpoint every 4 steps, keeping 2: a reference run with
               TensorBoard summaries (one Loss a 2-step window, each the
@@ -99,9 +102,9 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               carry the reference's crc32c. A byte flipped in the newest
               ``optim.npz`` falls back to ``ckpt-12``, equal to the
               reference's state there. Accumulation 4 launches K1-K5
-              48/48/48/96/96 a step; its step time and peak memory beside
+              16/16/16/32/32 a step; its step time and peak memory beside
               accumulation 1's; a dropout-off step against accumulation 1
-              in float32 and bf16. ``save_model`` then
+              in float32 and bf16 (at 12 blocks). ``save_model`` then
               ``InferenceModel.load`` serves the trained classifier and a
               ResNet-50 ``ZooModel`` (seeded moving statistics) bit for
               bit against ``predict``. Reported: checkpoint bytes, each
@@ -243,15 +246,16 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               (``launches_fleet``). Its files, under
               ``build/chip_smoke_fleet``, are deleted at the end.
 15. observe -- the training side of observability on the ``train_bf16``
-              classifier (bench.py's widths, bf16, int32 ids, dropout
-              0.1, Adam; weights from ``--seed``) in a context with the
+              classifier (bench.py's widths, 4 of its 12 blocks, bf16,
+              int32 ids, dropout 0.1, Adam; weights from ``--seed``) in
+              a context with the
               health monitor, the memory accountant, telemetry into a
               trace dir and the profiler hook over steps 5-6. A: ``fit``
               for 16 steps at 32 x 512 with a TensorBoard window every 4:
               every TrainSummary tag (Loss, LearningRate, Throughput,
               StepTimeMs, HealthState, HBM{Total,Params,OptState,
               Activations,Transfers}MB, InfeedWaitMs, InputBoundFraction,
-              MFU) at every window, HealthState 0; K1-K5 12/12/12/24/24 a
+              MFU) at every window, HealthState 0; K1-K5 4/4/4/8/8 a
               step (``launches_observe``); the parameters' float32 bytes
               and Adam's leaves' bytes exact; saved activations <= the
               allocator's step peak, and the step's total <= the
@@ -285,12 +289,12 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ids, the float32 mask and label) written as 256 TFRecord
               records and read back by the native reader with every
               checksum verified (equal to what was written); the bf16
-              classifier ``fit`` 2 epochs through
+              classifier (4 blocks) ``fit`` 2 epochs through
               ``FeatureSet.rdd(FeatureSet.array(records).transform(
               DecodeBertRecords), "DRAM")`` on 4 threads: epoch 1's
               losses equal bit for bit a ``fit`` from the same weights on
               the decoded arrays in memory, epoch 2 replays the cache (8
-              hits, 8 transforms), K1-K5 12/12/12/24/24 a step
+              hits, 8 transforms), K1-K5 4/4/4/8/8 a step
               (``launches_data``), ``InfeedWaitMs`` and
               ``InputBoundFraction`` reported. B: 2,048 uint8 3 x 256 x
               256 images in 8 npz shards; ``AugmentImages`` (a seeded 224
@@ -438,6 +442,45 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               the same weights, a finite nonzero gradient on the torch
               module's weight and the weight moved on the card; both
               heads' step p50s from alternating windows.
+21. estimators -- (run before ``parallel``) A: ``NNClassifier`` over
+              bench.py's classifier on a dict of columns (tokens,
+              positions, segments, mask; 128 rows of 512 int32 ids,
+              assembled into a ``features`` column), ``fit`` in bf16 at
+              batch 32, dropout 0.1, Adam 1e-4, 4 steps: K1-K5
+              12/12/12/24/24 a step (``launches_estimators``); a
+              dropout-off float32 step's loss within 1e-6 relative of
+              ``Model.fit``'s on the same rows from the same weights;
+              ``transform``'s classes and an ``NNModel``'s rows equal to
+              ``predict``'s; ``NNClassifierModel.save`` then
+              ``NNModel.load`` giving equal rows; ``LocalEstimator``'s 2
+              steps lowering the batch's loss; the NNFrames and
+              ``Model.fit`` steps from alternating windows. B: a causal
+              ``TransformerLayer`` at EleutherAI pythia-2.8b's width
+              (hidden 2560, 32 heads of d = 80, 2048 positions, vocab
+              50304; 2 of its 32 blocks) and a Dense(2) head, ``fit`` 2
+              steps at 4 x 2048, float32: K1-K5 launched 0 times (d = 80
+              and D = 2560 are declined); one block's dq, dk, dv at (4,
+              2048, 32, 80) through the blockwise backward within 1e-4
+              of autograd through ``attention_reference``, with the peak
+              memory of the new Function, of autograd through the
+              forward's ops and of the reference. C: the classifier at 32
+              x 512 under ``ZooConfig.flash_remat = "full"``, float32,
+              dropout 0.1: K1-K5 12/0/0/24/24 a step
+              (``launches_remat_full``), every parameter's gradient within
+              1e-4 of the default policy's from the same weights and
+              masks, 2 ``fit`` steps, both policies' step p50 and peak
+              memory from alternating windows. D: a ``RayContext`` of 2
+              spawned workers on the card (the default platform): tasks
+              return products computed on the card, equal to the
+              script's; an actor keeps a running sum on the card; then
+              ``automl/smoke.py``'s contract with real
+              ``LSTMForecaster`` trials: 8 trials of ASHA (rungs 1, 3, 9
+              epochs) on the 2 workers, one SIGKILLed when it claims a
+              segment: its segment requeued exactly once, every trial
+              finalized once, one at least stopped early, the best loss
+              finite; each trial's seconds and the workers' start
+              seconds. Its files, under ``build/chip_smoke_estimators``,
+              are deleted at the end.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -529,6 +572,19 @@ from analytics_zoo_tpu_torch.pipeline.engine import (PinnedStager,
                                                      clear_preemption,
                                                      preemption_requested,
                                                      request_preemption)
+from analytics_zoo_tpu_torch.pipeline.estimator import LocalEstimator
+from analytics_zoo_tpu_torch.pipeline.nnframes import (NNClassifier,
+                                                       NNClassifierModel,
+                                                       NNModel)
+from analytics_zoo_tpu_torch.automl import (AshaScheduler,
+                                            AsyncTrialExecutor, Choice,
+                                            Uniform, rolling_window,
+                                            run_trial_segment,
+                                            train_val_split)
+from analytics_zoo_tpu_torch.automl.search import sample_config
+from analytics_zoo_tpu_torch.ray import RayContext
+from analytics_zoo_tpu_torch.utils.tensorboard import (TrainSummary,
+                                                       read_scalars)
 from analytics_zoo_tpu_torch.pipeline.api.caffe import proto as caffe_proto
 from analytics_zoo_tpu_torch.pipeline.api.net import TorchCriterion, TorchNet
 from analytics_zoo_tpu_torch.pipeline.api.onnx import builder as onnx_builder
@@ -2207,6 +2263,10 @@ def generate(seed, device, smi):
 # bench.py's classifier in bf16 on int32 ids (the train_bf16 setup) over 8
 # distinct batches of TRAIN_BATCH rows, shuffled per epoch, 2 epochs; a
 # checkpoint every CKPT_EVERY steps into a store keeping CKPT_KEEP.
+# ``ckpt_model``'s depth (the checkpoint, observe and data phases' BERT):
+# cut from bench.py's 12 blocks to 4, at full width, to keep the script
+# inside its time limit beside the estimators phase
+CKPT_BLOCKS = 4
 CKPT_BATCHES, CKPT_EPOCHS, CKPT_EVERY, CKPT_KEEP = 8, 2, 4, 2
 CKPT_STEPS = CKPT_BATCHES * CKPT_EPOCHS
 CKPT_FAIL_AT, CKPT_PREEMPT_AT, CKPT_LOG_EVERY = 10, 6, 2
@@ -2296,10 +2356,11 @@ class _Messages(logging.Handler):
 
 
 def ckpt_model(seed, dropout=TRAIN_P_DROP, dtype="bfloat16"):
-    """The classifier of ``build_classifier`` with named layers: every run
-    of the phase writes the same layer names into its checkpoints, so two
-    runs' files can be compared byte for byte."""
-    config = dict(BERT_CONFIG, hidden_p_drop=dropout, attn_p_drop=dropout)
+    """The classifier of ``build_classifier``, CKPT_BLOCKS deep, with named
+    layers: every run of the phase writes the same layer names into its
+    checkpoints, so two runs' files can be compared byte for byte."""
+    config = dict(BERT_CONFIG, n_block=CKPT_BLOCKS, hidden_p_drop=dropout,
+                  attn_p_drop=dropout)
     l = config["seq_len"]
     ins = [L.Input(shape=(l,), name=n) for n in
            ("tokens", "positions", "segments")] + \
@@ -2429,7 +2490,7 @@ def time_accumulation(model, x, y):
     trainer = model.trainer
     batch = trainer.put_batch(([a[:TRAIN_BATCH] for a in x], y[:TRAIN_BATCH],
                                np.ones(TRAIN_BATCH, np.float32)))
-    n_block = BERT_CONFIG["n_block"]
+    n_block = CKPT_BLOCKS
     per_step = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
                 attn.DKV_KERNEL_NAME: n_block,
                 dln.FWD_KERNEL_NAME: 2 * n_block,
@@ -5400,7 +5461,7 @@ def obs_monitored_run(seed, dirs, smi):
     peak_alloc = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
     trainer = model.trainer
-    n_block = BERT_CONFIG["n_block"]
+    n_block = CKPT_BLOCKS
     per_step = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
                 attn.DKV_KERNEL_NAME: n_block,
                 dln.FWD_KERNEL_NAME: 2 * n_block,
@@ -5957,9 +6018,10 @@ def data_leg_a(seed, root):
 
     steps = DATA_BERT_BATCHES * DATA_BERT_EPOCHS
     per_step = {k: v / steps for k, v in launches.items()}
-    want = {attn.KERNEL_NAME: 12, attn.DQ_KERNEL_NAME: 12,
-            attn.DKV_KERNEL_NAME: 12, dln.FWD_KERNEL_NAME: 24,
-            dln.BWD_KERNEL_NAME: 24}
+    want = {attn.KERNEL_NAME: CKPT_BLOCKS, attn.DQ_KERNEL_NAME: CKPT_BLOCKS,
+            attn.DKV_KERNEL_NAME: CKPT_BLOCKS,
+            dln.FWD_KERNEL_NAME: 2 * CKPT_BLOCKS,
+            dln.BWD_KERNEL_NAME: 2 * CKPT_BLOCKS}
     if per_step != want:
         raise AssertionError(f"data: leg A launched {per_step} a step")
     if stats["cache_hits"] != DATA_BERT_BATCHES or \
@@ -7302,7 +7364,12 @@ PAR_SCRIPT = os.path.abspath(__file__)
 PAR_STEPS, PAR_SAVE_AT = 4, 2          # leg A: bf16 steps, the checkpoint
 PAR_B_STEPS = 2                        # leg B: bf16 steps a rank
 PAR_C_STEPS = {"ulysses": 2, "ring": 2}
-PAR_TIMED_STEPS = 2
+PAR_TIMED_STEPS = 1   # depth: cut from 2 beside the estimators phase
+# every leg's classifier: bench.py's BERT-base at full width, its depth cut
+# from 12 blocks to 4 (a proof run of the whole script took 1,102 s of its
+# 1,200 s limit at 12); 4 divides among 2 or 4 pipe ranks
+PAR_BLOCKS = 4
+PAR_CONFIG = dict(BERT_CONFIG, n_block=PAR_BLOCKS)
 PAR_LAUNCH_TIMEOUT_S = 300.0
 # the ranks of legs B and C: two sharing the one card (gloo); on a
 # machine with more cards, one a card (NCCL)
@@ -7373,7 +7440,7 @@ def par_launch(leg, ranks, seed, env=None):
 def par_bf16_model(seed):
     """The leg's bf16 classifier: bench.py's BERT-base at full width,
     dropout 0.1, Adam at TRAIN_LR (``train``'s)."""
-    config = dict(BERT_CONFIG, hidden_p_drop=TRAIN_P_DROP,
+    config = dict(PAR_CONFIG, hidden_p_drop=TRAIN_P_DROP,
                   attn_p_drop=TRAIN_P_DROP)
     model = build_classifier(seed + 1, config)
     model.compile(optimizer=Adam(lr=TRAIN_LR),
@@ -7384,7 +7451,7 @@ def par_bf16_model(seed):
 
 def par_f32_model(seed):
     """The float32 gate's classifier, dropout off."""
-    model = build_classifier(seed + 2, dict(BERT_CONFIG, hidden_p_drop=0.0,
+    model = build_classifier(seed + 2, dict(PAR_CONFIG, hidden_p_drop=0.0,
                                             attn_p_drop=0.0))
     model.compile(optimizer=Adam(lr=TRAIN_LR),
                   loss="sparse_categorical_crossentropy")
@@ -7392,7 +7459,7 @@ def par_f32_model(seed):
 
 
 def par_per_step():
-    n = BERT_CONFIG["n_block"]
+    n = PAR_CONFIG["n_block"]
     return {attn.KERNEL_NAME: n, attn.DQ_KERNEL_NAME: n,
             attn.DKV_KERNEL_NAME: n, dln.FWD_KERNEL_NAME: 2 * n,
             dln.BWD_KERNEL_NAME: 2 * n}
@@ -7657,9 +7724,9 @@ def par_leg_c(seed):
         del model
         collect()
     modes["ulysses"]["k1_shape"] = [
-        TRAIN_BATCH, BERT_CONFIG["seq_len"],
-        BERT_CONFIG["n_head"] // zoo_nncontext.get_nncontext().num_processes,
-        BERT_CONFIG["hidden_size"] // BERT_CONFIG["n_head"]]
+        TRAIN_BATCH, PAR_CONFIG["seq_len"],
+        PAR_CONFIG["n_head"] // zoo_nncontext.get_nncontext().num_processes,
+        PAR_CONFIG["hidden_size"] // PAR_CONFIG["n_head"]]
     return dict(modes=modes, seconds=seconds)
 
 
@@ -7706,7 +7773,7 @@ def par_layout_model(seed, leg):
     experts, top 2), dropout off, Adam at TRAIN_LR, float32; the same
     weights in every rank and in the in-process reference (drawn from the
     seed on the CPU, in the same order in the stacked layout)."""
-    config = dict(BERT_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0,
+    config = dict(PAR_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0,
                   **(MOE_CONFIG if leg == "f" else {}))
     model = build_classifier(seed + 5, config)
     model.compile(optimizer=Adam(lr=TRAIN_LR),
@@ -7715,9 +7782,9 @@ def par_layout_model(seed, leg):
 
 
 def par_layout_per_step(leg, world):
-    """K1-K5 launched a step on a rank: the 12 blocks' (a pipe rank's
-    n_block / S blocks once a microbatch)."""
-    n = BERT_CONFIG["n_block"]
+    """K1-K5 launched a step on a rank: the PAR_BLOCKS blocks' (a pipe
+    rank's n_block / S blocks once a microbatch)."""
+    n = PAR_CONFIG["n_block"]
     if leg == "e":
         n = n // world * PAR_PIPE_MICRO
     return {attn.KERNEL_NAME: n, attn.DQ_KERNEL_NAME: n,
@@ -7763,7 +7830,7 @@ def par_layout_want(trainer, name, rel, grads):
     m = re.fullmatch(r"(\d+):blocks\.(.+)", rel)
     if m:
         full = torch.stack([grads[f"{m.group(1)}:block{i}.{m.group(2)}"]
-                            for i in range(BERT_CONFIG["n_block"])])
+                            for i in range(PAR_CONFIG["n_block"])])
     else:
         full = grads[rel]
     want = full
@@ -7929,8 +7996,8 @@ def layout_report(ref, layout):
 
 
 def layout_phase(seed, smi):
-    """Legs D-G alone (``tools/parallel_phase.py --layout-only``): the
-    report and the K1-K5 launches of every rank's fit."""
+    """Legs D-G alone (``--phase layout``): the report and the K1-K5
+    launches of every rank's fit."""
     t0 = time.perf_counter()
     shutil.rmtree(PAR_ROOT, ignore_errors=True)
     os.makedirs(PAR_ROOT)
@@ -7999,7 +8066,7 @@ def parallel_phase(seed, dev, smi):
 
     report = dict(
         card=smi, model="BERT-base classifier (bench.py:353-438)",
-        config=BERT_CONFIG, seed=seed, batch=TRAIN_BATCH,
+        config=PAR_CONFIG, seed=seed, batch=TRAIN_BATCH,
         reference=dict(losses=ref["losses"], moment_bytes=ref[
             "moment_bytes"], f32_loss=ref["f32_loss"], wall_s=ref_s),
         leg_a=dict(backend=a["backend"], world=a["world"],
@@ -8556,6 +8623,557 @@ def interop_phase(seed, dev, smi):
                 wall_s=time.perf_counter() - t0), launches
 
 
+# the estimators phase: nnframes, LocalEstimator, the attention
+# backward's other routes, RayContext and AutoML
+EST_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_estimators")
+# leg A: a frame of 128 rows of bench.py's classifier input, fit at batch
+# 32 (4 steps); the NNFrames step against Model.fit's in the same process
+# from the same weights and rows (float32, dropout off): one trainer step
+# on both sides, only the data path differs
+EST_ROWS = 128
+EST_STEPS = EST_ROWS // TRAIN_BATCH
+EST_LOSS_TOL = 1e-6
+EST_ROW_TOL = 1e-6
+EST_WINDOWS = 2
+# leg B: EleutherAI's pythia-2.8b (hidden 2560, 32 heads of d = 80, 2048
+# positions, vocab 50304, intermediate 10240), depth cut from 32 blocks
+# to 2; batch 4 x 2048, 2 fit steps, float32; the block's dq/dk/dv against
+# autograd through attention_reference within 1e-4 of their scale
+PYTHIA_CONFIG = dict(n_block=2, hidden_size=2560, n_head=32, vocab=50304,
+                     seq_len=2048, intermediate_size=10240)
+BLK_BATCH, BLK_STEPS, BLK_TOL = 4, 2, 1e-4
+# leg C: the classifier at 32 x 512 under flash_remat="full", float32,
+# dropout 0.1, 2 fit steps; each parameter's gradient against the default
+# policy's within 1e-4 of its norm (the reference's f32 products against
+# the backward kernels' 3xTF32 ones)
+REMAT_STEPS, REMAT_GRAD_TOL = 2, 1e-4
+# leg D: RayContext with 2 spawned workers sharing the card; an 8-trial
+# ASHA search (rungs 1, 3, 9 epochs) of LSTMForecasters on a seeded sine
+EST_WORKERS, EST_TRIALS = 2, 8
+EST_SERIES, EST_LOOKBACK = 400, 24
+EST_WAIT_S = 300.0
+
+
+class BertRow(Preprocessing):
+    """An assembled frame row (tokens, positions, segments, mask) -> the
+    classifier's four inputs: int32 ids and the float32 (1, 1, L) mask."""
+
+    def apply(self, row):
+        tok, pos, seg, mask = row
+        return [np.asarray(tok, np.int32), np.asarray(pos, np.int32),
+                np.asarray(seg, np.int32),
+                np.asarray(mask, np.float32).reshape(1, 1, -1)]
+
+
+def est_frame(x, y):
+    """A dict of columns (tokens, positions, segments, mask, label) and the
+    assembled ``features`` column of their rows, as a Spark ML pipeline's
+    assembler would give NNClassifier."""
+    frame = {"tokens": list(x[0]), "positions": list(x[1]),
+             "segments": list(x[2]), "mask": list(x[3][:, 0, 0]),
+             "label": [float(v) for v in y]}
+    frame["features"] = list(zip(frame["tokens"], frame["positions"],
+                                 frame["segments"], frame["mask"]))
+    return frame
+
+
+def est_slice(frame, n):
+    return {k: v[:n] for k, v in frame.items()}
+
+
+def est_classifier(model, root, app):
+    """bench.py's optimizer on an NNClassifier over ``model`` whose train
+    summary goes to ``root/app``."""
+    return (NNClassifier(model, feature_preprocessing=BertRow())
+            .setBatchSize(TRAIN_BATCH).setMaxEpoch(1)
+            .setOptimMethod(Adam(lr=TRAIN_LR))
+            .setTrainSummary(TrainSummary(root, app)))
+
+
+def est_losses(root, app):
+    return [v for _, _, _, v in read_scalars(
+        os.path.join(root, app, "train"), "Loss")]
+
+
+def est_fit_ms(fit):
+    """Milliseconds a step of one ``fit`` call of EST_STEPS steps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / EST_STEPS
+
+
+def est_leg_a(seed, root):
+    """Leg A: NNClassifier over bench.py's classifier on a dict frame."""
+    cfg = zoo_nncontext.get_nncontext().config
+    saved = (cfg.compute_dtype, cfg.log_every_n_steps)
+    x, y, _ = train_data(seed, EST_ROWS, ids=np.int32)
+    frame = est_frame(x, y)
+    try:
+        cfg.log_every_n_steps = 1
+        # the NNFrames step against Model.fit's: float32, dropout off
+        cfg.compute_dtype = "float32"
+        off = dict(BERT_CONFIG, hidden_p_drop=0.0, attn_p_drop=0.0)
+        nn_model, fit_model = build_classifier(seed, off), \
+            build_classifier(seed, off)
+        est_classifier(nn_model, root, "parity").fit(
+            est_slice(frame, TRAIN_BATCH))
+        fit_model.compile(optimizer=Adam(lr=TRAIN_LR),
+                          loss="sparse_categorical_crossentropy")
+        fit_model.fit([t[:TRAIN_BATCH] for t in x], y[:TRAIN_BATCH],
+                      batch_size=TRAIN_BATCH, nb_epoch=1)
+        nn_loss = est_losses(root, "parity")[0]
+        fit_loss = fit_model.trainer.step_losses[0]
+        parity_rel = abs(nn_loss - fit_loss) / abs(fit_loss)
+        if not parity_rel <= EST_LOSS_TOL:
+            raise AssertionError(f"leg A: the NNFrames step's loss "
+                                 f"{nn_loss} against Model.fit's {fit_loss}")
+        del nn_model, fit_model
+        collect()
+
+        # the bf16 fit: 4 steps at batch 32, dropout 0.1
+        cfg.compute_dtype = "bfloat16"
+        config = dict(BERT_CONFIG, hidden_p_drop=TRAIN_P_DROP,
+                      attn_p_drop=TRAIN_P_DROP)
+        model = build_classifier(seed + 1, config)
+        clf = est_classifier(model, root, "bf16")
+        torch.cuda.synchronize()
+        _kernels.LAUNCHES.reset()
+        nn_model = clf.fit(frame)
+        torch.cuda.synchronize()
+        launches = _kernels.LAUNCHES.snapshot()
+        launch_dtypes = _kernels.LAUNCHES.by_dtype()
+        losses = est_losses(root, "bf16")
+        n_block = BERT_CONFIG["n_block"]
+        per_step = {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
+                    attn.DKV_KERNEL_NAME: n_block,
+                    dln.FWD_KERNEL_NAME: 2 * n_block,
+                    dln.BWD_KERNEL_NAME: 2 * n_block}
+        if launches != {k: EST_STEPS * v for k, v in per_step.items()} or \
+                any(set(v) != {"bfloat16"} for v in launch_dtypes.values()):
+            raise AssertionError(f"leg A launches {launch_dtypes}, per step "
+                                 f"{per_step}")
+        if len(losses) != EST_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"leg A losses {losses}")
+
+        # transform against predict; save and load
+        probs = model.predict(x, batch_size=TRAIN_BATCH)
+        classes = np.asarray(nn_model.transform(frame)["prediction"])
+        rows = np.asarray(NNModel(model, feature_preprocessing=BertRow())
+                          .setBatchSize(TRAIN_BATCH)
+                          .transform(frame)["prediction"], np.float32)
+        row_err = float(np.abs(rows - probs).max())
+        if not np.array_equal(classes, np.argmax(probs, -1)) or \
+                row_err > EST_ROW_TOL:
+            raise AssertionError(f"leg A: transform against predict, rows "
+                                 f"{row_err}")
+        path = os.path.join(root, "nnmodel")
+        t0 = time.perf_counter()
+        nn_model.save(path)
+        loaded = NNModel.load(path)
+        save_load_s = time.perf_counter() - t0
+        loaded_rows = loaded.model.predict(x, batch_size=TRAIN_BATCH)
+        loaded_err = float(np.abs(loaded_rows - probs).max())
+        if type(loaded) is not NNClassifierModel or not np.array_equal(
+                np.asarray(loaded.transform(frame)["prediction"]),
+                classes) or loaded_err > EST_ROW_TOL:
+            raise AssertionError(f"leg A: the loaded model's rows differ "
+                                 f"by {loaded_err}")
+        del loaded
+        shutil.rmtree(path, ignore_errors=True)
+
+        # LocalEstimator: 2 steps on one batch; its loss on that batch,
+        # without dropout (validate), before and after them
+        le = LocalEstimator(model, "sparse_categorical_crossentropy",
+                            optim_method=Adam(lr=TRAIN_LR), thread_num=8)
+        xb, yb = [t[:TRAIN_BATCH] for t in x], y[:TRAIN_BATCH]
+        le_before = le.validate(xb, yb, batch_size=TRAIN_BATCH)["loss"]
+        le.fit(xb, yb, epoch=2, batch_size=TRAIN_BATCH)
+        le_losses = list(le.trainer.step_losses)
+        le_after = le.validate(xb, yb, batch_size=TRAIN_BATCH)["loss"]
+        if len(le_losses) != 2 or not np.isfinite(le_losses).all() or \
+                not le_after < le_before:
+            raise AssertionError(f"LocalEstimator: steps {le_losses}, loss "
+                                 f"{le_before} -> {le_after}")
+        del le
+
+        # the step through NNFrames (the frame's rows made into samples,
+        # a new Estimator and trainer a fit) against Model.fit's
+        model.compile(optimizer=Adam(lr=TRAIN_LR),
+                      loss="sparse_categorical_crossentropy")
+        timing = {"nnframes_fit": [], "model_fit": []}
+        for w in range(EST_WINDOWS):
+            order = (("nnframes_fit", lambda: clf.fit(frame)),
+                     ("model_fit", lambda: model.fit(
+                         x, y, batch_size=TRAIN_BATCH, nb_epoch=1)))
+            for name, fit in order if w % 2 == 0 else order[::-1]:
+                timing[name].append(est_fit_ms(fit))
+    finally:
+        cfg.compute_dtype, cfg.log_every_n_steps = saved
+    return dict(
+        model="BERT-base classifier (bench.py:353-438) under NNClassifier",
+        frame=f"dict of columns, {EST_ROWS} rows of 512 int32 ids",
+        compute_dtype="bfloat16", batch=TRAIN_BATCH, steps=EST_STEPS,
+        losses=losses, launches=launches, launches_per_step=per_step,
+        parity=dict(nnframes_loss=nn_loss, model_fit_loss=fit_loss,
+                    rel=parity_rel, tol=EST_LOSS_TOL),
+        transform_row_err=row_err, loaded_row_err=loaded_err,
+        save_load_s=save_load_s, local_estimator_losses=le_losses,
+        local_estimator_loss_before_after=[le_before, le_after],
+        step_ms=timing,
+        step_p50_ms={k: percentile(v, 50) for k, v in timing.items()},
+        timed_windows=EST_WINDOWS), launches
+
+
+def est_block_grads(fn, q, k, v, do):
+    """dq, dk, dv of ``fn`` and the peak memory its forward and backward
+    took above what was allocated before."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    node = out.grad_fn
+    while type(node).__name__.startswith("Transpose"):
+        node = node.next_functions[0][0]
+    return grads, peak, seconds, type(node).__name__
+
+
+def est_leg_b(seed, dev):
+    """Leg B: a causal TransformerLayer at pythia-2.8b's attention width
+    (d = 80), which the kernels decline: the blockwise backward."""
+    b, l = BLK_BATCH, PYTHIA_CONFIG["seq_len"]
+    h = PYTHIA_CONFIG["n_head"]
+    d = PYTHIA_CONFIG["hidden_size"] // h
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, l, h, d, device=dev, generator=gen)
+                   for _ in range(4))
+
+    def tr(t):
+        return t.transpose(1, 2)
+
+    _kernels.LAUNCHES.reset()
+    new, peak_new, s_new, node = est_block_grads(
+        lambda q, k, v: attn.flash_attention_blhd(q, k, v, causal=True),
+        q, k, v, do)
+    if _kernels.LAUNCHES.snapshot() or "BlockwiseAttention" not in node:
+        raise AssertionError(f"leg B: d = {d} ran {node}, launches "
+                             f"{_kernels.LAUNCHES.snapshot()}")
+    old, peak_old, s_old, _ = est_block_grads(
+        lambda q, k, v: tr(attn._blockwise_fwd_impl(
+            tr(q), tr(k), tr(v), None, True, scale,
+            attn._fallback_block(l))[0]), q, k, v, do)
+    ref, peak_ref, s_ref, _ = est_block_grads(
+        lambda q, k, v: tr(attn.attention_reference(
+            tr(q), tr(k), tr(v), causal=True)), q, k, v, do)
+    errs = {name: float((g - r).abs().max() / max(1.0, r.abs().max()))
+            for name, g, r in zip(("dq", "dk", "dv"), new, ref)}
+    old_errs = {name: float((g - r).abs().max() / max(1.0, r.abs().max()))
+                for name, g, r in zip(("dq", "dk", "dv"), old, ref)}
+    if max(errs.values()) > BLK_TOL:
+        raise AssertionError(f"leg B: the blockwise backward against the "
+                             f"reference: {errs}")
+    del new, old, ref, q, k, v, do
+    collect()
+
+    # fit: 2 steps of the 2-block trunk with a classifier head
+    rs = np.random.default_rng(seed)
+    tokens = rs.integers(1000, PYTHIA_CONFIG["vocab"], size=(b, l))
+    labels = rs.integers(0, N_CLASSES, size=b)
+    tokens[:, 0] = 101 + labels
+    ins = L.Input(shape=(l,), name="tokens")
+    _, pooled = L.TransformerLayer(**PYTHIA_CONFIG)(ins)
+    model = Model(ins, L.Dense(N_CLASSES, activation="softmax")(pooled),
+                  seed=seed)
+    model.compile(optimizer=Adam(lr=TRAIN_LR),
+                  loss="sparse_categorical_crossentropy")
+    x, y = tokens.astype(np.float32), labels.astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=b, nb_epoch=BLK_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _kernels.LAUNCHES.snapshot()
+    losses = list(model.trainer.step_losses)
+    fit_peak = torch.cuda.max_memory_allocated()
+    if launches or len(losses) != BLK_STEPS or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"leg B fit: launches {launches}, losses "
+                             f"{losses}")
+    return dict(
+        model="causal TransformerLayer at EleutherAI pythia-2.8b's width "
+              "(hidden 2560, 32 heads of d = 80, 2048 positions, vocab "
+              "50304, intermediate 10240), 2 of 32 blocks, Dense(2) head",
+        batch=b, seq_len=l, steps=BLK_STEPS, losses=losses,
+        launches=launches, block_shape=[b, l, h, d],
+        grad_err=errs, grad_tol=BLK_TOL, old_route_grad_err=old_errs,
+        peak_bytes=dict(blockwise_function=peak_new,
+                        autograd_through_forward=peak_old,
+                        attention_reference=peak_ref),
+        fwd_bwd_s=dict(blockwise_function=s_new,
+                       autograd_through_forward=s_old,
+                       attention_reference=s_ref),
+        fit_s=fit_s, fit_peak_bytes=fit_peak,
+        parameters=sum(p.numel() for p in model.parameters()))
+
+
+def est_leg_c(seed, dev):
+    """Leg C: bench.py's classifier under ``flash_remat="full"``: the
+    backward differentiates through the reference attention."""
+    cfg = zoo_nncontext.get_nncontext().config
+    saved = cfg.flash_remat
+    config = dict(BERT_CONFIG, hidden_p_drop=TRAIN_P_DROP,
+                  attn_p_drop=TRAIN_P_DROP)
+    x, y, _ = train_data(seed, TRAIN_BATCH)
+    n_block = BERT_CONFIG["n_block"]
+    want = {"": {attn.KERNEL_NAME: n_block, attn.DQ_KERNEL_NAME: n_block,
+                 attn.DKV_KERNEL_NAME: n_block,
+                 dln.FWD_KERNEL_NAME: 2 * n_block,
+                 dln.BWD_KERNEL_NAME: 2 * n_block},
+            "full": {attn.KERNEL_NAME: n_block,
+                     dln.FWD_KERNEL_NAME: 2 * n_block,
+                     dln.BWD_KERNEL_NAME: 2 * n_block}}
+    try:
+        model = build_classifier(seed, config)
+        trainer = SPMDTrainer(model, get_loss(
+            "sparse_categorical_crossentropy"), get_optimizer("adam"),
+            device=dev)
+        trainer.ensure_initialized()
+        batch = trainer.put_batch((x, y, np.ones(TRAIN_BATCH, np.float32)))
+        grads, step_launches, step_losses = {}, {}, {}
+        for policy in ("", "full"):
+            cfg.flash_remat = policy
+            _kernels.LAUNCHES.reset()
+            step_losses[policy] = trainer.loss_and_grads(batch).item()
+            step_launches[policy] = _kernels.LAUNCHES.snapshot()
+            grads[policy] = {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+        if step_launches != want:
+            raise AssertionError(f"leg C launches {step_launches}")
+        worst, worst_name = 0.0, None
+        for name, g in grads["full"].items():
+            rel = _rel(g, grads[""][name])
+            if rel > worst:
+                worst, worst_name = rel, name
+        if worst > REMAT_GRAD_TOL:
+            raise AssertionError(f"leg C: {worst_name}'s gradient under "
+                                 f"'full' is {worst} from the default's")
+        del trainer, grads, batch
+        collect()
+
+        cfg.flash_remat = "full"
+        model.compile(optimizer=Adam(lr=TRAIN_LR),
+                      loss="sparse_categorical_crossentropy")
+        torch.cuda.synchronize()
+        _kernels.LAUNCHES.reset()
+        model.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=REMAT_STEPS)
+        torch.cuda.synchronize()
+        launches = _kernels.LAUNCHES.snapshot()
+        losses = list(model.trainer.step_losses)
+        if launches != {k: REMAT_STEPS * v for k, v in want["full"].items()
+                        } or not np.isfinite(losses).all():
+            raise AssertionError(f"leg C fit: launches {launches}, losses "
+                                 f"{losses}")
+        timing = {"lse": [], "full": []}
+        peak = {"lse": 0, "full": 0}
+        for w in range(EST_WINDOWS):        # alternating windows
+            order = ("lse", "full") if w % 2 == 0 else ("full", "lse")
+            for policy in order:
+                cfg.flash_remat = policy
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                timing[policy] += io_step_ms(model, x, y)
+                peak[policy] = max(peak[policy],
+                                   torch.cuda.max_memory_allocated())
+    finally:
+        cfg.flash_remat = saved
+    return dict(
+        model="BERT-base classifier (bench.py:353-438), float32, dropout "
+              "0.1, ZooConfig(flash_remat='full')",
+        batch=TRAIN_BATCH, steps=REMAT_STEPS, losses=losses,
+        launches=launches, launches_per_step=want["full"],
+        step_launches_by_policy=step_launches,
+        step_loss_by_policy=step_losses, max_grad_rel_err=worst,
+        max_grad_rel_err_param=worst_name, grad_tol=REMAT_GRAD_TOL,
+        step_p50_ms={k: 1e3 * percentile(v, 50) for k, v in timing.items()},
+        step_ms={k: [1e3 * t for t in v] for k, v in timing.items()},
+        peak_memory_bytes=peak, timed_windows=EST_WINDOWS), launches
+
+
+def est_card_product(seed, hold_s=0.0):
+    """A RayContext task on its worker's device: a seeded 256 x 256
+    product left on the card, the worker's pid and when the task began."""
+    began = time.time()
+    dev = zoo_nncontext.get_nncontext().device
+    a = torch.randn(256, 256, generator=torch.Generator().manual_seed(seed))
+    a = a.to(dev)
+    out = a @ a
+    time.sleep(hold_s)
+    return out, os.getpid(), began
+
+
+class EstCardCounter:
+    """A RayContext actor holding a running sum on its worker's device."""
+
+    def __init__(self):
+        self.total = torch.zeros(8, device=zoo_nncontext.get_nncontext()
+                                 .device)
+
+    def add(self, seed):
+        self.total += torch.randn(8, generator=torch.Generator().manual_seed(
+            seed)).to(self.total.device)
+        return self.total.clone()
+
+
+def est_claiming_segment(trial_id, config, budget, data, ckpt_dir,
+                         start_epochs=0):
+    """``run_trial_segment`` after a claim file naming this worker, so the
+    phase can SIGKILL a worker while it trains a segment."""
+    with open(os.path.join(ckpt_dir, f"claim-{os.getpid()}"), "w"):
+        pass
+    return run_trial_segment(trial_id, config, budget, data, ckpt_dir,
+                             start_epochs)
+
+
+def est_leg_d(seed, dev, root):
+    """Leg D: RayContext on the card, then the AutoML smoke's contract
+    with real LSTMForecasters and a SIGKILL."""
+    t0 = time.perf_counter()
+    wall0 = time.time()
+    ctx = RayContext(num_ray_nodes=EST_WORKERS, ray_node_cpu_cores=1).init()
+    workdir = os.path.join(root, "automl")
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        refs = [ctx.remote(est_card_product).remote(seed + i, 1.0)
+                for i in range(2 * EST_WORKERS)]
+        products = ctx.get(refs, timeout=EST_WAIT_S)
+        first = time.perf_counter() - t0
+        start_s = {}
+        for i, (out, pid, began) in enumerate(products):
+            a = torch.randn(256, 256, generator=torch.Generator()
+                            .manual_seed(seed + i)).to(dev)
+            if out.device != dev or not torch.allclose(
+                    out, a @ a, rtol=1e-6, atol=1e-5):
+                raise AssertionError(f"leg D: task {i}'s product on "
+                                     f"{out.device} differs")
+            start_s[pid] = min(start_s.get(pid, math.inf), began - wall0)
+        if len(start_s) != EST_WORKERS:
+            raise AssertionError(f"leg D: tasks ran on {sorted(start_s)}")
+        counter = ctx.remote(EstCardCounter).remote()
+        sums = ctx.get([counter.add.remote(seed + i) for i in range(3)],
+                       timeout=EST_WAIT_S)
+        want = torch.zeros(8)
+        for i, got in enumerate(sums):
+            want += torch.randn(8, generator=torch.Generator().manual_seed(
+                seed + i))
+            if got.device != dev or not torch.allclose(got.cpu(), want,
+                                                       atol=1e-6):
+                raise AssertionError(f"leg D: the actor's sum {i}")
+        ctx.kill(counter)
+
+        # the AutoML smoke's contract with real forecasters
+        t = np.arange(EST_SERIES, dtype=np.float32)
+        rs = np.random.default_rng(seed)
+        series = (np.sin(2 * np.pi * t / 24) + 0.05 * rs.standard_normal(
+            EST_SERIES)).astype(np.float32)
+        x, yy = rolling_window(series, EST_LOOKBACK, 1)
+        (xt, yt), (xv, yv) = train_val_split(x, yy, 0.2)
+        space = {"model": "lstm",
+                 "lstm_units": Choice([(16,), (32,), (32, 16)]),
+                 "dropout": Uniform(0.0, 0.2), "lr": Choice([1e-2, 3e-3]),
+                 "batch_size": 32}
+        cfg_rs = np.random.default_rng(seed)
+        configs = [sample_config(space, cfg_rs) for _ in range(EST_TRIALS)]
+        victim = ctx._procs[0].pid
+        killed = []
+
+        def kill_on_claim():
+            claim = os.path.join(workdir, f"claim-{victim}")
+            deadline = time.time() + EST_WAIT_S
+            while not os.path.exists(claim) and time.time() < deadline:
+                time.sleep(0.02)
+            os.kill(victim, signal.SIGKILL)
+            killed.append(victim)
+
+        killer = threading.Thread(target=kill_on_claim, daemon=True)
+        killer.start()
+        scheduler = AshaScheduler(max_epochs=9, min_epochs=1,
+                                  reduction_factor=3)
+        executor = AsyncTrialExecutor(scheduler, ray_ctx=ctx,
+                                      max_concurrent=EST_WORKERS,
+                                      trial_fn=est_claiming_segment,
+                                      workdir=workdir)
+        t1 = time.perf_counter()
+        trials = executor.run(configs, (xt, yt, xv, yv))
+        search_s = time.perf_counter() - t1
+        killer.join(timeout=EST_WAIT_S)
+    finally:
+        ctx.stop()
+    stats = executor.stats
+    best = min((tr["val_loss"] for tr in trials
+                if tr["val_loss"] is not None and
+                math.isfinite(tr["val_loss"])), default=float("nan"))
+    checks = {"killed": killed == [victim],
+              "requeued_exactly_once": stats["requeued"] == 1 and
+              sum(tr["requeues"] for tr in trials) == 1,
+              "finalized": stats["finalized"] == EST_TRIALS,
+              "nothing_failed": stats["failed"] == 0,
+              "early_stopped": stats["stopped"] > 0,
+              "best_finite": math.isfinite(best)}
+    if not all(checks.values()):
+        raise AssertionError(f"leg D: {checks}, stats {stats}")
+    return dict(
+        workers=EST_WORKERS, platform="cuda (the default)",
+        worker_start_s=sorted(start_s.values()),
+        first_results_s=first, trials=EST_TRIALS,
+        rungs=scheduler.rungs(), search_s=search_s,
+        trial_seconds=[tr["seconds"] for tr in trials],
+        trial_states=[tr["state"] for tr in trials],
+        trial_epochs=[tr["epochs"] for tr in trials],
+        best_val_loss=best, stats={k: v for k, v in stats.items()
+                                   if k != "worker_pids"},
+        checks=checks)
+
+
+def estimators_phase(seed, dev, smi):
+    """The estimators phase: A nnframes and LocalEstimator, B the blockwise
+    backward at pythia-2.8b's width, C the ``full`` remat policy, D
+    RayContext and AutoML on the card. Returns the report and K1-K5's
+    launches in leg A's NNFrames fit and in leg C's fit."""
+    t0 = time.perf_counter()
+    shutil.rmtree(EST_ROOT, ignore_errors=True)
+    os.makedirs(EST_ROOT)
+    seconds = {}
+    leg_a, launches = est_leg_a(seed + 80, EST_ROOT)
+    seconds["a"] = time.perf_counter() - t0
+    collect()
+    leg_b = est_leg_b(seed + 81, dev)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    collect()
+    leg_c, remat_launches = est_leg_c(seed + 82, dev)
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    collect()
+    leg_d = est_leg_d(seed + 83, dev, EST_ROOT)
+    seconds["d"] = time.perf_counter() - t0 - sum(seconds.values())
+    shutil.rmtree(EST_ROOT, ignore_errors=True)
+    return dict(card=smi, leg_a_nnframes=leg_a, leg_b_blockwise=leg_b,
+                leg_c_remat_full=leg_c, leg_d_ray_automl=leg_d,
+                leg_seconds=seconds,
+                clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                                  "temperature.gpu"),
+                wall_s=time.perf_counter() - t0), launches, remat_launches
+
+
 class PhaseClock:
     """Seconds of each phase of ``main``, host clock between marks (the
     ``phases`` line: where the script's time limit goes)."""
@@ -8571,11 +9189,165 @@ class PhaseClock:
         self._name, self._t = name, now
 
 
+# Every process a run starts inherits RUN_MARK in its environment, set by
+# the run's top-level process. At the end each process of the script reaps
+# its own multiprocessing resource tracker (left to itself, the tracker
+# exits only after its parent, and its zombie then waits on the machine's
+# init, which may reap it seconds later), and the top-level process stops
+# and names whatever still carries the mark.
+RUN_MARK = "CHIP_SMOKE_RUN"
+STOP_GRACE_S = 5.0
+
+
+def own_run():
+    """Mark the environment this process hands its children, unless a
+    parent run did; True where this process owns the run."""
+    if os.environ.get(RUN_MARK):
+        return False
+    os.environ[RUN_MARK] = f"{os.getpid()}.{time.time_ns()}"
+    return True
+
+
+def run_strays():
+    """(pid, command line) of the live processes, other than this one,
+    whose environment carries this run's mark."""
+    mark = f"{RUN_MARK}={os.environ[RUN_MARK]}".encode()
+    strays = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as f:
+                if mark not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        strays.append((int(name), cmd.strip()))
+    return strays
+
+
+def reap_children():
+    """Collect every child of this process that has exited."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_resource_tracker():
+    """Run multiprocessing's exit hook now (daemonic children stopped,
+    semaphores unregistered), then close this process's end of its
+    resource tracker's pipe and reap the tracker: it is this process's
+    child and exits at the pipe's end."""
+    from multiprocessing import resource_tracker, util
+    util._exit_function()
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        fd, pid = tracker._fd, tracker._pid
+        if fd is None:
+            return
+        os.close(fd)
+        tracker._fd = tracker._pid = None
+    if pid is None:
+        return
+    deadline = time.time() + STOP_GRACE_S
+    while os.waitpid(pid, os.WNOHANG)[0] == 0:
+        if time.time() > deadline:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+            return
+        time.sleep(0.02)
+
+
+def stop_strays():
+    """SIGTERM, then SIGKILL, every live process of this run but this
+    one; waits until they are gone and returns what it found."""
+    strays = run_strays()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid, _ in run_strays():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.time() + STOP_GRACE_S
+        while run_strays() and time.time() < deadline:
+            reap_children()
+            time.sleep(0.05)
+    # a killed orphan's zombie belongs to init: wait until init reaped it
+    deadline = time.time() + STOP_GRACE_S
+    while time.time() < deadline and any(
+            os.path.exists(f"/proc/{pid}") for pid, _ in strays):
+        reap_children()
+        time.sleep(0.05)
+    return strays
+
+
+def finish_run(owner):
+    """Leave no process of the run behind: this process's resource
+    tracker reaped, and where it owns the run every other process of it
+    stopped (named on stderr: a phase left it running)."""
+    stop_resource_tracker()
+    if owner:
+        strays = stop_strays()
+        if strays:
+            print(f"chip_smoke.py: stopped {len(strays)} process(es) that "
+                  f"outlived their phase: {strays}", file=sys.stderr,
+                  flush=True)
+    reap_children()
+
+
+def one_phase(name, seed, ranks):
+    """``--phase NAME``: ``main``'s set-up (the kernels built, the context
+    on the card, TF32 off), then that phase alone. Its report goes to
+    ``chiprun_out/<name>_report[_<ranks>].json`` and, as a line, to the
+    output; the last line holds the phase's seconds and K1-K5 launches.
+    ``--ranks`` sets the ranks of the parallel legs B-G: two share one
+    card over gloo; on a machine with that many cards each rank has its
+    own, over NCCL (at four, legs D-G run tp = pp = ep = dp = 4)."""
+    global PAR_RANKS
+    PAR_RANKS = ranks
+    smi = nvidia_smi("name,power.limit")
+    print(smi, flush=True)
+    _kernels.library()
+    init_nncontext()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    if name == "estimators":
+        report, est, remat = estimators_phase(seed, dev, smi)
+        launches = dict(estimators=est, remat_full=remat)
+    elif name == "parallel":
+        report, launches = parallel_phase(seed, dev, smi)
+    else:
+        report, launches = layout_phase(seed, smi)
+    seconds = time.perf_counter() - t0
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    suffix = "" if ranks == PAR_SHARDS else f"_{ranks}"
+    with open(os.path.join(out, f"{name}_report{suffix}.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    emit(name, **report)
+    print(json.dumps({"phase": name, "seconds": seconds,
+                      "launches": launches}), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, requests, training data "
                          "and kernel inputs")
+    ap.add_argument("--phase", choices=("estimators", "parallel", "layout"),
+                    default=None,
+                    help="build the kernels, then run this phase alone "
+                         "(``layout``: the parallel phase's legs D-G)")
+    ap.add_argument("--ranks", type=int, default=PAR_SHARDS,
+                    help="with --phase parallel or layout: the ranks of "
+                         "legs B-G")
     ap.add_argument("--parallel-worker",
                     choices=("a", "a_resume", "bc", "layout"),
                     default=None,
@@ -8587,6 +9359,9 @@ def main(argv=None):
                  "GPU only")
     if args.parallel_worker is not None:
         parallel_worker(args.parallel_worker, args.seed)
+        return
+    if args.phase is not None:
+        one_phase(args.phase, args.seed, args.ranks)
         return
 
     clock = PhaseClock()
@@ -8789,6 +9564,14 @@ def main(argv=None):
     interop_report, interop_launches = interop_phase(args.seed, dev, smi)
     emit("interop", **interop_report)
 
+    clock.mark("estimators")
+    # 21. estimators: nnframes and LocalEstimator, the attention backward's
+    # other routes, RayContext and AutoML
+    collect()
+    est_report, est_launches, remat_launches = estimators_phase(
+        args.seed, dev, smi)
+    emit("estimators", **est_report)
+
     clock.mark("parallel")
     # 19. parallel: data, sequence, tensor, pipeline and expert
     # parallelism and FSDP through the launcher
@@ -8838,7 +9621,9 @@ def main(argv=None):
                      launches_detect=detect_launches.get(name, 0),
                      launches_layers=layers_launches.get(name, 0),
                      launches_parallel=parallel_launches.get(name, 0),
-                     launches_interop=interop_launches.get(name, 0))
+                     launches_interop=interop_launches.get(name, 0),
+                     launches_estimators=est_launches.get(name, 0),
+                     launches_remat_full=remat_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],
@@ -8857,4 +9642,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    _owner = own_run()
+    try:
+        main()
+    finally:
+        finish_run(_owner)

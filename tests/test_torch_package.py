@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu", "yaml",
-             "msgpack", "cv2", "PIL")
+             "msgpack", "cv2", "PIL", "pandas")
 
 
 @pytest.fixture(autouse=True)
@@ -111,6 +111,13 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.pipeline.health, "
             "analytics_zoo_tpu_torch.pipeline.train_cli, "
             "analytics_zoo_tpu_torch.utils.layer_parity, "
+            "analytics_zoo_tpu_torch.pipeline.nnframes, "
+            "analytics_zoo_tpu_torch.pipeline.estimator, "
+            "analytics_zoo_tpu_torch.utils.arrow_fs, "
+            "analytics_zoo_tpu_torch.ray, "
+            "analytics_zoo_tpu_torch.ray.cluster, "
+            "analytics_zoo_tpu_torch.ray.worker_host, "
+            "analytics_zoo_tpu_torch.automl, "
             "analytics_zoo_tpu_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
@@ -123,16 +130,12 @@ def test_importing_the_port_loads_no_jax():
 #: with the ROADMAP item that ports it; a package named with a list is
 #: ported but for those names
 NOT_PORTED = {
-    "analytics_zoo_tpu.automl": "A14.7",
     "analytics_zoo_tpu.pipeline.api.net": (
         "A14.8", ["TFNet", "TFGraphFunction", "UnsupportedTFGraph"]),
-    "analytics_zoo_tpu.pipeline.nnframes": "A14.6",
-    "analytics_zoo_tpu.ray": "A14.7",
     "analytics_zoo_tpu.tfpark": "A14.8",
     "analytics_zoo_tpu.tfpark.text": "A14.8",
     "analytics_zoo_tpu.tfpark.text.estimator": "A14.8",
     "analytics_zoo_tpu.tfpark.text.keras": "A14.8",
-    "analytics_zoo_tpu.pipeline.estimator": ("A14.6", ["LocalEstimator"]),
 }
 
 
@@ -228,6 +231,74 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         assert '"ok"' not in res.stdout
 
 
+@pytest.mark.parametrize("phase", ["estimators", "parallel", "layout"])
+def test_chip_smoke_phase_refuses_to_run_without_a_card(phase):
+    """``--phase NAME`` runs one phase on the card: where no CUDA device
+    is visible it fails before building anything and writes no report."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--phase", phase], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={"CUDA_VISIBLE_DEVICES": "",
+                              "PATH": "/usr/bin:/bin"})
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert res.stdout == ""
+
+
+_FINISH_RUN = """
+import multiprocessing, os, subprocess, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+
+def children():
+    out = []
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if stat[stat.rindex(")") + 2:].split()[1] == str(os.getpid()):
+                out.append(int(name))
+    return out
+
+if __name__ == "__main__":
+    owner = chip_smoke.own_run()
+    mark = os.environ[chip_smoke.RUN_MARK]
+    worker = multiprocessing.get_context("spawn").Process(target=print)
+    worker.start()
+    worker.join()
+    left = subprocess.Popen(["sleep", "60"])
+    orphan = subprocess.Popen(["sh", "-c", "sleep 60 & echo $!"],
+                              stdout=subprocess.PIPE, text=True)
+    grandchild = int(orphan.stdout.readline())
+    orphan.wait()
+    assert chip_smoke.own_run() is False
+    assert len(children()) == 2, children()   # the tracker, the sleep
+    chip_smoke.finish_run(owner)
+    assert children() == [], children()
+    assert chip_smoke.run_strays() == []
+    assert not os.path.exists(f"/proc/{grandchild}")
+    print("strays stopped", mark)
+"""
+
+
+def test_chip_smoke_leaves_no_process_of_its_run(tmp_path):
+    """At its end the script reaps its multiprocessing resource tracker
+    itself (an orphan's zombie can outlive the run on a slow init) and
+    stops, and names, every live process whose environment carries the
+    run's mark: a child left running and an orphaned grandchild."""
+    script = tmp_path / "finish_run.py"
+    script.write_text(_FINISH_RUN)
+    res = subprocess.run([sys.executable, str(script), str(ROOT)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "strays stopped" in res.stdout
+    assert "stopped 2 process(es) that outlived their phase" in res.stderr
+    assert res.stderr.count("sleep 60") == 2
+
+
 def test_the_data_layer_works_without_pyarrow(tmp_path, monkeypatch):
     """The card's machine has no pyarrow: with it hidden (an import of it
     raises), the feature package imports, npz shards stream through the
@@ -270,3 +341,44 @@ def test_the_data_layer_works_without_pyarrow(tmp_path, monkeypatch):
                                      num_processes=1).batches(4))
     with pytest.raises(ImportError, match="pyarrow"):
         write_parquet_shards(str(tmp_path / "w"), np.zeros((4, 2)))
+
+
+def test_estimators_ray_automl_work_without_pandas_pyarrow_cloudpickle():
+    """The card's machine has neither pandas, pyarrow nor cloudpickle:
+    with the three hidden, nnframes fits and transforms a dict of columns,
+    ``arrow_fs`` imports, and the ray runtime ships module-level tasks
+    through the standard pickle; a lambda raises naming cloudpickle."""
+    code = r'''
+import sys
+for m in ("pandas", "pyarrow", "pyarrow.fs", "cloudpickle"):
+    sys.modules[m] = None
+import numpy as np
+from analytics_zoo_tpu_torch.common import nncontext
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+from analytics_zoo_tpu_torch.pipeline.nnframes import NNEstimator
+from analytics_zoo_tpu_torch.utils import arrow_fs
+from analytics_zoo_tpu_torch.ray import raycontext
+from analytics_zoo_tpu_torch import automl
+nncontext.init_nncontext(device="cpu")
+m = Sequential()
+m.add(Dense(1, input_shape=(3,)))
+df = {"features": np.ones((8, 3)).tolist(), "label": [1.0] * 8}
+out = NNEstimator(m, "mse", [3], [1]).setBatchSize(4).fit(df).transform(df)
+assert isinstance(out, dict) and len(out["prediction"]) == 8
+assert raycontext._serializer() is raycontext._StdPickle
+assert raycontext._serializer().loads(
+    raycontext._serializer().dumps(automl.rolling_window)) \
+    is automl.rolling_window
+try:
+    raycontext._serializer().dumps(lambda x: x)
+except TypeError as e:
+    assert "cloudpickle" in str(e)
+else:
+    raise AssertionError("a lambda pickled without cloudpickle")
+print("ok")
+'''
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "ok" in res.stdout, \
+        res.stdout + res.stderr
