@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import logging
 import multiprocessing as mp
+import multiprocessing.connection as mp_connection
 import os
 import pickle
 import queue as queue_mod
@@ -176,15 +177,15 @@ class _RingSegment:
 
 
 class _SlotLease:
-    """One leased ring slot: returned to the worker's free queue (and
+    """One leased ring slot: returned to its worker's free slots (and
     unleased from the segment) when the last zero-copy view wrapped from
     it is garbage collected."""
 
-    __slots__ = ("free_q", "segment", "slot", "count", "lock")
+    __slots__ = ("free", "segment", "slot", "count", "lock")
 
-    def __init__(self, free_q, segment: "_RingSegment", slot: int,
+    def __init__(self, free: deque, segment: "_RingSegment", slot: int,
                  count: int):
-        self.free_q = free_q
+        self.free = free
         self.segment = segment
         self.slot = slot
         self.count = count
@@ -196,27 +197,71 @@ class _SlotLease:
             self.count -= 1
             if self.count > 0:
                 return
-        try:
-            self.free_q.put_nowait(self.slot)
-        except Exception:  # noqa: BLE001 - pool torn down; segment gone
-            pass
+        # deque.append is atomic: finalizers run on whatever thread drops
+        # the last view
+        self.free.append(self.slot)
         self.segment.unlease()
 
 
+_STOP = object()
+
+
+class _TaskSender:
+    """Writes one worker's tasks into its task pipe from a thread of its
+    own (``zoo-infeed-feed-<wid>``), so the consumer never blocks on a
+    pipe the worker is not reading. The worker holds the pipe's only
+    reader: once it dies a write fails (EPIPE) and the thread ends."""
+
+    def __init__(self, wid: int, conn):
+        self.conn = conn
+        self._q: "queue_mod.SimpleQueue" = queue_mod.SimpleQueue()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name=f"zoo-infeed-feed-{wid}")
+        self.thread.start()
+
+    def put(self, msg) -> None:
+        self._q.put(msg)
+
+    def _run(self):
+        try:
+            while True:
+                msg = self._q.get()
+                if msg is _STOP:
+                    break
+                self.conn.send(msg)
+        except (OSError, ValueError):  # the worker is gone
+            pass
+        finally:
+            try:
+                self.conn.close()
+            except OSError:
+                pass
+
+    def stop(self, timeout: float = 1.0) -> None:
+        self._q.put(_STOP)
+        self.thread.join(timeout)
+
+
 class _Worker:
-    """Parent-side record of one spawned transform worker. Queues and the
-    ring segment outlive the process: a respawned replacement reattaches
-    to the same ones, so unclaimed tasks and free slots carry over."""
+    """Parent-side record of one spawned transform worker. The ring
+    segment and the free slots outlive the process: a respawned
+    replacement writes into the same ring. The pipes do not: each process
+    gets a task pipe and a result pipe of its own, and a dead one's are
+    dropped with it, so nothing it held (a lock, half a message) reaches
+    its replacement."""
 
-    __slots__ = ("wid", "proc", "task_q", "free_q", "segment", "assigned")
+    __slots__ = ("wid", "proc", "segment", "free", "assigned", "conn",
+                 "sender")
 
-    def __init__(self, wid, task_q, free_q, segment):
+    def __init__(self, wid, segment, slots: int):
         self.wid = wid
         self.proc = None
-        self.task_q = task_q
-        self.free_q = free_q
         self.segment = segment
-        self.assigned: set = set()
+        self.free: deque = deque(range(slots))
+        #: seq -> the ring slot sent with the task (None: no slot free)
+        self.assigned: Dict[int, Optional[int]] = {}
+        self.conn = None       # the result pipe's reading end
+        self.sender: Optional[_TaskSender] = None
 
 
 class _RemoteError:
@@ -258,18 +303,25 @@ class ProcessTransformPool:
     ``__next__``, idempotent mid-stream ``close()`` — but the transform
     runs in N spawned processes, so GIL-holding Python chains scale with
     cores instead of serializing. Each worker returns batches through
-    its own ``multiprocessing.shared_memory`` ring: the parent wraps the
-    slot bytes in numpy views (zero copies on the hot path) and the slot
-    recycles when the consumer drops the batch (weakref lease). Batches
-    that don't fit a slot — or arrive while the consumer retains every
-    lease, e.g. a caching tier — fall back to pickling through the
-    result queue: slower, never wrong, never deadlocked.
+    its own ``multiprocessing.shared_memory`` ring: each task goes out
+    with a free slot of that ring, the parent wraps the slot bytes in
+    numpy views (zero copies on the hot path) and the slot recycles when
+    the consumer drops the batch (weakref lease). Batches that don't fit
+    a slot — or are sent while the consumer retains every lease, e.g. a
+    caching tier — travel pickled through the worker's result pipe:
+    slower, never wrong, never deadlocked.
 
-    Respawn-on-death rides the launcher supervision seam
-    (:class:`~analytics_zoo_tpu_torch.launcher.supervisor.Respawner`): a
-    worker killed mid-batch is restarted on the same queues + ring, its
-    unacknowledged batches are resubmitted, and late duplicates are
-    dropped by sequence number — the stream stays complete,
+    Every worker has a task pipe and a result pipe of its own; the worker
+    writes its results straight into its pipe, with no feeder thread and
+    no lock shared with the other workers, and the parent waits on all
+    result pipes at once (``multiprocessing.connection.wait``). A worker
+    killed at any point, mid-write included, leaves nothing held: its
+    pipe gives the parent EOF after the last whole message. Respawn rides
+    the launcher supervision seam
+    (:class:`~analytics_zoo_tpu_torch.launcher.supervisor.Respawner`):
+    the dead worker's pipes are dropped, its replacement gets new ones
+    and the same ring, and its unacknowledged batches are resubmitted
+    with the slots they held — the stream stays complete,
     duplicate-free and ordered. Ring segments are unlinked in
     ``close()``'s finally (plus a GC finalizer backstop): no /dev/shm
     leak survives the pool.
@@ -301,7 +353,6 @@ class ProcessTransformPool:
         self._respawner = respawner or Respawner(max_per_child=3)
         # spawn: forking a process whose threads hold CUDA state is unsafe
         self._ctx = mp.get_context("spawn")
-        self._result_q = self._ctx.Queue()
         self._tasks: Dict[int, Any] = {}    # seq -> raw batch (requeue)
         self._ready: Dict[int, Any] = {}    # seq -> batch | _RemoteError
         self._seq_submit = 0
@@ -318,11 +369,8 @@ class ProcessTransformPool:
         for wid in range(self.num_workers):
             shm = shared_memory.SharedMemory(
                 create=True, size=self._slot_bytes * self._slots)
-            w = _Worker(wid, self._ctx.Queue(), self._ctx.Queue(),
-                        _RingSegment(shm))
-            for s in range(self._slots):
-                w.free_q.put(s)
-            self._workers[wid] = w
+            self._workers[wid] = _Worker(wid, _RingSegment(shm),
+                                         self._slots)
         self._finalizer = weakref.finalize(
             self, _reap_pool, self._all_procs,
             [w.segment for w in self._workers.values()])
@@ -341,14 +389,27 @@ class ProcessTransformPool:
                 "respawns": self.respawns}
 
     def _start_proc(self, w: _Worker):
+        """Start a process for ``w`` on new pipes. The parent keeps only
+        the task pipe's writing end and the result pipe's reading end, so
+        the worker's death closes both pipes' other ends."""
+        task_r, task_w = self._ctx.Pipe(duplex=False)
+        res_r, res_w = self._ctx.Pipe(duplex=False)
         p = self._ctx.Process(
             target=worker_main,
             args=(w.wid, w.segment.shm.name, self._slot_bytes,
-                  self._payload, w.task_q, self._result_q, w.free_q),
+                  self._payload, task_r, res_w),
             daemon=True, name=f"zoo-infeed-{w.wid}")
         p.start()
+        task_r.close()
+        res_w.close()
         w.proc = p
+        w.conn = res_r
+        w.sender = _TaskSender(w.wid, task_w)
         self._all_procs.append(p)
+
+    def _submit(self, w: _Worker, seq: int, slot: Optional[int]):
+        w.assigned[seq] = slot
+        w.sender.put((seq, slot, self._tasks[seq]))
 
     def _fill(self):
         while not self._exhausted and \
@@ -363,8 +424,11 @@ class ProcessTransformPool:
             w = self._workers[self._rr % self.num_workers]
             self._rr += 1
             self._tasks[seq] = item
-            w.assigned.add(seq)
-            w.task_q.put((seq, item))
+            try:
+                slot: Optional[int] = w.free.popleft()
+            except IndexError:  # the consumer holds every lease
+                slot = None
+            self._submit(w, seq, slot)
 
     def _note_time(self, wid: int, elapsed: float):
         if self._stats is not None:
@@ -376,12 +440,9 @@ class ProcessTransformPool:
         path. Each view carries a finalizer on the shared lease; the
         slot returns to the worker only after every view is gone."""
         if not metas:
-            try:
-                w.free_q.put_nowait(slot)
-            except Exception:  # noqa: BLE001
-                pass
+            w.free.append(slot)
             return rebuild_batch(template, [])
-        lease = _SlotLease(w.free_q, w.segment, slot, len(metas))
+        lease = _SlotLease(w.free, w.segment, slot, len(metas))
         base = slot * self._slot_bytes
         arrays = []
         for off, shape, dt in metas:
@@ -405,45 +466,88 @@ class ProcessTransformPool:
             self._fatal = pickle.loads(msg[3])
             return
         w = self._workers[wid]
+        slot = msg[3]
         if seq not in self._tasks:
-            # late duplicate after a respawn resubmission: drop it, but
-            # hand its slot straight back so the ring doesn't shrink
-            if kind == "shm":
-                try:
-                    w.free_q.put_nowait(msg[3])
-                except Exception:  # noqa: BLE001
-                    pass
+            # not a task of this pool's any more: hand its slot straight
+            # back so the ring doesn't shrink
+            if slot is not None:
+                w.free.append(slot)
             return
         del self._tasks[seq]
-        w.assigned.discard(seq)
+        del w.assigned[seq]
         if kind == "shm":
-            _, _, _, slot, metas, template, elapsed = msg
+            _, _, _, _, metas, template, elapsed = msg
             self._ready[seq] = self._wrap(w, slot, metas, template)
             self.shm_batches += 1
             self._note_time(wid, elapsed)
-        elif kind == "pkl":
-            self._ready[seq] = pickle.loads(msg[3])
+            return
+        if slot is not None:
+            w.free.append(slot)
+        if kind == "pkl":
+            self._ready[seq] = pickle.loads(msg[4])
             self.pickled_batches += 1
-            self._note_time(wid, msg[4])
+            self._note_time(wid, msg[5])
         else:  # "err"
-            self._ready[seq] = _RemoteError(pickle.loads(msg[3]))
+            self._ready[seq] = _RemoteError(pickle.loads(msg[4]))
+
+    def _drain(self, w: _Worker) -> None:
+        """Handle every whole message left in ``w``'s result pipe, up to
+        its EOF (a dead writer's last, cut message included: dropped)."""
+        try:
+            while w.conn.poll():
+                self._handle(w.conn.recv())
+        except (EOFError, OSError):
+            pass
+
+    def _respawn(self, w: _Worker) -> None:
+        """Replace ``w``'s dead process: drain and drop its pipes, start
+        a new one on new pipes and the same ring, and resubmit its
+        unacknowledged batches with the slots they held. Raises
+        RuntimeError (via the Respawner budget) when deaths look
+        structural."""
+        w.proc.join(timeout=1.0)
+        self._drain(w)
+        w.conn.close()
+        w.sender.stop()
+        if self._fatal is not None:
+            # it could not run at all: the next __next__ raises
+            w.conn = None
+            return
+        self._respawner.note_death(
+            f"infeed-{w.wid}", f"exit code {w.proc.exitcode}")
+        logger.warning(
+            "infeed worker %d died (exit %s); respawning and "
+            "resubmitting %d batch(es)", w.wid, w.proc.exitcode,
+            len(w.assigned))
+        self._start_proc(w)
+        for seq, slot in sorted(w.assigned.items()):
+            self._submit(w, seq, slot)
 
     def _check_workers(self):
-        """Respawn dead workers on their existing queues + ring and
-        resubmit their unacknowledged batches. Raises RuntimeError (via
-        the Respawner budget) when deaths look structural."""
-        for wid, w in list(self._workers.items()):
+        """Respawn workers whose process has ended (the backstop of the
+        EOF that their result pipe gives)."""
+        for w in list(self._workers.values()):
             if self._closed or w.proc is None or w.proc.is_alive():
                 continue
-            self._respawner.note_death(
-                f"infeed-{wid}", f"exit code {w.proc.exitcode}")
-            logger.warning(
-                "infeed worker %d died (exit %s); respawning and "
-                "resubmitting %d batch(es)", wid, w.proc.exitcode,
-                len(w.assigned))
-            self._start_proc(w)
-            for seq in sorted(w.assigned):
-                w.task_q.put((seq, self._tasks[seq]))
+            self._respawn(w)
+
+    def _receive(self, timeout: float) -> None:
+        """Wait up to ``timeout`` s on every worker's result pipe and
+        handle what arrived; a pipe at EOF is a dead worker, respawned."""
+        by_conn = {w.conn: w for w in self._workers.values()
+                   if w.conn is not None}
+        ready = mp_connection.wait(list(by_conn), timeout=timeout)
+        if not ready:
+            self._check_workers()
+            return
+        for conn in ready:
+            w = by_conn[conn]
+            try:
+                msg = conn.recv()
+            except (EOFError, OSError):
+                self._respawn(w)
+                continue
+            self._handle(msg)
 
     def __iter__(self):
         return self
@@ -461,15 +565,10 @@ class ProcessTransformPool:
                 self.close()
                 raise err
             try:
-                msg = self._result_q.get(timeout=0.2)
-            except queue_mod.Empty:
-                try:
-                    self._check_workers()
-                except BaseException:
-                    self.close()
-                    raise
-                continue
-            self._handle(msg)
+                self._receive(0.2)
+            except BaseException:
+                self.close()
+                raise
         out = self._ready.pop(self._seq_emit)
         if isinstance(out, _RemoteError):
             self.close()
@@ -485,10 +584,8 @@ class ProcessTransformPool:
             self._closed = True
         try:
             for w in self._workers.values():
-                try:
-                    w.task_q.put_nowait(None)
-                except Exception:  # noqa: BLE001
-                    pass
+                if w.sender is not None:
+                    w.sender.put(None)   # the worker's exit sentinel
             for w in self._workers.values():
                 if w.proc is not None:
                     w.proc.join(timeout=1.0)
@@ -500,20 +597,17 @@ class ProcessTransformPool:
         finally:
             # segments must not outlive the pool no matter how teardown
             # went: _reap_pool terminates stragglers and unlinks every
-            # ring (idempotent with the GC backstop)
+            # ring (idempotent with the GC backstop); a dead reader ends
+            # each sender thread
             self._finalizer()
             for w in self._workers.values():
-                for q in (w.task_q, w.free_q):
+                if w.sender is not None:
+                    w.sender.stop()
+                if w.conn is not None:
                     try:
-                        q.close()
-                        q.cancel_join_thread()
-                    except Exception:  # noqa: BLE001
+                        w.conn.close()
+                    except OSError:
                         pass
-            try:
-                self._result_q.close()
-                self._result_q.cancel_join_thread()
-            except Exception:  # noqa: BLE001
-                pass
 
 
 class StagedChunk:

@@ -13,19 +13,26 @@ every import here is paid once per worker at startup: numpy, the feature
 package and the port's ``utils`` (whose ``__init__`` imports torch).
 Nothing here touches ``torch.cuda``: a worker never initialises CUDA.
 
-Wire protocol (one message per task, on the shared result queue):
+Wire protocol. Tasks arrive on the worker's own task pipe as ``(seq,
+slot, raw_batch)``, ``slot`` being the ring slot the parent lent with the
+task (None when the consumer held every lease), and ``None`` ends the
+worker. One message per task goes back on the worker's own result pipe,
+written straight from this process (no feeder thread, no lock shared
+with other workers: a worker killed mid-write leaves the parent an EOF,
+not a held lock):
 
 ``("shm", wid, seq, slot, metas, template, elapsed)``
     The batch's arrays live in worker ``wid``'s ring at ``slot``;
     ``metas`` is ``[(byte_offset, shape, dtype_str), ...]`` per array
     and ``template`` rebuilds the MiniBatch structure around them.
-``("pkl", wid, seq, payload, elapsed)``
+``("pkl", wid, seq, slot, payload, elapsed)``
     Fallback when the batch exceeds the slot size, contains non-ndarray
-    leaves, or no slot was free (the consumer is holding every lease —
+    leaves, or no slot was lent (the consumer is holding every lease —
     e.g. a caching tier retaining the whole epoch): the batch travels
-    pickled through the queue. Correctness is identical; only the
-    zero-copy property is lost, and only for that batch.
-``("err", wid, seq, payload)``
+    pickled through the pipe, and the lent slot (if any) goes back.
+    Correctness is identical; only the zero-copy property is lost, and
+    only for that batch.
+``("err", wid, seq, slot, payload)``
     The transform raised; the parent re-raises at batch ``seq``'s
     position in the output stream.
 ``("fatal", wid, -1, payload)``
@@ -150,55 +157,46 @@ def _encode_error(e: BaseException) -> bytes:
             f"{type(e).__name__}: {e}\n{traceback.format_exc()}"))
 
 
-def _acquire_slot(free_q, timeout: float = 0.05) -> Optional[int]:
-    import queue as _q
-
-    try:
-        return free_q.get_nowait()
-    except _q.Empty:
-        pass
-    try:
-        return free_q.get(timeout=timeout)
-    except _q.Empty:
-        return None
-
-
 def worker_main(wid: int, shm_name: Optional[str], slot_bytes: int,
-                fn_payload: bytes, task_q, result_q, free_q) -> None:
+                fn_payload: bytes, task_conn, result_conn) -> None:
     """Entry point of one spawned transform worker.
 
-    Pulls ``(seq, raw_batch)`` tasks until the ``None`` sentinel, runs
-    the unpickled Preprocessing chain, and ships results per the module
-    protocol. The ``infeed-worker`` fault site fires here — after the
-    transform, before the result ships — so an injected kill genuinely
-    loses a batch mid-flight and the parent must recover it.
+    Reads ``(seq, slot, raw_batch)`` tasks from ``task_conn`` until the
+    ``None`` sentinel (or the parent's end closing), runs the unpickled
+    Preprocessing chain, and writes results to ``result_conn`` per the
+    module protocol. The ``infeed-worker`` fault site fires here — after
+    the transform, before the result ships — so an injected kill
+    genuinely loses a batch mid-flight and the parent must recover it.
     """
     from ..utils import faults, telemetry
 
     tracing = telemetry.enabled()
     if tracing:
         # spans recorded here are drained into compact tuples and shipped
-        # on the result queue; the parent replays them under this pid
+        # on the result pipe; the parent replays them under this pid
         telemetry.enable_forwarding()
 
     def _ship_spans() -> None:
         evs = telemetry.drain_events()
         if evs:
-            result_q.put(("spans", wid, os.getpid(), evs))
+            result_conn.send(("spans", wid, os.getpid(), evs))
 
     try:
         fn = pickle.loads(fn_payload)
     except BaseException as e:  # noqa: BLE001 - surface, don't respawn
-        result_q.put(("fatal", wid, -1, _encode_error(e)))
+        result_conn.send(("fatal", wid, -1, _encode_error(e)))
         return
     shm = _attach_ring(shm_name) if shm_name else None
     items = 0
     try:
         while True:
-            task = task_q.get()
+            try:
+                task = task_conn.recv()
+            except EOFError:   # the parent is gone
+                break
             if task is None:
                 break
-            seq, batch = task
+            seq, slot, batch = task
             t0 = time.perf_counter()
             try:
                 with telemetry.span("infeed/transform", seq=seq, wid=wid):
@@ -206,30 +204,31 @@ def worker_main(wid: int, shm_name: Optional[str], slot_bytes: int,
                 items += 1
                 faults.check("infeed-worker", items)
             except BaseException as e:  # noqa: BLE001 - ship to parent
-                result_q.put(("err", wid, seq, _encode_error(e)))
+                result_conn.send(("err", wid, seq, slot, _encode_error(e)))
                 if tracing:
                     _ship_spans()
                 continue
             elapsed = time.perf_counter() - t0
             shipped = False
-            if shm is not None:
+            if shm is not None and slot is not None:
                 arrays, template = flatten_batch(out)
                 if arrays is not None and slot_nbytes(arrays) <= slot_bytes:
-                    slot = _acquire_slot(free_q)
-                    if slot is not None:
-                        with telemetry.span("infeed/slot_write", seq=seq):
-                            metas = write_slot(shm.buf, slot * slot_bytes,
-                                               arrays)
-                        result_q.put(("shm", wid, seq, slot, metas,
+                    with telemetry.span("infeed/slot_write", seq=seq):
+                        metas = write_slot(shm.buf, slot * slot_bytes,
+                                           arrays)
+                    result_conn.send(("shm", wid, seq, slot, metas,
                                       template, elapsed))
-                        shipped = True
+                    shipped = True
             if not shipped:
-                result_q.put(("pkl", wid, seq, pickle.dumps(out, -1),
-                              elapsed))
+                result_conn.send(("pkl", wid, seq, slot,
+                                  pickle.dumps(out, -1), elapsed))
             if tracing:
                 _ship_spans()
     finally:
         if tracing:
-            _ship_spans()
+            try:
+                _ship_spans()
+            except OSError:
+                pass
         if shm is not None:
             shm.close()

@@ -61,7 +61,9 @@ def file_module(module: str) -> str:
 
 
 # the interop modules still to port, each with its ROADMAP item
-_INTEROP = {".api.net.tf": "A14.8", ".tfpark.": "A14.8"}
+_INTEROP = {".api.net.tf": "A14.8", ".tfpark.model": "A14.8",
+            ".tfpark.estimator": "A14.8", ".tfpark.tf_optimizer": "A14.8",
+            ".tfpark.tf_bridge": "A14.8"}
 
 
 def _roadmap_item(path: str) -> str:

@@ -369,7 +369,11 @@ class PinnedStager:
             slot[1].synchronize()
         if slot[0] is None or tuple(slot[0].shape) != tuple(shape) or \
                 slot[0].dtype != dtype:
-            slot[0] = torch.empty(shape, dtype=dtype, pin_memory=True)
+            # a normal tensor even when made under predict's inference
+            # mode: a later fit refills it in place, which an inference
+            # tensor refuses outside inference mode
+            with torch.inference_mode(False):
+                slot[0] = torch.empty(shape, dtype=dtype, pin_memory=True)
         return slot
 
     def _stage(self, template, columns):

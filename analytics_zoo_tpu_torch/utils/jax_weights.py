@@ -34,8 +34,11 @@ tree, and :func:`load_jax_params` hands it the layer's entry.
 A layer's tree may nest deeper than one level: a wrapper's role keys
 (``bidirectional_1.forward.W``, ``timedistributed_1.layer.kernel``), a
 Seq2seq coder's ``l{i}`` groups and ``embedding``, a MoE transformer
-block's ``block{i}.moe.w_in`` (nested ``ParameterDict``s) and a custom
-transformer embedding's ``embedding.table`` are submodule paths, so
+block's ``block{i}.moe.w_in`` (nested ``ParameterDict``s), a custom
+transformer embedding's ``embedding.table`` and a tfpark text net's
+sub-layers (``_nernet_1.sub2_bidirectional.forward.W``,
+``sub6_crf.trans``; the net's private class auto-names with a leading
+underscore and pairs like any auto-named layer) are submodule paths, so
 they flatten, pair and sort as the JAX trees do; a frozen
 ``WordEmbedding`` table stays a parameter (it takes a zero gradient), so
 it keeps its place among optax's leaves.
@@ -65,8 +68,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def _auto_parts(name: str) -> Optional[Tuple[str, int]]:
     """(class, number) of an auto-generated layer name ("dense_3" ->
-    ("dense", 3)), or None for a user-given name."""
-    m = re.fullmatch(r"([a-z0-9]+)_(\d+)", name)
+    ("dense", 3); a private class's "_nernet_2" -> ("_nernet", 2)), or
+    None for a user-given name."""
+    m = re.fullmatch(r"(_?[a-z0-9]+)_(\d+)", name)
     return (m.group(1), int(m.group(2))) if m else None
 
 

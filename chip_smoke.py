@@ -225,23 +225,24 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               ``NVIDIA_TF32_OVERRIDE=0`` in the workers' environment),
               tensor records of (3, 224, 224) float32 from client
               processes. Leg A: ``init`` (a second refuses), ``status`` 3,
-              ``start --device cuda`` (a second refuses), 128 records each
+              ``start --device cuda`` (a second refuses), 64 records each
               answered once, the top-5 rows within 1e-5 of the card's
               direct predict and 16 within 1e-4 of the CPU's, ``status``
               0, ``restart``, 16 more, ``stop``, ``shutdown``, no pidfile.
               Leg B: ``broker`` and ``fleet --workers 2 --transport
               socket://...`` as processes (min = max = 2 workers); a clean
-              window of 128 records; 256 records with worker 1 SIGKILLed
+              window of 64 records; 128 records with worker 1 SIGKILLed
               once 32 are answered (its heartbeat on disk): the broker
               redelivers, every record is enqueued, delivered and acked
               once, the supervisor restarts the worker and ``status``
               shows it; every worker pid among ``nvidia-smi``'s compute
               apps; then the same fleet with the echo stub (0 ms a batch)
-              for the socket transport's ceiling. Leg C: 2 broker
-              processes, a fleet of 2 over their ``shard://`` spec, 128
-              records spread over both, a status row for each shard.
-              Reported: records/s of each leg, the ceiling, each worker's
-              seconds from spawn to first heartbeat, the phase's wall.
+              for the socket transport's ceiling (128 records). Leg C: 2
+              broker processes, a fleet of 2 over their ``shard://``
+              spec, 64 records spread over both, a status row for each
+              shard. Reported: records/s of each leg, the ceiling, each
+              worker's seconds from spawn to first heartbeat, each leg's
+              seconds (``leg_seconds``), the phase's wall.
               K1-K5 are launched 0 times in this process over the phase
               (``launches_fleet``). Its files, under
               ``build/chip_smoke_fleet``, are deleted at the end.
@@ -481,6 +482,32 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               finite; each trial's seconds and the workers' start
               seconds. Its files, under ``build/chip_smoke_estimators``,
               are deleted at the end.
+22. text -- (run before ``parallel``) tfpark on the card. A:
+              ``BERTClassifier(num_classes=2)`` at bench.py's width (768
+              hidden, 12 blocks, 12 heads, seq 512, vocab 30522), fed by
+              ``bert_input_fn`` (128 rows of 512 int32 ids with a padding
+              ``input_mask``, batch 32, Adam 1e-4): one float32 step with
+              dropout off whose loss is within 1e-6 relative of
+              ``Model.fit``'s first step on a copy of the same network
+              and the same ids; 4 bf16 ``train`` steps (dropout 0.1):
+              K1-K5 12/12/12/24/24 a step (``launches_text``), all on
+              bf16 tensors; ``evaluate(["accuracy"])`` finite;
+              ``predict``'s rows equal to ``Model.predict``'s on the same
+              weights; the estimator's and ``Model.fit``'s steps from
+              alternating windows. ``BERTNER`` (9 tags) and ``BERTSQuAD``
+              at 4 of the 12 blocks, one bf16 step each: K1-K5 4/4/4/8/8
+              (``launches_text_heads``: both together), finite outputs of
+              the right shapes. B: ``NER`` at nlp_architect's NERCRF
+              defaults (word 100, char 30, tagger 100, 12 characters a
+              word), ``crf_mode="pad"``, on CoNLL-2003-like batches of 32
+              sentences of up to 64 words: 2 float32 steps, then
+              ``predict_tags`` equal to the port's CPU run of the same
+              weights and inputs, zeros past each sentence's end; K1-K5
+              launched 0 times; the step p50 and one step's profile
+              (idle share). C: ``GANEstimator`` on tests/test_tfpark.py's
+              1-D Gaussian, 150 steps at batch 64 through
+              ``TFDataset.from_ndarrays``: the generated mean within 1.0
+              of 3.0, the step p50, K1-K5 0.
 
 Then the ``{"kernels": [...]}`` summary, ``nvidia-smi``'s line, and as the
 last line ``{"ok": true, "device": {...}}``. Every check raises on
@@ -583,6 +610,10 @@ from analytics_zoo_tpu_torch.automl import (AshaScheduler,
                                             train_val_split)
 from analytics_zoo_tpu_torch.automl.search import sample_config
 from analytics_zoo_tpu_torch.ray import RayContext
+from analytics_zoo_tpu_torch.tfpark import GANEstimator, TFDataset
+from analytics_zoo_tpu_torch.tfpark.text import (BERTNER, NER,
+                                                 BERTClassifier, BERTSQuAD,
+                                                 bert_input_fn)
 from analytics_zoo_tpu_torch.utils.tensorboard import (TrainSummary,
                                                        read_scalars)
 from analytics_zoo_tpu_torch.pipeline.api.caffe import proto as caffe_proto
@@ -4723,10 +4754,12 @@ def int8_phase(seed, device, smi):
 FL_REPO = os.path.dirname(os.path.abspath(__file__))
 FL_ROOT = os.path.join(FL_REPO, "build", "chip_smoke_fleet")
 # records: depth, halved in PR 18 to keep the script inside its limit
-# beside the parallel phase's legs D-G
+# beside the parallel phase's legs D-G; leg B's clean window and ceiling
+# halved again in PR 21 beside the text phase (leg B is the slowest leg,
+# ``leg_seconds``)
 FL_A_RECORDS, FL_A_AFTER_RESTART = 64, 16
-FL_B_CLEAN, FL_B_RECORDS, FL_B_KILL_AFTER = 128, 128, 32
-FL_CEILING_RECORDS = 256
+FL_B_CLEAN, FL_B_RECORDS, FL_B_KILL_AFTER = 64, 128, 32
+FL_CEILING_RECORDS = 128
 FL_C_RECORDS = 64
 FL_WORKERS = 2
 # client processes of the timed socket windows (one client alone writes
@@ -5348,20 +5381,25 @@ def fleet_phase(seed, device, smi):
         cpu_probs = cpu_model.predict(x[:CS_CPU_ROWS], CS_CPU_ROWS)
         del cpu_model, im
         collect()
+        seconds = report["leg_seconds"] = {
+            "setup": time.perf_counter() - t_phase}
 
         report["leg_a"] = fl_leg_a(seed, model_dir, direct, cpu_probs,
                                    daemons)
+        seconds["a"] = time.perf_counter() - t_phase - sum(seconds.values())
         emit("fleet", check="leg A: the CLI daemon on file:", ok=True,
              **report["leg_a"])
         port_b, *ports_c = fl_free_ports(3)
         report["leg_b"], report["ceiling"] = fl_leg_b(
             seed, model_dir, direct, port_b, procs, worker_pids)
+        seconds["b"] = time.perf_counter() - t_phase - sum(seconds.values())
         emit("fleet", check="leg B: a fleet of 2 over socket://", ok=True,
              **report["leg_b"])
         emit("fleet", check="the socket transport's ceiling", ok=True,
              **report["ceiling"])
         report["leg_c"] = fl_leg_c(seed, model_dir, direct, ports_c, procs,
                                    worker_pids)
+        seconds["c"] = time.perf_counter() - t_phase - sum(seconds.values())
         emit("fleet", check="leg C: a fleet of 2 over shard://", ok=True,
              **report["leg_c"])
         alive = sorted(p for p in worker_pids if fl_alive(p))
@@ -8696,13 +8734,13 @@ def est_losses(root, app):
         os.path.join(root, app, "train"), "Loss")]
 
 
-def est_fit_ms(fit):
-    """Milliseconds a step of one ``fit`` call of EST_STEPS steps."""
+def est_fit_ms(fit, steps=EST_STEPS):
+    """Milliseconds a step of one ``fit`` call of ``steps`` steps."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fit()
     torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / EST_STEPS
+    return 1e3 * (time.perf_counter() - t0) / steps
 
 
 def est_leg_a(seed, root):
@@ -9174,6 +9212,349 @@ def estimators_phase(seed, dev, smi):
                 wall_s=time.perf_counter() - t0), launches, remat_launches
 
 
+# ---------------------------------------------------------------------------
+# 22. text: tfpark's BERT estimators, the NER tagger, TFDataset and the GAN
+# ---------------------------------------------------------------------------
+
+# leg A: BERTClassifier at bench.py's width (bench.py:353-354), fed by
+# bert_input_fn: 128 rows of 512 int32 ids with a padding input_mask,
+# batch 32, Adam 1e-4; one float32 step (dropout off) held to Model.fit's
+# on the same network, weights and ids; then 4 bf16 steps (dropout 0.1),
+# evaluate, predict; both steps timed in TEXT_WINDOWS alternating
+# windows. BERTNER (CoNLL-2003's 9 tags) and BERTSQuAD at 4 of the 12
+# blocks for one bf16 step each.
+TEXT_ROWS = 128
+TEXT_STEPS = TEXT_ROWS // TRAIN_BATCH
+TEXT_LOSS_TOL = 1e-6
+TEXT_WINDOWS = 2
+TEXT_HEAD_BLOCKS = 4
+TEXT_NER_TAGS = 9
+# leg B: NER at nlp_architect's NERCRF defaults (word embedding 100, char
+# embedding 30, tagger LSTMs 100, 12 characters a word), crf_mode="pad",
+# on CoNLL-2003-like batches: 32 sentences of 4-64 words a batch over a
+# vocabulary of 20,000 words and 96 characters; 2 float32 steps, then
+# predict_tags against the port's CPU run of the same weights and inputs;
+# TEXT_NER_TIMED more steps timed one at a time, one of them profiled
+TEXT_NER_KW = dict(num_entities=TEXT_NER_TAGS, word_vocab_size=20000,
+                   char_vocab_size=96, word_length=12, word_emb_dim=100,
+                   char_emb_dim=30, tagger_lstm_dim=100, crf_mode="pad")
+TEXT_NER_LEN, TEXT_NER_BATCH, TEXT_NER_STEPS = 64, 32, 2
+TEXT_NER_TIMED = 3
+# leg C: tests/test_tfpark.py's 1-D Gaussian (N(3, 0.5), 512 rows), 150
+# steps at batch 64 through TFDataset.from_ndarrays; the generated mean
+# within 1.0 of 3.0; TEXT_GAN_TIMED single steps timed
+TEXT_GAN_STEPS, TEXT_GAN_BATCH, TEXT_GAN_TIMED = 150, 64, 10
+
+
+def text_features(x):
+    """bench.py's classifier input as bert_input_fn's feature dict."""
+    return {"input_ids": x[0], "input_mask": x[3][:, 0, 0, :],
+            "token_type_ids": x[2]}
+
+
+def text_classifier(blocks=None, dropout=True):
+    """BERTClassifier(num_classes=2) at bench.py's width, Adam 1e-4."""
+    cfg = BERT_CONFIG
+    est = BERTClassifier(
+        num_classes=N_CLASSES, vocab_size=cfg["vocab"],
+        hidden_size=cfg["hidden_size"],
+        n_block=blocks or cfg["n_block"], n_head=cfg["n_head"],
+        seq_length=cfg["seq_len"],
+        intermediate_size=cfg["intermediate_size"],
+        optimizer=Adam(lr=TRAIN_LR))
+    if not dropout:
+        est.bert.hidden_p_drop = est.bert.attn_p_drop = 0.0
+    return est
+
+
+def text_per_step(blocks):
+    return {attn.KERNEL_NAME: blocks, attn.DQ_KERNEL_NAME: blocks,
+            attn.DKV_KERNEL_NAME: blocks, dln.FWD_KERNEL_NAME: 2 * blocks,
+            dln.BWD_KERNEL_NAME: 2 * blocks}
+
+
+def text_check_launches(what, launches, steps, blocks):
+    want = {k: steps * v for k, v in text_per_step(blocks).items()}
+    dtypes = _kernels.LAUNCHES.by_dtype()
+    if launches != want or any(set(v) != {"bfloat16"}
+                               for v in dtypes.values()):
+        raise AssertionError(f"text {what}: launches {dtypes}, want {want}")
+
+
+def text_leg_a(seed):
+    """Leg A: the BERT estimators at bench.py's width (see TEXT_ROWS)."""
+    cfg = zoo_nncontext.get_nncontext().config
+    saved = (cfg.compute_dtype, cfg.log_every_n_steps)
+    x, y, _ = train_data(seed, TEXT_ROWS, ids=np.int32)
+    feats = text_features(x)
+    y = y.astype(np.int32)
+    try:
+        cfg.log_every_n_steps = 1
+        # the float32 step, dropout off, against Model.fit's on a copy of
+        # the same network (weights as built) and the same ids
+        cfg.compute_dtype = "float32"
+        est = text_classifier(dropout=False)
+        ref = copy.deepcopy(est.model)
+        ref.compile(optimizer=Adam(lr=TRAIN_LR),
+                    loss="sparse_categorical_crossentropy")
+        one = bert_input_fn({k: v[:TRAIN_BATCH] for k, v in feats.items()},
+                            y[:TRAIN_BATCH], batch_size=TRAIN_BATCH)
+        est.train(one, steps=1)
+        est_loss = est.model.trainer.step_losses[0]
+        ref.fit(list(one()[0].features), y[:TRAIN_BATCH],
+                batch_size=TRAIN_BATCH, nb_epoch=1)
+        fit_loss = ref.trainer.step_losses[0]
+        parity_rel = abs(est_loss - fit_loss) / abs(fit_loss)
+        if not parity_rel <= TEXT_LOSS_TOL:
+            raise AssertionError(f"text leg A: the estimator's float32 "
+                                 f"loss {est_loss} against Model.fit's "
+                                 f"{fit_loss}")
+        del est, ref
+        collect()
+
+        # 4 bf16 steps, dropout 0.1: K1-K5 12/12/12/24/24 a step
+        cfg.compute_dtype = "bfloat16"
+        est = text_classifier()
+        data = bert_input_fn(feats, y, batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        _kernels.LAUNCHES.reset()
+        est.train(data, steps=TEXT_STEPS)
+        torch.cuda.synchronize()
+        launches = _kernels.LAUNCHES.snapshot()
+        text_check_launches("BERTClassifier's train", launches, TEXT_STEPS,
+                            BERT_CONFIG["n_block"])
+        losses = list(est.model.trainer.step_losses)
+        if len(losses) != TEXT_STEPS or not np.isfinite(losses).all() or \
+                est.model.trainer.step != TEXT_STEPS:
+            raise AssertionError(f"text leg A: losses {losses}")
+        metrics = est.evaluate(data, metrics=["accuracy"])
+        if set(metrics) != {"loss", "accuracy"} or \
+                not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"text leg A: evaluate gave {metrics}")
+        rows = est.predict(bert_input_fn(feats, batch_size=TRAIN_BATCH))
+        want = est.model.predict(x, batch_size=TRAIN_BATCH)
+        row_err = float(np.abs(rows - want).max())
+        if rows.shape != (TEXT_ROWS, N_CLASSES) or row_err > 0.0 or \
+                not np.isfinite(rows).all():
+            raise AssertionError(f"text leg A: predict's rows {rows.shape} "
+                                 f"off Model.predict's by {row_err}")
+
+        # the estimator's steps against Model.fit's on the same model
+        timing = {"estimator_train": [], "model_fit": []}
+        for w in range(TEXT_WINDOWS):
+            order = (("estimator_train",
+                      lambda: est.train(data, steps=TEXT_STEPS)),
+                     ("model_fit", lambda: est.model.fit(
+                         x, y, batch_size=TRAIN_BATCH, nb_epoch=1)))
+            for name, fit in order if w % 2 == 0 else order[::-1]:
+                timing[name].append(est_fit_ms(fit, TEXT_STEPS))
+        del est
+        collect()
+
+        # BERTNER and BERTSQuAD at 4 of 12 blocks, one bf16 step each
+        heads, head_launches = {}, {}
+        rs = np.random.default_rng(seed + 1)
+        l = BERT_CONFIG["seq_len"]
+        tags = rs.integers(0, TEXT_NER_TAGS, (TRAIN_BATCH, l)).astype(
+            np.int32)
+        spans = np.sort(rs.integers(0, l, (2, TRAIN_BATCH)), axis=0)
+        first = {k: v[:TRAIN_BATCH] for k, v in feats.items()}
+        cases = (("BERTNER", BERTNER, dict(num_entities=TEXT_NER_TAGS),
+                  tags, [(TRAIN_BATCH, l, TEXT_NER_TAGS)]),
+                 ("BERTSQuAD", BERTSQuAD, {},
+                  [spans[0].astype(np.int32), spans[1].astype(np.int32)],
+                  [(TRAIN_BATCH, l), (TRAIN_BATCH, l)]))
+        for name, cls, extra, labels, shapes in cases:
+            c = BERT_CONFIG
+            est = cls(vocab_size=c["vocab"], hidden_size=c["hidden_size"],
+                      n_block=TEXT_HEAD_BLOCKS, n_head=c["n_head"],
+                      seq_length=l, intermediate_size=c["intermediate_size"],
+                      optimizer=Adam(lr=TRAIN_LR), **extra)
+            torch.cuda.synchronize()
+            _kernels.LAUNCHES.reset()
+            est.train(bert_input_fn(first, labels, batch_size=TRAIN_BATCH),
+                      steps=1)
+            torch.cuda.synchronize()
+            head_launches[name] = _kernels.LAUNCHES.snapshot()
+            text_check_launches(f"{name}'s step", head_launches[name], 1,
+                                TEXT_HEAD_BLOCKS)
+            out = est.predict(bert_input_fn(first, batch_size=TRAIN_BATCH))
+            outs = out if isinstance(out, list) else [out]
+            if [o.shape for o in outs] != shapes or \
+                    not all(np.isfinite(o).all() for o in outs):
+                raise AssertionError(f"text leg A: {name} predicted "
+                                     f"{[o.shape for o in outs]}")
+            heads[name] = dict(loss=est.model.trainer.step_losses[0],
+                               launches=head_launches[name],
+                               output_shapes=[list(o.shape) for o in outs])
+            del est
+            collect()
+    finally:
+        cfg.compute_dtype, cfg.log_every_n_steps = saved
+    summed = {}
+    for v in head_launches.values():
+        for k, n in v.items():
+            summed[k] = summed.get(k, 0) + n
+    return dict(
+        model="BERTClassifier(num_classes=2) at bench.py's width "
+              "(bench.py:353-354) through bert_input_fn",
+        rows=TEXT_ROWS, batch=TRAIN_BATCH, steps=TEXT_STEPS,
+        compute_dtype="bfloat16", losses=losses, launches=launches,
+        launches_per_step=text_per_step(BERT_CONFIG["n_block"]),
+        parity=dict(estimator_loss=est_loss, model_fit_loss=fit_loss,
+                    rel=parity_rel, tol=TEXT_LOSS_TOL),
+        evaluate=metrics, predict_row_err=row_err, step_ms=timing,
+        step_p50_ms={k: percentile(v, 50) for k, v in timing.items()},
+        timed_windows=TEXT_WINDOWS, heads_blocks=TEXT_HEAD_BLOCKS,
+        heads=heads), launches, summed
+
+
+def text_ner_data(seed, n):
+    """CoNLL-2003-like batches: sentence lengths 4-64, words and their
+    characters (1-12 a word) as ids, 0 past each end; IOB-like tags."""
+    rs = np.random.default_rng(seed)
+    kw, l = TEXT_NER_KW, TEXT_NER_LEN
+    lens = rs.integers(4, l + 1, n)
+    real = np.arange(l)[None] < lens[:, None]
+    words = np.where(real, rs.integers(1, kw["word_vocab_size"], (n, l)), 0)
+    wl = kw["word_length"]
+    nchars = rs.integers(1, wl + 1, (n, l))
+    chars = rs.integers(1, kw["char_vocab_size"], (n, l, wl))
+    chars = np.where((np.arange(wl)[None, None] < nchars[..., None]) &
+                     real[..., None], chars, 0)
+    tags = np.where(real, rs.integers(0, kw["num_entities"], (n, l)), 0)
+    return ([words.astype(np.int32), chars.astype(np.int32),
+             lens.astype(np.int32)], tags.astype(np.int32))
+
+
+def text_leg_b(seed):
+    """Leg B: NER at NERCRF's defaults, float32, K1-K5 launched 0 times."""
+    cfg = zoo_nncontext.get_nncontext().config
+    saved = cfg.compute_dtype
+    try:
+        cfg.compute_dtype = "float32"
+        n = TEXT_NER_BATCH * TEXT_NER_STEPS
+        x, tags = text_ner_data(seed, n)
+        ner = NER(**TEXT_NER_KW, optimizer=Adam(lr=1e-3))
+        torch.cuda.synchronize()
+        _kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        ner.fit(x, tags, batch_size=TEXT_NER_BATCH, epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        losses = list(ner.model.trainer.step_losses)
+        if len(losses) != TEXT_NER_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"text leg B: losses {losses}")
+        got = ner.predict_tags(x, batch_size=TEXT_NER_BATCH)
+        launches = no_launches("text leg B (NER)")
+        cpu = cpu_twin(ner.model)
+        outs = cpu.trainer.predict(x, batch_size=TEXT_NER_BATCH)
+        want = NER._decode_outputs(outs)
+        margins = viterbi_margins(torch.as_tensor(outs[0]),
+                                  torch.as_tensor(outs[1][0]),
+                                  torch.as_tensor(outs[2]))
+        differ = int((got != want).any(-1).sum())
+        if got.shape != (n, TEXT_NER_LEN) or differ:
+            raise AssertionError(
+                f"text leg B: {differ} sentences' tags differ from the "
+                f"CPU's (smallest Viterbi margin {float(margins.min())})")
+        lens = x[2]
+        if any(got[i, lens[i]:].any() for i in range(n)):
+            raise AssertionError("text leg B: tags past a sentence's end")
+        del cpu
+        # single steps timed (one batch a fit), one profiled
+        xb, yb = [a[:TEXT_NER_BATCH] for a in x], tags[:TEXT_NER_BATCH]
+
+        def step():
+            ner.model.fit(xb, yb, batch_size=TEXT_NER_BATCH, nb_epoch=1)
+            torch.cuda.synchronize()
+
+        times = []
+        for _ in range(TEXT_NER_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            times.append(1e3 * (time.perf_counter() - t0))
+        _kernels.LAUNCHES.reset()
+        prof = profile_device(step)
+        no_launches("text leg B's profiled step")
+        del ner
+        collect()
+    finally:
+        cfg.compute_dtype = saved
+    return dict(
+        model="NER (nlp_architect NERCRF defaults: word 100, char 30, "
+              "tagger 100, 12 chars a word), crf_mode='pad'",
+        config=TEXT_NER_KW, batch=TEXT_NER_BATCH, max_len=TEXT_NER_LEN,
+        losses=losses, fit_s=fit_s, sentences=n, tags_equal_cpu=True,
+        min_viterbi_margin=float(margins.min()), step_ms=times,
+        step_p50_ms=percentile(times, 50),
+        launches_per_step=0, launches=launches, profile=prof)
+
+
+def text_leg_c(seed, dev):
+    """Leg C: GANEstimator on the 1-D Gaussian through TFDataset."""
+    rs = np.random.default_rng(seed)
+    real = (rs.standard_normal((512, 1)) * 0.5 + 3.0).astype(np.float32)
+
+    def mlp(in_dim):
+        m = Sequential(seed=seed)
+        m.add(L.Dense(16, activation="relu", input_shape=(in_dim,)))
+        m.add(L.Dense(1))
+        return m
+
+    est = GANEstimator(mlp(4), mlp(1), generator_optimizer=Adam(lr=5e-3),
+                       discriminator_optimizer=Adam(lr=5e-3), noise_dim=4,
+                       seed=seed)
+    data = TFDataset.from_ndarrays(real, batch_size=TEXT_GAN_BATCH)
+    _kernels.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.train(data, steps=TEXT_GAN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if est.device != dev or any(p.device != dev for m in (
+            est.generator, est.discriminator) for p in m.parameters()):
+        raise AssertionError(f"text leg C: the GAN is not on {dev}")
+    samples = est.generate(256)
+    mean = float(samples.mean())
+    if samples.shape != (256, 1) or not abs(mean - 3.0) < 1.0:
+        raise AssertionError(f"text leg C: generated mean {mean}")
+    times = []
+    for _ in range(TEXT_GAN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.train(data, steps=1)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = no_launches("text leg C (GAN)")
+    return dict(model="GANEstimator: Dense(16, relu) -> Dense(1) each "
+                      "side, noise 4, Adam 5e-3 (tests/test_tfpark.py)",
+                steps=TEXT_GAN_STEPS, batch=TEXT_GAN_BATCH, train_s=train_s,
+                generated_mean=mean, last_losses=est.last_losses,
+                step_ms=times, step_p50_ms=percentile(times, 50),
+                launches=launches)
+
+
+def text_phase(seed, dev, smi):
+    """The text phase: A the BERT estimators, B NER, C the GAN through
+    TFDataset. Returns the report, K1-K5's launches in leg A's 4 bf16
+    BERTClassifier steps and in the BERTNER and BERTSQuAD steps."""
+    t0 = time.perf_counter()
+    seconds = {}
+    leg_a, launches, head_launches = text_leg_a(seed + 90)
+    seconds["a"] = time.perf_counter() - t0
+    leg_b = text_leg_b(seed + 91)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    leg_c = text_leg_c(seed + 92, dev)
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    return dict(card=smi, device=str(dev), leg_a_bert_estimators=leg_a,
+                leg_b_ner=leg_b, leg_c_gan=leg_c, leg_seconds=seconds,
+                clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                                  "temperature.gpu"),
+                wall_s=time.perf_counter() - t0), launches, head_launches
+
+
 class PhaseClock:
     """Seconds of each phase of ``main``, host clock between marks (the
     ``phases`` line: where the script's time limit goes)."""
@@ -9320,6 +9701,11 @@ def one_phase(name, seed, ranks):
     if name == "estimators":
         report, est, remat = estimators_phase(seed, dev, smi)
         launches = dict(estimators=est, remat_full=remat)
+    elif name == "text":
+        report, text, heads = text_phase(seed, dev, smi)
+        launches = dict(text=text, text_heads=heads)
+    elif name == "fleet":
+        report, launches = fleet_phase(seed, dev, smi)
     elif name == "parallel":
         report, launches = parallel_phase(seed, dev, smi)
     else:
@@ -9341,7 +9727,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, requests, training data "
                          "and kernel inputs")
-    ap.add_argument("--phase", choices=("estimators", "parallel", "layout"),
+    ap.add_argument("--phase", choices=("estimators", "text", "fleet",
+                                        "parallel", "layout"),
                     default=None,
                     help="build the kernels, then run this phase alone "
                          "(``layout``: the parallel phase's legs D-G)")
@@ -9522,6 +9909,7 @@ def main(argv=None):
     collect()
     fleet_report, fleet_launches = fleet_phase(args.seed, dev, smi)
     emit("fleet", check="phase", ok=True, wall_s=fleet_report["wall_s"],
+         leg_seconds=fleet_report["leg_seconds"],
          launches=fleet_launches, card=smi, timing=dict(
              leg_a_records_per_s=fleet_report["leg_a"]["records_per_s"],
              leg_b_clean_records_per_s=fleet_report["leg_b"][
@@ -9571,6 +9959,14 @@ def main(argv=None):
     est_report, est_launches, remat_launches = estimators_phase(
         args.seed, dev, smi)
     emit("estimators", **est_report)
+
+    clock.mark("text")
+    # 22. text: tfpark's BERT estimators, the NER tagger, TFDataset and the
+    # GAN
+    collect()
+    text_report, text_launches, text_head_launches = text_phase(
+        args.seed, dev, smi)
+    emit("text", **text_report)
 
     clock.mark("parallel")
     # 19. parallel: data, sequence, tensor, pipeline and expert
@@ -9623,7 +10019,9 @@ def main(argv=None):
                      launches_parallel=parallel_launches.get(name, 0),
                      launches_interop=interop_launches.get(name, 0),
                      launches_estimators=est_launches.get(name, 0),
-                     launches_remat_full=remat_launches.get(name, 0))
+                     launches_remat_full=remat_launches.get(name, 0),
+                     launches_text=text_launches.get(name, 0),
+                     launches_text_heads=text_head_launches.get(name, 0))
         if name == attn.KERNEL_NAME:
             serve_row = kern[torch.float32]
             entry.update(launches_serve=serve_launches[name],

@@ -1473,6 +1473,35 @@ def test_a_pinned_buffer_is_refilled_only_after_its_copy(cuda):
         assert torch.equal(dev[2], torch.full_like(dev[2], i)), i
 
 
+def test_fit_after_predict_on_the_card_refills_the_pinned_ring(cuda):
+    """``predict`` stages its batches under inference mode; the pinned
+    buffers it leaves in the trainer's ring are normal tensors, so a
+    ``fit`` on batches of the same shapes refills them in place (an
+    inference tensor would refuse the copy outside inference mode)."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+
+    tnn.set_nncontext(None)
+    tnn.init_nncontext(device=cuda)
+    try:
+        m = Sequential()
+        m.add(Dense(8, input_shape=(16,)))
+        m.compile(optimizer="sgd", loss="mse")
+        rs = np.random.default_rng(2)
+        x = rs.standard_normal((64, 16)).astype(np.float32)
+        y = rs.standard_normal((64, 8)).astype(np.float32)
+        m.predict(x, batch_size=32)
+        m.fit(x, y, batch_size=32, nb_epoch=1)
+        assert np.isfinite(m.trainer.step_losses).all()
+        ring = [slot[0] for r in m.trainer._pinned._rings.values()
+                for slot in r if slot[0] is not None]
+        assert ring and not any(b.is_inference() for b in ring)
+    finally:
+        tnn.set_nncontext(None)
+
+
 def test_fit_through_staging_equals_fit_from_device_tensors(cuda):
     """``fit`` (the host pipeline, pinned side-stream staging and the
     event wait) trains a float32 MLP to the same parameters, bit for bit,
@@ -1961,3 +1990,224 @@ def test_torchnet_head_bf16_fit_runs_every_training_kernel(cuda):
         assert (head.weight.detach().cpu() - w0).abs().max() > 0
     finally:
         tnn.set_nncontext(None)
+
+
+# ---------------------------------------------------------------------------
+# tfpark on the card: the BERT estimators, the text taggers, the GAN
+# ---------------------------------------------------------------------------
+
+def _tfpark_context(cuda, dtype="float32"):
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+
+    tnn.set_nncontext(None)
+    return tnn.init_nncontext(tnn.ZooConfig(compute_dtype=dtype,
+                                            log_every_n_steps=1),
+                              device=cuda)
+
+
+def _tfpark_bert_data(n=8, l=128, vocab=100, seed=0):
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    mask = (np.arange(l)[None] < rs.integers(l // 4, l + 1, n)[:, None])
+    feats = {"input_ids": rs.integers(0, vocab, (n, l)).astype(np.int32),
+             "input_mask": mask.astype(np.float32),
+             "token_type_ids": np.zeros((n, l), np.int32)}
+    return feats, rs.integers(0, 2, n).astype(np.int32)
+
+
+_TFPARK_BERT = dict(vocab_size=100, hidden_size=128, n_block=2, n_head=2,
+                    seq_length=128, intermediate_size=256)
+
+
+def test_bert_classifier_estimator_on_the_card_runs_every_kernel(cuda):
+    """Leg A's gates at 2 blocks: a float32 step, dropout off, within 1e-6
+    (relative) of Model.fit's on a copy of the same network and ids; bf16
+    ``train`` steps with dropout launch K1-K5 2/2/2/4/4 a step on bf16
+    tensors; ``evaluate`` finite; ``predict`` equal to Model.predict's."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.tfpark.text import (BERTClassifier,
+                                                     bert_input_fn)
+
+    feats, y = _tfpark_bert_data()
+    try:
+        _tfpark_context(cuda)
+        est = BERTClassifier(num_classes=2, **_TFPARK_BERT)
+        est.bert.hidden_p_drop = est.bert.attn_p_drop = 0.0
+        ref = copy.deepcopy(est.model)
+        ref.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+        data = bert_input_fn(feats, y, batch_size=4)
+        est.train(data, steps=1)
+        ref.fit(list(data()[0].features)[:], y, batch_size=4, nb_epoch=1)
+        a, b = est.model.trainer.step_losses[0], ref.trainer.step_losses[0]
+        assert abs(a - b) <= 1e-6 * abs(b)
+
+        _tfpark_context(cuda, "bfloat16")
+        est = BERTClassifier(num_classes=2, **_TFPARK_BERT)
+        _kernels.LAUNCHES.reset()
+        est.train(data, steps=2)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES.snapshot() == {
+            ta.KERNEL_NAME: 4, ta.DQ_KERNEL_NAME: 4, ta.DKV_KERNEL_NAME: 4,
+            tdln.FWD_KERNEL_NAME: 8, tdln.BWD_KERNEL_NAME: 8}
+        assert all(set(v) == {"bfloat16"}
+                   for v in _kernels.LAUNCHES.by_dtype().values())
+        res = est.evaluate(data, metrics=["accuracy"])
+        assert set(res) == {"loss", "accuracy"}
+        assert all(np.isfinite(v) for v in res.values())
+        rows = est.predict(bert_input_fn(feats, batch_size=4))
+        want = est.model.predict(list(data()[0].features), batch_size=4)
+        assert rows.shape == (8, 2) and np.array_equal(rows, want)
+    finally:
+        tnn.set_nncontext(None)
+
+
+@pytest.mark.parametrize("head", ["ner", "squad"])
+def test_bert_ner_and_squad_estimators_on_the_card(cuda, head):
+    """One bf16 step of BERTNER / BERTSQuAD at 2 blocks: K1-K5 2/2/2/4/4,
+    finite outputs of the right shapes."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.tfpark.text import (BERTNER, BERTSQuAD,
+                                                     bert_input_fn)
+
+    feats, _ = _tfpark_bert_data()
+    rs = np.random.default_rng(1)
+    try:
+        _tfpark_context(cuda, "bfloat16")
+        if head == "ner":
+            est = BERTNER(num_entities=9, **_TFPARK_BERT)
+            labels = rs.integers(0, 9, (8, 128)).astype(np.int32)
+            shapes = [(8, 128, 9)]
+        else:
+            est = BERTSQuAD(**_TFPARK_BERT)
+            labels = [rs.integers(0, 128, 8).astype(np.int32)] * 2
+            shapes = [(8, 128), (8, 128)]
+        _kernels.LAUNCHES.reset()
+        est.train(bert_input_fn(feats, labels, batch_size=8), steps=1)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES.snapshot() == {
+            ta.KERNEL_NAME: 2, ta.DQ_KERNEL_NAME: 2, ta.DKV_KERNEL_NAME: 2,
+            tdln.FWD_KERNEL_NAME: 4, tdln.BWD_KERNEL_NAME: 4}
+        out = est.predict(bert_input_fn(feats, batch_size=8))
+        outs = out if isinstance(out, list) else [out]
+        assert [o.shape for o in outs] == shapes
+        assert all(np.isfinite(o).all() for o in outs)
+    finally:
+        tnn.set_nncontext(None)
+
+
+@pytest.mark.parametrize("model", ["ner_pad", "tagger_crf", "intent"])
+def test_text_taggers_on_the_card_equal_the_cpu(cuda, model):
+    """A fit step of each tfpark text model on the card, then its rows
+    against a CPU copy of the same weights (1e-4; float32 LSTMs summed in
+    another order) and its decoded tags equal; K1-K5 launched 0 times."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+    from analytics_zoo_tpu_torch.tfpark.text import (NER, IntentEntity,
+                                                     SequenceTagger)
+
+    rs = np.random.default_rng(2)
+    words = rs.integers(1, 50, (16, 12)).astype(np.int32)
+    chars = rs.integers(1, 20, (16, 12, 6)).astype(np.int32)
+    tags = rs.integers(0, 5, (16, 12)).astype(np.int32)
+    try:
+        _tfpark_context(cuda)
+        if model == "ner_pad":
+            obj = NER(5, 50, 20, word_length=6, word_emb_dim=16,
+                      char_emb_dim=8, tagger_lstm_dim=16, crf_mode="pad")
+            x, y = [words, chars, rs.integers(3, 13, 16).astype(np.int32)], \
+                tags
+        elif model == "tagger_crf":
+            obj = SequenceTagger(5, 3, 50, char_vocab_size=20, word_length=6,
+                                 feature_size=16, classifier="crf")
+            x, y = [words, chars], [tags, tags % 3]
+        else:
+            obj = IntentEntity(3, 5, 50, 20, word_length=6, word_emb_dim=16,
+                               char_emb_dim=8, char_lstm_dim=8,
+                               tagger_lstm_dim=16)
+            x, y = [words, chars], [tags[:, 0] % 3, tags]
+        _kernels.LAUNCHES.reset()
+        obj.fit(x, y, batch_size=8, epochs=1)
+        card = obj.model.predict(x, batch_size=8)
+        assert _kernels.LAUNCHES.snapshot() == {}
+        trainer, obj.model.trainer = obj.model.trainer, None
+        cpu_model = copy.deepcopy(obj.model).to("cpu")
+        obj.model.trainer = trainer
+        tnn.set_nncontext(None)
+        tnn.init_nncontext(device="cpu")
+        cpu_model.compile(optimizer="sgd", loss="mse")
+        cpu = cpu_model.predict(x, batch_size=8)
+        for a, b in zip(card, cpu):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+        if model == "ner_pad":
+            np.testing.assert_array_equal(NER._decode_outputs(card),
+                                          NER._decode_outputs(cpu))
+        assert isinstance(cpu_model, Model)
+    finally:
+        tnn.set_nncontext(None)
+
+
+def test_gan_steps_on_the_card_equal_the_cpu(cuda):
+    """GANEstimator on the card: both models, the noise and both
+    optimizer states on the device; five alternations of ``d_step`` and
+    ``g_step`` on the same real batches and noise as a CPU copy from the
+    same weights: losses and parameters within 1e-5 (float32, one small
+    MLP's products summed in another order, under Adam); a short
+    ``train`` through ``TFDataset`` runs there, K1-K5 launched 0 times."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common import nncontext as tnn
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.tfpark import GANEstimator, TFDataset
+
+    def mlp(d):
+        m = Sequential(seed=d)
+        m.add(tl.Dense(16, activation="relu", input_shape=(d,)))
+        m.add(tl.Dense(1))
+        return m
+
+    def gan(device):
+        """A GAN built on ``device`` (the context's at its first use)."""
+        tnn.set_nncontext(None)
+        tnn.init_nncontext(device=device)
+        est = GANEstimator(mlp(4), mlp(1), generator_optimizer=Adam(lr=5e-3),
+                           discriminator_optimizer=Adam(lr=5e-3),
+                           noise_dim=4)
+        est._build()
+        tnn.set_nncontext(None)
+        return est
+
+    rs = np.random.default_rng(0)
+    card, cpu = gan(cuda), gan("cpu")
+    assert card.noise(2).device == cuda
+    assert card.d_opt_state[0]["mu"][next(iter(card.d_params))].device \
+        == cuda
+    _kernels.LAUNCHES.reset()
+    for i in range(5):
+        real = (rs.standard_normal((16, 1)) * 0.5 + 3.0).astype(np.float32)
+        dn, gn = (torch.from_numpy(rs.standard_normal((16, 4)).astype(
+            np.float32)) for _ in range(2))
+        got = [card.d_step(torch.from_numpy(real).to(cuda), dn.to(cuda)),
+               card.g_step(gn.to(cuda))]
+        want = [cpu.d_step(torch.from_numpy(real), dn), cpu.g_step(gn)]
+        for a, b in zip(got, want):
+            assert abs(float(a) - float(b)) <= 1e-5, (i, float(a), float(b))
+        for side in ("g_params", "d_params"):   # the same layers, in order
+            for p, q in zip(getattr(card, side).values(),
+                            getattr(cpu, side).values()):
+                assert (p.detach().cpu() - q.detach()).abs().max() <= 1e-5, \
+                    (i, side)
+    real = (rs.standard_normal((256, 1)) * 0.5 + 3.0).astype(np.float32)
+    card.train(TFDataset.from_ndarrays(real, batch_size=64), steps=8)
+    assert card.steps == 8
+    assert np.isfinite(list(card.last_losses.values())).all()
+    assert card.generate(16).shape == (16, 1)
+    assert _kernels.LAUNCHES.snapshot() == {}

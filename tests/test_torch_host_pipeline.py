@@ -45,6 +45,23 @@ def _fresh_contexts():
     tnn.set_nncontext(None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_transform_thread_outlives_the_file():
+    """After this file's tests no ``zoo-transform`` thread may be left
+    alive: the JAX package's shutdown test counts every live thread of
+    that name in the process (ROADMAP C36). Threads a test's pool shut
+    down get a few seconds to end."""
+    yield
+    deadline = time.time() + 5.0
+    while True:
+        left = sorted(t.name for t in threading.enumerate()
+                      if t.is_alive() and t.name.startswith("zoo-transform"))
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.05)
+    assert not left, f"zoo-transform threads left alive: {left}"
+
+
 def _xy(n=64, dim=4):
     x = np.arange(n * dim, dtype=np.float32).reshape(n, dim)
     y = np.arange(n, dtype=np.float32)
@@ -757,6 +774,28 @@ class TestProcessTransformPool:
             "fault never fired"
         assert pool.respawns >= 1
         assert_batches_equal(got, ref)  # complete, ordered, no duplicates
+
+
+# ROADMAP C35: a worker SIGKILLed at once while it writes a 16 MB result
+# (and one killed by the infeed-worker fault), 8 copies, each in a
+# subprocess under its own time limit: a hang fails that copy
+KILL_COPIES = 8
+KILL_TIMEOUT_S = 120
+
+
+@pytest.mark.parametrize("copy", range(KILL_COPIES))
+def test_worker_killed_mid_write_never_hangs(copy, tmp_path):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "tests"), ROOT] +
+        env.get("PYTHONPATH", "").split(os.pathsep))
+    env.pop("ZOO_TPU_FAULT", None)
+    r = subprocess.run(
+        [sys.executable, "-c",
+         f"import torch_infeed_kill as k; k.main({str(tmp_path)!r})"],
+        env=env, capture_output=True, text=True, timeout=KILL_TIMEOUT_S)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", \
+        r.stdout + r.stderr
 
 
 def _npz_shards(tmp_path, n_shards=3, rows=16):

@@ -23,6 +23,7 @@ from analytics_zoo_tpu_torch.pipeline.api.keras import optimizers as topt
 from analytics_zoo_tpu_torch.pipeline.estimator import LocalEstimator
 from analytics_zoo_tpu_torch.utils import load_jax_params
 from analytics_zoo_tpu_torch.utils import tensorboard as ttb
+from torch_parity import assert_weights_match
 
 TOL = 1e-5
 
@@ -80,9 +81,8 @@ def test_local_estimator_matches_jax(optim, tmp_path):
     jlosses, tlosses = _losses(tmp_path, "jax"), _losses(tmp_path, "torch")
     assert len(tlosses) == len(jlosses) == 12
     np.testing.assert_allclose(tlosses, jlosses, rtol=0, atol=TOL)
-    for a, b in zip(tm.get_weights(),
-                    jax.tree_util.tree_leaves(jle.trainer.params)):
-        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=2e-5)
+    assert_weights_match(tm, jax.tree.map(np.asarray, jle.trainer.params),
+                         atol=2e-5)
     jres = jle.validate(vx, vy, batch_size=8)
     tres = tle.validate(vx, vy, batch_size=8)
     assert set(tres) == set(jres) == {"loss", "mae"}

@@ -35,6 +35,7 @@ from analytics_zoo_tpu_torch.pipeline.api.keras import models as tmodels
 from analytics_zoo_tpu_torch.pipeline.api.keras import optimizers as topt
 from analytics_zoo_tpu_torch.utils import load_jax_params
 from analytics_zoo_tpu_torch.utils import tensorboard as ttb
+from torch_parity import assert_weights_match, paired_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_TOL, WEIGHT_TOL, ROW_TOL = 1e-5, 2e-5, 1e-5
@@ -96,9 +97,37 @@ def _paired_mlps(**kw):
 
 
 def _weights_match(jm, tm):
-    for a, b in zip(tm.get_weights(), jm.get_weights()):
-        np.testing.assert_allclose(a, np.asarray(b), rtol=0,
-                                   atol=WEIGHT_TOL)
+    # paired by layer, not by sorted name (tests/torch_parity.py)
+    assert_weights_match(tm, jax.tree.map(np.asarray, jm.get_params()),
+                         atol=WEIGHT_TOL)
+
+
+def test_weights_pair_by_layer_across_a_counter_digit_boundary():
+    """The JAX pair named dense_9/dense_10 and the port's dense_1/dense_2
+    sort in other layer orders (ROADMAP C37): the helper pairs every leaf
+    by layer, as load_jax_params copied them."""
+    from analytics_zoo_tpu.pipeline.api.keras.engine import base as jbase
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import \
+        base as tbase
+
+    jbase._name_counters.clear()
+    tbase._name_counters.clear()
+    for _ in range(8):
+        jl.Dense(3)
+    jm, tm = _paired_mlps()
+    assert sorted(jm.get_params()) == ["dense_10", "dense_9"]
+    assert sorted(l.name for l in tm.graph_function().layers
+                  if l.name.startswith("dense")) == ["dense_1", "dense_2"]
+    # zipped by sorted name, the two lists compare other layers
+    assert [w.shape for w in tm.get_weights()] != \
+        [np.shape(w) for w in jm.get_weights()]
+    jparams = jax.tree.map(np.asarray, jm.get_params())
+    pairs = paired_leaves(tm, jparams)
+    assert len(pairs) == len(tm.get_weights()) == 4
+    for path, got, want in pairs:
+        assert got.shape == want.shape, path
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    assert_weights_match(tm, jparams, atol=0.0)
 
 
 def _losses(log_dir, app):

@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu", "yaml",
-             "msgpack", "cv2", "PIL", "pandas")
+             "msgpack", "cv2", "PIL", "pandas", "tensorflow")
 
 
 @pytest.fixture(autouse=True)
@@ -118,6 +118,8 @@ def test_importing_the_port_loads_no_jax():
             "analytics_zoo_tpu_torch.ray.cluster, "
             "analytics_zoo_tpu_torch.ray.worker_host, "
             "analytics_zoo_tpu_torch.automl, "
+            "analytics_zoo_tpu_torch.tfpark, "
+            "analytics_zoo_tpu_torch.tfpark.text, "
             "analytics_zoo_tpu_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
@@ -132,10 +134,10 @@ def test_importing_the_port_loads_no_jax():
 NOT_PORTED = {
     "analytics_zoo_tpu.pipeline.api.net": (
         "A14.8", ["TFNet", "TFGraphFunction", "UnsupportedTFGraph"]),
-    "analytics_zoo_tpu.tfpark": "A14.8",
-    "analytics_zoo_tpu.tfpark.text": "A14.8",
-    "analytics_zoo_tpu.tfpark.text.estimator": "A14.8",
-    "analytics_zoo_tpu.tfpark.text.keras": "A14.8",
+    "analytics_zoo_tpu.tfpark": (
+        "A14.8", ["KerasModel", "TFEstimator", "TFEstimatorSpec",
+                  "ModeKeys", "TFOptimizer", "LoweredTF",
+                  "lower_keras_model", "lower_tf_callable"]),
 }
 
 

@@ -27,6 +27,7 @@ from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import recurrent
 from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
 from analytics_zoo_tpu_torch.utils import load_jax_params
+from torch_parity import paired_leaves
 
 OUT_REL_TOL = 1e-5
 GRAD_REL_TOL = 1e-4
@@ -408,8 +409,9 @@ def test_a_sequential_of_recurrent_layers_fits_like_jax(tmp_path):
         tmodel.fit(x, y, batch_size=4, nb_epoch=1)
         np.testing.assert_allclose(tmodel.trainer.step_losses, jlosses,
                                    rtol=1e-5, atol=0)
-        jw = [np.asarray(w) for w in jmodel.get_weights()]
-        for got, want in zip(tmodel.get_weights(), jw):
-            _close(got, want, 1e-5)
+        # paired by layer, not by sorted name (tests/torch_parity.py)
+        for path, got, want in paired_leaves(
+                tmodel, _np_tree(jmodel.get_params())):
+            _close(got, want, 1e-5, path)
     finally:
         jnn.set_nncontext(None)
