@@ -13,8 +13,8 @@ loader refuses any class outside ``analytics_zoo_tpu.``, and the port's
 modules mirror the JAX package's, so ``analytics_zoo_tpu_torch.<module>``
 is written as ``analytics_zoo_tpu.<module>``. Loading maps the prefix back
 and imports only the port's module, never a JAX one; any other prefix is
-refused, and a JAX class the port does not have yet raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+refused, and a JAX class the port does not have raises
+``NotImplementedError`` naming ROADMAP's queue of what is not ported.
 
 Layers whose configs hold arbitrary callables (``Lambda``, a callable
 activation) cannot be saved by definition. The JAX package pickles such
@@ -60,27 +60,11 @@ def file_module(module: str) -> str:
     return FILE_PREFIX + module[len(PORT_PREFIX):]
 
 
-# the interop modules still to port, each with its ROADMAP item
-_INTEROP = {".api.net.tf": "A14.8", ".tfpark.model": "A14.8",
-            ".tfpark.estimator": "A14.8", ".tfpark.tf_optimizer": "A14.8",
-            ".tfpark.tf_bridge": "A14.8"}
-
-
-def _roadmap_item(path: str) -> str:
-    for part, item in _INTEROP.items():
-        if part in path:
-            return item
-    if ".parallel." in path:
-        return "A12.2"
-    if ".models." in path:
-        return "A9"
-    return "A10"
-
-
 def port_class(path: str):
     """The port's class for a class path a file holds (a JAX package
     path). Refuses any prefix but ``analytics_zoo_tpu.``; raises
-    ``NotImplementedError`` for a class the port lacks."""
+    ``NotImplementedError`` for a class the port lacks (every JAX module
+    has its port but those ROADMAP's queue A names)."""
     if not path.startswith(FILE_PREFIX):
         raise ValueError(f"refusing to import class {path!r} "
                          f"(outside {FILE_PREFIX})")
@@ -93,8 +77,8 @@ def port_class(path: str):
     cls = getattr(module, cls_name, None)
     if cls is None:
         raise NotImplementedError(
-            f"{path} is not ported yet; it arrives with ROADMAP "
-            f"{_roadmap_item(path)}")
+            f"{path} has no class in the port; ROADMAP's queue A names "
+            "the JAX code that is not ported")
     return cls
 
 

@@ -433,6 +433,17 @@ class KerasNet(KerasLayer):
 
     saveModel = save_model
 
+    def export_tf(self, path, batch_size: Optional[int] = None):
+        """Export inference as a TensorFlow SavedModel (parity:
+        ``saveToTf``, Topology.scala:568): the layers as TF ops with the
+        weights as Consts, written without TensorFlow
+        (``pipeline/api/net/tf_export.py``); the inputs' batch dim is
+        ``batch_size``, unknown when None."""
+        from ...net.tf_export import export_savedmodel
+        return export_savedmodel(self, path, batch_size)
+
+    saveToTf = export_tf
+
     @staticmethod
     def load_model(path, weight_path=None) -> "Model":
         """The model a ``save_model`` directory holds (either package's),

@@ -3,17 +3,13 @@
 Counterpart of ``analytics_zoo_tpu/pipeline/api/net/net_load.py``
 (parity: ``NetUtils.scala:142`` -- ``Net.load``, ``Net.loadTF``,
 ``Net.loadTorch``, ``Net.loadCaffe`` -- and python ``net_load.py:77-127``).
-The card's machine has no TensorFlow: ``load_tf`` and ``load_keras``
-raise ``NotImplementedError`` naming ROADMAP A14.8, the port's own
-GraphDef reader.
+``load_tf`` of a frozen ``.pb`` or of a SavedModel without variables needs
+no TensorFlow; ``load_keras`` does (``tfnet.py``).
 """
 
 from __future__ import annotations
 
 import os
-
-_TF_ITEM = ("TFNet (Net.load_tf / load_keras) is not ported yet: it needs "
-            "a GraphDef reader of the port's own, ROADMAP A14.8")
 
 
 class Net:
@@ -27,11 +23,15 @@ class Net:
 
     @staticmethod
     def load_tf(path: str, **kw):
-        raise NotImplementedError(_TF_ITEM)
+        """Frozen pb / SavedModel / keras h5 -> TFNet (Net.loadTF parity)."""
+        from .tfnet import TFNet
+        return TFNet.from_path(path, **kw)
 
     @staticmethod
     def load_keras(path: str, **kw):
-        raise NotImplementedError(_TF_ITEM)
+        """Keras h5/keras file -> TFNet via tf.keras (Net.loadKeras)."""
+        from .tfnet import TFNet
+        return TFNet.from_keras(path, **kw)
 
     @staticmethod
     def load_torch(module_or_path, **kw):

@@ -16,7 +16,9 @@ quantize=True, calibration=, scales=)``, ``load_quantized`` /
 Foreign models load through the interop importers: ``load_torch`` /
 ``do_load_pytorch`` (an ``nn.Module`` or a TorchScript file),
 ``load_caffe`` / ``do_load_caffe`` and ``load_onnx``, the last two with
-``quantize=``; ``load_tf`` raises (ROADMAP A14.8).
+``quantize=``; and ``load_tf`` / ``do_load_tf`` (a frozen pb or a SavedModel
+without variables with no TensorFlow, a keras file or a SavedModel with
+variables through it).
 
 ``predict_async`` returns the outputs on the model's device.
 :class:`HostCopy` starts their copy to the host without waiting; its
@@ -532,11 +534,20 @@ class InferenceModel:
                       else FloatModel(net, device=device))
         return self
 
-    def load_tf(self, model_path: str, backend: str = "auto", **kw):
-        """TensorFlow models (doLoadTF) are not ported yet: the card's
-        machine has no TensorFlow (ROADMAP A14.8)."""
-        from ..api.net import Net
-        return Net.load_tf(model_path, **kw)
+    def load_tf(self, model_path: str, backend: str = "auto", device=None,
+                **kw):
+        """A TF frozen pb / SavedModel / keras h5 (doLoadTF parity)
+        through ``pipeline.api.net``'s ``TFNet``, moved to ``device`` (the
+        context's when None). A frozen pb and a SavedModel without
+        variables need no TensorFlow."""
+        from ..api.net import TFNet
+
+        net = TFNet.from_path(model_path, **kw)
+        if device is None:
+            from ...common.nncontext import get_nncontext
+            device = get_nncontext().device
+        self._install(net.to(torch.device(device)))
+        return self
 
     do_load_tf = load_tf
 

@@ -443,6 +443,21 @@ imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               the same weights, a finite nonzero gradient on the torch
               module's weight and the weight moved on the card; both
               heads' step p50s from alternating windows.
+              D: the same native ResNet-50 written by the public
+              ``export_tf`` (a SavedModel without variables, no
+              TensorFlow) and loaded back by ``InferenceModel().load_tf``:
+              its rows of the 2 batches of 16 within 1e-4 of the native
+              rows and of its own CPU run; records/s against native,
+              write and load seconds, file MB, the graph's op set.
+              E: a graph TensorFlow wrote (``tools/tf_fixtures``, checked
+              against the SHA-256 of its manifest) through
+              ``Net.load_tf``: rows within 1e-4 of TensorFlow's committed
+              rows; one training step of it as a ``TFNet`` layer under a
+              Dense(3) head on the card and on the CPU from the same
+              weights: loss within 1e-5, each parameter's gradient within
+              1e-4 of its norm. K1-K5 launched 0 times in D-E.
+              ``python3 chip_smoke.py --phase interop`` runs the phase
+              alone.
 21. estimators -- (run before ``parallel``) A: ``NNClassifier`` over
               bench.py's classifier on a dict of columns (tokens,
               positions, segments, mask; 128 rows of 512 int32 ids,
@@ -617,7 +632,9 @@ from analytics_zoo_tpu_torch.tfpark.text import (BERTNER, NER,
 from analytics_zoo_tpu_torch.utils.tensorboard import (TrainSummary,
                                                        read_scalars)
 from analytics_zoo_tpu_torch.pipeline.api.caffe import proto as caffe_proto
-from analytics_zoo_tpu_torch.pipeline.api.net import TorchCriterion, TorchNet
+from analytics_zoo_tpu_torch.pipeline.api.net import (Net, TFNet,
+                                                      TorchCriterion,
+                                                      TorchNet)
 from analytics_zoo_tpu_torch.pipeline.api.onnx import builder as onnx_builder
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 from analytics_zoo_tpu_torch.serving import (ClusterServing,
@@ -8163,6 +8180,15 @@ IO_STEPS = 4
 IO_LOSS_TOL = BF16_LOSS_TOL
 # the two heads' steps timed in alternating windows of TIMED_STEPS
 IO_TIMED_WINDOWS = 2
+# leg E: the frozen graph tools/make_tf_fixtures.py wrote with TensorFlow,
+# TF's rows of its inputs, and its manifest (SHA-256 of each file). Its
+# rows on the card against TensorFlow's (CPU, oneDNN) within IO_ROW_TOL;
+# one SGD step of the graph under a Dense(3) head on the card against the
+# CPU's from the same weights: the loss within TF_STEP_LOSS_TOL, each
+# parameter's gradient within TF_STEP_GRAD_TOL of its norm
+TF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "tf_fixtures")
+TF_STEP_LOSS_TOL, TF_STEP_GRAD_TOL = 1e-5, 1e-4
 
 
 def _np32(t):
@@ -8492,6 +8518,9 @@ def io_resnet_legs(seed, dev):
     t0 = time.perf_counter()
     ptx, cm = resnet_caffe_files(cpu_model, IO_ROOT)
     caffe_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tf_path = cpu_model.export_tf(os.path.join(IO_ROOT, "resnet50_tf"))
+    tf_write_s = time.perf_counter() - t0
     n_kernels = sum(1 for l in cpu_model.graph_function().layers
                     if isinstance(l, (L.Convolution2D, L.Dense)))
     del native, clf, cpu_model
@@ -8502,6 +8531,10 @@ def io_resnet_legs(seed, dev):
     b = io_leg("leg B (Caffe)", lambda quantize, device: InferenceModel()
                .load_caffe(ptx, cm, quantize=quantize, device=device),
                native_rows, x, cpu_x, 0)
+    d = io_tf_leg(tf_path, native_rows, x, cpu_x)
+    d.update(write_s=tf_write_s, native_records_per_s=native_rate,
+             file_mb=os.path.getsize(os.path.join(
+                 tf_path, "saved_model.pb")) / 2 ** 20)
     a.update(file_mb=os.path.getsize(path) / 2 ** 20, write_s=onnx_write_s,
              opset=13, ops=sorted({"Conv", "BatchNormalization", "Relu",
                                    "MaxPool", "Add", "GlobalAveragePool",
@@ -8513,7 +8546,122 @@ def io_resnet_legs(seed, dev):
                        "quantize=True keeps every blob float32, as the JAX "
                        "package's QuantizedModel does")
     return dict(native_records_per_s=native_rate, onnx=a, caffe=b,
-                batch=IO_BATCH, timed_batches=IO_TIMED_BATCHES)
+                tf_export=d, batch=IO_BATCH, timed_batches=IO_TIMED_BATCHES)
+
+
+def io_tf_leg(path, native_rows, x, cpu_x):
+    """Leg D: the exported SavedModel loaded by ``InferenceModel.load_tf``
+    on the card (timed, twice) and on the CPU; rows against the native
+    model's and the CPU's; records/s."""
+    t0 = time.perf_counter()
+    im = InferenceModel().load_tf(path)
+    first_load_s = time.perf_counter() - t0
+    del im
+    t0 = time.perf_counter()
+    im = InferenceModel().load_tf(path)
+    load_s = time.perf_counter() - t0
+    net = im.model
+    if not isinstance(net, TFNet) or net.mode != "torch" or \
+            net.device.type != "cuda":
+        raise AssertionError(f"leg D loaded {type(net).__name__} in mode "
+                             f"{getattr(net, 'mode', None)} on "
+                             f"{getattr(net, 'device', None)}")
+    rows = io_rows(im, x)
+    err = float(np.abs(rows - native_rows).max())
+    cpu_rows = InferenceModel().load_tf(path, device="cpu").predict(cpu_x)
+    cpu_err = float(np.abs(rows[:len(cpu_x)] - cpu_rows).max())
+    if not np.isfinite(rows).all() or err > IO_ROW_TOL or \
+            cpu_err > IO_ROW_TOL:
+        raise AssertionError(f"leg D (TF SavedModel): rows {err} from the "
+                             f"native model's, {cpu_err} from the CPU's "
+                             f"(limit {IO_ROW_TOL})")
+    rate = io_records_per_s(im, x)
+    report = dict(first_load_s=first_load_s, load_s=load_s,
+                  max_abs_err_vs_native=err, max_abs_err_vs_cpu=cpu_err,
+                  row_tol=IO_ROW_TOL, records_per_s=rate,
+                  ops=net.graph_fn.ops, params=len(net.param_tree()),
+                  route="KerasNet.export_tf -> InferenceModel.load_tf")
+    del im, net
+    collect()
+    return report
+
+
+def tf_fixture():
+    """The committed frozen graph, its inputs and TensorFlow's rows, each
+    file checked against the manifest's SHA-256."""
+    with open(os.path.join(TF_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in manifest["sha256"].items():
+        with open(os.path.join(TF_FIXTURES, name), "rb") as f:
+            got = hashlib.sha256(f.read()).hexdigest()
+        if got != want:
+            raise AssertionError(f"tools/tf_fixtures/{name}: SHA-256 {got}, "
+                                 f"manifest {want}")
+    return (os.path.join(TF_FIXTURES, manifest["graph"]),
+            np.load(os.path.join(TF_FIXTURES, "inputs.npy")),
+            np.load(os.path.join(TF_FIXTURES, "rows.npy")), manifest)
+
+
+def tf_head_model(pb, seed):
+    """The fixture graph as a TFNet layer under a Dense(3) head, weights
+    from ``seed`` (the graph's Consts as they are)."""
+    net = Net.load_tf(pb)
+    net.name = "graph"          # one parameter name on the card and CPU
+    inp = L.Input(shape=(32, 32, 3))
+    return Model(inp, L.Dense(3, name="head")(net(inp)), seed=seed), net
+
+
+def io_tf_graph_leg(seed, dev):
+    """Leg E: TensorFlow's frozen graph through ``Net.load_tf`` on the
+    card against TensorFlow's rows; one SGD step of it under a Dense head
+    on the card against the CPU's."""
+    pb, x, tf_rows, manifest = tf_fixture()
+    t0 = time.perf_counter()
+    net = Net.load_tf(pb).to(dev)
+    load_s = time.perf_counter() - t0
+    if net.mode != "torch" or set(net.graph_fn.ops) != set(manifest["ops"]):
+        raise AssertionError(f"leg E: mode {net.mode}, ops "
+                             f"{net.graph_fn.ops}")
+    rows = net.predict(x)
+    err = float(np.abs(rows - tf_rows).max())
+    if not np.isfinite(rows).all() or err > IO_ROW_TOL:
+        raise AssertionError(f"leg E: rows {err} from TensorFlow's (limit "
+                             f"{IO_ROW_TOL})")
+    y = np.random.default_rng(seed).integers(0, 3, len(x)).astype(np.int32)
+    loss_fn = get_loss("sparse_categorical_crossentropy")
+    steps = {}
+    for where in ("card", "cpu"):
+        model, tfnet = tf_head_model(pb, seed)
+        trainer = SPMDTrainer(model, loss_fn, get_optimizer("sgd"),
+                              device=dev if where == "card" else "cpu")
+        trainer.ensure_initialized()
+        loss = trainer.train_step(trainer.put_batch(
+            ([x], y, np.ones(len(y), np.float32)))).item()
+        steps[where] = (loss, {n: p.grad.detach().cpu() for n, p in
+                               model.named_parameters()}, tfnet)
+    (card_loss, card_g, card_net), (cpu_loss, cpu_g, _) = \
+        steps["card"], steps["cpu"]
+    grad_err = {n: float((card_g[n] - g).abs().max() /
+                         max(g.norm().item(), 1e-12))
+                for n, g in cpu_g.items()}
+    worst = max(grad_err.values())
+    if card_net.device.type != "cuda" or \
+            abs(card_loss - cpu_loss) > TF_STEP_LOSS_TOL or \
+            worst > TF_STEP_GRAD_TOL or \
+            not all(g.abs().max() > 0 for g in card_g.values()):
+        raise AssertionError(f"leg E step: loss {card_loss} vs the CPU's "
+                             f"{cpu_loss}, worst gradient {worst} of its "
+                             f"norm (limits {TF_STEP_LOSS_TOL}, "
+                             f"{TF_STEP_GRAD_TOL})")
+    return dict(graph="tools/tf_fixtures/classifier.pb",
+                written_by=f"tensorflow {manifest['tensorflow']}",
+                ops=manifest["ops"], load_s=load_s, rows=len(rows),
+                max_abs_err_vs_tensorflow=err, row_tol=IO_ROW_TOL,
+                step_loss_card=card_loss, step_loss_cpu=cpu_loss,
+                step_loss_tol=TF_STEP_LOSS_TOL,
+                step_params=len(grad_err),
+                step_max_grad_err_rel_norm=worst,
+                step_grad_tol=TF_STEP_GRAD_TOL)
 
 
 def io_head_models(seed):
@@ -8637,25 +8785,37 @@ def io_step_ms(model, x, y):
 
 
 def interop_phase(seed, dev, smi):
-    """The interop phase: legs A-B (ResNet-50 through the ONNX and Caffe
-    importers, K1-K5 launched 0 times) and leg C (BERT-base with a
-    PyTorch head, K1-K5 at 12/12/12/24/24 a step). Returns the report and
-    K1-K5's launches over the phase."""
+    """The interop phase: legs A-B and D (ResNet-50 through the ONNX and
+    Caffe importers and through export_tf -> load_tf), leg E (a graph
+    TensorFlow wrote), K1-K5 launched 0 times in each, and leg C
+    (BERT-base with a PyTorch head, K1-K5 at 12/12/12/24/24 a step).
+    Returns the report and K1-K5's launches over the phase."""
     t0 = time.perf_counter()
     shutil.rmtree(IO_ROOT, ignore_errors=True)
     _kernels.LAUNCHES.reset()
     resnets = io_resnet_legs(seed + 70, dev)
     ab_launches = _kernels.LAUNCHES.snapshot()
     if ab_launches:
-        raise AssertionError(f"legs A-B launched {ab_launches}")
+        raise AssertionError(f"legs A, B and D launched {ab_launches}")
+    collect()
+    torch.cuda.synchronize()
+    _kernels.LAUNCHES.reset()
+    tf_graph = io_tf_graph_leg(seed + 72, dev)
+    torch.cuda.synchronize()
+    e_launches = _kernels.LAUNCHES.snapshot()
+    if e_launches:
+        raise AssertionError(f"leg E launched {e_launches}")
     collect()
     torch_report, launches = io_torch_leg(seed + 71, dev)
     shutil.rmtree(IO_ROOT, ignore_errors=True)
     return dict(card=smi, leg_a_onnx=resnets["onnx"],
                 leg_b_caffe=resnets["caffe"],
+                leg_d_tf_export=resnets["tf_export"],
+                leg_e_tf_graph=tf_graph,
                 native_records_per_s=resnets["native_records_per_s"],
                 batch=IO_BATCH, leg_c_torchnet=torch_report,
-                launches_legs_a_b=ab_launches,
+                launches_legs_a_b_d=ab_launches,
+                launches_leg_e=e_launches,
                 clocks=nvidia_smi("clocks.sm,power.draw,power.limit,"
                                   "temperature.gpu"),
                 wall_s=time.perf_counter() - t0), launches
@@ -9698,7 +9858,9 @@ def one_phase(name, seed, ranks):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    if name == "estimators":
+    if name == "interop":
+        report, launches = interop_phase(seed, dev, smi)
+    elif name == "estimators":
         report, est, remat = estimators_phase(seed, dev, smi)
         launches = dict(estimators=est, remat_full=remat)
     elif name == "text":
@@ -9727,8 +9889,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, requests, training data "
                          "and kernel inputs")
-    ap.add_argument("--phase", choices=("estimators", "text", "fleet",
-                                        "parallel", "layout"),
+    ap.add_argument("--phase", choices=("interop", "estimators", "text",
+                                        "fleet", "parallel", "layout"),
                     default=None,
                     help="build the kernels, then run this phase alone "
                          "(``layout``: the parallel phase's legs D-G)")

@@ -2211,3 +2211,28 @@ def test_gan_steps_on_the_card_equal_the_cpu(cuda):
     assert np.isfinite(list(card.last_losses.values())).all()
     assert card.generate(16).shape == (16, 1)
     assert _kernels.LAUNCHES.snapshot() == {}
+
+
+def test_tf_frozen_graph_on_the_card_matches_tensorflow(cuda):
+    """Interop leg E's graph: the frozen ``.pb`` TensorFlow wrote
+    (``tools/tf_fixtures``) through ``InferenceModel.load_tf`` on the
+    card, without TensorFlow: rows within 1e-4 of TensorFlow's committed
+    rows, and of the CPU's within 1e-5."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    root = Path(__file__).resolve().parents[1] / "tools" / "tf_fixtures"
+    manifest = json.loads((root / "manifest.json").read_text())
+    pb = str(root / manifest["graph"])
+    x, rows = np.load(root / "inputs.npy"), np.load(root / "rows.npy")
+    im = InferenceModel().load_tf(pb, device=cuda)
+    assert im.model.mode == "torch" and im.model.device.type == "cuda"
+    card = im.predict(x)
+    cpu = InferenceModel().load_tf(pb, device="cpu").predict(x)
+    assert card.shape == rows.shape == tuple(manifest["rows_shape"])
+    assert np.abs(card - rows).max() <= 1e-4
+    assert np.abs(card - cpu).max() <= 1e-5

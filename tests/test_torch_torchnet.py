@@ -15,6 +15,7 @@ weights within 2e-5.
 """
 
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -259,8 +260,14 @@ def test_net_facade_and_fx_converter(tmp_path):
     assert set(params) >= {"0_weight", "1_running_mean", "5_bias"}
     np.testing.assert_allclose(fn(params, x).detach().numpy(),
                                m(x).detach().numpy(), rtol=TOL, atol=TOL)
-    for load in (Net.load_tf, Net.load_keras, Net.loadTF, Net.loadKeras):
-        with pytest.raises(NotImplementedError, match="A14.8"):
-            load("model.pb")
-    with pytest.raises(NotImplementedError, match="A14.8"):
-        InferenceModel().load_tf("model.pb")
+    # the TF loaders are ported (ROADMAP A14.8): a frozen graph loads as
+    # a TFNet with no TensorFlow, a missing file raises
+    assert Net.loadTF is Net.load_tf and Net.loadKeras is Net.load_keras
+    pb = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "tf_fixtures", "classifier.pb")
+    assert type(Net.load_tf(pb)).__name__ == "TFNet"
+    assert type(InferenceModel().load_tf(pb, device="cpu").model
+                ).__name__ == "TFNet"
+    for load in (Net.load_tf, InferenceModel().load_tf):
+        with pytest.raises(FileNotFoundError):
+            load(str(tmp_path / "model.pb"))
